@@ -23,6 +23,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: subprocess entry-point smoke tests (~30s each)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the vitax_torch kernels); skips without one")
 
 
 @pytest.fixture(scope="session")

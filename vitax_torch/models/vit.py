@@ -1,0 +1,183 @@
+"""Vision Transformer in PyTorch: the eval forward of vitax/models/vit.py.
+
+Same architecture and numerics contract as the Flax model (timm Block
+parity): conv patchify, learned pos_embed with no CLS token, pre-norm
+blocks (LN eps 1e-5, fused qkv with bias, exact GELU), final LN eps 1e-6,
+mean-pool, Linear head. Cast points follow flax's: every Dense and the conv
+compute in cfg.dtype over parameters of any stored type (float32 as
+initialized, bfloat16 from a half-size export); LayerNorm statistics run in
+float32 and its output is cast to cfg.dtype; the head computes in float32.
+
+Blocks are a ModuleList run in a Python loop: eager PyTorch has no scan to
+amortize, and the eval forward needs no remat. Module and parameter names
+mirror the Flax paths (vitax_torch/checkpoint/convert.py maps one onto the
+other).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vitax_torch.config import Config
+from vitax_torch.ops.attention import reference_attention
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# timm _init_vit_weights: trunc-normal std 0.02, truncated at +/-2 sigma
+# (absolute bounds +/-0.04; torch's default a=-2, b=2 would be +/-100 sigma).
+INIT_STD = 0.02
+INIT_BOUND = 2 * INIT_STD
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Dense(dtype=dtype) over stored params: all operands in dtype."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.LayerNorm(dtype=dtype): f32 statistics, output in dtype."""
+    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight.float(),
+                        layer.bias.float(), layer.eps).to(dtype)
+
+
+class PatchEmbed(nn.Module):
+    """Conv patchify: (B, H, W, 3) -> (B, N, D)."""
+
+    def __init__(self, patch_size: int, embed_dim: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype)
+        x = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, b, stride=self.proj.stride)
+        return x.flatten(2).transpose(1, 2)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a fused qkv projection. The core is
+    `attention_impl(q, k, v)` on strided (B, N, H, Dh) views of the qkv
+    output, or the dense path when it is None."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 attention_impl: Optional[Callable] = None, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.attention_impl = attention_impl
+        self.qkv = nn.Linear(dim, 3 * dim, device=device)
+        self.proj = nn.Linear(dim, dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, d = x.shape
+        qkv = _dense(self.qkv, x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        core = self.attention_impl or reference_attention
+        out = core(q, k, v).reshape(b, n, d)
+        return _dense(self.proj, out, self.dtype)
+
+
+class Mlp(nn.Module):
+    """Dense(hidden) -> exact GELU -> Dense(dim)."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Linear(dim, hidden_dim, device=device)
+        self.fc2 = nn.Linear(hidden_dim, dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _dense(self.fc2, F.gelu(_dense(self.fc1, x, self.dtype)), self.dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype,
+                 attention_impl: Optional[Callable] = None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.attn = Attention(dim, num_heads, dtype, attention_impl, device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(_layer_norm(self.norm1, x, self.dtype))
+        return x + self.mlp(_layer_norm(self.norm2, x, self.dtype))
+
+
+class VisionTransformer(nn.Module):
+    """images (B, H, W, 3) float -> logits (B, num_classes) float32."""
+
+    def __init__(self, cfg: Config, attention_impl: Optional[Callable] = None, device=None):
+        super().__init__()
+        self.dtype = _DTYPES[cfg.dtype]
+        d = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg.patch_size, d, self.dtype, device=device)
+        self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, d, device=device))
+        self.blocks = nn.ModuleList(
+            Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, device=device)
+            for _ in range(cfg.num_blocks))
+        self.norm = nn.LayerNorm(d, eps=1e-6, device=device)
+        self.head = nn.Linear(d, cfg.num_classes, device=device)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.patch_embed(images) + self.pos_embed.to(self.dtype)
+        for block in self.blocks:
+            x = block(x)
+        x = _layer_norm(self.norm, x, self.dtype).mean(dim=1)
+        return _dense(self.head, x, torch.float32)
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """timm init in place: trunc-normal(0.02, +/-2 sigma) conv/Linear weights
+    and pos_embed, zero biases, LayerNorm ones/zeros."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            nn.init.trunc_normal_(module.weight, std=INIT_STD, a=-INIT_BOUND, b=INIT_BOUND,
+                                  generator=generator)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.LayerNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+    if isinstance(model, VisionTransformer):
+        nn.init.trunc_normal_(model.pos_embed, std=INIT_STD, a=-INIT_BOUND, b=INIT_BOUND,
+                              generator=generator)
+
+
+def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
+                init: bool = True) -> VisionTransformer:
+    """The ViT on `device`, built without a throwaway default init: the
+    modules are made on the meta device, then given storage on `device`.
+    init=True fills the params from cfg.seed (float32, as vitax initializes
+    them); init=False leaves them to a load_state_dict(..., assign=True).
+    On the meta device the params stay shapes only (param counts)."""
+    device = torch.device(device)
+    model = VisionTransformer(cfg, attention_impl, device="meta")
+    if device.type == "meta" or not init:
+        return model.eval()
+    model = model.to_empty(device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+    init_params(model, gen)
+    return model.eval()
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def expected_param_count(cfg: Config) -> int:
+    """Closed-form parameter count (vitax/models/vit.py expected_param_count):
+    10,077,917,160 at default flags."""
+    d = cfg.embed_dim
+    h = cfg.mlp_hidden_dim
+    per_block = d * 3 * d + 3 * d + d * d + d + d * h + h + h * d + d + 2 * (2 * d)
+    patch = 3 * cfg.patch_size * cfg.patch_size * d + d
+    return per_block * cfg.num_blocks + patch + cfg.num_patches * d + 2 * d + d * cfg.num_classes + cfg.num_classes

@@ -1,0 +1,128 @@
+"""Build the port's CUDA kernels with nvcc and bind them through ctypes.
+
+Each source under ``vitax_torch/csrc/`` compiles, at first use, into a
+shared library with a plain C interface under ``vitax_torch/_build/``
+(listed in .gitignore), named by a hash of its source so an edited source
+never loads a stale library. A plain-C library builds in seconds, where a
+source that includes PyTorch's headers takes minutes. Nothing here runs at
+import: the CPU tests import every module of the port on a host with no
+nvcc and no card.
+
+``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its path went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
+# One entry per kernel source: name -> file under csrc/.
+SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu"}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_log: Dict[str, dict] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's usual prefix."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA toolkit's bin/ on PATH "
+                       "(the port's kernels are built from vitax_torch/csrc/ at first use)")
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, SOURCES[name])
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def _compile(name: str) -> dict:
+    """nvcc one source into its library (atomic rename, so a concurrent or
+    interrupted build never leaves a half-written .so); returns the build log."""
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return {"name": name, "seconds": 0.0, "cached": True, "ptxas": "", "path": out}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name])]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {SOURCES[name]} (rc {r.returncode}):\n"
+                               f"{r.stdout}\n{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return {"name": name, "seconds": time.perf_counter() - t0, "cached": False,
+            "ptxas": r.stderr.strip(), "path": out}
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every kernel source, one nvcc per source, all started
+    together. Returns {name: build log} (seconds, ptxas register and shared
+    memory report)."""
+    with _lock:
+        todo = [n for n in SOURCES if n not in _build_log]
+        if todo:
+            with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+                for log in pool.map(_compile, todo):
+                    _build_log[log["name"]] = log
+        return dict(_build_log)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of one kernel, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if name not in _build_log:
+                _build_log[name] = _compile(name)
+            lib = ctypes.CDLL(_build_log[name]["path"])
+            lib.vitax_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.vitax_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if err != 0:
+        msg = lib.vitax_cuda_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
