@@ -6,19 +6,31 @@ repository root on a machine with one NVIDIA card:
 
 Phases, each printing one line (or a few), any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build: every kernel under vitax_torch/csrc/ with nvcc (sm_90a), with
-     its seconds and ptxas register / shared-memory report;
+  2. build: every kernel under vitax_torch/csrc/ with nvcc (sm_90a), all
+     started together, with seconds and the ptxas register / spill report;
   3. kernel check: each kernel against its plain PyTorch version on the
-     card, at the shapes the serve path gives it plus small ragged ones;
-  4. kernel timing at the 10B serve shape (CUDA events), beside the least
-     time the card could take and PyTorch's own library call;
-  5. model check: the 10B-width ViT at depth 2, kernel vs dense attention
-     on the same weights;
-  6. the main path: a full-width, full-depth 10B InferenceEngine (seeded
+     card, at the shapes the serve and train paths give it plus small
+     ragged ones (the attention backward with a nonzero dlse and a bitwise
+     repeat; the fused optimizer over leaves of assorted sizes, with the
+     clip triggered and idle);
+  4. kernel timing (CUDA events) of the attention kernels at their
+     main-path shapes, beside the plain version, PyTorch's own library
+     call and the least time the card could take;
+  5. model check: the 10B-width ViT at depth 2 with the kernels against the
+     dense path on the same weights: logits (no grad), then the loss and
+     every parameter's gradient (bf16, batch 8);
+  6. serve main path: a full-width, full-depth 10B InferenceEngine (seeded
      init on the card) behind the HTTP server, answering 32 /predict
      requests from 8 threads and one /predict_batch of 8 images, with every
-     kernel's launch count read around exactly that traffic;
-  7. a `kernels` JSON line, then the last line
+     kernel's launch count read around exactly that traffic, then a
+     profile of one bucket-8 forward;
+  7. train main path: train() on the 10B-width model cut to depth 8, batch
+     32, fake data, 12 steps and a 2-batch eval, with the launch counts of
+     the run checked against the steps, sec/iter, images/s, MFU and peak
+     memory; then a profile of one steady step, and the fused optimizer
+     on the trained state's own leaf table: one launch held element by
+     element against the plain version, then timed;
+  8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -29,6 +41,7 @@ result.
 from __future__ import annotations
 
 import base64
+import gc
 import json
 import os
 import subprocess
@@ -49,9 +62,32 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 SERVE_SHAPE = (8, 256, 32, 160)          # (B, N, H, Dh) of the 10B model at bucket 8
+TRAIN_SHAPE = (32, 256, 32, 160)         # ... at the train path's batch 32
 CHECK_SHAPES = (SERVE_SHAPE, (4, 256, 16, 64), (2, 50, 2, 16), (2, 197, 4, 64))
 TOL = {"bfloat16": (1.6e-2, 1e-3), "float32": (1e-5, 1e-5)}   # max |do|, max |dlse|
-MODEL_REL_TOL = 2e-2
+# Attention backward, for each of dq, dk, dv: max |d| <= tol * max |ref|.
+# bf16: the kernel rounds P and dS to bf16 in registers, the plain version
+# in memory, in another summation order, so outputs differ by up to one
+# bf16 ulp of an entry; f32 (TF32 off): summation order only. The worst
+# readings over these shapes on an H100 80GB HBM3 at 700 W are 2.25e-3
+# (bf16) and 4.8e-7 (f32) of max |ref| (PERF.md), so the bars are about 3x
+# and 4x those. The dlse term must move dq and dk by more than the bar, so
+# a kernel that dropped it would fail (it moves them by 0.15 to 0.65).
+BWD_TOL = {"bfloat16": 6e-3, "float32": 2e-6}
+ADAMW_RTOL, ADAMW_ATOL = 1e-6, 1e-8      # the bar of tests/test_fused_optimizer.py
+# The 10B-width model at depth 2, bf16, kernels vs the dense path on the
+# same weights and batch: max |dlogits| / max |logits|, and the loss's
+# relative difference. Set at about 3.5x the readings on an H100 80GB HBM3
+# at 700 W (1.7e-3 and 8.4e-5; PERF.md).
+MODEL_REL_TOL = 6e-3
+MODEL_LOSS_REL_TOL = 3e-4
+# Model gradients: max |dg| / max |g| per leaf, the largest over each leaf
+# group. The two attention backwards round P, dP and dS to bf16 at
+# different points, which moves each gradient by a few bf16 ulps of its
+# largest entry: 7.4e-3 at most on the same card, so the bar is 2.5e-2.
+MODEL_GRAD_REL_TOL = 2.5e-2
+TRAIN = dict(num_blocks=8, batch_size=32, fake_data=True, max_steps=12, warmup_steps=4,
+             log_step_interval=1, eval_max_batches=2, test_epoch_interval=1)
 SEED = 0
 
 
@@ -89,6 +125,29 @@ def attention_bound_ms(shape, dtype: str):
     flops = 4 * b * h * n * n * dh
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def attention_bwd_bound_ms(shape, dtype: str):
+    """Least time for one backward call as the train path makes it (dlse
+    None): q, k, v, o, dO and lse read once, dq, dk, dv written once, over
+    HBM bandwidth; 10 B H N^2 Dh FLOP (S recomputed, dV, dP, dQ, dK) over
+    the tensor-core peak."""
+    b, n, h, dh = shape
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = 8 * b * n * h * dh * elem + b * h * n * 4
+    flops = 10 * b * h * n * n * dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def adamw_bound_ms(numel: int):
+    """Least time for one optimizer step: p, g, mu, nu read and p, mu, nu
+    written, 4 bytes each, over HBM bandwidth (about 20 FLOP an element is
+    far below the float32 peak's share)."""
+    nbytes = 28 * numel
+    flops = 20 * numel
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 5) -> float:
@@ -148,7 +207,110 @@ def phase_kernel_check(torch):
                 if not ok:
                     fail(f"flash_attn_fwd disagrees with its plain version at {shape} {dtype}")
                 errs[(shape, dtype)] = d_o
+    errs["flash_attn_bwd"] = check_attention_backward(torch)
+    errs["fused_adamw"] = check_fused_adamw(torch)
     return errs
+
+
+def check_attention_backward(torch) -> float:
+    """The backward kernel against its plain version, bf16 and f32, with a
+    nonzero dlse, at the train shape and the ragged shapes; each call twice,
+    bitwise equal. Returns max |d| at the train shape in bf16."""
+    from vitax_torch.ops.attention import attention_bwd_with_lse, flash_attn_bwd_cuda, flash_attn_fwd_cuda
+    worst = 0.0
+    with torch.inference_mode():
+        for shape in (TRAIN_SHAPE,) + CHECK_SHAPES[1:]:
+            b, n, h, dh = shape
+            for dtype in ("bfloat16", "float32"):
+                q, k, v = qkv_views(torch, shape, dtype, SEED + 1)
+                rng = np.random.default_rng(SEED + 2)
+                do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", getattr(torch, dtype))
+                dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda()
+                scale = dh ** -0.5
+                o, lse = flash_attn_fwd_cuda(q, k, v, scale)
+                got = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale)
+                again = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale)
+                want = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale)
+                no_dlse = attention_bwd_with_lse(q, k, v, o, lse, do, None, scale)
+                torch.cuda.synchronize()
+                errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+                refs = [w.float().abs().max().item() for w in want]
+                bars = [BWD_TOL[dtype] * r for r in refs]
+                dlse_term = [(w.float() - w0.float()).abs().max().item() for w, w0 in zip(want[:2], no_dlse[:2])]
+                repeat = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+                finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+                visible = all(t > b for t, b in zip(dlse_term, bars[:2]))
+                ok = finite and repeat and visible and all(e <= b for e, b in zip(errs, bars))
+                say(f"[3 check] flash_attn_bwd {shape} {dtype}: "
+                    + ", ".join(f"{nm} max|d| {e:.3e} (<= {b:.3e}, max|ref| {r:.3e}, ratio {e / r:.2e})"
+                                for nm, e, b, r in zip(("dq", "dk", "dv"), errs, bars, refs))
+                    + f"; dlse term moves dq {dlse_term[0]:.3e} dk {dlse_term[1]:.3e}; bitwise repeat "
+                    f"{repeat} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"flash_attn_bwd disagrees with its plain version at {shape} {dtype}")
+                d = max(errs)
+                if shape == TRAIN_SHAPE and dtype == "bfloat16":
+                    worst = d
+    return worst
+
+
+def adamw_diff(torch, got, ref):
+    """(max |d|, elements outside rtol / atol) of the kernel's p, mu, nu
+    lists against the plain version's."""
+    torch.cuda.synchronize()
+    d, bad = 0.0, 0
+    for gots, wants in zip(got, ref):
+        for a, w in zip(gots, wants):
+            diff = (a - w).abs()
+            d = max(d, diff.max().item())
+            bad += int((diff > ADAMW_ATOL + ADAMW_RTOL * w.abs()).sum().item())
+    return d, bad
+
+
+def check_fused_adamw(torch) -> float:
+    """The fused optimizer kernel against clip_adamw_ over leaves of
+    assorted sizes: odd lengths, lengths not a multiple of 4, one leaf whose
+    base is not 16-byte aligned, and one 10B-width block's leaves; the clip
+    triggered and idle. Returns the largest |d| over p, mu, nu."""
+    from vitax_torch.ops.fused_optimizer import clip_adamw_, fused_adamw_cuda, global_norm, step_scalars
+    from vitax_torch.train.schedule import warmup_cosine_schedule
+    from vitax_torch.train.state import ADAMW_HPARAMS
+    d_, h_ = 5120, 20480
+    shapes = [(7,), (5, 3), (4099,), (1,), (3 * d_, d_), (3 * d_,), (d_, d_), (h_, d_), (d_, h_), (h_,), (d_,)]
+    hp = (ADAMW_HPARAMS["b1"], ADAMW_HPARAMS["b2"], ADAMW_HPARAMS["eps"], 0.1)
+    sched = warmup_cosine_schedule(1e-3, 4, 100)
+    worst = 0.0
+    for clip in (1.0, 1e9):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+
+        def leaf(shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        p, g = [leaf(s_, 0.02) for s_ in shapes], [leaf(s_, 1e-3) for s_ in shapes]
+        mu, nu = [leaf(s_, 1e-4) for s_ in shapes], [leaf(s_, 1e-4).square() for s_ in shapes]
+        base = leaf((1000,))
+        p.append(base[1:])                 # 4 bytes past an aligned base: the scalar path
+        g.append(leaf((999,), 1e-3))
+        mu.append(leaf((999,), 1e-4))
+        nu.append(leaf((999,), 1e-4).square())
+        ref = [[x.clone() for x in xs] for xs in (p, mu, nu)]
+        norm = global_norm(g)
+        scal = step_scalars(torch.tensor(5, dtype=torch.int32, device="cuda"), norm, sched, clip,
+                            hp[0], hp[1])
+        fused_adamw_cuda(p, g, mu, nu, scal, hp)
+        clip_adamw_(ref[0], g, ref[1], ref[2], scal, hp)
+        d, bad = adamw_diff(torch, (p, mu, nu), ref)
+        ok = bad == 0 and all(bool(torch.isfinite(a).all()) for a in p)
+        say(f"[3 check] fused_adamw {len(p)} leaves ({sum(x.numel() for x in p):,} params), clip "
+            f"{'triggered' if scal[0].item() < 1 else 'idle'} (scale {scal[0].item():.4g}): max|d| {d:.3e}, "
+            f"{bad} elements outside rtol {ADAMW_RTOL} / atol {ADAMW_ATOL} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("fused_adamw disagrees with its plain version")
+        worst = max(worst, d)
+        del p, g, mu, nu, ref
+        torch.cuda.empty_cache()
+    return worst
 
 
 def phase_kernel_timing(torch, card):
@@ -166,7 +328,50 @@ def phase_kernel_timing(torch, card):
     say(f"[4 time] flash_attn_fwd {SERVE_SHAPE} bf16: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{card}]")
-    return {"ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms, "library_ms": library_ms,
+    timing = {"flash_attn_fwd": {"ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms,
+                                 "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}}
+    timing["flash_attn_bwd"] = time_attention_train_shape(torch, card)
+    return timing
+
+
+def time_attention_train_shape(torch, card):
+    """The forward and the backward kernel at the train shape (bf16, dlse
+    None as the train path calls it). library_ms of the backward is
+    PyTorch's flash-attention backward op on the outputs of its own flash
+    forward (torch.ops.aten._scaled_dot_product_flash_attention_backward)."""
+    import torch.nn.functional as F
+    from vitax_torch.ops.attention import (attention_bwd_with_lse, attention_fwd_with_lse,
+                                           flash_attn_bwd_cuda, flash_attn_fwd_cuda)
+    q, k, v = qkv_views(torch, TRAIN_SHAPE, "bfloat16", SEED + 3)
+    scale = TRAIN_SHAPE[-1] ** -0.5
+    rng = np.random.default_rng(SEED + 4)
+    do = torch.from_numpy(rng.standard_normal(TRAIN_SHAPE).astype(np.float32)).to("cuda", torch.bfloat16)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    with torch.inference_mode():
+        fwd_ms = time_ms(torch, lambda: flash_attn_fwd_cuda(q, k, v, scale), iters=50)
+        fwd_plain_ms = time_ms(torch, lambda: attention_fwd_with_lse(q, k, v, scale), iters=10)
+        fwd_lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=50)
+        o, lse = flash_attn_fwd_cuda(q, k, v, scale)
+        sdpa = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, False, False, scale=scale)
+
+        def library_bwd():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, sdpa[0], sdpa[1], sdpa[2], sdpa[3], sdpa[4], sdpa[5], 0.0, False,
+                sdpa[6], sdpa[7], scale=scale)
+
+        bwd_ms = time_ms(torch, lambda: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale), iters=50)
+        plain_ms = time_ms(torch, lambda: attention_bwd_with_lse(q, k, v, o, lse, do, None, scale), iters=10)
+        library_ms = time_ms(torch, library_bwd, iters=50)
+        bwd_ms2 = time_ms(torch, lambda: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale), iters=50)
+    fb_ms, fb_by, fb_bytes, fb_flops = attention_bound_ms(TRAIN_SHAPE, "bfloat16")
+    say(f"[4 time] flash_attn_fwd {TRAIN_SHAPE} bf16: kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, "
+        f"sdpa {fwd_lib_ms:.4f} ms, bound {fb_ms:.4f} ms ({fb_by}: {fb_bytes / 1e6:.1f} MB, "
+        f"{fb_flops / 1e9:.2f} GFLOP) [{card}]")
+    bound_ms, bound_by, nbytes, flops = attention_bwd_bound_ms(TRAIN_SHAPE, "bfloat16")
+    say(f"[4 time] flash_attn_bwd {TRAIN_SHAPE} bf16: kernel {bwd_ms:.4f} / {bwd_ms2:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa flash backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{card}]")
+    return {"ms": min(bwd_ms, bwd_ms2), "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -191,7 +396,39 @@ def phase_model_check(torch):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail("model with the kernel disagrees with the dense model")
-    del model, dense, x, got, want
+    del got, want
+
+    # loss and gradients: the kernels (forward, and backward through the
+    # autograd Function, under per-block recompute) against dense autograd
+    from vitax_torch.ops import _build
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, 8)).cuda()
+    x = prepare_images(images)             # not an inference tensor: autograd saves it
+    losses, grads = [], []
+    before = dict(_build.LAUNCHES)
+    for m in (model, dense):
+        m.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(m(x).float(), labels)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    if _build.LAUNCHES["flash_attn_bwd"] - before["flash_attn_bwd"] != cfg.num_blocks:
+        fail("the model's backward did not go through flash_attn_bwd once per block")
+    groups = {}
+    for name, g_k in grads[0].items():
+        g_d = grads[1][name]
+        key = "blocks." + name.split(".", 2)[2] if name.startswith("blocks.") else name
+        r = ((g_k - g_d).abs().max() / g_d.abs().max().clamp_min(1e-30)).item()
+        finite = bool(torch.isfinite(g_k).all())
+        groups[key] = max(groups.get(key, 0.0), r if finite else float("inf"))
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst = max(groups.values())
+    ok = loss_rel <= MODEL_LOSS_REL_TOL and worst <= MODEL_GRAD_REL_TOL
+    say(f"[5 model] loss kernels {losses[0]:.6f} dense {losses[1]:.6f} (rel {loss_rel:.2e} <= {MODEL_LOSS_REL_TOL}); "
+        f"grads max|dg|/max|g| per leaf group (<= {MODEL_GRAD_REL_TOL}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(groups.items())) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("model gradients with the kernels disagree with the dense model's")
+    del model, dense, x, grads
     torch.cuda.empty_cache()
 
 
@@ -216,34 +453,45 @@ def check_answer(ans: dict, k: int, num_classes: int) -> None:
         fail(f"probs not descending in (0, 1]: {probs}")
 
 
-def profile_forward(torch, engine, cfg, card):
-    """Where one bucket-8 forward's device time goes (torch.profiler), after
-    the main path's counts were read."""
+KERNEL_GROUPS = (("flash_attn_fwd", r"flash_attn_fwd"), ("flash_attn_bwd", r"bwd_dkdv|bwd_dq|delta_kernel"),
+                 ("fused_adamw", r"fused_adamw"), ("gemm", r"gemm|xmma|nvjet|cutlass|sm90_"))
+
+
+def profile_device(torch, fn, label: str, card: str, phase: str, top: int = 8) -> None:
+    """Where one call of `fn` spends device time (torch.profiler): wall,
+    device busy and idle, time by kernel group, the top kernels."""
     import re
     from torch.profiler import ProfilerActivity, profile
-    x = np.zeros((8, cfg.image_size, cfg.image_size, 3), np.uint8)
-    engine.predict(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.predict(x)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
     if not kernels or busy_ms <= 0:
-        fail("torch.profiler recorded no device time for the bucket-8 forward")
-    groups = {"flash_attn_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+        fail(f"torch.profiler recorded no device time for {label}")
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
     for name, ms, _ in kernels:
-        key = ("flash_attn_fwd" if "flash_attn_fwd" in name
-               else "gemm" if re.search(r"gemm|xmma|nvjet|cutlass|sm90_", name) else "other")
+        key = next((g for g, pat in KERNEL_GROUPS if re.search(pat, name)), "other")
         groups[key] += ms
-    say(f"[6 profile] bucket-8 forward: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+    say(f"[{phase} profile] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"(idle {max(0.0, 1 - busy_ms / wall_ms) * 100:.1f}%); "
-        + ", ".join(f"{k} {v:.2f} ms ({v / busy_ms * 100:.1f}%)" for k, v in groups.items()) + f" [{card}]")
-    for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:6]:
-        say(f"[6 profile]   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+        + ", ".join(f"{k} {v:.2f} ms ({v / busy_ms * 100:.1f}%)" for k, v in groups.items() if v > 0)
+        + f" [{card}]")
+    for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:top]:
+        say(f"[{phase} profile]   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+
+
+def profile_forward(torch, engine, cfg, card):
+    """Where one bucket-8 forward's device time goes, after the main path's
+    counts were read."""
+    x = np.zeros((8, cfg.image_size, cfg.image_size, 3), np.uint8)
+    profile_device(torch, lambda: engine.predict(x), "bucket-8 forward", card, "6")
 
 
 def phase_main_path(torch, card):
@@ -328,9 +576,139 @@ def phase_main_path(torch, card):
         f"flash_attn_fwd launches {launches['flash_attn_fwd']}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
     profile_forward(torch, engine, cfg, card)
-    del engine, model
+    del engine, model, httpd, ctx
+    gc.collect()                           # free the 40 GB engine before the train path
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_train(torch, card):
+    """The train main path: train() in process at the 10B width, depth 8,
+    batch 32, fake data; then one profiled steady step and the fused
+    optimizer checked and timed on the trained state. Returns (launches,
+    (max |d| of B on the state's table, timing of B))."""
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import expected_param_count
+    from vitax_torch.ops import _build
+    from vitax_torch.telemetry.flops import model_flops_per_step, peak_tflops
+    from vitax_torch.train.loop import train
+
+    cfg = Config(seed=SEED, **TRAIN).validate()
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = train(cfg, "cuda", records=records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = [r for r in records if "loss" in r]
+    evals = [r for r in records if "top1" in r]
+    losses = [r["loss"] for r in steps]
+    if len(steps) != cfg.max_steps or len(evals) != 1:
+        fail(f"train() logged {len(steps)} steps and {len(evals)} evals; expected {cfg.max_steps} and 1")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"training losses not finite and falling: {losses}")
+    n_params = expected_param_count(cfg)
+    if sum(p.numel() for p in state.model.parameters()) != n_params:
+        fail("the trained model does not have the expected parameter count")
+    # per optimizer step: a forward and a recompute per block, a backward per
+    # block, one optimizer launch; the eval adds a forward per block per batch
+    want = {"flash_attn_fwd": cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks,
+            "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps}
+    if launches != want:
+        fail(f"train() launched {launches}; expected {want}")
+    times = [r["step_seconds"] for r in steps[2:]]          # steps 3 to 12
+    sec_per_iter = float(np.median(times))
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    mfu = (model_flops_per_step(cfg) / sec_per_iter / (peak * 1e12)) if peak else None
+    say(f"[7 train] 10B width, depth {cfg.num_blocks} ({n_params:,} params, {16 * n_params / 1e9:.1f} GB "
+        f"of f32 params, grads and AdamW moments), batch {cfg.batch_size}, bf16 compute, grad_ckpt "
+        f"{cfg.grad_ckpt}: {cfg.max_steps} steps + eval in {wall:.1f}s")
+    say(f"[7 train] losses " + " ".join(f"{x:.4f}" for x in losses) + f"; grad_norm first "
+        f"{steps[0]['grad_norm']:.4f} last {steps[-1]['grad_norm']:.4f}; eval top1 {evals[0]['top1']:.4f}")
+    say(f"[7 train] sec/iter median of steps 3-12 {sec_per_iter:.4f} s (min {min(times):.4f}, max "
+        f"{max(times):.4f}); {cfg.batch_size / sec_per_iter:.2f} images/s; MFU "
+        + (f"{mfu * 100:.2f}% of {peak:.0f} TFLOP/s bf16" if mfu is not None else "not measured (no peak for this card)")
+        + f" ({model_flops_per_step(cfg) / 1e12:.2f} TFLOP a step); max_memory_allocated {peak_gb:.2f} GB; "
+        f"launches {launches} [{card}]")
+
+    from vitax_torch.train.state import build_optimizer
+    from vitax_torch.train.step import make_train_step
+    optimizer, _ = build_optimizer(cfg, 100)
+    train_step = make_train_step(cfg, optimizer, "cuda")
+    batch = {"image": torch.zeros((cfg.batch_size, cfg.image_size, cfg.image_size, 3), device="cuda"),
+             "label": torch.zeros(cfg.batch_size, dtype=torch.int64, device="cuda")}
+    _build.reset_launches()
+    profile_device(torch, lambda: train_step(state, batch), f"one train step (batch {cfg.batch_size}, "
+                   f"depth {cfg.num_blocks})", card, "7", top=14)
+    per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}       # a warm step, then the profiled one
+    want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1}
+    if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
+        fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
+    say(f"[7 train] launches per steady step {per_step}")
+    del train_step, batch
+    timing = time_fused_adamw(torch, state, card)
+    del state
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
+def time_fused_adamw(torch, state, card):
+    """The fused optimizer on the trained state's own params, mu and nu and
+    the step's grad leaves (the main path's table: every leaf in one
+    launch). The grads, near zero once the fake-data loss is 0, are
+    refilled with seeded noise so the clip triggers. One launch is held
+    element by element against clip_adamw_ on clones of params, mu and nu
+    (30 GB beside the 40 GB state at depth 8); then the kernel is timed
+    beside the plain version and torch.optim.AdamW(fused=True) on the same
+    tensors. Returns (max |d|, timing)."""
+    from vitax_torch.ops.fused_optimizer import clip_adamw_, fused_adamw_cuda, global_norm, step_scalars
+    from vitax_torch.train.state import ADAMW_HPARAMS
+    from vitax_torch.train.schedule import warmup_cosine_schedule
+    _, params, mu, nu = state.leaves()
+    grads = [p.grad for p in params]
+    hp = (ADAMW_HPARAMS["b1"], ADAMW_HPARAMS["b2"], ADAMW_HPARAMS["eps"], 0.1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    numel = sum(p.numel() for p in params)
+    with torch.no_grad():
+        for g in grads:
+            g.normal_(generator=gen).mul_(1e-3)
+        scal = step_scalars(state.count, global_norm(grads), warmup_cosine_schedule(1e-3, 4, 100), 1.0,
+                            hp[0], hp[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = [[x.clone() for x in xs] for xs in (params, mu, nu)]
+        fused_adamw_cuda(params, grads, mu, nu, scal, hp)
+        clip_adamw_(ref[0], grads, ref[1], ref[2], scal, hp)
+        d, bad = adamw_diff(torch, (params, mu, nu), ref)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del ref
+        torch.cuda.empty_cache()
+    ok = bad == 0 and all(bool(torch.isfinite(p).all()) for p in params)
+    say(f"[7 check] fused_adamw on the main path's table ({len(params)} leaves, {numel:,} params, one "
+        f"launch), clip scale {scal[0].item():.4g}: max|d| {d:.3e}, {bad} elements outside rtol "
+        f"{ADAMW_RTOL} / atol {ADAMW_ATOL}; max_memory_allocated {peak_gb:.2f} GB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("fused_adamw disagrees with its plain version on the main path's leaf table")
+    with torch.no_grad():
+        kernel_ms = time_ms(torch, lambda: fused_adamw_cuda(params, grads, mu, nu, scal, hp), iters=5, warmup=1)
+        plain_ms = time_ms(torch, lambda: clip_adamw_(params, grads, mu, nu, scal, hp), iters=2, warmup=1)
+        lib = torch.optim.AdamW(params, lr=1e-3, betas=(hp[0], hp[1]), eps=hp[2], weight_decay=hp[3],
+                                fused=True)
+        library_ms = time_ms(torch, lib.step, iters=5, warmup=1)
+        del lib
+        torch.cuda.empty_cache()
+        kernel_ms2 = time_ms(torch, lambda: fused_adamw_cuda(params, grads, mu, nu, scal, hp), iters=5, warmup=1)
+    bound_ms, bound_by, nbytes = adamw_bound_ms(numel)
+    say(f"[7 time] fused_adamw {len(params)} leaves, {numel:,} params: kernel {kernel_ms:.3f} / "
+        f"{kernel_ms2:.3f} ms, plain {plain_ms:.3f} ms, torch.optim.AdamW(fused=True) {library_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}: {nbytes / 1e9:.2f} GB) [{card}]")
+    return d, {"ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main() -> int:
@@ -346,12 +724,21 @@ def main() -> int:
     errs = phase_kernel_check(torch)
     timing = phase_kernel_timing(torch, card)
     phase_model_check(torch)
-    launches = phase_main_path(torch, card)
-    kernels = [{
-        "name": "flash_attn_fwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "vitax/ops/attention.py:275", "launches": launches["flash_attn_fwd"],
-        "max_abs_err": errs[(SERVE_SHAPE, "bfloat16")], **timing,
-    }]
+    serve_launches = phase_main_path(torch, card)
+    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]) = phase_train(torch, card)
+    kernels = [
+        {"name": "flash_attn_fwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "vitax/ops/attention.py:275",
+         "launches": serve_launches["flash_attn_fwd"] + train_launches["flash_attn_fwd"],
+         "max_abs_err": errs[(SERVE_SHAPE, "bfloat16")], **timing["flash_attn_fwd"]},
+        {"name": "flash_attn_bwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "vitax/ops/attention.py:302", "launches": train_launches["flash_attn_bwd"],
+         "max_abs_err": errs["flash_attn_bwd"], **timing["flash_attn_bwd"]},
+        {"name": "fused_adamw", "route": "cuda", "source": "vitax_torch/csrc/fused_adamw.cu",
+         "replaces": "vitax/ops/fused_optimizer.py:112", "launches": train_launches["fused_adamw"],
+         "max_abs_err": max(errs["fused_adamw"], errs["fused_adamw_table"]), **timing["fused_adamw"]},
+    ]
+    say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

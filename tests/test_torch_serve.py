@@ -355,9 +355,10 @@ def test_cuda_dispatch_raises_instead_of_falling_back():
     x = torch.zeros(1, 8, 2, 24, device="cuda")                    # Dh 24 is not built
     with pytest.raises(ValueError, match="head dim 24"):
         flash_attention_fwd(x, x, x)
-    q = torch.zeros(1, 8, 2, 16, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        flash_attention_fwd(q, q, q)
+    from vitax_torch.ops.attention import flash_attention_bwd
+    z = torch.zeros(1, 8, 2, 24, device="cuda")
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_attention_bwd(z, z, z, z, torch.zeros(1, 2, 8, device="cuda"), z, None, 0.25)
     h = torch.zeros(1, 8, 2, 16, device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_fwd(h, h, h)

@@ -6,17 +6,20 @@ package runs on a path that is ported here has a hand-written Hopper
 kernel under csrc/, built with nvcc at first use.
 
 Package map (mirrors vitax/):
-  config        serve-path flags and Config, with the JAX names and defaults
+  config        flags and Config of the serve and train paths, with the JAX names and defaults
   platform      device selection: the card unless the caller asks for the CPU
-  models        the ViT as nn.Modules (eval forward)
-  ops           the flash-attention forward kernel, its plain version, the nvcc build
-  checkpoint    npz export reading and JAX -> torch param conversion
-  data          the eval image transform
-  train         on-device input normalisation
+  models        the ViT as nn.Modules (forward; per-block recompute when training)
+  ops           flash-attention forward and backward, fused clip+AdamW: kernels,
+                plain versions, dispatchers; the nvcc build
+  checkpoint    npz export reading, JAX -> torch param and AdamW-state conversion
+  data          the eval image transform, fake ImageNet, the sampler and loader
+  train         schedule, state, train/eval steps, the loop and its CLI
+  telemetry     model FLOPs and MFU
   serve         inference engine, dynamic batcher, HTTP server
 
-Ported so far: the serve path. Training, quantized serving and the rest
-are later slices (ROADMAP.md).
+Ported so far: the serve path and single-card training on fake data.
+ImageFolder data, checkpoints, FSDP, quantized serving and the rest are
+later slices (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

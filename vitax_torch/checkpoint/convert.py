@@ -11,7 +11,7 @@ vitax_torch/models/vit.py's module names.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -80,3 +80,14 @@ def params_from_jax(flat: Mapping[str, Leaf]) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected param subtree params/{name}")
     return out
+
+
+def opt_state_from_jax(mu_flat: Mapping[str, Leaf], nu_flat: Mapping[str, Leaf],
+                       count: Union[int, np.integer, np.ndarray]
+                       ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], torch.Tensor]:
+    """The AdamW state of the JAX package (optax ScaleByAdamState mu, nu and
+    count) as the port's (mu, nu, count): the moments share the params' tree,
+    so each converts as params_from_jax does, keyed by state_dict names;
+    count becomes an int32 0-d tensor."""
+    return (params_from_jax(mu_flat), params_from_jax(nu_flat),
+            torch.tensor(int(np.asarray(count)), dtype=torch.int32))

@@ -1,6 +1,8 @@
-"""Configuration of the port's serve path: the fields it reads, with the
-names, defaults and CLI flags of vitax/config.py (Config, build_parser,
-validate), so one command line means the same model to both packages."""
+"""Configuration of the port's serve and train paths: the fields they
+read, with the names, defaults and CLI flags of vitax/config.py (Config,
+build_parser, validate), so one command line means the same run to both
+packages. Settings whose path is a later slice of the port are rejected by
+validate() with a message that names the slice."""
 
 from __future__ import annotations
 
@@ -10,6 +12,13 @@ import dataclasses
 
 @dataclasses.dataclass
 class Config:
+    # --- data (fake data only in this slice) ---
+    data_dir: str = "/datasets/imagenet-1k"
+    fake_data: bool = False
+    resume_epoch: int = 0
+    test_epoch_interval: int = 10
+    log_step_interval: int = 20
+
     # --- model shape (defaults = the 10.078B ViT) ---
     image_size: int = 224
     patch_size: int = 14
@@ -22,7 +31,31 @@ class Config:
     # --- numerics and init ---
     seed: int = 0
     dtype: str = "bfloat16"             # compute dtype; initialized params are float32
-    use_flash_attention: bool = True    # the Hopper flash-attention kernel on the card
+    use_flash_attention: bool = True    # the Hopper flash-attention kernels on the card
+    pos_dropout: float = 0.0
+    att_dropout: float = 0.0
+    mlp_dropout: float = 0.0
+
+    # --- optimization ---
+    batch_size: int = 1024
+    num_epochs: int = 300
+    lr: float = 1e-3
+    weight_decay: float = 0.1
+    clip_grad_norm: float = 1.0
+    warmup_steps: int = 10000
+    grad_ckpt: bool = True              # recompute each block in the backward (--no_grad_ckpt clears)
+    grad_accum_steps: int = 1           # K > 1: K strided microbatches of B/K per optimizer step
+    fused_optimizer: str = "auto"       # auto | on | off, as in vitax; the card always runs the clip+AdamW kernel, and off raises there
+    steps_per_epoch: int = 0            # 0 = dataset length // batch_size
+    max_steps: int = 0                  # stop after N optimizer steps (0 = no limit)
+    eval_max_batches: int = 0           # cap val batches per eval (0 = the whole split)
+
+    # --- mesh (one process, one card in this slice) ---
+    dp_size: int = 1
+    fsdp_size: int = -1
+    tp_size: int = 1
+    sp_size: int = 1
+    pp_size: int = 1
 
     # --- serving ---
     serve_port: int = 8000              # HTTP port (0 = ephemeral, tests)
@@ -45,8 +78,33 @@ class Config:
         return int(self.embed_dim * self.mlp_ratio)
 
     def validate(self) -> "Config":
-        """Reject settings the serve path cannot run; returns self."""
+        """Reject settings the port cannot run; returns self."""
+        later = (
+            (max(self.pos_dropout, self.att_dropout, self.mlp_dropout) == 0.0,
+             "dropout above 0 waits for the slice that ports the dropout attention kernels "
+             "(vitax/ops/attention.py _fwd4_kernel_drop / _bwd4_kernel_drop)"),
+            (all(n in (1, -1) if name == "fsdp_size" else n == 1 for name, n in (
+                ("dp_size", self.dp_size), ("fsdp_size", self.fsdp_size), ("tp_size", self.tp_size),
+                ("sp_size", self.sp_size), ("pp_size", self.pp_size))),
+             "mesh sizes above 1 (--dp_size/--fsdp_size/--tp_size/--sp_size/--pp_size) wait for "
+             "the FSDP and parallelism slices; this slice trains on one card"),
+            (self.resume_epoch == 0, "--resume_epoch waits for the checkpoint slice"),
+        )
+        for ok, msg in later:
+            if not ok:
+                raise ValueError(msg)
         checks = (
+            (self.batch_size >= 1, f"--batch_size must be >= 1, got {self.batch_size}"),
+            (self.grad_accum_steps >= 1 and self.batch_size % self.grad_accum_steps == 0,
+             f"--batch_size {self.batch_size} must be a multiple of --grad_accum_steps "
+             f"{self.grad_accum_steps} (>= 1)"),
+            (self.fused_optimizer in ("auto", "on", "off"),
+             f"unknown fused_optimizer {self.fused_optimizer!r} (expected 'auto', 'on' or 'off')"),
+            (self.log_step_interval >= 1, f"--log_step_interval must be >= 1, got {self.log_step_interval}"),
+            (self.test_epoch_interval >= 1,
+             f"--test_epoch_interval must be >= 1, got {self.test_epoch_interval}"),
+            (min(self.steps_per_epoch, self.max_steps, self.eval_max_batches, self.warmup_steps) >= 0,
+             "--steps_per_epoch, --max_steps, --eval_max_batches and --warmup_steps must be >= 0"),
             (self.image_size % self.patch_size == 0,
              f"image_size {self.image_size} not divisible by patch_size {self.patch_size}"),
             (self.embed_dim % self.num_heads == 0,
@@ -77,19 +135,26 @@ class Config:
         return self
 
 
+# Flags spelled other than --<field>: (flag, action, dest).
+_BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
+               ("--no_flash_attention", "store_false", "use_flash_attention"),
+               ("--no_grad_ckpt", "store_false", "grad_ckpt"))
+_CHOICES = {"dtype": ["bfloat16", "float32"], "fused_optimizer": ["auto", "on", "off"]}
+
+
 def build_parser() -> argparse.ArgumentParser:
-    """The serve path's flags, spelled as in vitax/config.py build_parser."""
+    """Every Config field as a flag, spelled as in vitax/config.py build_parser."""
     d = Config()
     parser = argparse.ArgumentParser(description="vitax_torch: the ViT on PyTorch and CUDA")
-    for name in ("image_size", "patch_size", "embed_dim", "num_heads", "num_blocks",
-                 "mlp_ratio", "num_classes", "seed", "serve_port", "serve_max_batch",
-                 "max_batch_wait_ms", "serve_topk", "serve_queue_max", "serve_request_timeout_s",
-                 "serve_brownout_enter_frac", "serve_brownout_exit_frac",
-                 "serve_brownout_dwell_s", "serve_brownout_wait_ms"):
-        default = getattr(d, name)
-        parser.add_argument(f"--{name}", type=type(default), default=default)
-    parser.add_argument("--dtype", type=str, default=d.dtype, choices=["bfloat16", "float32"])
-    parser.add_argument("--no_flash_attention", action="store_false", dest="use_flash_attention")
+    bools = {dest for _, _, dest in _BOOL_FLAGS}
+    for f in dataclasses.fields(Config):
+        if f.name in bools:
+            continue
+        default = getattr(d, f.name)
+        parser.add_argument(f"--{f.name}", type=type(default), default=default,
+                            choices=_CHOICES.get(f.name))
+    for flag, action, dest in _BOOL_FLAGS:
+        parser.add_argument(flag, action=action, dest=dest)
     return parser
 
 

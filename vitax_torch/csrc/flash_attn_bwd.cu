@@ -1,0 +1,690 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces vitax/ops/attention.py:_bwd4_kernel (the TPU kernel behind the
+// custom VJP of flash4_with_lse). Per (batch, head), from q, k, v, the
+// forward's o and lse, the cotangent dO and the lse cotangent dlse:
+//   P = exp(S - lse) with S = q k^T * scale (recomputed, never stored)
+//   dV = P^T dO,  dP = dO V^T,  delta = rowsum(dO * O)
+//   dS = P * (dP - delta + dlse) * scale
+//   dQ = dS K,  dK = dS^T Q
+// Cast points follow _bwd4_kernel: score and softmax math in float32; P
+// and dS rounded to the input type before their products; dO enters its
+// products in the input type; every product accumulates in float32.
+//
+// What bounds it on the card: at the 10B train shape (B 32, N 256, H 32,
+// Dh 160, bf16) the call reads q, k, v, o, dO and writes dq, dk, dv (8 x
+// 83.9 MB, plus lse and dlse) against 107.4 GFLOP: 160 FLOP per byte,
+// below the H100's ~295 in bf16, so it is memory-bound. The TPU kernel
+// held a whole (N, hb*Dh) head group in VMEM; at Dh 160 that does not fit
+// in 227 KB of shared memory, and the card needs many CTAs in flight. So
+// the work is split into three launches, deterministic and with no atomics:
+//   1. delta: D = rowsum(f32(dO) * f32(O)) - dlse, one warp per row,
+//      into a (B, H, N) float32 scratch the wrapper allocates;
+//   2. dK/dV: one CTA per (b, h, 64-row K/V tile) loops over the query
+//      tiles, recomputes P^T and dS^T and accumulates dK and dV on chip;
+//   3. dQ: one CTA per (b, h, 64-row query tile) loops over the K/V tiles
+//      and accumulates dQ on chip.
+// Each of q, k, v, o and dO is read once per tile of the other operand;
+// dq, dk and dv are written once. Recomputing S in both 2 and 3 doubles the
+// QK^T products, which the card has to spare at 160 FLOP per byte.
+//
+// Inputs are strided (B, N, H, Dh) views with a contiguous head axis (the
+// model passes slices of its (B, N, 3, H, Dh) qkv output and whatever
+// layout autograd hands over for dO); lse, dlse and the outputs are
+// contiguous: lse and dlse (B, H, N) float32 (dlse may be null, meaning
+// zero), dq, dk, dv (B, N, H, Dh) in the input type, allocated by the
+// wrapper. Any N >= 1 works: rows past N are zero-filled and masked.
+//
+// Two kernel families, one per input type:
+// - bfloat16 (training): tensor cores through mma.sync m16n8k16. In the
+//   dK/dV kernel each of 4 warps owns 16 K/V rows and walks a loaded
+//   64-row query tile 16 rows at a time, so its live state is the 16 x Dh
+//   dK and dV accumulators (160 registers a thread at Dh 160) plus a 16 x 16
+//   score and dP tile. P^T and dS^T go from the score accumulators straight
+//   into the A operand of the dV and dK products; dO and Q stay row-major
+//   in shared memory and ldmatrix.trans reads them as B operands.
+// - float32: CUDA-core FMAs from shared memory, exact f32 throughout.
+// wgmma, TMA and a pipelined tile ring are later work.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace vitax;
+
+constexpr int TC_THREADS = 128;   // 4 warps x 16 rows
+constexpr int F32_THREADS = 256;  // 4 threads per row of a 64-row tile
+constexpr int TPR = F32_THREADS / TILE;
+constexpr int PS = TILE + 4;      // shared row stride of the f32 P / dS tiles
+
+// Element strides (batch, sequence, head) of q, k, v, o, dO.
+struct Strides {
+  int64_t s[15];
+};
+enum { Q_ = 0, K_ = 3, V_ = 6, O_ = 9, DO_ = 12 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ const T* head_base(const T* x, const Strides& st, int which, int b, int h) {
+  return x + (int64_t)b * st.s[which] + (int64_t)h * st.s[which + 2];
+}
+
+// ---------------------------------------------------------------------------
+// 1. delta = rowsum(dO * O) - dlse
+// ---------------------------------------------------------------------------
+
+constexpr int DELTA_THREADS = 256;  // 8 rows (warps) per block
+
+template <typename T>
+__global__ void __launch_bounds__(DELTA_THREADS)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ dlse,
+             float* __restrict__ delta, int B, int N, int H, int DH, Strides st) {
+  const int64_t row = (int64_t)blockIdx.x * (DELTA_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= (int64_t)B * N * H) return;
+  const int lane = threadIdx.x & 31;
+  const int h = (int)(row % H);
+  const int n = (int)((row / H) % N);
+  const int b = (int)(row / ((int64_t)H * N));
+  const T* orow = head_base(o, st, O_, b, h) + (int64_t)n * st.s[O_ + 1];
+  const T* drow = head_base(dout, st, DO_, b, h) + (int64_t)n * st.s[DO_ + 1];
+  float acc = 0.f;
+  for (int d = lane; d < DH; d += 32) acc += to_f32(drow[d]) * to_f32(orow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int64_t idx = ((int64_t)b * H + h) * N + n;
+    delta[idx] = acc - (dlse != nullptr ? dlse[idx] : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+
+template <int DH>
+constexpr size_t tc_smem_bytes() {
+  // four bf16 tiles (two of each operand pair), plus lse and delta of a tile
+  return (size_t)(4 * TILE * tc_row_stride<DH>()) * sizeof(bf16) + 2 * TILE * sizeof(float);
+}
+
+// 2. dK, dV for one 64-row K/V tile.
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     int N, int H, Strides st, float scale, int vec) {
+  static_assert(DH % 16 == 0, "head dim must be a multiple of the mma k-step (16)");
+  constexpr int DS = tc_row_stride<DH>();
+  constexpr int NT_D = DH / 8;         // head-dim n-tiles of the dK / dV accumulators
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Vs = Ks + TILE * DS;
+  bf16* Qs = Vs + TILE * DS;
+  bf16* Os = Qs + TILE * DS;           // dO
+  float* lse_s = reinterpret_cast<float*>(Os + TILE * DS);
+  float* del_s = lse_s + TILE;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kv0 = blockIdx.x * TILE;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  // ldmatrix_x4_trans row address of this lane in a 16-row block of a
+  // row-major [row][d] tile: matrices 0 and 1 are rows 0-7 and 8-15 at
+  // columns [8j, 8j + 8), matrices 2 and 3 the same rows at [8j + 8, 8j + 16).
+  const int t_lane = ((lane & 7) + (lane & 8)) * DS + (lane >> 4) * 8;
+
+  load_tile_bf16<DH, TC_THREADS>(Ks, head_base(k, st, K_, b, h), st.s[K_ + 1], kv0, N, vec);
+  load_tile_bf16<DH, TC_THREADS>(Vs, head_base(v, st, V_, b, h), st.s[V_ + 1], kv0, N, vec);
+
+  float acc_dk[NT_D][4], acc_dv[NT_D][4];
+#pragma unroll
+  for (int j = 0; j < NT_D; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+  }
+
+  const bf16* kw = Ks + (warp * 16 + g) * DS + t * 2;   // this warp's K/V rows, as A
+  const bf16* vw = Vs + (warp * 16 + g) * DS + t * 2;
+  const float* lse_bh = lse + ((int64_t)b * H + h) * N;
+  const float* del_bh = delta + ((int64_t)b * H + h) * N;
+  const int n_tiles = (N + TILE - 1) / TILE;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int q0 = tile * TILE;
+    __syncthreads();                   // the previous query tile is consumed
+    load_tile_bf16<DH, TC_THREADS>(Qs, head_base(q, st, Q_, b, h), st.s[Q_ + 1], q0, N, vec);
+    load_tile_bf16<DH, TC_THREADS>(Os, head_base(dout, st, DO_, b, h), st.s[DO_ + 1], q0, N, vec);
+    for (int i = threadIdx.x; i < TILE; i += TC_THREADS) {
+      const bool valid = q0 + i < N;
+      lse_s[i] = valid ? lse_bh[q0 + i] : INFINITY;   // P = 0 past N
+      del_s[i] = valid ? del_bh[q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    const int q_rows = min(TILE, N - q0);
+    for (int qs = 0; qs < q_rows; qs += 16) {
+      // S^T = K Q^T and dP^T = V dO^T over this warp's 16 K/V rows and
+      // query rows [qs, qs + 16) of the tile.
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH; kk += 16) {
+        const uint32_t a[4] = {ld32(kw + kk), ld32(kw + 8 * DS + kk), ld32(kw + kk + 8),
+                               ld32(kw + 8 * DS + kk + 8)};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const bf16* qp = Qs + (qs + j * 8 + g) * DS + kk + t * 2;
+          const uint32_t bb[2] = {ld32(qp), ld32(qp + 8)};
+          mma_16816(s[j], a, bb);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH; kk += 16) {
+        const uint32_t a[4] = {ld32(vw + kk), ld32(vw + 8 * DS + kk), ld32(vw + kk + 8),
+                               ld32(vw + 8 * DS + kk + 8)};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const bf16* op = Os + (qs + j * 8 + g) * DS + kk + t * 2;
+          const uint32_t bb[2] = {ld32(op), ld32(op + 8)};
+          mma_16816(dp[j], a, bb);
+        }
+      }
+      // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - delta) * scale,
+      // column c of the 16 is query row qs + c.
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = qs + j * 8 + t * 2 + (e & 1);
+          const float p = expf(s[j][e] * scale - lse_s[c]);
+          dp[j][e] = p * (dp[j][e] - del_s[c]) * scale;
+          s[j][e] = p;
+        }
+      }
+      const uint32_t ap[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      const uint32_t ad[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
+                              pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
+      // dV += P^T dO and dK += dS^T Q over these 16 query rows.
+#pragma unroll
+      for (int j = 0; j < NT_D; j += 2) {
+        uint32_t bo[4], bq[4];
+        ldmatrix_x4_trans(bo, Os + qs * DS + j * 8 + t_lane);
+        ldmatrix_x4_trans(bq, Qs + qs * DS + j * 8 + t_lane);
+        const uint32_t bo0[2] = {bo[0], bo[1]}, bo1[2] = {bo[2], bo[3]};
+        const uint32_t bq0[2] = {bq[0], bq[1]}, bq1[2] = {bq[2], bq[3]};
+        mma_16816(acc_dv[j], ap, bo0);
+        mma_16816(acc_dv[j + 1], ap, bo1);
+        mma_16816(acc_dk[j], ad, bq0);
+        mma_16816(acc_dk[j + 1], ad, bq1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = kv0 + warp * 16 + g + 8 * r;
+    if (n >= N) continue;
+    const int64_t off = (((int64_t)b * N + n) * H + h) * DH + t * 2;
+#pragma unroll
+    for (int j = 0; j < NT_D; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + j * 8) = pack_bf16(acc_dk[j][2 * r], acc_dk[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + j * 8) = pack_bf16(acc_dv[j][2 * r], acc_dv[j][2 * r + 1]);
+    }
+  }
+}
+
+// 3. dQ for one 64-row query tile.
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int N, int H, Strides st, float scale, int vec) {
+  constexpr int DS = tc_row_stride<DH>();
+  constexpr int NT_S = TILE / 8;       // key n-tiles of a score tile
+  constexpr int NT_D = DH / 8;
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Os = Qs + TILE * DS;           // dO
+  bf16* Ks = Os + TILE * DS;
+  bf16* Vs = Ks + TILE * DS;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * TILE;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t_lane = ((lane & 7) + (lane & 8)) * DS + (lane >> 4) * 8;
+
+  load_tile_bf16<DH, TC_THREADS>(Qs, head_base(q, st, Q_, b, h), st.s[Q_ + 1], q0, N, vec);
+  load_tile_bf16<DH, TC_THREADS>(Os, head_base(dout, st, DO_, b, h), st.s[DO_ + 1], q0, N, vec);
+
+  float lse_r[2], del_r[2];           // rows g and g + 8 of this warp
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = q0 + warp * 16 + g + 8 * r;
+    const int64_t idx = ((int64_t)b * H + h) * N + n;
+    lse_r[r] = n < N ? lse[idx] : INFINITY;
+    del_r[r] = n < N ? delta[idx] : 0.f;
+  }
+  float acc[NT_D][4];
+#pragma unroll
+  for (int j = 0; j < NT_D; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const bf16* qw = Qs + (warp * 16 + g) * DS + t * 2;
+  const bf16* ow = Os + (warp * 16 + g) * DS + t * 2;
+  const int n_tiles = (N + TILE - 1) / TILE;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * TILE;
+    __syncthreads();                   // the previous K/V tile is consumed
+    load_tile_bf16<DH, TC_THREADS>(Ks, head_base(k, st, K_, b, h), st.s[K_ + 1], k0, N, vec);
+    load_tile_bf16<DH, TC_THREADS>(Vs, head_base(v, st, V_, b, h), st.s[V_ + 1], k0, N, vec);
+    __syncthreads();
+
+    float s[NT_S][4], dp[NT_S][4];
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      const uint32_t a[4] = {ld32(qw + kk), ld32(qw + 8 * DS + kk), ld32(qw + kk + 8),
+                             ld32(qw + 8 * DS + kk + 8)};
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j) {
+        const bf16* kp = Ks + (j * 8 + g) * DS + kk + t * 2;
+        const uint32_t bb[2] = {ld32(kp), ld32(kp + 8)};
+        mma_16816(s[j], a, bb);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      const uint32_t a[4] = {ld32(ow + kk), ld32(ow + 8 * DS + kk), ld32(ow + kk + 8),
+                             ld32(ow + 8 * DS + kk + 8)};
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j) {
+        const bf16* vp = Vs + (j * 8 + g) * DS + kk + t * 2;
+        const uint32_t bb[2] = {ld32(vp), ld32(vp + 8)};
+        mma_16816(dp[j], a, bb);
+      }
+    }
+    // dS = P (dP - delta) * scale, keys past N masked to P = 0.
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + t * 2 + (e & 1);
+        const float p = key < N ? expf(s[j][e] * scale - lse_r[e >> 1]) : 0.f;
+        s[j][e] = p * (dp[j][e] - del_r[e >> 1]) * scale;
+      }
+    }
+    // dQ += dS K: the dS accumulators of n-tiles 2kt and 2kt + 1 are the A
+    // fragment of keys [16 kt, 16 kt + 16).
+#pragma unroll
+    for (int kt = 0; kt < TILE / 16; ++kt) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
+                             pack_bf16(s[2 * kt][2], s[2 * kt][3]),
+                             pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
+                             pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+#pragma unroll
+      for (int j = 0; j < NT_D; j += 2) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, Ks + kt * 16 * DS + j * 8 + t_lane);
+        const uint32_t b0[2] = {bk[0], bk[1]};
+        const uint32_t b1[2] = {bk[2], bk[3]};
+        mma_16816(acc[j], a, b0);
+        mma_16816(acc[j + 1], a, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = q0 + warp * 16 + g + 8 * r;
+    if (n >= N) continue;
+    bf16* row = dq + (((int64_t)b * N + n) * H + h) * DH + t * 2;
+#pragma unroll
+    for (int j = 0; j < NT_D; ++j) {
+      *reinterpret_cast<uint32_t*>(row + j * 8) = pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+template <int DH>
+constexpr size_t f32_dkdv_smem_bytes() {
+  // K, V, Q, dO tiles; P^T and dS^T tiles; lse and delta of a query tile
+  return (size_t)(4 * TILE * f32_row_stride<DH>() + 2 * TILE * PS + 2 * TILE) * sizeof(float);
+}
+
+template <int DH>
+constexpr size_t f32_dq_smem_bytes() {
+  return (size_t)(4 * TILE * f32_row_stride<DH>() + TILE * PS) * sizeof(float);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void axpy4(float4& acc, float a, float4 x) {
+  acc.x = fmaf(a, x.x, acc.x);
+  acc.y = fmaf(a, x.y, acc.y);
+  acc.z = fmaf(a, x.z, acc.z);
+  acc.w = fmaf(a, x.w, acc.w);
+}
+
+// Thread (r, cg) owns row r of the resident tile and, of the streamed
+// tile, rows cg, cg + 4, ..., cg + 60 for the scores and the column groups
+// cg + 4 gi for its accumulators.
+template <int DH>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dk, float* __restrict__ dv,
+                    int N, int H, Strides st, float scale, int /*vec*/) {
+  static_assert(DH % 16 == 0, "each of a row's 4 threads owns DH/16 float4 groups");
+  constexpr int KS = f32_row_stride<DH>();
+  constexpr int G = DH / 16;
+  constexpr int SC = TILE / TPR;
+
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Ks = smem_f32;
+  float* Vs = Ks + TILE * KS;
+  float* Qs = Vs + TILE * KS;
+  float* Os = Qs + TILE * KS;
+  float* Ps = Os + TILE * KS;
+  float* Ds = Ps + TILE * PS;
+  float* lse_s = Ds + TILE * PS;
+  float* del_s = lse_s + TILE;
+
+  const int r = threadIdx.x / TPR;
+  const int cg = threadIdx.x % TPR;
+  const int kv0 = blockIdx.x * TILE;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  load_tile_f32<DH, F32_THREADS>(Ks, head_base(k, st, K_, b, h), st.s[K_ + 1], kv0, N);
+  load_tile_f32<DH, F32_THREADS>(Vs, head_base(v, st, V_, b, h), st.s[V_ + 1], kv0, N);
+
+  float4 acc_dk[G], acc_dv[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) acc_dk[gi] = acc_dv[gi] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const float* lse_bh = lse + ((int64_t)b * H + h) * N;
+  const float* del_bh = delta + ((int64_t)b * H + h) * N;
+  const float* krow = Ks + r * KS;
+  const float* vrow = Vs + r * KS;
+  float* prow = Ps + r * PS;
+  float* drow = Ds + r * PS;
+  const int n_tiles = (N + TILE - 1) / TILE;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int q0 = tile * TILE;
+    __syncthreads();
+    load_tile_f32<DH, F32_THREADS>(Qs, head_base(q, st, Q_, b, h), st.s[Q_ + 1], q0, N);
+    load_tile_f32<DH, F32_THREADS>(Os, head_base(dout, st, DO_, b, h), st.s[DO_ + 1], q0, N);
+    for (int i = threadIdx.x; i < TILE; i += F32_THREADS) {
+      const bool valid = q0 + i < N;
+      lse_s[i] = valid ? lse_bh[q0 + i] : INFINITY;
+      del_s[i] = valid ? del_bh[q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    float s[SC], dp[SC];
+#pragma unroll
+    for (int j = 0; j < SC; ++j) s[j] = dp[j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+      const float4 vv = *reinterpret_cast<const float4*>(vrow + d);
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int c = cg + TPR * j;
+        s[j] = dot4(kv, *reinterpret_cast<const float4*>(Qs + c * KS + d), s[j]);
+        dp[j] = dot4(vv, *reinterpret_cast<const float4*>(Os + c * KS + d), dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+      const int c = cg + TPR * j;
+      const float p = expf(s[j] * scale - lse_s[c]);
+      prow[c] = p;
+      drow[c] = p * (dp[j] - del_s[c]) * scale;
+    }
+    __syncwarp();                      // a row's 4 threads share one warp
+
+#pragma unroll 4
+    for (int qq = 0; qq < TILE; ++qq) {
+      const float p = prow[qq];
+      const float ds = drow[qq];
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const int c = 4 * (cg + TPR * gi);
+        axpy4(acc_dv[gi], p, *reinterpret_cast<const float4*>(Os + qq * KS + c));
+        axpy4(acc_dk[gi], ds, *reinterpret_cast<const float4*>(Qs + qq * KS + c));
+      }
+    }
+  }
+
+  const int n = kv0 + r;
+  if (n < N) {
+    const int64_t off = (((int64_t)b * N + n) * H + h) * DH;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const int c = 4 * (cg + TPR * gi);
+      *reinterpret_cast<float4*>(dk + off + c) = acc_dk[gi];
+      *reinterpret_cast<float4*>(dv + off + c) = acc_dv[gi];
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ dq, int N, int H, Strides st, float scale, int /*vec*/) {
+  constexpr int KS = f32_row_stride<DH>();
+  constexpr int G = DH / 16;
+  constexpr int SC = TILE / TPR;
+
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;
+  float* Os = Qs + TILE * KS;
+  float* Ks = Os + TILE * KS;
+  float* Vs = Ks + TILE * KS;
+  float* Ds = Vs + TILE * KS;
+
+  const int r = threadIdx.x / TPR;
+  const int cg = threadIdx.x % TPR;
+  const int q0 = blockIdx.x * TILE;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  load_tile_f32<DH, F32_THREADS>(Qs, head_base(q, st, Q_, b, h), st.s[Q_ + 1], q0, N);
+  load_tile_f32<DH, F32_THREADS>(Os, head_base(dout, st, DO_, b, h), st.s[DO_ + 1], q0, N);
+  const int n = q0 + r;
+  const int64_t idx = ((int64_t)b * H + h) * N + n;
+  const float lse_r = n < N ? lse[idx] : INFINITY;
+  const float del_r = n < N ? delta[idx] : 0.f;
+
+  float4 acc[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) acc[gi] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const float* qrow = Qs + r * KS;
+  const float* orow = Os + r * KS;
+  float* drow = Ds + r * PS;
+  const int n_tiles = (N + TILE - 1) / TILE;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * TILE;
+    __syncthreads();
+    load_tile_f32<DH, F32_THREADS>(Ks, head_base(k, st, K_, b, h), st.s[K_ + 1], k0, N);
+    load_tile_f32<DH, F32_THREADS>(Vs, head_base(v, st, V_, b, h), st.s[V_ + 1], k0, N);
+    __syncthreads();
+
+    float s[SC], dp[SC];
+#pragma unroll
+    for (int j = 0; j < SC; ++j) s[j] = dp[j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
+      const float4 ov = *reinterpret_cast<const float4*>(orow + d);
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int c = cg + TPR * j;
+        s[j] = dot4(qv, *reinterpret_cast<const float4*>(Ks + c * KS + d), s[j]);
+        dp[j] = dot4(ov, *reinterpret_cast<const float4*>(Vs + c * KS + d), dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+      const int c = cg + TPR * j;
+      const float p = (k0 + c) < N ? expf(s[j] * scale - lse_r) : 0.f;
+      drow[c] = p * (dp[j] - del_r) * scale;
+    }
+    __syncwarp();
+
+#pragma unroll 4
+    for (int kk = 0; kk < TILE; ++kk) {
+      const float ds = drow[kk];
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        axpy4(acc[gi], ds, *reinterpret_cast<const float4*>(Ks + kk * KS + 4 * (cg + TPR * gi)));
+      }
+    }
+  }
+
+  if (n < N) {
+    float* row = dq + (((int64_t)b * N + n) * H + h) * DH;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      *reinterpret_cast<float4*>(row + 4 * (cg + TPR * gi)) = acc[gi];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  const float *lse, *dlse;
+  void *dq, *dk, *dv;
+  float* delta;
+  int B, N, H;
+  Strides st;
+  float scale;
+  int vec;
+};
+
+template <typename T, int DH>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const int64_t rows = (int64_t)a.B * a.N * a.H;
+  const int rows_per_block = DELTA_THREADS / 32;
+  delta_kernel<T><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), DELTA_THREADS, 0, stream>>>(
+      static_cast<const T*>(a.o), dout, a.dlse, a.delta, a.B, a.N, a.H, DH, a.st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid((a.N + TILE - 1) / TILE, a.H, a.B);
+  constexpr bool TC = sizeof(T) == 2;
+  constexpr int threads = TC ? TC_THREADS : F32_THREADS;
+  constexpr size_t smem_dkdv = TC ? tc_smem_bytes<DH>() : f32_dkdv_smem_bytes<DH>();
+  constexpr size_t smem_dq = TC ? tc_smem_bytes<DH>() : f32_dq_smem_bytes<DH>();
+  void (*dkdv)(const T*, const T*, const T*, const T*, const float*, const float*, T*, T*, int, int,
+               Strides, float, int);
+  void (*dqk)(const T*, const T*, const T*, const T*, const float*, const float*, T*, int, int,
+              Strides, float, int);
+  if constexpr (TC) {
+    dkdv = bwd_dkdv_bf16_kernel<DH>;
+    dqk = bwd_dq_bf16_kernel<DH>;
+  } else {
+    dkdv = bwd_dkdv_f32_kernel<DH>;
+    dqk = bwd_dq_f32_kernel<DH>;
+  }
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
+  if (err != cudaSuccess) return err;
+  dkdv<<<grid, threads, smem_dkdv, stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
+                                             static_cast<T*>(a.dv), a.N, a.H, a.st, a.scale, a.vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  if (err != cudaSuccess) return err;
+  dqk<<<grid, threads, smem_dq, stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq),
+                                          a.N, a.H, a.st, a.scale, a.vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dh(int dh, const Args& a, cudaStream_t stream) {
+  switch (dh) {
+    case 16: return launch<T, 16>(a, stream);
+    case 32: return launch<T, 32>(a, stream);
+    case 64: return launch<T, 64>(a, stream);
+    case 80: return launch<T, 80>(a, stream);
+    case 128: return launch<T, 128>(a, stream);
+    case 160: return launch<T, 160>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. strides: 15 element strides, (batch,
+// sequence, head) for q, k, v, o, then dout. dlse may be null (zero).
+// delta is a (B, H, N) float32 scratch. Returns a cudaError_t (0 =
+// success); the three launches are asynchronous on `stream`.
+int vitax_flash_attn_bwd(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const float* lse, const float* dlse,
+                         void* dq, void* dk, void* dv, float* delta,
+                         int dtype, int B, int N, int H, int dh,
+                         const int64_t* strides, float scale, void* stream) {
+  if (B < 1 || N < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, o, dout, lse, dlse, dq, dk, dv, delta, B, N, H, {}, scale, 0};
+  for (int i = 0; i < 15; ++i) a.st.s[i] = strides[i];
+  const void* ptrs[4] = {q, k, v, dout};
+  const int64_t tile_strides[12] = {strides[0], strides[1], strides[2], strides[3], strides[4],
+                                    strides[5], strides[6], strides[7], strides[8], strides[12],
+                                    strides[13], strides[14]};
+  a.vec = vitax::rows_vectorizable(ptrs, 4, tile_strides, 12);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch_dh<float>(dh, a, s);
+  if (dtype == 1) return (int)dispatch_dh<vitax::bf16>(dh, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* vitax_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

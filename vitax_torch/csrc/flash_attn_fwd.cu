@@ -32,17 +32,14 @@
 // (and round the unnormalised P to bf16 for the bf16 product), which differs
 // by about one bf16 ulp of the output.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace vitax;
 
-constexpr int BM = 64;          // query rows per CTA
-constexpr int BN = 64;          // key rows per K/V tile
+constexpr int BM = TILE;        // query rows per CTA
+constexpr int BN = TILE;        // key rows per K/V tile
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores (mma.sync)
@@ -50,69 +47,9 @@ constexpr int BN = 64;          // key rows per K/V tile
 
 constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
 
-// Shared row stride of the Q, K and V tiles: DH + 8 keeps the 4-byte
-// fragment loads of a warp's 8 row groups, and the eight 16-byte rows of an
-// ldmatrix phase, on distinct banks.
-template <int DH>
-__host__ __device__ constexpr int tc_row_stride() { return DH + 8; }
-
 template <int DH>
 constexpr size_t tc_smem_bytes() {
   return (size_t)(3 * 64 * tc_row_stride<DH>()) * sizeof(bf16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four 8x8 bf16 matrices from shared memory, each transposed on the way in;
-// lane L passes the address of row L % 8 of matrix L / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);    // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copy 64 sequence rows from n0 into shared memory as [row][d] with the
-// padded row stride, zero past N. `vec` means 16-byte aligned rows (8
-// elements per load).
-template <int DH>
-__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* base, int64_t s_n, int n0,
-                                             int N, bool vec) {
-  constexpr int DS = tc_row_stride<DH>();
-  if (vec) {
-    constexpr int C = DH / 8;
-    for (int i = threadIdx.x; i < 64 * C; i += TC_THREADS) {
-      const int row = i / C;
-      const int c = i - row * C;
-      const int n = n0 + row;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (n < N) val = *reinterpret_cast<const uint4*>(base + (int64_t)n * s_n + c * 8);
-      *reinterpret_cast<uint4*>(dst + row * DS + c * 8) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * DH; i += TC_THREADS) {
-      const int row = i / DH;
-      const int d = i - row * DH;
-      const int n = n0 + row;
-      dst[row * DS + d] = n < N ? base[(int64_t)n * s_n + d] : __float2bfloat16(0.f);
-    }
-  }
 }
 
 template <int DH>
@@ -146,7 +83,7 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   // matrices 2 and 3 the same keys at [8j + 8, 8j + 16).
   const int v_lane = ((lane & 7) + (lane & 8)) * DS + (lane >> 4) * 8;
 
-  tc_load_tile<DH>(Qs, q + (int64_t)b * q_sb + (int64_t)h * q_sh, q_sn, q0, N, vec);
+  load_tile_bf16<DH, TC_THREADS>(Qs, q + (int64_t)b * q_sb + (int64_t)h * q_sh, q_sn, q0, N, vec);
 
   float m_r[2] = {-INFINITY, -INFINITY};   // rows g and g + 8 of this warp
   float l_r[2] = {0.f, 0.f};
@@ -159,8 +96,8 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * BN;
     __syncthreads();                   // the previous tile's K and V are consumed
-    tc_load_tile<DH>(Ks, k + (int64_t)b * k_sb + (int64_t)h * k_sh, k_sn, k0, N, vec);
-    tc_load_tile<DH>(Vs, v + (int64_t)b * v_sb + (int64_t)h * v_sh, v_sn, k0, N, vec);
+    load_tile_bf16<DH, TC_THREADS>(Ks, k + (int64_t)b * k_sb + (int64_t)h * k_sh, k_sn, k0, N, vec);
+    load_tile_bf16<DH, TC_THREADS>(Vs, v + (int64_t)b * v_sb + (int64_t)h * v_sh, v_sn, k0, N, vec);
     __syncthreads();
 
     float s[NT_S][4];
@@ -264,21 +201,8 @@ constexpr int PS = BN + 4;              // shared row stride of the P tile (floa
 
 template <int DH>
 constexpr size_t f32_smem_bytes() {
-  // Q, K and V tiles with a padded row stride (DH + 4 floats keeps rows
-  // 16-byte aligned and spreads the 8 rows a warp reads over all banks),
-  // plus the P tile.
-  return (size_t)(3 * 64 * (DH + 4) + BM * PS) * sizeof(float);
-}
-
-template <int DH>
-__device__ __forceinline__ void f32_load_tile(float* dst, const float* base, int64_t s_n, int n0, int N) {
-  constexpr int KS = DH + 4;
-  for (int i = threadIdx.x; i < 64 * DH; i += F32_THREADS) {
-    const int row = i / DH;
-    const int d = i - row * DH;
-    const int n = n0 + row;
-    dst[row * KS + d] = n < N ? base[(int64_t)n * s_n + d] : 0.f;
-  }
+  // Q, K and V tiles with the padded row stride, plus the P tile.
+  return (size_t)(3 * 64 * f32_row_stride<DH>() + BM * PS) * sizeof(float);
 }
 
 template <int DH>
@@ -291,7 +215,7 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
                           int64_t v_sb, int64_t v_sn, int64_t v_sh,
                           float scale, int /*vec*/) {
   static_assert(DH % 16 == 0, "each of a row's 4 threads owns DH/16 float4 groups");
-  constexpr int KS = DH + 4;
+  constexpr int KS = f32_row_stride<DH>();
   constexpr int G = DH / 16;           // float4 column groups per thread
   constexpr int SC = BN / TPR;         // score columns per thread (16)
 
@@ -308,7 +232,7 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  f32_load_tile<DH>(Qs, q + (int64_t)b * q_sb + (int64_t)h * q_sh, q_sn, q0, N);
+  load_tile_f32<DH, F32_THREADS>(Qs, q + (int64_t)b * q_sb + (int64_t)h * q_sh, q_sn, q0, N);
 
   float m_i = -INFINITY;
   float l_i = 0.f;
@@ -320,8 +244,8 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * BN;
     __syncthreads();                   // previous tile's K, V, P are consumed
-    f32_load_tile<DH>(Ks, k + (int64_t)b * k_sb + (int64_t)h * k_sh, k_sn, k0, N);
-    f32_load_tile<DH>(Vs, v + (int64_t)b * v_sb + (int64_t)h * v_sh, v_sn, k0, N);
+    load_tile_f32<DH, F32_THREADS>(Ks, k + (int64_t)b * k_sb + (int64_t)h * k_sh, k_sn, k0, N);
+    load_tile_f32<DH, F32_THREADS>(Vs, v + (int64_t)b * v_sb + (int64_t)h * v_sh, v_sn, k0, N);
     __syncthreads();
 
     // S row r, columns cg, cg + 4, ..., cg + 60 of this key tile.
@@ -455,13 +379,10 @@ int vitax_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                          const int64_t* strides, float scale, void* stream) {
   if (B < 1 || N < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte row loads need every base 16-byte aligned and every stride a
-  // multiple of 8 elements (true of slices of a fresh qkv projection).
-  int vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-              reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-  for (int i = 0; i < 9; ++i) vec = vec && (strides[i] % 8 == 0);
+  const void* ptrs[3] = {q, k, v};
+  const int vec = vitax::rows_vectorizable(ptrs, 3, strides, 9);
   if (dtype == 0) return (int)dispatch_dh<float>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, s);
-  if (dtype == 1) return (int)dispatch_dh<bf16>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, s);
+  if (dtype == 1) return (int)dispatch_dh<vitax::bf16>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, s);
   return (int)cudaErrorInvalidValue;
 }
 

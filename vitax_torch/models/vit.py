@@ -1,4 +1,4 @@
-"""Vision Transformer in PyTorch: the eval forward of vitax/models/vit.py.
+"""Vision Transformer in PyTorch: the forward of vitax/models/vit.py.
 
 Same architecture and numerics contract as the Flax model (timm Block
 parity): conv patchify, learned pos_embed with no CLS token, pre-norm
@@ -9,9 +9,12 @@ initialized, bfloat16 from a half-size export); LayerNorm statistics run in
 float32 and its output is cast to cfg.dtype; the head computes in float32.
 
 Blocks are a ModuleList run in a Python loop: eager PyTorch has no scan to
-amortize, and the eval forward needs no remat. Module and parameter names
-mirror the Flax paths (vitax_torch/checkpoint/convert.py maps one onto the
-other).
+amortize. With grad_ckpt (the default) and grad enabled, each block runs
+under torch.utils.checkpoint (non-reentrant): only its input is kept, and
+the backward recomputes the block, the counterpart of the JAX model's
+per-block remat with the none_saveable policy. Without grad (eval, serve)
+the forward is the plain loop. Module and parameter names mirror the Flax
+paths (vitax_torch/checkpoint/convert.py maps one onto the other).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vitax_torch.config import Config
 from vitax_torch.ops.attention import reference_attention
@@ -75,7 +79,7 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
         qkv = _dense(self.qkv, x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, k, v = qkv.unbind(2)      # strided views; the backward stacks dq, dk, dv in one copy
         core = self.attention_impl or reference_attention
         out = core(q, k, v).reshape(b, n, d)
         return _dense(self.proj, out, self.dtype)
@@ -117,6 +121,7 @@ class VisionTransformer(nn.Module):
     def __init__(self, cfg: Config, attention_impl: Optional[Callable] = None, device=None):
         super().__init__()
         self.dtype = _DTYPES[cfg.dtype]
+        self.grad_ckpt = cfg.grad_ckpt
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, d, self.dtype, device=device)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, d, device=device))
@@ -128,8 +133,9 @@ class VisionTransformer(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(images) + self.pos_embed.to(self.dtype)
+        remat = self.grad_ckpt and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         x = _layer_norm(self.norm, x, self.dtype).mean(dim=1)
         return _dense(self.head, x, torch.float32)
 

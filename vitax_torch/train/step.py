@@ -1,11 +1,28 @@
-"""Device-side input preparation (vitax/train/step.py prepare_images).
-The train step itself comes with the training slice."""
+"""Train and eval steps (vitax/train/step.py).
+
+One train step: forward in cfg.dtype over the float32 master weights, CE
+mean over float32 logits, backward (recomputing each block under
+grad_ckpt), with K-microbatch accumulation in float32 when
+grad_accum_steps > 1, then one global norm that feeds both the clip and
+the grad_norm metric, then clip+AdamW through fused_clip_adamw: the Hopper
+kernel on the card, its plain version on the CPU. Nothing in the step reads a
+value back to the host: metrics stay tensors on the device until the loop
+fetches them at a log step.
+"""
 
 from __future__ import annotations
 
-import torch
+from typing import Callable, Dict, List
 
+import torch
+import torch.nn.functional as F
+
+from vitax_torch.config import Config
 from vitax_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from vitax_torch.ops.fused_optimizer import fused_clip_adamw, fused_optimizer_active, global_norm
+from vitax_torch.train.state import AdamW, TrainState
+
+Batch = Dict[str, torch.Tensor]
 
 
 def prepare_images(images: torch.Tensor) -> torch.Tensor:
@@ -17,3 +34,84 @@ def prepare_images(images: torch.Tensor) -> torch.Tensor:
     mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
     std = torch.as_tensor(IMAGENET_STD, device=images.device)
     return (images.float() / 255.0 - mean) / std
+
+
+def _microbatch_split(batch: Batch, k_steps: int) -> List[Batch]:
+    """K microbatches with the strided assignment of vitax's split:
+    microbatch k holds samples k, k + K, k + 2K, ... (views, no copy)."""
+    return [{name: x[k::k_steps] for name, x in batch.items()} for k in range(k_steps)]
+
+
+def _make_update_fn(cfg: Config, optimizer: AdamW, device) -> Callable:
+    """update(state, grads) -> grad_norm: one global-norm reduction feeds the
+    clip and the metric; clip+AdamW updates the params, mu and nu in place
+    and advances state.count and state.step."""
+    fused_optimizer_active(cfg, device)       # raises for --fused_optimizer off on the card
+
+    def update(state: TrainState, grads: List[torch.Tensor]) -> torch.Tensor:
+        _, params, mu, nu = state.leaves()
+        grad_norm = global_norm(grads)
+        state.count = fused_clip_adamw(
+            params, grads, mu, nu, state.count, grad_norm=grad_norm,
+            schedule=optimizer.schedule, clip_norm=optimizer.clip_grad_norm,
+            weight_decay=optimizer.weight_decay, b1=optimizer.b1, b2=optimizer.b2,
+            eps=optimizer.eps)
+        state.step += 1
+        return grad_norm
+
+    return update
+
+
+def make_train_step(cfg: Config, optimizer: AdamW, device) -> Callable[[TrainState, Batch], tuple]:
+    """train_step(state, batch) -> (state, metrics): metrics `loss` and
+    `grad_norm` are device tensors, `lr_step` the post-step count (the
+    reference logs lr after lr_scheduler.step()), `images` and `tokens` the
+    step's work counts. The state is updated in place and returned."""
+    update = _make_update_fn(cfg, optimizer, device)
+    k_steps = cfg.grad_accum_steps
+
+    def loss_fn(model, batch: Batch) -> torch.Tensor:
+        logits = model(prepare_images(batch["image"]))
+        return F.cross_entropy(logits.float(), batch["label"])
+
+    def train_step(state: TrainState, batch: Batch):
+        model = state.model
+        model.zero_grad(set_to_none=True)
+        if k_steps == 1:
+            loss = loss_fn(model, batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            # per-microbatch backward, grads summed in float32 in p.grad
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            for mb in _microbatch_split(batch, k_steps):
+                loss_k = loss_fn(model, mb)
+                loss_k.backward()
+                loss = loss + loss_k.detach()
+            loss = loss * (1.0 / k_steps)
+            for p in model.parameters():
+                p.grad.mul_(1.0 / k_steps)
+        grads = [p.grad for _, p in model.named_parameters()]
+        grad_norm = update(state, grads)
+        metrics = {"loss": loss, "grad_norm": grad_norm, "lr_step": state.step,
+                   "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: Config) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
+    """eval_step(state, batch) -> {"correct", "correct_top5"}: prediction
+    counts over the batch, device tensors (top-5 clamps to the class count)."""
+    k5 = min(5, cfg.num_classes)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        logits = state.model(prepare_images(batch["image"]))
+        label = batch["label"]
+        pred = logits.argmax(dim=-1)
+        top5 = logits.topk(k5, dim=-1).indices
+        return {"correct": (pred == label).sum(),
+                "correct_top5": (top5 == label[:, None]).any(dim=-1).sum()}
+
+    return eval_step
