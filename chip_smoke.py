@@ -12,18 +12,26 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      card, at the shapes the serve and train paths give it plus small
      ragged ones (the attention backward with a nonzero dlse and a bitwise
      repeat; the fused optimizer over leaves of assorted sizes, with the
-     clip triggered and idle);
-  4. kernel timing (CUDA events) of the attention kernels at their
-     main-path shapes, beside the plain version, PyTorch's own library
-     call and the least time the card could take;
+     clip triggered and idle; the dequant matmul weight-only with int8 and
+     fp8 weights, and act mode bitwise);
+  4. kernel timing (CUDA events) of the attention kernels and the dequant
+     matmul at their main-path shapes, beside the plain version, PyTorch's
+     own library call and the least time the card could take;
   5. model check: the 10B-width ViT at depth 2 with the kernels against the
      dense path on the same weights: logits (no grad), then the loss and
-     every parameter's gradient (bf16, batch 8);
+     every parameter's gradient (bf16, batch 8); then its weights
+     quantized, with the dequant matmul against its plain versions;
   6. serve main path: a full-width, full-depth 10B InferenceEngine (seeded
      init on the card) behind the HTTP server, answering 32 /predict
      requests from 8 threads and one /predict_batch of 8 images, with every
      kernel's launch count read around exactly that traffic, then a
      profile of one bucket-8 forward;
+  6q. quantized serving: that model quantized on the card to int8 and to
+     fp8, three engines (int8 weight-only, int8 with int8 activations, fp8
+     weight-only) each answering the same traffic over HTTP, with
+     dequant_matmul's launches checked at 129 per engine batch, the
+     footprint, a profile of one bucket-8 forward, latency, and an accuracy
+     gate against the full-precision engine on 64 seeded images;
   7. train main path: train() on the 10B-width model cut to depth 8, batch
      32, fake data, 12 steps and a 2-batch eval, with the launch counts of
      the run checked against the steps, sec/iter, images/s, MFU and peak
@@ -59,7 +67,7 @@ sys.path.insert(0, REPO)
 # FLOP/s by input type; bf16 on the tensor cores, float32 outside them (the
 # f32 path runs with TF32 off).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 SERVE_SHAPE = (8, 256, 32, 160)          # (B, N, H, Dh) of the 10B model at bucket 8
 TRAIN_SHAPE = (32, 256, 32, 160)         # ... at the train path's batch 32
@@ -86,6 +94,39 @@ MODEL_LOSS_REL_TOL = 3e-4
 # different points, which moves each gradient by a few bf16 ulps of its
 # largest entry: 7.4e-3 at most on the same card, so the bar is 2.5e-2.
 MODEL_GRAD_REL_TOL = 2.5e-2
+# Kernel C (dequant_matmul) at the 10B serve path's shapes: (site, K, F,
+# launches per bucket-8 forward); M is 8 x 256 = 2048 rows at the block
+# sites and 8 (one row an image) at the head.
+DEQUANT_SITES = (("qkv", 5120, 15360, 32), ("proj", 5120, 5120, 32), ("fc1", 5120, 20480, 32),
+                 ("fc2", 20480, 5120, 32), ("head", 5120, 1000, 1))
+DEQUANT_CHECK_SHAPES = ((5, 33, 17), (130, 257, 96), (1, 8, 4), (200, 520, 300))
+# Weight-only: max |d| <= tol * max |ref| against the f32 plain version. bf16
+# x: the tensor cores sum exact bf16 products in another order (and truncate
+# inside an mma), f32 x: FMAs in another order. The worst readings at these
+# shapes on an H100 80GB HBM3 at 700 W were 2.10e-5 (bf16, K 20480) and
+# 2.76e-6 (f32, K 5120) of max |ref| (PERF.md), so the bars are about 3x and
+# 3.6x those. Act mode must be bitwise equal. A check whose scales are
+# dropped, or whose sx is forced to 1, must land beyond the bar (it lands
+# 1.6e3-5.7e3 and 21-96 times max |ref| away).
+DEQUANT_TOL = {"bfloat16": 6e-5, "float32": 1e-5}
+# The 10B-width model at depth 2 quantized (int8 and fp8 weights), the
+# kernel at every Dense site against the plain versions at every site, on
+# the same quantized weights: max |dlogits| / max |logits|, by activation
+# mode. Weight-only: the per-site differences above flip bf16 roundings of
+# the site outputs, 1.43e-3 (int8) and 1.51e-3 (fp8) on the same card; act:
+# every block site is bitwise, only the weight-only head differs, 4.1e-6.
+# The bars are about 3.3x and 3.6x those.
+QUANT_MODEL_TOL = {"off": 5e-3, "int8": 1.5e-5}
+GATE_IMAGES = 64
+# Top-1 agreement with the full-precision engine on GATE_IMAGES seeded
+# images (labels = its own top-1). A random-init model's logits have small
+# margins, and on uniform noise images its top-1 took only 2 classes, so the
+# gate images are blocky colour fields (a 4 x 4 grid of random colours, 56
+# pixels a cell). The floor asks that the quantized engine keep most of the
+# full-precision answers; a path that loses the scales or the layout gives
+# logits unrelated to them and keeps about 1 in the number of classes the
+# labels span.
+GATE_TOP1_FLOOR = 0.5
 TRAIN = dict(num_blocks=8, batch_size=32, fake_data=True, max_steps=12, warmup_steps=4,
              log_step_interval=1, eval_max_batches=2, test_epoch_interval=1)
 SEED = 0
@@ -209,7 +250,73 @@ def phase_kernel_check(torch):
                 errs[(shape, dtype)] = d_o
     errs["flash_attn_bwd"] = check_attention_backward(torch)
     errs["fused_adamw"] = check_fused_adamw(torch)
+    errs["dequant_matmul"] = check_dequant_matmul(torch)
     return errs
+
+
+def dequant_operands(torch, m, k, f, dtype, seed):
+    """x (m, k) f32 and a per-channel quantized (f, k) weight of normal
+    draws, made on the card from a seed."""
+    from vitax_torch.checkpoint.consolidate import quantize_tensor
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w = torch.randn(f, k, generator=gen, device="cuda") * 0.02
+    q, s = quantize_tensor(w, (1,), dtype)
+    return x, q, s.reshape(-1).contiguous()
+
+
+def check_dequant_matmul(torch) -> float:
+    """Kernel C against its plain versions: weight-only with int8 and fp8
+    weights and bf16 x at the five main-path (K, F) pairs (M 2048, and the
+    head at M 1 and 8), plus f32 x at ragged small shapes; act mode (int8 x
+    int8) bitwise at all of them. Each check also measures how far a broken
+    kernel would land (scales dropped; sx forced to 1) and fails unless
+    that is beyond the bar. Returns max |d| of weight-only at the main-path
+    shapes."""
+    from vitax_torch.ops.dequant_matmul import _matmul_plain, dequant_matmul_cuda, quantize_activations
+    shapes = [(2048, k, f) for _, k, f, n in DEQUANT_SITES if n > 1] + [(1, 5120, 1000), (8, 5120, 1000)]
+    shapes += list(DEQUANT_CHECK_SHAPES)
+    worst = 0.0
+    with torch.inference_mode():
+        for i, (m, k, f) in enumerate(shapes):
+            on_path = m in (2048, 8) and (k, f) in {(kk, ff) for _, kk, ff, _ in DEQUANT_SITES}
+            for dtype in ("int8", "float8_e4m3"):
+                x, q, s = dequant_operands(torch, m, k, f, dtype, SEED + i)
+                for xdt in (("bfloat16",) if m == 2048 else ("bfloat16", "float32")):
+                    xx = x.to(getattr(torch, xdt))
+                    got = dequant_matmul_cuda(xx, q, s)
+                    want = _matmul_plain(xx, q, s, None)
+                    dropped = _matmul_plain(xx, q, torch.ones_like(s), None)
+                    torch.cuda.synchronize()
+                    ref = want.abs().max().item()
+                    d = (got - want).abs().max().item()
+                    d_broken = (got - dropped).abs().max().item()
+                    bar = DEQUANT_TOL[xdt] * ref
+                    ok = bool(torch.isfinite(got).all()) and d <= bar and d_broken > bar
+                    say(f"[3 check] dequant_matmul {m}x{k}x{f} {dtype} w, {xdt} x: max|d| {d:.3e} "
+                        f"(<= {bar:.3e}, max|ref| {ref:.3e}, ratio {d / ref:.2e}); scales dropped: "
+                        f"{d_broken:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"dequant_matmul disagrees with its plain version at {m}x{k}x{f} {dtype} {xdt}")
+                    if on_path and xdt == "bfloat16":
+                        worst = max(worst, d)
+                if dtype == "int8":
+                    xq, sx = quantize_activations(x.to(torch.bfloat16))
+                    got = dequant_matmul_cuda(xq, q, s, sx)
+                    want = _matmul_plain(xq, q, s, sx)
+                    forced = _matmul_plain(xq, q, s, torch.ones_like(sx))
+                    torch.cuda.synchronize()
+                    equal = torch.equal(got, want)
+                    d_broken = (got - forced).abs().max().item()
+                    ok = equal and d_broken > DEQUANT_TOL["bfloat16"] * want.abs().max().item()
+                    say(f"[3 check] dequant_matmul {m}x{k}x{f} act int8 x int8: bitwise equal {equal}; "
+                        f"sx forced to 1: max|d| {d_broken:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"dequant_matmul act mode is not bitwise equal to its plain version at {m}x{k}x{f}")
+                del x, q, s
+    torch.cuda.empty_cache()
+    return worst
 
 
 def check_attention_backward(torch) -> float:
@@ -331,7 +438,79 @@ def phase_kernel_timing(torch, card):
     timing = {"flash_attn_fwd": {"ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms,
                                  "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}}
     timing["flash_attn_bwd"] = time_attention_train_shape(torch, card)
+    timing["dequant_matmul"] = time_dequant_matmul(torch, card)
     return timing
+
+
+def dequant_bound_ms(m, k, f, act: bool):
+    """Least time for one call: x (bf16, or int8 codes in act mode), the
+    1-byte weight and the scales read once, the f32 output written once,
+    over HBM bandwidth; 2 M K F operations over the bf16 (weight-only) or
+    int8 (act) tensor-core peak."""
+    nbytes = m * k * (1 if act else 2) + f * k + 4 * f + 4 * m * f + (4 if act else 0)
+    ops = 2 * m * k * f
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["int8" if act else "bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def time_dequant_matmul(torch, card):
+    """Kernel C at each main-path site (M 2048; the head at M 8), CUDA
+    events: weight-only with int8 and fp8 weights (bf16 x) and act mode,
+    beside the plain versions, the bound and the library yardsticks
+    (weight-only: F.linear on a weight dequantized to bf16 beforehand, which
+    reads 2 bytes a weight where the kernel reads 1; act: torch._int_mm and
+    the same epilogue). Returns the weight-only int8 timing summed over the
+    129 launches of one bucket-8 forward, the `kernels` line's entry."""
+    import torch.nn.functional as F
+    from vitax_torch.ops.dequant_matmul import _matmul_plain, dequant_matmul_cuda, quantize_activations
+    sums = {key: 0.0 for key in ("wo", "wo2", "fp8", "act", "plain", "plain_act", "lib", "lib_act", "bound",
+                                 "bound_act")}
+    fwd_bytes = fwd_ops = 0
+    with torch.inference_mode():
+        for i, (site, k, f, n) in enumerate(DEQUANT_SITES):
+            m = 2048 if n > 1 else 8
+            x, q, s = dequant_operands(torch, m, k, f, "int8", SEED + 40 + i)
+            xb = x.to(torch.bfloat16)
+            _, q8, s8 = dequant_operands(torch, m, k, f, "float8_e4m3", SEED + 40 + i)
+            wd = (q.float() * s[:, None]).to(torch.bfloat16)
+            iters = 20 if n > 1 else 200
+            wo = time_ms(torch, lambda: dequant_matmul_cuda(xb, q, s), iters=iters)
+            fp8 = time_ms(torch, lambda: dequant_matmul_cuda(xb, q8, s8), iters=iters)
+            plain = time_ms(torch, lambda: _matmul_plain(xb, q, s, None), iters=max(3, iters // 10))
+            lib = time_ms(torch, lambda: F.linear(xb, wd), iters=iters)
+            wo2 = time_ms(torch, lambda: dequant_matmul_cuda(xb, q, s), iters=iters)
+            b_ms, b_by, nbytes, ops = dequant_bound_ms(m, k, f, act=False)
+            line = (f"[4 time] dequant_matmul {site} {m}x{k}x{f}: weight-only int8 {wo:.4f} / {wo2:.4f} ms, "
+                    f"fp8 {fp8:.4f} ms, plain {plain:.4f} ms, F.linear bf16 {lib:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+            for key, v in (("wo", wo), ("wo2", wo2), ("fp8", fp8), ("plain", plain), ("lib", lib), ("bound", b_ms)):
+                sums[key] += n * v
+            fwd_bytes, fwd_ops = fwd_bytes + n * nbytes, fwd_ops + n * ops
+            if n > 1:                                   # the head never act-quantizes
+                xq, sx = quantize_activations(xb)
+                act = time_ms(torch, lambda: dequant_matmul_cuda(xq, q, s, sx), iters=iters)
+                plain_act = time_ms(torch, lambda: _matmul_plain(xq, q, s, sx), iters=3)
+                lib_act = time_ms(torch, lambda: (torch._int_mm(xq, q.t()).float() * sx) * s, iters=iters)
+                a_ms, a_by, _, _ = dequant_bound_ms(m, k, f, act=True)
+                line += (f"; act {act:.4f} ms, plain {plain_act:.4f} ms, _int_mm + epilogue {lib_act:.4f} ms, "
+                         f"bound {a_ms:.4f} ms ({a_by})")
+                for key, v in (("act", act), ("plain_act", plain_act), ("lib_act", lib_act), ("bound_act", a_ms)):
+                    sums[key] += n * v
+            else:                                       # so the act forward runs it weight-only
+                for key, v in (("act", wo), ("plain_act", plain), ("lib_act", lib), ("bound_act", b_ms)):
+                    sums[key] += n * v
+            say(line + f" [{card}]")
+            del x, q, s, xb, q8, s8, wd
+    torch.cuda.empty_cache()
+    say(f"[4 time] dequant_matmul, one bucket-8 forward's {sum(n for *_, n in DEQUANT_SITES)} launches: "
+        f"weight-only int8 {sums['wo']:.3f} / {sums['wo2']:.3f} ms, fp8 {sums['fp8']:.3f} ms, plain "
+        f"{sums['plain']:.3f} ms, F.linear bf16 {sums['lib']:.3f} ms, bound {sums['bound']:.3f} ms; act (head "
+        f"weight-only) {sums['act']:.3f} ms, plain {sums['plain_act']:.3f} ms, _int_mm {sums['lib_act']:.3f} ms, "
+        f"bound {sums['bound_act']:.3f} ms [{card}]")
+    # the forward's 129 calls as one piece of work: its bytes and its operations
+    t_bytes, t_ops = fwd_bytes / HBM_BYTES_PER_S * 1e3, fwd_ops / PEAK_FLOPS["bfloat16"] * 1e3
+    return {"ms": min(sums["wo"], sums["wo2"]), "plain_ms": sums["plain"], "library_ms": sums["lib"],
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def time_attention_train_shape(torch, card):
@@ -428,8 +607,52 @@ def phase_model_check(torch):
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(groups.items())) + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("model gradients with the kernels disagree with the dense model's")
-    del model, dense, x, grads
+    del dense, x, grads
+    check_quant_model(torch, model, images)
+    del model
     torch.cuda.empty_cache()
+
+
+def check_quant_model(torch, model, images):
+    """The depth-2 model's weights quantized on the card (int8 and fp8),
+    run with the kernel at every Dense site against the same quantized
+    weights through the plain versions (called explicitly here, and only
+    here), weight-only and with int8 activations: the logits bar, and 4
+    launches per block plus the head."""
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import Quant, build_model
+    from vitax_torch.ops import _build
+    from vitax_torch.ops.attention import make_attention_impl
+    from vitax_torch.ops.dequant_matmul import dequant_matmul_plain, make_quant_matmul
+    from vitax_torch.serve.quant import quantize_params_for_serve
+    from vitax_torch.train.step import prepare_images
+    with torch.inference_mode():
+        x = prepare_images(images)
+        for dtype, act in (("int8", "off"), ("int8", "int8"), ("float8_e4m3", "off")):
+            cfg = Config(num_blocks=2, seed=SEED, serve_quant_dtype=dtype, serve_act_quant=act).validate()
+            qstate = quantize_params_for_serve(dict(model.state_dict()), dtype)
+
+            def plain_matmul(x, w, s, act=True, act_mode=act == "int8"):
+                return dequant_matmul_plain(x, w, s, act=act_mode and act)
+
+            logits, launched = [], []
+            for qm in (make_quant_matmul(cfg), plain_matmul):
+                m = build_model(cfg, "cuda", attention_impl=make_attention_impl(cfg, "cuda"), init=False,
+                                quant=Quant(dtype, qm))
+                m.load_state_dict(qstate, strict=True, assign=True)
+                before = _build.LAUNCHES["dequant_matmul"]
+                logits.append(m(x).float())
+                launched.append(_build.LAUNCHES["dequant_matmul"] - before)
+                del m
+            got, want = logits
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            bar = QUANT_MODEL_TOL[act]
+            ok = bool(torch.isfinite(got).all()) and rel <= bar and launched == [4 * cfg.num_blocks + 1, 0]
+            say(f"[5 model] 10B width, depth 2, {dtype} weights, activations {act}: kernel vs plain versions "
+                f"max|dlogits|/max|logits| {rel:.3e} (<= {bar}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the quantized model with the kernel disagrees with its plain versions ({dtype}, act {act})")
+            del qstate, logits, got, want
 
 
 def ppm_bytes(rng, size: int = 256) -> bytes:
@@ -454,7 +677,8 @@ def check_answer(ans: dict, k: int, num_classes: int) -> None:
 
 
 KERNEL_GROUPS = (("flash_attn_fwd", r"flash_attn_fwd"), ("flash_attn_bwd", r"bwd_dkdv|bwd_dq|delta_kernel"),
-                 ("fused_adamw", r"fused_adamw"), ("gemm", r"gemm|xmma|nvjet|cutlass|sm90_"))
+                 ("fused_adamw", r"fused_adamw"), ("dequant_matmul", r"dequant_matmul"),
+                 ("gemm", r"gemm|xmma|nvjet|cutlass|sm90_"))
 
 
 def profile_device(torch, fn, label: str, card: str, phase: str, top: int = 8) -> None:
@@ -494,26 +718,14 @@ def profile_forward(torch, engine, cfg, card):
     profile_device(torch, lambda: engine.predict(x), "bucket-8 forward", card, "6")
 
 
-def phase_main_path(torch, card):
-    from vitax_torch.config import Config
-    from vitax_torch.models.vit import build_model, count_params
+def serve_over_http(torch, engine, cfg, label: str):
+    """Put `engine` behind the HTTP server and send it the main path's
+    traffic: 32 /predict requests from 8 threads, then one /predict_batch of
+    8 images, with every kernel's launch count read around exactly that
+    traffic. Checks the answers and the server's counts; returns (launches,
+    /metrics, engine batches, client latencies, wall seconds)."""
     from vitax_torch.ops import _build
-    from vitax_torch.ops.attention import make_attention_impl
-    from vitax_torch.serve import InferenceEngine, start_server, stop_server
-
-    cfg = Config(seed=SEED, serve_port=0).validate()      # the 10B flagship, bf16 compute
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = build_model(cfg, "cuda", attention_impl=make_attention_impl(cfg, "cuda"))
-    engine = InferenceEngine(cfg, model, "cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_params = count_params(model)
-    warm = engine.warmup()
-    say(f"[6 main] 10B engine: {n_params:,} params ({engine.weights_dtype}, "
-        f"{engine.param_bytes() / 1e9:.1f} GB) depth {cfg.num_blocks} width {cfg.embed_dim} "
-        f"heads {cfg.num_heads} patch {cfg.patch_size} image {cfg.image_size}, init {t_init:.1f}s, "
-        f"warmup " + ", ".join(f"{b}:{s:.2f}s" for b, s in warm.items()))
+    from vitax_torch.serve import start_server, stop_server
     httpd, ctx = start_server(cfg, engine, port=0)
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     rng = np.random.default_rng(SEED)
@@ -544,7 +756,7 @@ def phase_main_path(torch, card):
         wall = time.perf_counter() - t_start
         launches = dict(_build.LAUNCHES)
         if errors or any(t.is_alive() for t in threads):
-            fail(f"requests failed: {errors[:4]}")
+            fail(f"{label}: requests failed: {errors[:4]}")
         health = http(url + "/healthz")
         metrics = http(url + "/metrics")
     finally:
@@ -554,32 +766,120 @@ def phase_main_path(torch, card):
         check_answer(ans, cfg.serve_topk, cfg.num_classes)
     items = batch_reply["results"]
     if len(items) != 8 or any(it["status"] != 200 for it in items):
-        fail(f"/predict_batch items failed: {items}")
+        fail(f"{label}: /predict_batch items failed: {items}")
     batch_answers = [json.loads(it["body"]) for it in items]
     for ans in batch_answers:
         check_answer(ans, cfg.serve_topk, cfg.num_classes)
     if not health["ready"]:
-        fail(f"/healthz not ready: {health}")
+        fail(f"{label}: /healthz not ready: {health}")
     if metrics["requests_total"] != 40 or metrics["errors_total"] != 0:
-        fail(f"/metrics counts {metrics['requests_total']} requests, {metrics['errors_total']} errors; "
+        fail(f"{label}: /metrics counts {metrics['requests_total']} requests, {metrics['errors_total']} errors; "
              f"expected 40 and 0")
     batches = metrics["batches_flushed"]
-    per_forward = cfg.num_blocks
-    if launches["flash_attn_fwd"] != per_forward * batches:
-        fail(f"flash_attn_fwd launched {launches['flash_attn_fwd']} times for {batches} engine batches; "
-             f"expected {per_forward} per batch")
-    lat = np.sort(np.asarray(latencies))
-    say(f"[6 main] 40 requests in {wall:.3f}s = {40 / wall:.2f} images/s; /predict latency p50 "
-        f"{np.percentile(lat, 50) * 1e3:.1f} ms p95 {np.percentile(lat, 95) * 1e3:.1f} ms (client), "
-        f"server p50 {metrics['latency_s_p50'] * 1e3:.1f} ms p95 {metrics['latency_s_p95'] * 1e3:.1f} ms; "
-        f"{batches} engine batches, occupancy {metrics['batch_occupancy_mean']}; "
+    if launches["flash_attn_fwd"] != cfg.num_blocks * batches:
+        fail(f"{label}: flash_attn_fwd launched {launches['flash_attn_fwd']} times for {batches} engine batches; "
+             f"expected {cfg.num_blocks} per batch")
+    return launches, metrics, batches, np.sort(np.asarray(latencies)), wall
+
+
+def traffic_line(metrics, batches, lat, wall) -> str:
+    return (f"40 requests in {wall:.3f}s = {40 / wall:.2f} images/s; /predict latency p50 "
+            f"{np.percentile(lat, 50) * 1e3:.1f} ms p95 {np.percentile(lat, 95) * 1e3:.1f} ms (client), "
+            f"server p50 {metrics['latency_s_p50'] * 1e3:.1f} ms p95 {metrics['latency_s_p95'] * 1e3:.1f} ms; "
+            f"{batches} engine batches, occupancy {metrics['batch_occupancy_mean']}")
+
+
+def phase_main_path(torch, card):
+    """The full 10B engine (f32 params, bf16 compute) over HTTP. Returns
+    (launches, the engine), kept for the quantized phase."""
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import build_model, count_params
+    from vitax_torch.ops.attention import make_attention_impl
+    from vitax_torch.serve import InferenceEngine
+
+    cfg = Config(seed=SEED, serve_port=0).validate()      # the 10B flagship, bf16 compute
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda", attention_impl=make_attention_impl(cfg, "cuda"))
+    engine = InferenceEngine(cfg, model, "cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = count_params(model)
+    warm = engine.warmup()
+    say(f"[6 main] 10B engine: {n_params:,} params ({engine.weights_dtype}, "
+        f"{engine.param_bytes() / 1e9:.1f} GB) depth {cfg.num_blocks} width {cfg.embed_dim} "
+        f"heads {cfg.num_heads} patch {cfg.patch_size} image {cfg.image_size}, init {t_init:.1f}s, "
+        f"warmup " + ", ".join(f"{b}:{s:.2f}s" for b, s in warm.items()))
+    launches, metrics, batches, lat, wall = serve_over_http(torch, engine, cfg, "6 main")
+    say(f"[6 main] {traffic_line(metrics, batches, lat, wall)}; "
         f"flash_attn_fwd launches {launches['flash_attn_fwd']}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
     profile_forward(torch, engine, cfg, card)
-    del engine, model, httpd, ctx
-    gc.collect()                           # free the 40 GB engine before the train path
-    torch.cuda.empty_cache()
-    return launches
+    return launches, engine
+
+
+def phase_quant_serve(torch, card, engine_f32):
+    """Quantized serving: phase 6's full-width, full-depth 10B model
+    quantized on the card to int8 and to fp8, three engines (int8
+    weight-only, int8 with int8 activations, fp8 weight-only) over HTTP,
+    each with its launch counts, footprint, profile, latency and accuracy
+    gate against the full-precision engine. Returns the launches of each
+    kernel summed over the three engines' traffic."""
+    from vitax_torch.config import Config
+    from vitax_torch.serve import InferenceEngine
+    from vitax_torch.serve.quant import quantize_params_for_serve, run_quant_gate
+
+    rng = np.random.default_rng(SEED + 6)
+    cfg0 = engine_f32.cfg
+    cell = cfg0.image_size // 4
+    images = np.repeat(np.repeat(rng.integers(0, 256, (GATE_IMAGES, 4, 4, 3), dtype=np.uint8), cell, axis=1),
+                       cell, axis=2)
+    labels = np.concatenate([engine_f32.predict(images[i:i + 8])[0][:, 0] for i in range(0, GATE_IMAGES, 8)])
+    counts = np.bincount(labels)
+    say(f"[6q gate] labels: the full-precision engine's top-1 on {GATE_IMAGES} seeded colour-field images: "
+        f"{int((counts > 0).sum())} distinct classes, the most common {counts.max() / GATE_IMAGES:.4f} of them")
+    states = {}
+    for dtype in ("int8", "float8_e4m3"):
+        t0 = time.perf_counter()
+        states[dtype] = quantize_params_for_serve(dict(engine_f32.model.state_dict()), dtype)
+        torch.cuda.synchronize()
+        say(f"[6q quant] {dtype}: quantized the 10B model on the card in {time.perf_counter() - t0:.2f}s; "
+            f"memory_allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB (the f32 engine kept for the gate)")
+    per_forward = 4 * cfg0.num_blocks + 1
+    total = {}
+    for dtype, act in (("int8", "off"), ("int8", "int8"), ("float8_e4m3", "off")):
+        label = f"6q {dtype}" + (" act int8" if act != "off" else "")
+        cfg = Config(seed=SEED, serve_port=0, serve_quant_dtype=dtype, serve_act_quant=act).validate()
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngine.from_state(cfg, states[dtype], "cuda", dtype)
+        warm = engine.warmup()
+        say(f"[{label}] engine: weights_dtype {engine.weights_dtype}, act_quant {engine.act_quant}, "
+            f"fused_dequant {engine.fused_dequant}, param_bytes {engine.param_bytes():,} "
+            f"({engine.param_bytes() / 1e9:.2f} GB; f32 engine {engine_f32.param_bytes() / 1e9:.2f} GB), "
+            f"warmup " + ", ".join(f"{b}:{s:.2f}s" for b, s in warm.items()))
+        launches, metrics, batches, lat, wall = serve_over_http(torch, engine, cfg, label)
+        if launches["dequant_matmul"] != per_forward * batches:
+            fail(f"{label}: dequant_matmul launched {launches['dequant_matmul']} times for {batches} engine "
+                 f"batches; expected {per_forward} per batch")
+        if metrics["weights_dtype"] != dtype or metrics["act_quant"] != act or metrics["fused_dequant"] is not True:
+            fail(f"{label}: /metrics reports {metrics['weights_dtype']}, {metrics['act_quant']}, "
+                 f"{metrics['fused_dequant']}")
+        total = {name: total.get(name, 0) + v for name, v in launches.items()}
+        say(f"[{label}] {traffic_line(metrics, batches, lat, wall)}; dequant_matmul launches "
+            f"{launches['dequant_matmul']} ({per_forward} per batch), flash_attn_fwd {launches['flash_attn_fwd']}; "
+            f"memory_allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+        x = np.zeros((8, cfg.image_size, cfg.image_size, 3), np.uint8)
+        profile_device(torch, lambda: engine.predict(x), f"{label} bucket-8 forward", card, "6q")
+        gate = run_quant_gate(engine_f32, engine, images, labels)
+        floor = GATE_TOP1_FLOOR
+        ok = gate["top1_quant"] >= floor
+        say(f"[{label} gate] {json.dumps(gate)}; top-1 floor {floor} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{label}: top-1 agreement with the full-precision engine {gate['top1_quant']} below {floor}")
+        del engine
+    del states
+    return total
 
 
 def phase_train(torch, card):
@@ -617,7 +917,7 @@ def phase_train(torch, card):
     # per optimizer step: a forward and a recompute per block, a backward per
     # block, one optimizer launch; the eval adds a forward per block per batch
     want = {"flash_attn_fwd": cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks,
-            "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps}
+            "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps, "dequant_matmul": 0}
     if launches != want:
         fail(f"train() launched {launches}; expected {want}")
     times = [r["step_seconds"] for r in steps[2:]]          # steps 3 to 12
@@ -645,7 +945,8 @@ def phase_train(torch, card):
     profile_device(torch, lambda: train_step(state, batch), f"one train step (batch {cfg.batch_size}, "
                    f"depth {cfg.num_blocks})", card, "7", top=14)
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}       # a warm step, then the profiled one
-    want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1}
+    want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1,
+                 "dequant_matmul": 0}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7 train] launches per steady step {per_step}")
@@ -724,12 +1025,17 @@ def main() -> int:
     errs = phase_kernel_check(torch)
     timing = phase_kernel_timing(torch, card)
     phase_model_check(torch)
-    serve_launches = phase_main_path(torch, card)
+    serve_launches, engine_f32 = phase_main_path(torch, card)
+    quant_launches = phase_quant_serve(torch, card, engine_f32)
+    del engine_f32
+    gc.collect()                           # free the 40 GB engine before the train path
+    torch.cuda.empty_cache()
     train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]) = phase_train(torch, card)
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_fwd.cu",
          "replaces": "vitax/ops/attention.py:275",
-         "launches": serve_launches["flash_attn_fwd"] + train_launches["flash_attn_fwd"],
+         "launches": (serve_launches["flash_attn_fwd"] + quant_launches["flash_attn_fwd"]
+                      + train_launches["flash_attn_fwd"]),
          "max_abs_err": errs[(SERVE_SHAPE, "bfloat16")], **timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_bwd.cu",
          "replaces": "vitax/ops/attention.py:302", "launches": train_launches["flash_attn_bwd"],
@@ -737,6 +1043,9 @@ def main() -> int:
         {"name": "fused_adamw", "route": "cuda", "source": "vitax_torch/csrc/fused_adamw.cu",
          "replaces": "vitax/ops/fused_optimizer.py:112", "launches": train_launches["fused_adamw"],
          "max_abs_err": max(errs["fused_adamw"], errs["fused_adamw_table"]), **timing["fused_adamw"]},
+        {"name": "dequant_matmul", "route": "cuda", "source": "vitax_torch/csrc/dequant_matmul.cu",
+         "replaces": "vitax/ops/dequant_matmul.py:92", "launches": quant_launches["dequant_matmul"],
+         "max_abs_err": errs["dequant_matmul"], **timing["dequant_matmul"]},
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

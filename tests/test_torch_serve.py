@@ -108,12 +108,67 @@ def test_engine_serves_only_warmed_buckets(tmp_path):
     np.testing.assert_array_equal(one[0][0], two[0][1])      # padding does not leak across rows
 
 
-def test_quantized_export_raises(tmp_path):
+def test_quantized_export_loads(tmp_path):
+    """The quantized file an earlier slice refused now loads: int8 codes,
+    the float32 scale and the manifest."""
     from vitax.checkpoint.consolidate import save_npz
     path = str(tmp_path / "q.npz")
     save_npz(path, {"params/head/kernel": np.ones((4, 3), np.float32)}, dtype="int8")
-    with pytest.raises(ValueError, match="quantized"):
-        load_npz_raw(path)
+    flat, scales, manifest = load_npz_raw(path)
+    assert manifest == {"params/head/kernel": "int8"}
+    assert flat["params/head/kernel"].dtype == torch.int8 and bool((flat["params/head/kernel"] == 127).all())
+    np.testing.assert_array_equal(scales["params/head/kernel"].numpy(), np.full((1, 3), 1 / 127, np.float32))
+
+
+QUANT_ARMS = [("int8", dict()), ("int8", dict(fused_dequant="on")), ("int8", dict(serve_act_quant="int8")),
+              ("float8_e4m3", dict()), ("float8_e4m3", dict(fused_dequant="on"))]
+
+
+@pytest.mark.parametrize("qdtype,arm", QUANT_ARMS)
+def test_quantized_engine_matches_jax_engine(tmp_path, qdtype, arm):
+    """One quantized export through both engines at bf16 compute, in the
+    three arms: fused_dequant auto (dequantize at use, both sides), on (the
+    JAX Pallas kernel in interpret mode against the port's plain version)
+    and int8 activations. Top-k ids equal, probs within 5e-3 (bf16 rounds
+    activations at other points in the two frameworks, and with int8
+    activations vitax's head scales the weight before its product);
+    weights_dtype, param_bytes and the /metrics quant fields equal."""
+    from vitax.config import Config as JaxConfig
+    from vitax.serve import InferenceEngine as JaxEngine
+    path = export(str(tmp_path), qdtype)
+    kw = dict(**TINY, serve_quant_dtype=qdtype, **arm)
+    jeng = JaxEngine.from_npz(JaxConfig(**kw, serve_port=0).validate(), path)
+    jeng.warmup()
+    cfg = Config(**kw, serve_port=0).validate()
+    teng = InferenceEngine.from_npz(cfg, path, "cpu")
+    teng.warmup()
+    assert teng.weights_dtype == jeng.weights_dtype == qdtype
+    assert teng.param_bytes() == jeng.param_bytes()
+    assert (teng.act_quant, teng.fused_dequant) == (jeng.act_quant, jeng.fused_dequant)
+    assert teng.fused_dequant == (arm.get("fused_dequant") == "on")
+    assert len(teng.scales) == 4 * TINY["num_blocks"] + 2
+    x = uint8_images(3, 16, seed=7)
+    for rows in (x[:1], x[1:3]):
+        ids_j, p_j = jeng.predict(rows)
+        ids_t, p_t = teng.predict(rows)
+        np.testing.assert_array_equal(ids_t, ids_j)
+        np.testing.assert_allclose(p_t, p_j, atol=5e-3)
+    httpd, ctx = start_server(cfg, teng, port=0)
+    try:
+        metrics = http(f"http://127.0.0.1:{httpd.server_address[1]}/metrics")
+    finally:
+        stop_server(httpd, ctx)
+    assert metrics["weights_dtype"] == qdtype and metrics["param_bytes"] == jeng.param_bytes()
+    assert metrics["act_quant"] == jeng.act_quant and metrics["fused_dequant"] == jeng.fused_dequant
+
+
+def test_quant_dtype_flag_asserts_the_manifest(tmp_path):
+    with pytest.raises(ValueError, match="no __quant__ manifest"):
+        InferenceEngine.from_npz(Config(**TINY, serve_quant_dtype="int8").validate(),
+                                 export(str(tmp_path), "float32"), "cpu")
+    with pytest.raises(ValueError, match="float8_e4m3"):
+        InferenceEngine.from_npz(Config(**TINY, serve_quant_dtype="int8").validate(),
+                                 export(str(tmp_path), "float8_e4m3"), "cpu")
 
 
 def test_bf16_leaves_load_exactly(tmp_path):
@@ -122,7 +177,8 @@ def test_bf16_leaves_load_exactly(tmp_path):
     flat = {"params/a": np.linspace(-3, 3, 12, dtype=np.float32).reshape(3, 4), "step": np.int32(7)}
     path = str(tmp_path / "b.npz")
     save_npz(path, flat, dtype="bfloat16")
-    got = load_npz_raw(path)
+    got, scales, manifest = load_npz_raw(path)
+    assert not scales and not manifest
     assert got["params/a"].dtype == torch.bfloat16 and got["step"].dtype == torch.int32
     want = flat["params/a"].astype(ml_dtypes.bfloat16).astype(np.float32)
     np.testing.assert_array_equal(got["params/a"].float().numpy(), want)
@@ -205,11 +261,11 @@ def test_http_round_trip_on_cpu(tmp_path):
         assert key in metrics, key
 
 
-def test_cli_serves_on_cpu_and_drains_on_sigterm(tmp_path):
-    path = export(str(tmp_path), "float32")
+def _serve_cli_once(path, *flags):
+    """Start the serve CLI on the CPU, answer one /predict, drain on SIGTERM."""
     argv = [sys.executable, "-m", "vitax_torch.serve", "--npz", path, "--device", "cpu", "--serve_port", "0",
             "--image_size", "16", "--patch_size", "8", "--embed_dim", "32", "--num_heads", "2",
-            "--num_blocks", "2", "--num_classes", "4", "--dtype", "float32"]
+            "--num_blocks", "2", "--num_classes", "4", *flags]
     proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         port = None
@@ -224,13 +280,28 @@ def test_cli_serves_on_cpu_and_drains_on_sigterm(tmp_path):
             time.sleep(0.05)
         ans = http(url + "/predict", ppm(uint8_images(1, 18, 6)[0]))
         assert len(ans["classes"]) == 4          # default --serve_topk 5, clamped to 4 classes
+        metrics = http(url + "/metrics")
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
+        return metrics
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=10)
         proc.stdout.close()
+
+
+def test_cli_serves_on_cpu_and_drains_on_sigterm(tmp_path):
+    _serve_cli_once(export(str(tmp_path), "float32"), "--dtype", "float32")
+
+
+@pytest.mark.parametrize("qdtype,flags", [("int8", ()), ("int8", ("--serve_act_quant", "int8")),
+                                          ("float8_e4m3", ("--fused_dequant", "on"))])
+def test_cli_serves_quantized_export_on_cpu(tmp_path, qdtype, flags):
+    metrics = _serve_cli_once(export(str(tmp_path), qdtype), "--serve_quant_dtype", qdtype, *flags)
+    assert metrics["weights_dtype"] == qdtype
+    assert metrics["act_quant"] == ("int8" if "--serve_act_quant" in flags else "off")
+    assert metrics["fused_dequant"] == ("--fused_dequant" in flags)
 
 
 def test_entry_points_default_to_the_card():
@@ -389,3 +460,102 @@ def test_engine_on_card_matches_cpu_engine():
     assert _build.LAUNCHES["flash_attn_fwd"] == before + cfg.num_blocks
     np.testing.assert_array_equal(ids_g, ids_c)
     np.testing.assert_allclose(p_g, p_c, atol=1e-5)
+
+
+def numpy_quantized_export(path: str, qdtype: str, seed: int = 0) -> None:
+    """A quantized export of random TINY weights in the JAX package's npz
+    format, written with numpy and the port's quantizer only (the card's
+    host has no flax)."""
+    from vitax_torch.checkpoint.consolidate import (QUANT_MANIFEST_KEY, QUANT_SCALE_PREFIX, quant_manifest,
+                                                     quantize_flat)
+    rng = np.random.default_rng(seed)
+    d, h, L, c, p = 32, 128, 2, 4, 8
+    shapes = {"patch_embed/proj/kernel": (p, p, 3, d), "patch_embed/proj/bias": (d,), "pos_embed": (1, 4, d),
+              "blocks/attn/qkv/kernel": (L, d, 3 * d), "blocks/attn/qkv/bias": (L, 3 * d),
+              "blocks/attn/proj/kernel": (L, d, d), "blocks/attn/proj/bias": (L, d),
+              "blocks/mlp/fc1/kernel": (L, d, h), "blocks/mlp/fc1/bias": (L, h),
+              "blocks/mlp/fc2/kernel": (L, h, d), "blocks/mlp/fc2/bias": (L, d),
+              "blocks/norm1/scale": (L, d), "blocks/norm1/bias": (L, d), "blocks/norm2/scale": (L, d),
+              "blocks/norm2/bias": (L, d), "norm/scale": (d,), "norm/bias": (d,),
+              "head/kernel": (d, c), "head/bias": (c,)}
+    flat = {f"params/{k}": (rng.standard_normal(v) * (1.0 if k.endswith("scale") else 0.02)).astype(np.float32)
+            for k, v in shapes.items()}
+    flat["params/head/kernel"] *= 50.0
+    qflat, scales = quantize_flat(flat, qdtype)
+    payload = {k: (v.view(torch.uint8) if v.dtype == torch.float8_e4m3fn else v).numpy()
+               if isinstance(v, torch.Tensor) else v for k, v in qflat.items()}
+    payload[QUANT_MANIFEST_KEY] = np.asarray(quant_manifest(scales, qdtype))
+    payload.update({QUANT_SCALE_PREFIX + k: v.numpy() for k, v in scales.items()})
+    np.savez(path, **payload)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype,act", [("int8", "off"), ("int8", "int8"), ("float8_e4m3", "off")])
+def test_quantized_engine_on_card_matches_cpu_engine(tmp_path, qdtype, act):
+    """One quantized export served on the card (the dequant_matmul kernel at
+    every Dense site, f32 compute, TF32 off) and on the CPU (its plain
+    version, fused_dequant on): the same answers, and 4 launches per block
+    plus the head per batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from vitax_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path = str(tmp_path / f"q_{qdtype}.npz")
+    numpy_quantized_export(path, qdtype)
+    kw = dict(**TINY, dtype="float32", serve_quant_dtype=qdtype, serve_act_quant=act)
+    cpu = InferenceEngine.from_npz(Config(**kw, fused_dequant="on").validate(), path, "cpu")
+    card = InferenceEngine.from_npz(Config(**kw).validate(), path, "cuda")
+    assert card.fused_dequant and card.param_bytes() == cpu.param_bytes()
+    for e in (cpu, card):
+        e.warmup()
+    before = _build.LAUNCHES["dequant_matmul"]
+    x = uint8_images(2, 16, seed=8)
+    (ids_c, p_c), (ids_g, p_g) = (e.predict(x) for e in (cpu, card))
+    assert _build.LAUNCHES["dequant_matmul"] == before + 4 * TINY["num_blocks"] + 1
+    np.testing.assert_array_equal(ids_g, ids_c)
+    np.testing.assert_allclose(p_g, p_c, atol=1e-5)
+    with pytest.raises(ValueError, match="dequant_matmul kernel"):
+        InferenceEngine.from_npz(Config(**kw, fused_dequant="off").validate(), path, "cuda")
+
+
+@pytest.mark.parametrize("qdtype", ["int8", "float8_e4m3"])
+def test_numpy_quantized_export_reads_as_jax_reads_it(tmp_path, qdtype):
+    """The card test's numpy-written export is one the JAX engine serves, and
+    gives the answers the port's CPU engine gives."""
+    from vitax.config import Config as JaxConfig
+    from vitax.serve import InferenceEngine as JaxEngine
+    path = str(tmp_path / f"q_{qdtype}.npz")
+    numpy_quantized_export(path, qdtype)
+    kw = dict(**TINY, dtype="float32", serve_quant_dtype=qdtype, fused_dequant="on")
+    jeng = JaxEngine.from_npz(JaxConfig(**kw, serve_port=0).validate(), path)
+    teng = InferenceEngine.from_npz(Config(**kw).validate(), path, "cpu")
+    for e in (jeng, teng):
+        e.warmup()
+    x = uint8_images(2, 16, seed=8)
+    (ids_j, p_j), (ids_t, p_t) = (e.predict(x) for e in (jeng, teng))
+    np.testing.assert_array_equal(ids_t, ids_j)
+    np.testing.assert_allclose(p_t, p_j, atol=1e-5)
+    assert teng.param_bytes() == jeng.param_bytes()
+
+
+def test_quant_gate_record_matches_jax(tmp_path):
+    """run_quant_gate over the port's engines gives the JAX package's record
+    over its own engines on the same exports, images and labels."""
+    from vitax.config import Config as JaxConfig
+    from vitax.serve import InferenceEngine as JaxEngine
+    from vitax.serve.quant import run_quant_gate as jax_run_quant_gate, topk_accuracy as jax_topk_accuracy
+    from vitax_torch.serve.quant import run_quant_gate, topk_accuracy
+    full, quant = export(str(tmp_path), "float32"), export(str(tmp_path), "int8")
+    kw = dict(**TINY, dtype="float32")
+    jaxs = [JaxEngine.from_npz(JaxConfig(**kw, serve_port=0).validate(), full),
+            JaxEngine.from_npz(JaxConfig(**kw, serve_quant_dtype="int8", serve_port=0).validate(), quant)]
+    ports = [InferenceEngine.from_npz(Config(**kw).validate(), full, "cpu"),
+             InferenceEngine.from_npz(Config(**kw, serve_quant_dtype="int8").validate(), quant, "cpu")]
+    for e in jaxs + ports:
+        e.warmup()
+    images = uint8_images(6, 16, seed=11)
+    labels = np.random.default_rng(2).integers(0, 4, 6)
+    assert run_quant_gate(*ports, images, labels) == jax_run_quant_gate(*jaxs, images, labels)
+    ids = np.random.default_rng(3).integers(0, 4, (6, 3))
+    assert topk_accuracy(ids, labels) == jax_topk_accuracy(ids, labels)

@@ -9,16 +9,18 @@ Package map (mirrors vitax/):
   config        flags and Config of the serve and train paths, with the JAX names and defaults
   platform      device selection: the card unless the caller asks for the CPU
   models        the ViT as nn.Modules (forward; per-block recompute when training)
-  ops           flash-attention forward and backward, fused clip+AdamW: kernels,
-                plain versions, dispatchers; the nvcc build
-  checkpoint    npz export reading, JAX -> torch param and AdamW-state conversion
+  ops           flash-attention forward and backward, fused clip+AdamW, the
+                dequant matmul: kernels, plain versions, dispatchers; the nvcc build
+  checkpoint    npz export reading (quantized exports too), the per-channel
+                weight quantizer, JAX -> torch param and AdamW-state conversion
   data          the eval image transform, fake ImageNet, the sampler and loader
   train         schedule, state, train/eval steps, the loop and its CLI
   telemetry     model FLOPs and MFU
-  serve         inference engine, dynamic batcher, HTTP server
+  serve         inference engine (float, int8 and fp8 weights), dynamic
+                batcher, HTTP server, quantized-serving helpers and gate
 
-Ported so far: the serve path and single-card training on fake data.
-ImageFolder data, checkpoints, FSDP, quantized serving and the rest are
+Ported so far: the serve path, single-card training on fake data, and
+quantized serving. ImageFolder data, checkpoints, FSDP and the rest are
 later slices (ROADMAP.md).
 """
 

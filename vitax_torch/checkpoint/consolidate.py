@@ -1,22 +1,45 @@
-"""Reading the consolidated .npz export (vitax/checkpoint/consolidate.py).
+"""Reading the consolidated .npz export, and the per-channel weight
+quantizer (vitax/checkpoint/consolidate.py).
 
 The file is the JAX package's save_npz output: "/"-joined Flax param paths
 ("params/blocks/attn/qkv/kernel", ...), bfloat16 leaves stored as uint16
-bit-views listed under the "__bfloat16_keys__" manifest, and quantized
-exports marked by a "__quant__" manifest. This module reads it with numpy
-and torch only: bf16 leaves come back as torch.bfloat16 tensors viewed from
-their uint16 payload, exactly.
+bit-views listed under the "__bfloat16_keys__" manifest, and, for a
+quantized export (--dtype int8 or float8_e4m3), a "__quant__" JSON manifest
+naming the quantized leaves with their float32 per-output-channel scales at
+"__scale__/<key>". fp8 leaves are stored as uint8 bit-views of
+ml_dtypes.float8_e4m3 (max 240); every finite code of that type decodes to
+the same value as torch.float8_e4m3fn, so they come back as e4m3fn views of
+the stored bits, never re-quantized. This module reads and quantizes with
+numpy and torch only.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+from typing import Dict, Iterable, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
 BF16_MANIFEST_KEY = "__bfloat16_keys__"
+# The quantized-export manifest: {"schema": 1, "dtypes": {dtype: [keys]}},
+# each quantized leaf's float32 scales at QUANT_SCALE_PREFIX + key.
 QUANT_MANIFEST_KEY = "__quant__"
+QUANT_SCALE_PREFIX = "__scale__/"
+QUANT_SCHEMA_VERSION = 1
+QUANT_DTYPES = ("int8", "float8_e4m3")
+# Leaves never quantized, by path name (the router and every LayerNorm),
+# and the matmul weight leaf names that are.
+QUANT_SKIP_NAMES = ("router", "norm", "norm1", "norm2")
+QUANT_WEIGHT_NAMES = ("kernel", "w1", "w2")
+# torch type of each quantized dtype's codes
+QUANT_TORCH_DTYPES = {"int8": torch.int8, "float8_e4m3": torch.float8_e4m3fn}
+# largest finite float8_e4m3 (ml_dtypes' IEEE-style e4m3: exponent 1111 is
+# inf/NaN), so absmax maps onto it and no element rounds past it
+_FP8_E4M3_MAX = 240.0
+_FLOAT_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+
+Leaf = Union[np.ndarray, torch.Tensor]
 
 
 def flatten_tree(tree: dict, sep: str = "/") -> Dict[str, object]:
@@ -47,25 +70,134 @@ def unflatten_tree(flat: Dict[str, object], sep: str = "/") -> dict:
     return tree
 
 
-def load_npz_raw(path: str) -> Dict[str, torch.Tensor]:
-    """Read a save_npz export to {key: CPU tensor} at its stored types, with
-    the bf16 uint16 views restored. Raises on a quantized export: int8/fp8
-    serving is a later slice of the port."""
+def as_tensor(leaf: Leaf) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor sharing its memory (a copy of a
+    read-only array, which torch would otherwise alias with a warning); a
+    tensor as it is."""
+    if isinstance(leaf, np.ndarray) and not leaf.flags.writeable:
+        leaf = leaf.copy()
+    return torch.as_tensor(leaf)
+
+
+def should_quantize(key: str, v: Leaf) -> bool:
+    """Whether a quantized export quantizes this leaf: a 2-D+ floating
+    matmul weight (patchify, qkv, proj, MLP, head) not under a skip name."""
+    parts = key.split("/")
+    floating = (v.dtype in _FLOAT_DTYPES if isinstance(v, torch.Tensor)
+                else bool(np.issubdtype(v.dtype, np.floating)))
+    return (floating and v.ndim >= 2
+            and parts[-1] in QUANT_WEIGHT_NAMES
+            and not any(p in QUANT_SKIP_NAMES for p in parts))
+
+
+def _contraction_axes(key: str, ndim: int) -> Tuple[int, ...]:
+    """Axes the absmax scale reduces: all but the output-channel (last) axis
+    and the leading stacking axes (the scanned layer axis of "blocks"
+    params, the experts axis of MoE w1/w2), so scales stay per
+    (layer[, expert], out_channel)."""
+    parts = key.split("/")
+    stack = 1 if "blocks" in parts else 0
+    if parts[-1] in ("w1", "w2"):
+        stack += 1
+    return tuple(range(stack, ndim - 1))
+
+
+def quant_max(dtype: str) -> float:
+    """127 for int8; the largest finite float8_e4m3, 240, for fp8."""
+    if dtype not in QUANT_DTYPES:
+        raise ValueError(f"unknown quantized dtype {dtype!r} (implemented: {QUANT_DTYPES})")
+    return 127.0 if dtype == "int8" else _FP8_E4M3_MAX
+
+
+@torch.no_grad()
+def quantize_tensor(w: torch.Tensor, axes: Iterable[int], dtype: str = "int8"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax quantization of `w` over `axes` (keepdims scales),
+    on w's device: scale = absmax / quant_max in float32, 1.0 for an
+    all-zero channel; int8 rounds half to even and clips to [-127, 127],
+    float8_e4m3 rounds to the nearest fp8 value (|w / scale| <= 240, where
+    e4m3fn and the export's e4m3 agree code for code)."""
+    axes = tuple(axes)
+    w = w.float()
+    absmax = w.abs().amax(dim=axes, keepdim=True) if axes else w.abs()
+    scale = absmax / quant_max(dtype)
+    scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    if dtype == "int8":
+        q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    else:
+        q = (w / scale).to(torch.float8_e4m3fn)
+    return q, scale
+
+
+def quantize_leaf(key: str, v: Leaf, dtype: str = "int8") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel quantization of one leaf of the JAX layout (vitax
+    quantize_leaf): (codes, float32 scales broadcastable to the leaf)."""
+    t = as_tensor(v)
+    return quantize_tensor(t, _contraction_axes(key, t.dim()), dtype)
+
+
+def quantize_flat(flat: Mapping[str, Leaf], dtype: str = "int8"
+                  ) -> Tuple[Dict[str, Leaf], Dict[str, torch.Tensor]]:
+    """Quantize every eligible leaf of a flat JAX-layout tree: (flat with
+    quantized leaves substituted, {key: float32 scales}); other leaves pass
+    through untouched."""
+    out: Dict[str, Leaf] = {}
+    scales: Dict[str, torch.Tensor] = {}
+    for k, v in flat.items():
+        if should_quantize(k, v):
+            out[k], scales[k] = quantize_leaf(k, v, dtype)
+        else:
+            out[k] = v
+    return out, scales
+
+
+def quant_manifest(keys: Iterable[str], dtype: str = "int8") -> str:
+    """The dtype-keyed JSON manifest body for a set of quantized keys."""
+    quant_max(dtype)
+    return json.dumps({"schema": QUANT_SCHEMA_VERSION, "dtypes": {dtype: sorted(keys)}})
+
+
+def parse_quant_manifest(doc: str) -> Dict[str, str]:
+    """{key: quantized dtype} from a manifest JSON document."""
+    parsed = json.loads(doc)
+    if parsed.get("schema") != QUANT_SCHEMA_VERSION:
+        raise ValueError(f"unknown quant manifest schema {parsed.get('schema')!r} "
+                         f"(this build reads schema {QUANT_SCHEMA_VERSION})")
+    out: Dict[str, str] = {}
+    for dtype, keys in parsed.get("dtypes", {}).items():
+        if dtype not in QUANT_DTYPES:
+            raise ValueError(f"quantized dtype {dtype!r} not supported (implemented: {QUANT_DTYPES})")
+        for k in keys:
+            out[k] = dtype
+    return out
+
+
+def load_npz_raw(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, str]]:
+    """Read a save_npz export without dequantizing: (flat, scales, manifest)
+    as CPU tensors. `flat` keeps every leaf at its stored type (bf16 from
+    its uint16 view, int8 codes, fp8 codes as float8_e4m3fn views of the
+    stored bits); `scales` are the float32 per-key scale arrays and
+    `manifest` {key: quantized dtype}, both empty for an unquantized file."""
     with np.load(path) as data:
-        if QUANT_MANIFEST_KEY in data.files:
-            raise ValueError(
-                f"{path} is a quantized export (__quant__ manifest); quantized serving "
-                f"(int8/fp8 weights, the dequant_matmul kernel) is not ported to vitax_torch "
-                f"yet: re-export with consolidate.py --dtype float32 or bfloat16")
         bf16 = (set(str(k) for k in data[BF16_MANIFEST_KEY])
                 if BF16_MANIFEST_KEY in data.files else set())
-        flat = {}
+        manifest = (parse_quant_manifest(str(data[QUANT_MANIFEST_KEY]))
+                    if QUANT_MANIFEST_KEY in data.files else {})
+        flat: Dict[str, torch.Tensor] = {}
+        scales: Dict[str, torch.Tensor] = {}
         for k in data.files:
-            if k == BF16_MANIFEST_KEY:
+            if k in (BF16_MANIFEST_KEY, QUANT_MANIFEST_KEY):
                 continue
-            arr = data[k]
-            if k in bf16:
-                flat[k] = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+            arr = np.ascontiguousarray(data[k])
+            if k.startswith(QUANT_SCALE_PREFIX):
+                scales[k[len(QUANT_SCALE_PREFIX):]] = torch.from_numpy(arr)
+            elif k in bf16:
+                flat[k] = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+            elif manifest.get(k) == "float8_e4m3":
+                flat[k] = torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
             else:
-                flat[k] = torch.from_numpy(np.ascontiguousarray(arr))
-        return flat
+                flat[k] = torch.from_numpy(arr)
+        if set(manifest) != set(scales):
+            raise ValueError(f"quant manifest/scale mismatch in {path}: "
+                             f"{sorted(set(manifest) ^ set(scales))} without their pair")
+        return flat, scales, manifest

@@ -6,37 +6,37 @@ scanned (one "blocks" subtree with a leading (L, ...) axis) or unscanned
 ("blocks_0", "blocks_1", ...). torch wants Linear weights (out, in), conv
 weights (cout, cin, kh, kw) and LayerNorm weight/bias under
 vitax_torch/models/vit.py's module names.
+
+A quantized export's int8 / fp8 kernels convert the same way: Dense (in,
+out) -> (out, in), so each output channel's row is contiguous in K (the
+column-major B operand of the kernel's mma); the conv stays quantized too.
+Each one's scale, (1, F) or (L, 1, F) when scanned and (1, 1, 1, F) for
+the conv, becomes the module's per-layer (F,) float32 `qscale`.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from vitax_torch.checkpoint.consolidate import flatten_tree, unflatten_tree
+from vitax_torch.checkpoint.consolidate import Leaf, as_tensor, flatten_tree, unflatten_tree
 
-Leaf = Union[np.ndarray, torch.Tensor]
-
-# Flax leaf name -> torch leaf name
-_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+# Flax leaf name -> torch leaf name ("qscale": a quantized kernel's scales)
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "qscale": "qscale"}
 _BLOCK_KEY = re.compile(r"^blocks_(\d+)$")
 
 
-def _as_tensor(leaf: Leaf) -> torch.Tensor:
-    if isinstance(leaf, np.ndarray) and not leaf.flags.writeable:
-        leaf = leaf.copy()                    # torch refuses to alias read-only arrays silently
-    return torch.as_tensor(leaf)
-
-
 def _to_torch(name: str, leaf: Leaf) -> torch.Tensor:
-    t = _as_tensor(leaf)
+    t = as_tensor(leaf)
     if name == "kernel" and t.dim() == 4:     # conv (kh, kw, cin, cout)
         return t.permute(3, 2, 0, 1).contiguous()
     if name == "kernel":                      # Dense (in, out)
         return t.t().contiguous()
+    if name == "qscale":                      # keepdims per-channel scales -> (F,)
+        return t.reshape(-1).contiguous()
     return t.contiguous()
 
 
@@ -56,11 +56,19 @@ def _module(prefix: str, node: Mapping, out: Dict[str, torch.Tensor]) -> None:
             raise KeyError(f"unexpected param leaf {prefix}{name}")
 
 
-def params_from_jax(flat: Mapping[str, Leaf]) -> Dict[str, torch.Tensor]:
+def params_from_jax(flat: Mapping[str, Leaf],
+                    scales: Optional[Mapping[str, Leaf]] = None) -> Dict[str, torch.Tensor]:
     """state_dict for VisionTransformer from the JAX package's parameters,
     keyed as in the consolidated npz ("params/...", "/"-joined), numpy
-    arrays or CPU tensors. Leaves keep their stored type."""
-    tree = unflatten_tree(dict(flat))
+    arrays or CPU tensors. Leaves keep their stored type. `scales` (a
+    quantized export's {kernel key: scales}) become the sibling `qscale`
+    of each quantized kernel."""
+    flat = dict(flat)
+    for key, s in (scales or {}).items():
+        if not key.endswith("/kernel") or key not in flat:
+            raise KeyError(f"scale for {key!r}, which is no kernel of the tree")
+        flat[key[:-len("kernel")] + "qscale"] = s
+    tree = unflatten_tree(flat)
     if set(tree) != {"params"}:
         raise KeyError(f"expected keys under 'params/', got top-level {sorted(tree)}")
     params = tree["params"]
@@ -68,7 +76,7 @@ def params_from_jax(flat: Mapping[str, Leaf]) -> Dict[str, torch.Tensor]:
     for name, node in params.items():
         m = _BLOCK_KEY.match(name)
         if name == "pos_embed":
-            out["pos_embed"] = _as_tensor(node).contiguous()
+            out["pos_embed"] = as_tensor(node).contiguous()
         elif name == "blocks":                 # scanned: every leaf has a leading (L, ...) axis
             depth = next(iter(flatten_tree(node).values())).shape[0]
             for i in range(depth):

@@ -9,6 +9,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
+QUANT_DTYPE_CHOICES = ("", "int8", "float8_e4m3")     # --serve_quant_dtype: the __quant__ schema's dtypes
+
 
 @dataclasses.dataclass
 class Config:
@@ -62,6 +64,12 @@ class Config:
     serve_max_batch: int = 8            # largest power-of-two batch bucket
     max_batch_wait_ms: float = 5.0      # batcher flush deadline for the oldest queued request
     serve_topk: int = 5                 # classes returned per /predict response
+    serve_quant_dtype: str = ""         # expected weight quantization of the npz export: "" (full precision),
+    #   "int8" or "float8_e4m3"; the file's __quant__ manifest is authoritative and this asserts it
+    serve_act_quant: str = "off"        # "int8": per-tensor dynamic int8 activations, int8 x int8 block matmuls
+    #   (needs --serve_quant_dtype int8; the head stays weight-only)
+    fused_dequant: str = "auto"         # auto | on | off, as in vitax; the card always runs the dequant_matmul
+    #   kernel and off raises there; on the CPU auto is off (dequantize at use) and on runs the plain kernel
     serve_queue_max: int = 1024         # batcher queue bound (0 = unbounded); full -> 503
     serve_request_timeout_s: float = 60.0  # a handler's wait on its batch future
     serve_brownout_enter_frac: float = 0.75  # degraded mode at this fraction of serve_queue_max (0 = off)
@@ -115,6 +123,18 @@ class Config:
              f"--serve_max_batch must be a power of two >= 1, got {self.serve_max_batch}"),
             (self.max_batch_wait_ms >= 0, f"--max_batch_wait_ms must be >= 0, got {self.max_batch_wait_ms}"),
             (self.serve_topk >= 1, f"--serve_topk must be >= 1, got {self.serve_topk}"),
+            (self.serve_quant_dtype in QUANT_DTYPE_CHOICES,
+             f"--serve_quant_dtype must be '', 'int8' or 'float8_e4m3', got {self.serve_quant_dtype!r}"),
+            (self.serve_act_quant in ("off", "int8"),
+             f"--serve_act_quant must be 'off' or 'int8', got {self.serve_act_quant!r}"),
+            (self.serve_act_quant == "off" or self.serve_quant_dtype == "int8",
+             f"--serve_act_quant {self.serve_act_quant} requires --serve_quant_dtype int8 (int8 x int8 "
+             f"matmuls need int8 weights as the other operand), got {self.serve_quant_dtype!r}"),
+            (self.fused_dequant in ("auto", "on", "off"),
+             f"--fused_dequant must be 'auto', 'on' or 'off', got {self.fused_dequant!r}"),
+            (self.fused_dequant != "on" or bool(self.serve_quant_dtype),
+             "--fused_dequant on requires a quantized --serve_quant_dtype: there is no weight dequant "
+             "to fuse into a full-precision serve matmul"),
             (self.serve_queue_max >= 0, f"--serve_queue_max must be >= 0, got {self.serve_queue_max}"),
             (self.serve_request_timeout_s > 0,
              f"--serve_request_timeout_s must be > 0, got {self.serve_request_timeout_s}"),
@@ -139,7 +159,9 @@ class Config:
 _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--no_flash_attention", "store_false", "use_flash_attention"),
                ("--no_grad_ckpt", "store_false", "grad_ckpt"))
-_CHOICES = {"dtype": ["bfloat16", "float32"], "fused_optimizer": ["auto", "on", "off"]}
+_CHOICES = {"dtype": ["bfloat16", "float32"], "fused_optimizer": ["auto", "on", "off"],
+            "serve_quant_dtype": list(QUANT_DTYPE_CHOICES), "serve_act_quant": ["off", "int8"],
+            "fused_dequant": ["auto", "on", "off"]}
 
 
 def build_parser() -> argparse.ArgumentParser:

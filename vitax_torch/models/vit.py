@@ -15,19 +15,30 @@ the backward recomputes the block, the counterpart of the JAX model's
 per-block remat with the none_saveable policy. Without grad (eval, serve)
 the forward is the plain loop. Module and parameter names mirror the Flax
 paths (vitax_torch/checkpoint/convert.py maps one onto the other).
+
+Quantized serving (build_model with a quant dtype): every Dense site (qkv,
+proj, fc1, fc2 with act=True; the head with act=False) is a QuantLinear
+holding the int8 or float8_e4m3fn (out, in) weight and its per-channel
+float32 `qscale`, and the patchify conv keeps its quantized weight,
+dequantized at use. A QuantLinear with a quant_matmul runs the JAX
+QuantDense numerics (the dequant_matmul kernel on the card); without one
+it runs the JAX engine's dequantize-at-use numerics: (w_q * s) in float32,
+then the unchanged Dense in the site's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vitax_torch.checkpoint.consolidate import QUANT_TORCH_DTYPES
 from vitax_torch.config import Config
 from vitax_torch.ops.attention import reference_attention
+from vitax_torch.ops.dequant_matmul import dequantize_leaf
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -37,8 +48,60 @@ INIT_STD = 0.02
 INIT_BOUND = 2 * INIT_STD
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax nn.Dense(dtype=dtype) over stored params: all operands in dtype."""
+class Quant(NamedTuple):
+    """How a quantized model's Dense sites compute: the stored weight dtype
+    ("int8" or "float8_e4m3") and the quant_matmul of
+    vitax_torch/ops/dequant_matmul.py make_quant_matmul, or None for the
+    dequantize-at-use path."""
+    dtype: str
+    matmul: Optional[Callable] = None
+
+
+class QuantLinear(nn.Module):
+    """The quantized twin of a Dense site (vitax QuantDense): an int8 or
+    float8_e4m3fn (out, in) weight and its (out,) float32 qscale, kept as
+    buffers, and a float32 bias."""
+
+    def __init__(self, in_features: int, out_features: int, quant: Quant, act: bool, device=None):
+        super().__init__()
+        self.act = act
+        self.quant_matmul = quant.matmul
+        self.register_buffer("weight", torch.empty(out_features, in_features,
+                                                   dtype=QUANT_TORCH_DTYPES[quant.dtype], device=device))
+        self.register_buffer("qscale", torch.empty(out_features, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.empty(out_features, device=device))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.quant_matmul is None:
+            w = dequantize_leaf(self.weight, self.qscale[:, None])
+            return F.linear(x.to(dtype), w.to(dtype), self.bias.to(dtype))
+        y = self.quant_matmul(x, self.weight, self.qscale, act=self.act)
+        return y.to(dtype) + self.bias.to(dtype)
+
+
+class QuantConv2d(nn.Module):
+    """The patchify conv of a quantized model: its quantized weight (cout,
+    cin, kh, kw) and (cout,) qscale as buffers, dequantized at use."""
+
+    def __init__(self, cin: int, cout: int, patch_size: int, quant: Quant, device=None):
+        super().__init__()
+        self.register_buffer("weight", torch.empty(cout, cin, patch_size, patch_size,
+                                                   dtype=QUANT_TORCH_DTYPES[quant.dtype], device=device))
+        self.register_buffer("qscale", torch.empty(cout, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.empty(cout, device=device))
+
+
+def _linear(in_features: int, out_features: int, quant: Optional[Quant], act: bool, device) -> nn.Module:
+    if quant is None:
+        return nn.Linear(in_features, out_features, device=device)
+    return QuantLinear(in_features, out_features, quant, act, device=device)
+
+
+def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Dense(dtype=dtype) over stored params: all operands in dtype;
+    a quantized site computes as QuantLinear says."""
+    if isinstance(layer, QuantLinear):
+        return layer(x, dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
@@ -51,14 +114,20 @@ def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> tor
 class PatchEmbed(nn.Module):
     """Conv patchify: (B, H, W, 3) -> (B, N, D)."""
 
-    def __init__(self, patch_size: int, embed_dim: int, dtype: torch.dtype, device=None):
+    def __init__(self, patch_size: int, embed_dim: int, dtype: torch.dtype, quant: Optional[Quant] = None,
+                 device=None):
         super().__init__()
         self.dtype = dtype
-        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size, device=device)
+        self.patch_size = patch_size
+        self.proj = (nn.Conv2d(3, embed_dim, patch_size, stride=patch_size, device=device) if quant is None
+                     else QuantConv2d(3, embed_dim, patch_size, quant, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype)
-        x = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, b, stride=self.proj.stride)
+        w = self.proj.weight
+        if isinstance(self.proj, QuantConv2d):
+            w = dequantize_leaf(w, self.proj.qscale[:, None, None, None])
+        w, b = w.to(self.dtype), self.proj.bias.to(self.dtype)
+        x = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, b, stride=self.patch_size)
         return x.flatten(2).transpose(1, 2)
 
 
@@ -68,13 +137,13 @@ class Attention(nn.Module):
     output, or the dense path when it is None."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
-                 attention_impl: Optional[Callable] = None, device=None):
+                 attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
-        self.qkv = nn.Linear(dim, 3 * dim, device=device)
-        self.proj = nn.Linear(dim, dim, device=device)
+        self.qkv = _linear(dim, 3 * dim, quant, True, device)
+        self.proj = _linear(dim, dim, quant, True, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
@@ -88,11 +157,12 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     """Dense(hidden) -> exact GELU -> Dense(dim)."""
 
-    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype, quant: Optional[Quant] = None,
+                 device=None):
         super().__init__()
         self.dtype = dtype
-        self.fc1 = nn.Linear(dim, hidden_dim, device=device)
-        self.fc2 = nn.Linear(hidden_dim, dim, device=device)
+        self.fc1 = _linear(dim, hidden_dim, quant, True, device)
+        self.fc2 = _linear(hidden_dim, dim, quant, True, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _dense(self.fc2, F.gelu(_dense(self.fc1, x, self.dtype)), self.dtype)
@@ -102,13 +172,13 @@ class Block(nn.Module):
     """Pre-norm transformer block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype,
-                 attention_impl: Optional[Callable] = None, device=None):
+                 attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
-        self.attn = Attention(dim, num_heads, dtype, attention_impl, device=device)
+        self.attn = Attention(dim, num_heads, dtype, attention_impl, quant, device=device)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(_layer_norm(self.norm1, x, self.dtype))
@@ -118,18 +188,20 @@ class Block(nn.Module):
 class VisionTransformer(nn.Module):
     """images (B, H, W, 3) float -> logits (B, num_classes) float32."""
 
-    def __init__(self, cfg: Config, attention_impl: Optional[Callable] = None, device=None):
+    def __init__(self, cfg: Config, attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None,
+                 device=None):
         super().__init__()
         self.dtype = _DTYPES[cfg.dtype]
         self.grad_ckpt = cfg.grad_ckpt
+        self.quant = quant
         d = cfg.embed_dim
-        self.patch_embed = PatchEmbed(cfg.patch_size, d, self.dtype, device=device)
+        self.patch_embed = PatchEmbed(cfg.patch_size, d, self.dtype, quant, device=device)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, d, device=device))
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, device=device)
+            Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device)
             for _ in range(cfg.num_blocks))
         self.norm = nn.LayerNorm(d, eps=1e-6, device=device)
-        self.head = nn.Linear(d, cfg.num_classes, device=device)
+        self.head = _linear(d, cfg.num_classes, quant, False, device)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(images) + self.pos_embed.to(self.dtype)
@@ -158,14 +230,18 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
-                init: bool = True) -> VisionTransformer:
+                init: bool = True, quant: Optional[Quant] = None) -> VisionTransformer:
     """The ViT on `device`, built without a throwaway default init: the
     modules are made on the meta device, then given storage on `device`.
     init=True fills the params from cfg.seed (float32, as vitax initializes
     them); init=False leaves them to a load_state_dict(..., assign=True).
-    On the meta device the params stay shapes only (param counts)."""
+    On the meta device the params stay shapes only (param counts). With
+    `quant` every Dense site is a QuantLinear and the conv a QuantConv2d,
+    whose weights come from a quantized state (init must be False)."""
     device = torch.device(device)
-    model = VisionTransformer(cfg, attention_impl, device="meta")
+    if quant is not None and init:
+        raise ValueError("a quantized model takes its weights from a quantized state: pass init=False")
+    model = VisionTransformer(cfg, attention_impl, quant, device="meta")
     if device.type == "meta" or not init:
         return model.eval()
     model = model.to_empty(device=device)

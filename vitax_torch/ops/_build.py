@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # One entry per kernel source: name -> file under csrc/. The shared headers
 # (csrc/*.cuh) are compiled into each of them.
 SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu", "flash_attn_bwd": "flash_attn_bwd.cu",
-           "fused_adamw": "fused_adamw.cu"}
+           "fused_adamw": "fused_adamw.cu", "dequant_matmul": "dequant_matmul.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

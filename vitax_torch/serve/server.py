@@ -330,6 +330,8 @@ def _make_handler(ctx: ServeContext):
                     "brownout_enters": ctx.brownout.enters_total,
                     "weights_dtype": ctx.engine.weights_dtype,
                     "param_bytes": ctx.engine.param_bytes(),
+                    "act_quant": ctx.engine.act_quant,
+                    "fused_dequant": ctx.engine.fused_dequant,
                 })
                 self._reply(200, snap)
             else:
