@@ -7,19 +7,26 @@ repository root on a machine with one NVIDIA card:
 Phases, each printing one line (or a few), any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
   2. build: every kernel under vitax_torch/csrc/ with nvcc (sm_90a), all
-     started together, with seconds and the ptxas register / spill report;
+     started together, with seconds and the ptxas registers and spills of
+     every instantiation, the attention kernels' dropout ones included;
   3. kernel check: each kernel against its plain PyTorch version on the
      card, at the shapes the serve and train paths give it plus small
      ragged ones (the attention backward with a nonzero dlse and a bitwise
-     repeat; the fused optimizer over leaves of assorted sizes, with the
-     clip triggered and idle; the dequant matmul weight-only with int8 and
-     fp8 weights, and act mode bitwise);
-  4. kernel timing (CUDA events) of the attention kernels and the dequant
-     matmul at their main-path shapes, beside the plain version, PyTorch's
-     own library call and the least time the card could take;
+     repeat; the attention kernels' dropout instantiations at the train
+     shape and ragged ones with global offsets, a seed off by one landing
+     past every bar; the BH entry points with and without dropout; the
+     dropout mask recovered from the kernel bit for bit; the fused
+     optimizer over leaves of assorted sizes, with the clip triggered and
+     idle; the dequant matmul weight-only with int8 and fp8 weights, and
+     act mode bitwise);
+  4. kernel timing (CUDA events) of the attention kernels (with and
+     without dropout, 4D and BH) and the dequant matmul at their main-path
+     shapes, beside the plain version, PyTorch's own library call and the
+     least time the card could take;
   5. model check: the 10B-width ViT at depth 2 with the kernels against the
      dense path on the same weights: logits (no grad), then the loss and
-     every parameter's gradient (bf16, batch 8); then its weights
+     every parameter's gradient (bf16, batch 8), without dropout and with
+     attention and mlp dropout at the same seeds; then its weights
      quantized, with the dequant matmul against its plain versions;
   6. serve main path: a full-width, full-depth 10B InferenceEngine (seeded
      init on the card) behind the HTTP server, answering 32 /predict
@@ -38,6 +45,12 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      memory; then a profile of one steady step, and the fused optimizer
      on the trained state's own leaf table: one launch held element by
      element against the plain version, then timed;
+  7d. train main path under dropout: the same run with att_dropout and
+     mlp_dropout 0.1, its launch counts (the dropout kernels' forward,
+     recompute and backward) checked against the steps, its first loss
+     against phase 7's, one step's loss and grad norm repeated bitwise
+     from the same state and seeds, sec/iter, images/s, MFU, peak memory
+     and a profile of one steady step;
   8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -68,6 +81,13 @@ sys.path.insert(0, REPO)
 # f32 path runs with TF32 off).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# INT32 operations/s: 64 INT32 lanes an SM (Hopper architecture white
+# paper) x 132 SMs x the 1.98 GHz boost clock, the clock at which the
+# float32 peak above is 67 TFLOP/s. The dropout hash spends about 19 of
+# them on each score element (two fmix32 of 8, the k-term multiply-add,
+# the xor with the seed and the compare; flash_common.cuh).
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+HASH_OPS_PER_ELEMENT = 19
 
 SERVE_SHAPE = (8, 256, 32, 160)          # (B, N, H, Dh) of the 10B model at bucket 8
 TRAIN_SHAPE = (32, 256, 32, 160)         # ... at the train path's batch 32
@@ -82,6 +102,17 @@ TOL = {"bfloat16": (1.6e-2, 1e-3), "float32": (1e-5, 1e-5)}   # max |do|, max |d
 # and 4x those. The dlse term must move dq and dk by more than the bar, so
 # a kernel that dropped it would fail (it moves them by 0.15 to 0.65).
 BWD_TOL = {"bfloat16": 6e-3, "float32": 2e-6}
+# The dropout instantiations and the BH entry points against their plain
+# versions: max |d| <= tol * max |ref| for o and for each of dq, dk, dv.
+# bf16: the kernels round the unnormalised P (and P * ms, dS) to bf16 in
+# registers and divide o by l (1 - rate) after the product, the plain
+# versions in memory, in another order; f32: summation order only. A first
+# call on an H100 80GB HBM3 at 700 W read up to 7.8e-3 absolute on o (about
+# one bf16 ulp of its largest entries) and 1.7e-3 of max |ref| on the
+# grads in bf16, 1.9e-6 absolute and 3.1e-7 in f32, so the bars are about
+# 3x those. The plain version at a seed off by one lands 0.48-0.89 of max
+# |ref| away on the grads and 0.69-1.2 absolute on o: far beyond every bar.
+DROP_TOL = {"bfloat16": (1.6e-2, 6e-3), "float32": (1e-5, 2e-6)}   # (o, grads)
 ADAMW_RTOL, ADAMW_ATOL = 1e-6, 1e-8      # the bar of tests/test_fused_optimizer.py
 # The 10B-width model at depth 2, bf16, kernels vs the dense path on the
 # same weights and batch: max |dlogits| / max |logits|, and the loss's
@@ -130,6 +161,11 @@ GATE_TOP1_FLOOR = 0.5
 TRAIN = dict(num_blocks=8, batch_size=32, fake_data=True, max_steps=12, warmup_steps=4,
              log_step_interval=1, eval_max_batches=2, test_epoch_interval=1)
 SEED = 0
+DROP_RATE = 0.1                          # phase 7d's att_dropout and mlp_dropout
+TRAIN_DROPOUT = dict(TRAIN, att_dropout=DROP_RATE, mlp_dropout=DROP_RATE)
+DROP_SEED = 2024
+DROP_CHECK_SHAPES = ((2, 197, 4, 64), (2, 50, 2, 16))     # ragged, checked with global offsets
+DROP_OFFSETS = (5, 17)                   # q0, k0 of those checks
 
 
 def fail(msg: str) -> None:
@@ -181,6 +217,18 @@ def attention_bwd_bound_ms(shape, dtype: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+def attention_drop_bound_ms(shape, dtype: str, backward: bool):
+    """Least time for one forward or backward call under dropout: A1's or
+    A2's bytes and tensor FLOPs, and the hash's integer operations (once
+    an element: the least work that gives the mask) over the INT32 rate;
+    the largest of the three."""
+    b, n, h, dh = shape
+    t, by, nbytes, flops = (attention_bwd_bound_ms if backward else attention_bound_ms)(shape, dtype)
+    int_ops = HASH_OPS_PER_ELEMENT * b * h * n * n
+    t_int = int_ops / INT32_OPS_PER_S * 1e3
+    return max(t, t_int), ("operations" if t_int > t else by), nbytes, flops, int_ops
+
+
 def adamw_bound_ms(numel: int):
     """Least time for one optimizer step: p, g, mu, nu read and p, mu, nu
     written, 4 bytes each, over HBM bandwidth (about 20 FLOP an element is
@@ -212,16 +260,57 @@ def phase_env(torch):
     return card
 
 
+def kernel_label(mangled: str) -> str:
+    """`name<template args>` of a mangled kernel symbol: the first
+    length-prefixed name ending in `kernel`, then its integer, bool and
+    element-type template arguments (f32, bf16)."""
+    import re
+    for p in range(len(mangled)):
+        m = re.match(r"\d+", mangled[p:])
+        if not m or int(m.group()) == 0:
+            continue
+        name = mangled[p + m.end():p + m.end() + int(m.group())]
+        if not (name.endswith("kernel") and name.isidentifier()):
+            continue
+        rest, args = mangled[p + m.end() + len(name):], []
+        if rest.startswith("I"):
+            for tok in re.finditer(r"L[a-z](\d+)E|13__nv_bfloat16|f|E", rest[1:]):
+                if tok.group() == "E":
+                    break
+                args.append(tok.group(1) or ("bf16" if tok.group().startswith("13") else "f32"))
+        return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_entries(report: str):
+    """(kernel<template args>, registers, spill store bytes, spill load
+    bytes) of each entry in an `nvcc -Xptxas -v` report."""
+    import re
+    entries, name, spills = [], None, (0, 0)
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = kernel_label(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            entries.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return entries
+
+
 def phase_build():
     from vitax_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
     for name, log in logs.items():
-        ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
-                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         say(f"[2 build] {name}: {log['seconds']:.1f}s nvcc ({'cached' if log['cached'] else 'built'})")
-        for ln in ptxas:
-            say(f"[2 build]   {ln}")
+        for entry, regs, st, ld in ptxas_entries(log["ptxas"]):
+            say(f"[2 build]   {entry}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     say(f"[2 build] all kernels in {time.perf_counter() - t0:.1f}s")
 
 
@@ -249,6 +338,9 @@ def phase_kernel_check(torch):
                     fail(f"flash_attn_fwd disagrees with its plain version at {shape} {dtype}")
                 errs[(shape, dtype)] = d_o
     errs["flash_attn_bwd"] = check_attention_backward(torch)
+    errs.update(check_dropout_kernels(torch))
+    errs.update(check_bh_entries(torch))
+    check_mask_recovery(torch)
     errs["fused_adamw"] = check_fused_adamw(torch)
     errs["dequant_matmul"] = check_dequant_matmul(torch)
     return errs
@@ -361,6 +453,159 @@ def check_attention_backward(torch) -> float:
     return worst
 
 
+def attention_operands(torch, shape, dtype, seed):
+    """Strided q, k, v views, and dO (B, N, H, Dh) and dlse (B, H, N) from
+    numpy draws."""
+    b, n, h, dh = shape
+    q, k, v = qkv_views(torch, shape, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", getattr(torch, dtype))
+    dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda()
+    return q, k, v, do, dlse
+
+
+def rel_err(torch, got, want) -> float:
+    return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+
+
+def check_dropout_kernels(torch):
+    """The dropout instantiations of the forward and backward kernels
+    (A6c, A6d) against their plain versions: at the train shape (bf16,
+    offsets 0 as the train path calls them) and at ragged shapes in bf16
+    and f32 with global offsets, a nonzero dlse and a bitwise repeat of
+    the backward. The plain version at a seed off by one must land beyond
+    every bar. Returns max |d| of o and of the gradients at the train
+    shape."""
+    from vitax_torch.ops.attention import (Dropout, attention_bwd_with_lse, attention_fwd_with_lse,
+                                           flash_attn_bwd_cuda, flash_attn_fwd_cuda)
+    errs = {}
+    cases = [(TRAIN_SHAPE, "bfloat16", (0, 0))]
+    cases += [(shape, dtype, DROP_OFFSETS) for shape in DROP_CHECK_SHAPES for dtype in ("bfloat16", "float32")]
+    with torch.inference_mode():
+        for shape, dtype, (q0, k0) in cases:
+            q, k, v, do, dlse = attention_operands(torch, shape, dtype, SEED + 10)
+            drop = Dropout(DROP_SEED, DROP_RATE, q0, k0)
+            off = drop._replace(seed=DROP_SEED + 1)
+            scale = shape[-1] ** -0.5
+            o, lse = flash_attn_fwd_cuda(q, k, v, scale, drop)
+            o_ref, lse_ref = attention_fwd_with_lse(q, k, v, scale, drop)
+            o_off, _ = attention_fwd_with_lse(q, k, v, scale, off)
+            got = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop)
+            again = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop)
+            want = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, drop)
+            wrong = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, off)
+            torch.cuda.synchronize()
+            tol_o, tol_g = DROP_TOL[dtype]
+            e_o, e_off = rel_err(torch, o, o_ref), rel_err(torch, o, o_off)
+            d_lse = (lse - lse_ref).abs().max().item()
+            e_g = [rel_err(torch, a, w) for a, w in zip(got, want)]
+            e_g_off = [rel_err(torch, a, w) for a, w in zip(got, wrong)]
+            repeat = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+            finite = bool(torch.isfinite(o.float()).all()) and all(bool(torch.isfinite(a.float()).all()) for a in got)
+            ok = (finite and repeat and e_o <= tol_o < e_off and d_lse <= TOL[dtype][1]
+                  and all(e <= tol_g < e2 for e, e2 in zip(e_g, e_g_off)))
+            say(f"[3 check] flash_attn dropout {shape} {dtype} rate {DROP_RATE} q0/k0 {q0}/{k0}: o max|d|/max|ref| "
+                f"{e_o:.2e} (<= {tol_o}; seed off by one {e_off:.2e}), max|dlse| {d_lse:.2e}; "
+                + ", ".join(f"{nm} {e:.2e} (<= {tol_g}; seed off by one {e2:.2e})"
+                            for nm, e, e2 in zip(("dq", "dk", "dv"), e_g, e_g_off))
+                + f"; bitwise repeat {repeat} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the dropout attention kernels disagree with their plain versions at {shape} {dtype}")
+            if shape == TRAIN_SHAPE:
+                errs["flash_attn_fwd_drop"] = (o.float() - o_ref.float()).abs().max().item()
+                errs["flash_attn_bwd_drop"] = max((a.float() - w.float()).abs().max().item()
+                                                  for a, w in zip(got, want))
+            del q, k, v, do, dlse, o, lse, o_ref, o_off, got, again, want, wrong
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_bh_entries(torch):
+    """The BH entry points on (B*H, N, Dh): flash_bh_with_lse (A3, A3b)
+    and flash_bh_dropout_lse (A6a, A6b), forward and autograd backward with
+    a nonzero dlse, against the plain versions in the BH kernels' order on
+    (B*H, N, 1, Dh) views; at the train shape's rows (bf16) and a ragged
+    f32 shape with offsets. Returns max |d| of each entry at the train
+    shape."""
+    from vitax_torch.ops.attention import (Dropout, _to_bh, attention_bwd_with_lse, attention_fwd_with_lse,
+                                           flash_bh_dropout_lse, flash_bh_with_lse)
+    errs = {}
+    for shape, dtype, (q0, k0) in ((TRAIN_SHAPE, "bfloat16", (0, 0)), (DROP_CHECK_SHAPES[0], "float32", DROP_OFFSETS)):
+        q4, k4, v4, do4, dlse = attention_operands(torch, shape, dtype, SEED + 12)
+        q, k, v, do = (_to_bh(x).contiguous() for x in (q4, k4, v4, do4))
+        dlse = dlse.reshape(-1, shape[1])
+        scale = shape[-1] ** -0.5
+        del q4, k4, v4, do4
+        for drop in (None, Dropout(DROP_SEED, DROP_RATE, q0, k0)):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            if drop is None:
+                o, lse = flash_bh_with_lse(*leaves, scale)
+            else:
+                o, lse = flash_bh_dropout_lse(*leaves, (drop.seed, drop.q0, drop.k0), scale, drop.rate)
+            torch.autograd.backward((o, lse), (do, dlse))
+            with torch.no_grad():
+                views = [x[:, :, None] for x in (q, k, v)]
+                o_ref, lse_ref = attention_fwd_with_lse(*views, scale, drop, normalize_first=False)
+                want = attention_bwd_with_lse(*views, o.detach()[:, :, None], lse.detach()[:, None],
+                                              do[:, :, None], dlse[:, None], scale, drop)
+            torch.cuda.synchronize()
+            tol_o, tol_g = DROP_TOL[dtype]
+            e_o = rel_err(torch, o.detach(), o_ref[:, :, 0])
+            d_lse = (lse.detach() - lse_ref[:, 0]).abs().max().item()
+            e_g = [rel_err(torch, x.grad, w[:, :, 0]) for x, w in zip(leaves, want)]
+            ok = e_o <= tol_o and d_lse <= TOL[dtype][1] and all(e <= tol_g for e in e_g)
+            name = "flash_bh" + ("" if drop is None else "_drop")
+            say(f"[3 check] {name} {tuple(q.shape)} {dtype}" + ("" if drop is None else f" q0/k0 {q0}/{k0}")
+                + f": o max|d|/max|ref| {e_o:.2e} (<= {tol_o}), max|dlse| {d_lse:.2e}; "
+                + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
+                + f" (<= {tol_g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} disagrees with its plain version at {tuple(q.shape)} {dtype}")
+            if shape == TRAIN_SHAPE:
+                suffix = "" if drop is None else "_drop"
+                errs["flash_bh_fwd" + suffix] = (o.detach().float() - o_ref[:, :, 0].float()).abs().max().item()
+                errs["flash_bh_bwd" + suffix] = max((x.grad.float() - w[:, :, 0].float()).abs().max().item()
+                                                    for x, w in zip(leaves, want))
+            del leaves, o, lse, o_ref, lse_ref, want
+        del q, k, v, do, dlse
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_mask_recovery(torch):
+    """The mask read back from the kernel: q = k = 0 makes P uniform and V
+    = I (N = Dh = 128) makes o = mask / (N (1 - rate)), so the nonzero
+    pattern of o is the kernel's keep-mask. It must equal the plain
+    dropout_keep_mask bit for bit on the 4D and the BH entry, with global
+    offsets, and differ from the mask of a seed off by one."""
+    from vitax_torch.ops.attention import Dropout, _to_bh, flash_attn_fwd_cuda, flash_bh_dropout_lse, keep_mask_bhqk
+    b, h, n = 2, 3, 128
+    drop = Dropout(DROP_SEED, DROP_RATE, 3, 1000)
+    mask = keep_mask_bhqk(drop, b, h, n, n, "cuda")
+    off = keep_mask_bhqk(drop._replace(seed=DROP_SEED + 1), b, h, n, n, "cuda")
+    with torch.inference_mode():
+        for dtype in ("bfloat16", "float32"):
+            zero = torch.zeros(b, n, h, n, device="cuda", dtype=getattr(torch, dtype))
+            eye = torch.eye(n, device="cuda", dtype=zero.dtype)[None, :, None, :].expand(b, n, h, n).contiguous()
+            o4, _ = flash_attn_fwd_cuda(zero, zero, eye, 1.0, drop)
+            obh, _ = flash_bh_dropout_lse(_to_bh(zero), _to_bh(zero), _to_bh(eye), (drop.seed, drop.q0, drop.k0),
+                                          1.0, drop.rate)
+            pat4 = (o4 != 0).float().transpose(1, 2)
+            patbh = (obh != 0).float().reshape(b, h, n, n)
+            kept = o4.float().transpose(1, 2)[mask.bool()]
+            value = 1.0 / (n * (1.0 - DROP_RATE))
+            spread = (kept / value - 1).abs().max().item()
+            n_off = int((pat4 != off).sum().item())
+            ok = (torch.equal(pat4, mask) and torch.equal(patbh, mask) and n_off > 0
+                  and spread <= (8e-3 if dtype == "bfloat16" else 1e-6))
+            say(f"[3 check] dropout mask from the kernel, {dtype}, (B {b}, H {h}, N {n}), q0/k0 {drop.q0}/{drop.k0}: "
+                f"4D pattern == plain mask {torch.equal(pat4, mask)}, BH pattern == plain mask "
+                f"{torch.equal(patbh, mask)}, kept share {mask.mean().item():.4f}, kept values within {spread:.1e} of "
+                f"1/(N(1-rate)); a seed off by one differs at {n_off} of {mask.numel()} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the kernel's dropout mask is not the plain mask ({dtype})")
+
+
 def adamw_diff(torch, got, ref):
     """(max |d|, elements outside rtol / atol) of the kernel's p, mu, nu
     lists against the plain version's."""
@@ -438,6 +683,7 @@ def phase_kernel_timing(torch, card):
     timing = {"flash_attn_fwd": {"ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms,
                                  "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}}
     timing["flash_attn_bwd"] = time_attention_train_shape(torch, card)
+    timing.update(time_dropout_and_bh(torch, card))
     timing["dequant_matmul"] = time_dequant_matmul(torch, card)
     return timing
 
@@ -554,6 +800,73 @@ def time_attention_train_shape(torch, card):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def time_dropout_and_bh(torch, card):
+    """CUDA events at the train shape (bf16; dlse None as the train path
+    calls the backward): the dropout forward and backward beside A1 and A2
+    on the same inputs, the plain versions, PyTorch's flash attention with
+    dropout_p (its own Philox mask: a yardstick of time only) and the
+    bound; then the BH entries' kernels on (B*H, N, 1, Dh) views of a
+    (B*H, N, Dh) copy, with and without dropout, beside their plain
+    versions and the same library calls on (1, B*H, N, Dh)."""
+    import torch.nn.functional as F
+    from vitax_torch.ops.attention import (Dropout, _to_bh, attention_bwd_with_lse, attention_fwd_with_lse,
+                                           flash_attn_bwd_cuda, flash_attn_fwd_cuda)
+    b, n, h, dh = TRAIN_SHAPE
+    scale = dh ** -0.5
+    drop = Dropout(DROP_SEED, DROP_RATE)
+    q, k, v, do, _ = attention_operands(torch, TRAIN_SHAPE, "bfloat16", SEED + 14)
+    layouts = {"4d": (q, k, v, do, tuple(x.transpose(1, 2) for x in (q, k, v, do)), True)}
+    bh = [_to_bh(x).contiguous() for x in (q, k, v, do)]
+    layouts["bh"] = (*(x[:, :, None] for x in bh), tuple(x[None] for x in bh), False)
+    timing = {}
+    sdpa_fwd = torch.ops.aten._scaled_dot_product_flash_attention
+    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    with torch.inference_mode():
+        for layout, (q_, k_, v_, do_, lib, first) in layouts.items():
+            for d in (None, drop) if layout == "bh" else (drop,):
+                rate = 0.0 if d is None else d.rate
+                fwd = lambda: flash_attn_fwd_cuda(q_, k_, v_, scale, d)  # noqa: E731
+                ms = time_ms(torch, fwd, iters=50)
+                a1_ms = time_ms(torch, lambda: flash_attn_fwd_cuda(q_, k_, v_, scale), iters=50)
+                plain_ms = time_ms(torch, lambda: attention_fwd_with_lse(q_, k_, v_, scale, d, first), iters=3,
+                                   warmup=1)
+                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(*lib[:3], dropout_p=rate,
+                                                                               scale=scale), iters=50)
+                ms2 = time_ms(torch, fwd, iters=50)
+                o, lse = fwd()
+                o0, lse0 = flash_attn_fwd_cuda(q_, k_, v_, scale)
+                sd = sdpa_fwd(*lib[:3], rate, False, False, scale=scale)
+                bwd = lambda: flash_attn_bwd_cuda(q_, k_, v_, o, lse, do_, None, scale, d)  # noqa: E731
+                b_ms = time_ms(torch, bwd, iters=30)
+                a2_ms = time_ms(torch, lambda: flash_attn_bwd_cuda(q_, k_, v_, o0, lse0, do_, None, scale), iters=30)
+                b_plain = time_ms(torch, lambda: attention_bwd_with_lse(q_, k_, v_, o, lse, do_, None, scale, d),
+                                  iters=3, warmup=1)
+                b_lib = time_ms(torch, lambda: sdpa_bwd(lib[3], *lib[:3], sd[0], sd[1], sd[2], sd[3], sd[4], sd[5],
+                                                        rate, False, sd[6], sd[7], scale=scale), iters=30)
+                b_ms2 = time_ms(torch, bwd, iters=30)
+                fb = (attention_drop_bound_ms(TRAIN_SHAPE, "bfloat16", False) if d is not None
+                      else (*attention_bound_ms(TRAIN_SHAPE, "bfloat16"), 0))
+                bb = (attention_drop_bound_ms(TRAIN_SHAPE, "bfloat16", True) if d is not None
+                      else (*attention_bwd_bound_ms(TRAIN_SHAPE, "bfloat16"), 0))
+                base = ("flash_attn" if layout == "4d" else "flash_bh")
+                suffix = "" if d is None else "_drop"
+                label = f"{base}{suffix} {'(B*H, N, 1, Dh) view' if layout == 'bh' else TRAIN_SHAPE} bf16" + (
+                    "" if d is None else f" rate {rate}")
+                for kind, k_ms, k_ms2, ref_ms, p_ms, l_ms, bound in (
+                        ("fwd", ms, ms2, a1_ms, plain_ms, lib_ms, fb), ("bwd", b_ms, b_ms2, a2_ms, b_plain, b_lib, bb)):
+                    say(f"[4 time] {label} {kind}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, rate-0 kernel on the same "
+                        f"inputs {ref_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa flash (dropout_p {rate}) {l_ms:.4f} ms, "
+                        f"bound {bound[0]:.4f} ms ({bound[1]}: {bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP"
+                        + (f", {bound[4] / 1e9:.3f} G INT32 ops of the hash" if d is not None else "") + f") [{card}]")
+                    name = ("flash_attn_" if layout == "4d" else "flash_bh_") + kind + suffix
+                    timing[name] = {"ms": min(k_ms, k_ms2), "plain_ms": p_ms, "library_ms": l_ms,
+                                    "bound_ms": bound[0], "bound_by": bound[1]}
+                del o, lse, o0, lse0, sd
+    del q, k, v, do, bh, layouts
+    torch.cuda.empty_cache()
+    return timing
+
+
 def phase_model_check(torch):
     from vitax_torch.config import Config
     from vitax_torch.models.vit import build_model
@@ -592,13 +905,7 @@ def phase_model_check(torch):
         grads.append({n: p.grad for n, p in m.named_parameters()})
     if _build.LAUNCHES["flash_attn_bwd"] - before["flash_attn_bwd"] != cfg.num_blocks:
         fail("the model's backward did not go through flash_attn_bwd once per block")
-    groups = {}
-    for name, g_k in grads[0].items():
-        g_d = grads[1][name]
-        key = "blocks." + name.split(".", 2)[2] if name.startswith("blocks.") else name
-        r = ((g_k - g_d).abs().max() / g_d.abs().max().clamp_min(1e-30)).item()
-        finite = bool(torch.isfinite(g_k).all())
-        groups[key] = max(groups.get(key, 0.0), r if finite else float("inf"))
+    groups = grad_groups(torch, grads[0], grads[1])
     loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
     worst = max(groups.values())
     ok = loss_rel <= MODEL_LOSS_REL_TOL and worst <= MODEL_GRAD_REL_TOL
@@ -608,9 +915,62 @@ def phase_model_check(torch):
     if not ok:
         fail("model gradients with the kernels disagree with the dense model's")
     del dense, x, grads
+    check_dropout_model(torch, model, images, labels)
     check_quant_model(torch, model, images)
     del model
     torch.cuda.empty_cache()
+
+
+def grad_groups(torch, grads_k, grads_d):
+    """max |dg| / max |g| per leaf group (block leaves pooled over blocks)."""
+    groups = {}
+    for name, g_k in grads_k.items():
+        g_d = grads_d[name]
+        key = "blocks." + name.split(".", 2)[2] if name.startswith("blocks.") else name
+        r = ((g_k - g_d).abs().max() / g_d.abs().max().clamp_min(1e-30)).item()
+        groups[key] = max(groups.get(key, 0.0), r if bool(torch.isfinite(g_k).all()) else float("inf"))
+    return groups
+
+
+def check_dropout_model(torch, model, images, labels):
+    """The depth-2 model under att_dropout and mlp_dropout at one set of
+    seeds: the dropout kernels (forward, recompute under grad_ckpt,
+    backward) against the dense path with the same counter-hash mask
+    (make_dense_dropout) and the same proj/mlp masks, on the same weights:
+    the loss and every parameter's gradient at the rate-0 arm's bars, and
+    the launches (two forwards and one backward a block)."""
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import build_model
+    from vitax_torch.ops import _build
+    from vitax_torch.ops.attention import make_attention_impl
+    from vitax_torch.train.step import dropout_seeds, prepare_images
+    x = prepare_images(images)
+    losses, grads, launched = [], [], []
+    for flash in (True, False):
+        cfg = Config(num_blocks=2, seed=SEED, att_dropout=DROP_RATE, mlp_dropout=DROP_RATE,
+                     use_flash_attention=flash).validate()
+        m = build_model(cfg, "cuda", attention_impl=make_attention_impl(cfg, "cuda"), init=False)
+        m.load_state_dict(model.state_dict(), assign=True)      # the same tensors
+        m.zero_grad(set_to_none=True)
+        before = dict(_build.LAUNCHES)
+        loss = torch.nn.functional.cross_entropy(m(x, dropout_seeds(cfg, 0, 0)).float(), labels)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+        launched.append({k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]})
+        del m
+    want = {"flash_attn_fwd_drop": 2 * cfg.num_blocks, "flash_attn_bwd_drop": cfg.num_blocks}
+    groups = grad_groups(torch, grads[0], grads[1])
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst = max(groups.values())
+    ok = loss_rel <= MODEL_LOSS_REL_TOL and worst <= MODEL_GRAD_REL_TOL and launched == [want, {}]
+    say(f"[5 model] dropout att {DROP_RATE} mlp {DROP_RATE}: loss kernels {losses[0]:.6f} dense {losses[1]:.6f} "
+        f"(rel {loss_rel:.2e} <= {MODEL_LOSS_REL_TOL}); grads max|dg|/max|g| per leaf group (<= "
+        f"{MODEL_GRAD_REL_TOL}): " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(groups.items()))
+        + f"; launches {launched[0]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the model under dropout with the kernels disagrees with the dense path's")
+    del grads, x
 
 
 def check_quant_model(torch, model, images):
@@ -676,7 +1036,12 @@ def check_answer(ans: dict, k: int, num_classes: int) -> None:
         fail(f"probs not descending in (0, 1]: {probs}")
 
 
-KERNEL_GROUPS = (("flash_attn_fwd", r"flash_attn_fwd"), ("flash_attn_bwd", r"bwd_dkdv|bwd_dq|delta_kernel"),
+# First match wins: the dropout instantiations (template flag `true`) before
+# the rate-0 ones; delta_kernel serves both backwards.
+KERNEL_GROUPS = (("flash_attn_fwd_drop", r"flash_attn_fwd_\w+_kernel<\d+, true>"),
+                 ("flash_attn_fwd", r"flash_attn_fwd"),
+                 ("flash_attn_bwd_drop", r"(bwd_dkdv|bwd_dq)_\w+_kernel<\d+, true>"),
+                 ("flash_attn_bwd", r"bwd_dkdv|bwd_dq|delta_kernel"),
                  ("fused_adamw", r"fused_adamw"), ("dequant_matmul", r"dequant_matmul"),
                  ("gemm", r"gemm|xmma|nvjet|cutlass|sm90_"))
 
@@ -917,7 +1282,8 @@ def phase_train(torch, card):
     # per optimizer step: a forward and a recompute per block, a backward per
     # block, one optimizer launch; the eval adds a forward per block per batch
     want = {"flash_attn_fwd": cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks,
-            "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps, "dequant_matmul": 0}
+            "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps, "dequant_matmul": 0,
+            "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0}
     if launches != want:
         fail(f"train() launched {launches}; expected {want}")
     times = [r["step_seconds"] for r in steps[2:]]          # steps 3 to 12
@@ -946,15 +1312,117 @@ def phase_train(torch, card):
                    f"depth {cfg.num_blocks})", card, "7", top=14)
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}       # a warm step, then the profiled one
     want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1,
-                 "dequant_matmul": 0}
+                 "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7 train] launches per steady step {per_step}")
     del train_step, batch
     timing = time_fused_adamw(torch, state, card)
     del state
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches, timing
+    return launches, timing, losses[0]
+
+
+def phase_train_dropout(torch, card, first_loss_rate0: float):
+    """Phase 7's run with att_dropout and mlp_dropout 0.1 from the same
+    init and data: exact launch totals (per step, each block's dropout
+    forward and its recompute, its dropout backward; the eval's rate-0
+    forwards), a first loss other than phase 7's, one step's loss and grad
+    norm computed twice from the same state and seeds on a seeded batch,
+    bitwise equal (and not at the next step's seeds), sec/iter, images/s,
+    MFU, peak memory, and a profile of one steady step. Returns the
+    launches."""
+    import torch.nn.functional as F
+    from vitax_torch.config import Config
+    from vitax_torch.ops import _build
+    from vitax_torch.ops.fused_optimizer import global_norm
+    from vitax_torch.telemetry.flops import model_flops_per_step, peak_tflops
+    from vitax_torch.train.loop import train
+    from vitax_torch.train.state import build_optimizer
+    from vitax_torch.train.step import dropout_seeds, make_train_step
+
+    cfg = Config(seed=SEED, **TRAIN_DROPOUT).validate()
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = train(cfg, "cuda", records=records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = [r for r in records if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    if len(steps) != cfg.max_steps or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train() under dropout logged {len(steps)} steps, losses {losses}; expected {cfg.max_steps} "
+             f"finite and falling")
+    if losses[0] == first_loss_rate0:
+        fail(f"the first loss under dropout {losses[0]} equals the rate-0 run's: the masks did nothing")
+    n = cfg.num_blocks
+    want = {"flash_attn_fwd": cfg.eval_max_batches * n, "flash_attn_fwd_drop": cfg.max_steps * 2 * n,
+            "flash_attn_bwd": 0, "flash_attn_bwd_drop": cfg.max_steps * n, "fused_adamw": cfg.max_steps,
+            "dequant_matmul": 0}
+    if launches != want:
+        fail(f"train() under dropout launched {launches}; expected {want}")
+    times = [r["step_seconds"] for r in steps[2:]]
+    sec_per_iter = float(np.median(times))
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    mfu = (model_flops_per_step(cfg) / sec_per_iter / (peak * 1e12)) if peak else None
+    say(f"[7d train] 10B width, depth {n}, batch {cfg.batch_size}, att_dropout {cfg.att_dropout}, mlp_dropout "
+        f"{cfg.mlp_dropout}: {cfg.max_steps} steps + eval in {wall:.1f}s; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f" (rate-0 run's first {first_loss_rate0:.6f}, this run's "
+        f"{losses[0]:.6f}); grad_norm first {steps[0]['grad_norm']:.4f} last {steps[-1]['grad_norm']:.4f}")
+    say(f"[7d train] sec/iter median of steps 3-12 {sec_per_iter:.4f} s (min {min(times):.4f}, max "
+        f"{max(times):.4f}); {cfg.batch_size / sec_per_iter:.2f} images/s; MFU "
+        + (f"{mfu * 100:.2f}% of {peak:.0f} TFLOP/s bf16" if mfu is not None else "not measured (no peak for this card)")
+        + f"; max_memory_allocated {peak_gb:.2f} GB; launches {launches} [{card}]")
+
+    # one step's loss and grad norm, twice at the same seeds: bitwise equal
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    x = torch.randn((cfg.batch_size, cfg.image_size, cfg.image_size, 3), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (cfg.batch_size,), generator=gen, device="cuda")
+    model = state.model
+
+    def loss_and_norm(seeds):
+        model.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(x, seeds).float(), labels)
+        loss.backward()
+        return loss.detach(), global_norm([p.grad for p in model.parameters()])
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True       # the patch conv's wgrad: no atomics
+    try:
+        runs = [loss_and_norm(dropout_seeds(cfg, s, 0)) for s in (cfg.max_steps, cfg.max_steps, cfg.max_steps + 1)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    moved = not torch.equal(runs[0][0], runs[2][0])
+    say(f"[7d check] one step from the same state and seeds, twice: loss {runs[0][0].item():.9g} / "
+        f"{runs[1][0].item():.9g}, grad norm {runs[0][1].item():.9g} / {runs[1][1].item():.9g}, bitwise equal "
+        f"{same}; the next step's seeds: loss {runs[2][0].item():.9g} {'ok' if same and moved else 'FAIL'}")
+    if not (same and moved):
+        fail("a step repeated from the same state and seeds is not bitwise equal, or other seeds change nothing")
+    del runs, x, labels
+
+    optimizer, _ = build_optimizer(cfg, 100)
+    train_step = make_train_step(cfg, optimizer, "cuda")
+    batch = {"image": torch.zeros((cfg.batch_size, cfg.image_size, cfg.image_size, 3), device="cuda"),
+             "label": torch.zeros(cfg.batch_size, dtype=torch.int64, device="cuda")}
+    _build.reset_launches()
+    profile_device(torch, lambda: train_step(state, batch), f"one train step under dropout (batch "
+                   f"{cfg.batch_size}, depth {n})", card, "7d", top=14)
+    per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}
+    want_step = {"flash_attn_fwd": 0, "flash_attn_fwd_drop": 2 * n, "flash_attn_bwd": 0, "flash_attn_bwd_drop": n,
+                 "fused_adamw": 1, "dequant_matmul": 0}
+    if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
+        fail(f"two steady train steps under dropout launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
+    say(f"[7d train] launches per steady step {per_step}")
+    del train_step, batch, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def time_fused_adamw(torch, state, card):
@@ -1030,23 +1498,38 @@ def main() -> int:
     del engine_f32
     gc.collect()                           # free the 40 GB engine before the train path
     torch.cuda.empty_cache()
-    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]) = phase_train(torch, card)
+    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0 = phase_train(torch, card)
+    drop_launches = phase_train_dropout(torch, card, loss0)
+    fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
-        {"name": "flash_attn_fwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_fwd.cu",
+        {"name": "flash_attn_fwd", "route": "cuda", "source": fwd_src,
          "replaces": "vitax/ops/attention.py:275",
          "launches": (serve_launches["flash_attn_fwd"] + quant_launches["flash_attn_fwd"]
-                      + train_launches["flash_attn_fwd"]),
+                      + train_launches["flash_attn_fwd"] + drop_launches["flash_attn_fwd"]),
          "max_abs_err": errs[(SERVE_SHAPE, "bfloat16")], **timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_bwd.cu",
          "replaces": "vitax/ops/attention.py:302", "launches": train_launches["flash_attn_bwd"],
          "max_abs_err": errs["flash_attn_bwd"], **timing["flash_attn_bwd"]},
         {"name": "fused_adamw", "route": "cuda", "source": "vitax_torch/csrc/fused_adamw.cu",
-         "replaces": "vitax/ops/fused_optimizer.py:112", "launches": train_launches["fused_adamw"],
+         "replaces": "vitax/ops/fused_optimizer.py:112",
+         "launches": train_launches["fused_adamw"] + drop_launches["fused_adamw"],
          "max_abs_err": max(errs["fused_adamw"], errs["fused_adamw_table"]), **timing["fused_adamw"]},
         {"name": "dequant_matmul", "route": "cuda", "source": "vitax_torch/csrc/dequant_matmul.cu",
          "replaces": "vitax/ops/dequant_matmul.py:92", "launches": quant_launches["dequant_matmul"],
          "max_abs_err": errs["dequant_matmul"], **timing["dequant_matmul"]},
+        {"name": "flash_attn_fwd_drop", "route": "cuda", "source": fwd_src,
+         "replaces": "vitax/ops/attention.py:625", "launches": drop_launches["flash_attn_fwd_drop"],
+         "max_abs_err": errs["flash_attn_fwd_drop"], **timing["flash_attn_fwd_drop"]},
+        {"name": "flash_attn_bwd_drop", "route": "cuda", "source": bwd_src,
+         "replaces": "vitax/ops/attention.py:659", "launches": drop_launches["flash_attn_bwd_drop"],
+         "max_abs_err": errs["flash_attn_bwd_drop"], **timing["flash_attn_bwd_drop"]},
     ]
+    # The BH entry points run the same kernels on (B*H, N, 1, Dh) views; no
+    # main path calls them (launches 0), phase 3 holds them and phase 4 times them.
+    for name, src, line in (("flash_bh_fwd", fwd_src, 139), ("flash_bh_bwd", bwd_src, 178),
+                            ("flash_bh_fwd_drop", fwd_src, 491), ("flash_bh_bwd_drop", bwd_src, 513)):
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": f"vitax/ops/attention.py:{line}",
+                        "launches": 0, "max_abs_err": errs[name], **timing[name]})
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

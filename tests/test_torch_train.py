@@ -201,7 +201,7 @@ def test_loader_batches_and_worker_errors():
         build_datasets(Config(**TINY), torch.device("cpu"))
 
 
-@pytest.mark.parametrize("bad,match", [(dict(att_dropout=0.1), "dropout"), (dict(mlp_dropout=0.1), "dropout"),
+@pytest.mark.parametrize("bad,match", [(dict(att_dropout=1.0), "dropout"), (dict(pos_dropout=-0.1), "dropout"),
                                        (dict(fsdp_size=2), "mesh"), (dict(dp_size=2), "mesh"),
                                        (dict(resume_epoch=1), "checkpoint"),
                                        (dict(grad_accum_steps=3), "grad_accum"),
@@ -264,5 +264,5 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu():
     r = _cli("--fake_data", "--num_blocks", "1")
     assert r.returncode != 0
     assert "no CUDA card is available" in r.stderr and "--device cpu" in r.stderr
-    r = _cli("--device", "cpu", "--fake_data", "--att_dropout", "0.1")
+    r = _cli("--device", "cpu", "--fake_data", "--att_dropout", "1.0")
     assert r.returncode != 0 and "dropout" in r.stderr

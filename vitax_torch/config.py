@@ -88,9 +88,6 @@ class Config:
     def validate(self) -> "Config":
         """Reject settings the port cannot run; returns self."""
         later = (
-            (max(self.pos_dropout, self.att_dropout, self.mlp_dropout) == 0.0,
-             "dropout above 0 waits for the slice that ports the dropout attention kernels "
-             "(vitax/ops/attention.py _fwd4_kernel_drop / _bwd4_kernel_drop)"),
             (all(n in (1, -1) if name == "fsdp_size" else n == 1 for name, n in (
                 ("dp_size", self.dp_size), ("fsdp_size", self.fsdp_size), ("tp_size", self.tp_size),
                 ("sp_size", self.sp_size), ("pp_size", self.pp_size))),
@@ -118,6 +115,10 @@ class Config:
             (self.embed_dim % self.num_heads == 0,
              f"embed_dim {self.embed_dim} not divisible by num_heads {self.num_heads}"),
             (self.dtype in ("bfloat16", "float32"), f"unknown dtype {self.dtype!r}"),
+            *((0.0 <= getattr(self, name) < 1.0,
+               f"--{name} must be in [0, 1), got {getattr(self, name)}: rate >= 1 would zero every "
+               f"activation and the kernels' 1/(1-rate) rescale turns that into inf/NaN rather than "
+               f"torch's all-zeros") for name in ("pos_dropout", "att_dropout", "mlp_dropout")),
             (0 <= self.serve_port <= 65535, f"--serve_port must be in [0, 65535], got {self.serve_port}"),
             (self.serve_max_batch >= 1 and self.serve_max_batch & (self.serve_max_batch - 1) == 0,
              f"--serve_max_batch must be a power of two >= 1, got {self.serve_max_batch}"),

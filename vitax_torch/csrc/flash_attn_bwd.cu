@@ -11,6 +11,18 @@
 // and dS rounded to the input type before their products; dO enters its
 // products in the input type; every product accumulates in float32.
 //
+// With the DROP template flag the kernels replace _bwd4_kernel_drop (and,
+// on (B*H, N, 1, Dh) views, the BH kernels _bwd_kernel and
+// _bwd_kernel_drop): each of the dK/dV and dQ kernels regenerates the
+// forward's keep-mask from the counter hash in flash_common.cuh, and with
+// ms = mask / (1 - rate)
+//   dV = (P * ms)^T dO,  dS = P * (dP * ms - delta + dlse) * scale,
+// delta unchanged (rowsum(dO * O) = rowsum(dP_probs * P) still holds; the
+// derivation is at vitax/ops/attention.py:484-488). In the dK/dV kernel the
+// score tile is held as S^T, keys as rows: the hash takes each element's
+// key from its row and its query from its column. The rate-0
+// instantiations are the code they were before dropout existed.
+//
 // What bounds it on the card: at the 10B train shape (B 32, N 256, H 32,
 // Dh 160, bf16) the call reads q, k, v, o, dO and writes dq, dk, dv (8 x
 // 83.9 MB, plus lse and dlse) against 107.4 GFLOP: 160 FLOP per byte,
@@ -110,13 +122,13 @@ constexpr size_t tc_smem_bytes() {
 }
 
 // 2. dK, dV for one 64-row K/V tile.
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv,
-                     int N, int H, Strides st, float scale, int vec) {
+                     int N, int H, Strides st, float scale, int vec, Dropout drop) {
   static_assert(DH % 16 == 0, "head dim must be a multiple of the mma k-step (16)");
   constexpr int DS = tc_row_stride<DH>();
   constexpr int NT_D = DH / 8;         // head-dim n-tiles of the dK / dV accumulators
@@ -153,6 +165,12 @@ bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* kw = Ks + (warp * 16 + g) * DS + t * 2;   // this warp's K/V rows, as A
   const bf16* vw = Vs + (warp * 16 + g) * DS + t * 2;
+  uint32_t key_x[2] = {0u, 0u};        // dropout: k and bh terms of K/V rows g and g + 8
+  if constexpr (DROP) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      key_x[r] = drop_k_term(drop, kv0 + warp * 16 + g + 8 * r) + drop_bh_term(b * H + h);
+  }
   const float* lse_bh = lse + ((int64_t)b * H + h) * N;
   const float* del_bh = delta + ((int64_t)b * H + h) * N;
   const int n_tiles = (N + TILE - 1) / TILE;
@@ -201,15 +219,23 @@ bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
       // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - delta) * scale,
-      // column c of the 16 is query row qs + c.
+      // column c of the 16 is query row qs + c (row e >> 1 of the fragment
+      // is this thread's K/V row g or g + 8). Under dropout P^T becomes
+      // P^T * ms for dV, and dP^T becomes dP^T * ms.
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = qs + j * 8 + t * 2 + (e & 1);
           const float p = expf(s[j][e] * scale - lse_s[c]);
-          dp[j][e] = p * (dp[j][e] - del_s[c]) * scale;
-          s[j][e] = p;
+          if constexpr (DROP) {
+            const float ms = drop_keep(drop, key_x[e >> 1] + drop_q_term(drop, q0 + c)) ? drop.inv_keep_prob : 0.f;
+            dp[j][e] = p * (dp[j][e] * ms - del_s[c]) * scale;
+            s[j][e] = p * ms;
+          } else {
+            dp[j][e] = p * (dp[j][e] - del_s[c]) * scale;
+            s[j][e] = p;
+          }
         }
       }
       const uint32_t ap[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
@@ -246,12 +272,12 @@ bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // 3. dQ for one 64-row query tile.
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dq, int N, int H, Strides st, float scale, int vec) {
+                   bf16* __restrict__ dq, int N, int H, Strides st, float scale, int vec, Dropout drop) {
   constexpr int DS = tc_row_stride<DH>();
   constexpr int NT_S = TILE / 8;       // key n-tiles of a score tile
   constexpr int NT_D = DH / 8;
@@ -275,12 +301,14 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile_bf16<DH, TC_THREADS>(Os, head_base(dout, st, DO_, b, h), st.s[DO_ + 1], q0, N, vec);
 
   float lse_r[2], del_r[2];           // rows g and g + 8 of this warp
+  uint32_t row_x[2] = {0u, 0u};       // dropout: their q and bh terms
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int n = q0 + warp * 16 + g + 8 * r;
     const int64_t idx = ((int64_t)b * H + h) * N + n;
     lse_r[r] = n < N ? lse[idx] : INFINITY;
     del_r[r] = n < N ? delta[idx] : 0.f;
+    if constexpr (DROP) row_x[r] = drop_q_term(drop, n) + drop_bh_term(b * H + h);
   }
   float acc[NT_D][4];
 #pragma unroll
@@ -324,14 +352,20 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_16816(dp[j], a, bb);
       }
     }
-    // dS = P (dP - delta) * scale, keys past N masked to P = 0.
+    // dS = P (dP - delta) * scale, keys past N masked to P = 0; under
+    // dropout dS = P (dP * ms - delta) * scale.
 #pragma unroll
     for (int j = 0; j < NT_S; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + t * 2 + (e & 1);
         const float p = key < N ? expf(s[j][e] * scale - lse_r[e >> 1]) : 0.f;
-        s[j][e] = p * (dp[j][e] - del_r[e >> 1]) * scale;
+        if constexpr (DROP) {
+          const float ms = drop_keep(drop, row_x[e >> 1] + drop_k_term(drop, key)) ? drop.inv_keep_prob : 0.f;
+          s[j][e] = p * (dp[j][e] * ms - del_r[e >> 1]) * scale;
+        } else {
+          s[j][e] = p * (dp[j][e] - del_r[e >> 1]) * scale;
+        }
       }
     }
     // dQ += dS K: the dS accumulators of n-tiles 2kt and 2kt + 1 are the A
@@ -398,13 +432,13 @@ __device__ __forceinline__ void axpy4(float4& acc, float a, float4 x) {
 // Thread (r, cg) owns row r of the resident tile and, of the streamed
 // tile, rows cg, cg + 4, ..., cg + 60 for the scores and the column groups
 // cg + 4 gi for its accumulators.
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dk, float* __restrict__ dv,
-                    int N, int H, Strides st, float scale, int /*vec*/) {
+                    int N, int H, Strides st, float scale, int /*vec*/, Dropout drop) {
   static_assert(DH % 16 == 0, "each of a row's 4 threads owns DH/16 float4 groups");
   constexpr int KS = f32_row_stride<DH>();
   constexpr int G = DH / 16;
@@ -439,6 +473,7 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vrow = Vs + r * KS;
   float* prow = Ps + r * PS;
   float* drow = Ds + r * PS;
+  const uint32_t key_x = DROP ? drop_k_term(drop, kv0 + r) + drop_bh_term(b * H + h) : 0u;
   const int n_tiles = (N + TILE - 1) / TILE;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int q0 = tile * TILE;
@@ -470,8 +505,14 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < SC; ++j) {
       const int c = cg + TPR * j;
       const float p = expf(s[j] * scale - lse_s[c]);
-      prow[c] = p;
-      drow[c] = p * (dp[j] - del_s[c]) * scale;
+      if constexpr (DROP) {
+        const float ms = drop_keep(drop, key_x + drop_q_term(drop, q0 + c)) ? drop.inv_keep_prob : 0.f;
+        prow[c] = p * ms;
+        drow[c] = p * (dp[j] * ms - del_s[c]) * scale;
+      } else {
+        prow[c] = p;
+        drow[c] = p * (dp[j] - del_s[c]) * scale;
+      }
     }
     __syncwarp();                      // a row's 4 threads share one warp
 
@@ -500,12 +541,12 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dq, int N, int H, Strides st, float scale, int /*vec*/) {
+                  float* __restrict__ dq, int N, int H, Strides st, float scale, int /*vec*/, Dropout drop) {
   constexpr int KS = f32_row_stride<DH>();
   constexpr int G = DH / 16;
   constexpr int SC = TILE / TPR;
@@ -529,6 +570,7 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t idx = ((int64_t)b * H + h) * N + n;
   const float lse_r = n < N ? lse[idx] : INFINITY;
   const float del_r = n < N ? delta[idx] : 0.f;
+  const uint32_t row_x = DROP ? drop_q_term(drop, n) + drop_bh_term(b * H + h) : 0u;
 
   float4 acc[G];
 #pragma unroll
@@ -563,7 +605,12 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < SC; ++j) {
       const int c = cg + TPR * j;
       const float p = (k0 + c) < N ? expf(s[j] * scale - lse_r) : 0.f;
-      drow[c] = p * (dp[j] - del_r) * scale;
+      if constexpr (DROP) {
+        const float ms = drop_keep(drop, row_x + drop_k_term(drop, k0 + c)) ? drop.inv_keep_prob : 0.f;
+        drow[c] = p * (dp[j] * ms - del_r) * scale;
+      } else {
+        drow[c] = p * (dp[j] - del_r) * scale;
+      }
     }
     __syncwarp();
 
@@ -599,9 +646,10 @@ struct Args {
   Strides st;
   float scale;
   int vec;
+  Dropout drop;
 };
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -620,40 +668,45 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem_dkdv = TC ? tc_smem_bytes<DH>() : f32_dkdv_smem_bytes<DH>();
   constexpr size_t smem_dq = TC ? tc_smem_bytes<DH>() : f32_dq_smem_bytes<DH>();
   void (*dkdv)(const T*, const T*, const T*, const T*, const float*, const float*, T*, T*, int, int,
-               Strides, float, int);
+               Strides, float, int, Dropout);
   void (*dqk)(const T*, const T*, const T*, const T*, const float*, const float*, T*, int, int,
-              Strides, float, int);
+              Strides, float, int, Dropout);
   if constexpr (TC) {
-    dkdv = bwd_dkdv_bf16_kernel<DH>;
-    dqk = bwd_dq_bf16_kernel<DH>;
+    dkdv = bwd_dkdv_bf16_kernel<DH, DROP>;
+    dqk = bwd_dq_bf16_kernel<DH, DROP>;
   } else {
-    dkdv = bwd_dkdv_f32_kernel<DH>;
-    dqk = bwd_dq_f32_kernel<DH>;
+    dkdv = bwd_dkdv_f32_kernel<DH, DROP>;
+    dqk = bwd_dq_f32_kernel<DH, DROP>;
   }
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
   if (err != cudaSuccess) return err;
   dkdv<<<grid, threads, smem_dkdv, stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
-                                             static_cast<T*>(a.dv), a.N, a.H, a.st, a.scale, a.vec);
+                                             static_cast<T*>(a.dv), a.N, a.H, a.st, a.scale, a.vec, a.drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
   if (err != cudaSuccess) return err;
   dqk<<<grid, threads, smem_dq, stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq),
-                                          a.N, a.H, a.st, a.scale, a.vec);
+                                          a.N, a.H, a.st, a.scale, a.vec, a.drop);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool DROP>
 cudaError_t dispatch_dh(int dh, const Args& a, cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch<T, 16>(a, stream);
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 80: return launch<T, 80>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    case 160: return launch<T, 160>(a, stream);
+    case 16: return launch<T, 16, DROP>(a, stream);
+    case 32: return launch<T, 32, DROP>(a, stream);
+    case 64: return launch<T, 64, DROP>(a, stream);
+    case 80: return launch<T, 80, DROP>(a, stream);
+    case 128: return launch<T, 128, DROP>(a, stream);
+    case 160: return launch<T, 160, DROP>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch(int dh, int drop, const Args& a, cudaStream_t stream) {
+  return drop ? dispatch_dh<T, true>(dh, a, stream) : dispatch_dh<T, false>(dh, a, stream);
 }
 
 }  // namespace
@@ -662,15 +715,20 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 15 element strides, (batch,
 // sequence, head) for q, k, v, o, then dout. dlse may be null (zero).
-// delta is a (B, H, N) float32 scratch. Returns a cudaError_t (0 =
+// delta is a (B, H, N) float32 scratch. drop != 0 runs the dropout
+// instantiations with the forward's seed, offsets q0 and k0, threshold,
+// float32(1 - rate) and its float32 reciprocal. Returns a cudaError_t (0 =
 // success); the three launches are asynchronous on `stream`.
 int vitax_flash_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, const float* dlse,
                          void* dq, void* dk, void* dv, float* delta,
                          int dtype, int B, int N, int H, int dh,
-                         const int64_t* strides, float scale, void* stream) {
+                         const int64_t* strides, float scale, int drop, uint32_t seed,
+                         uint32_t q0, uint32_t k0, uint32_t threshold, float keep_prob,
+                         float inv_keep_prob, void* stream) {
   if (B < 1 || N < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, dout, lse, dlse, dq, dk, dv, delta, B, N, H, {}, scale, 0};
+  Args a{q, k, v, o, dout, lse, dlse, dq, dk, dv, delta, B, N, H, {}, scale, 0,
+         {seed, q0, k0, threshold, keep_prob, inv_keep_prob}};
   for (int i = 0; i < 15; ++i) a.st.s[i] = strides[i];
   const void* ptrs[4] = {q, k, v, dout};
   const int64_t tile_strides[12] = {strides[0], strides[1], strides[2], strides[3], strides[4],
@@ -678,8 +736,8 @@ int vitax_flash_attn_bwd(const void* q, const void* k, const void* v, const void
                                     strides[13], strides[14]};
   a.vec = vitax::rows_vectorizable(ptrs, 4, tile_strides, 12);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_dh<float>(dh, a, s);
-  if (dtype == 1) return (int)dispatch_dh<vitax::bf16>(dh, a, s);
+  if (dtype == 0) return (int)dispatch<float>(dh, drop, a, s);
+  if (dtype == 1) return (int)dispatch<vitax::bf16>(dh, drop, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,14 @@
 //
 // Replaces vitax/ops/attention.py:_fwd4_kernel (the TPU kernel behind
 // flash4_with_lse): per (batch, head), o = softmax(q k^T * scale) v and the
-// row logsumexp lse = m + log(l), in float32.
+// row logsumexp lse = m + log(l), in float32. With the DROP template flag it
+// replaces _fwd4_kernel_drop (and, on (B*H, N, 1, Dh) views, the BH kernels
+// _fwd_kernel and _fwd_kernel_drop): attention dropout on the softmax
+// probabilities, o = (P * mask) v / (l * (1 - rate)), with the keep-mask of
+// the counter hash in flash_common.cuh. The online softmax keeps m and l
+// unmasked; only the PV accumulator takes the masked P, so lse stays
+// m + log(l) of the unmasked scores, as in the JAX kernels. The rate-0
+// instantiations are the code they were before dropout existed.
 //
 // What bounds it on the card: at the 10B serve shape (B=8, N=256, H=32,
 // Dh=160, bf16) the call does 10.74 GFLOP against 84.1 MB of q, k, v, o and
@@ -31,6 +38,12 @@
 // normalises P before the PV product; these kernels divide by l after it
 // (and round the unnormalised P to bf16 for the bf16 product), which differs
 // by about one bf16 ulp of the output.
+//
+// Dropout costs integer instructions: each score element needs its own hash
+// (two fmix32, about 19 INT32 operations), 1.28 G operations at the train
+// shape, which is near the call's bytes bound on the card's INT32 lanes. The row's
+// hash terms are computed once per row; the per-element part sits in the
+// softmax loop, after the row sum, where P is cleared for dropped keys.
 
 #include "flash_common.cuh"
 
@@ -52,7 +65,7 @@ constexpr size_t tc_smem_bytes() {
   return (size_t)(3 * 64 * tc_row_stride<DH>()) * sizeof(bf16);
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -60,7 +73,7 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            int64_t q_sb, int64_t q_sn, int64_t q_sh,
                            int64_t k_sb, int64_t k_sn, int64_t k_sh,
                            int64_t v_sb, int64_t v_sn, int64_t v_sh,
-                           float scale, int vec) {
+                           float scale, int vec, Dropout drop) {
   static_assert(DH % 16 == 0, "head dim must be a multiple of the mma k-step (16)");
   constexpr int DS = tc_row_stride<DH>();
   constexpr int NT_S = BN / 8;         // score n-tiles per key tile
@@ -90,6 +103,12 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   float acc[NT_O][4];
 #pragma unroll
   for (int j = 0; j < NT_O; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  uint32_t row_x[2] = {0u, 0u};          // dropout: q and bh terms of rows g and g + 8
+  if constexpr (DROP) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      row_x[r] = drop_q_term(drop, q0 + warp * 16 + g + 8 * r) + drop_bh_term(b * H + h);
+  }
 
   const bf16* qw = Qs + (warp * 16 + g) * DS + t * 2;
   const int n_tiles = (N + BN - 1) / BN;
@@ -141,6 +160,10 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       for (int e = 0; e < 4; ++e) {
         s[j][e] = expf(s[j][e] - m_r[e >> 1]);
         rs[e >> 1] += s[j][e];
+        if constexpr (DROP) {
+          const int key = k0 + j * 8 + t * 2 + (e & 1);
+          if (!drop_keep(drop, row_x[e >> 1] + drop_k_term(drop, key))) s[j][e] = 0.f;
+        }
       }
     }
 #pragma unroll
@@ -180,7 +203,7 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   for (int r = 0; r < 2; ++r) {
     const int n = q0 + warp * 16 + g + 8 * r;
     if (n >= N) continue;
-    const float inv_l = 1.f / l_r[r];
+    const float inv_l = 1.f / (DROP ? l_r[r] * drop.keep_prob : l_r[r]);
     bf16* orow = o + (((int64_t)b * N + n) * H + h) * DH + t * 2;
 #pragma unroll
     for (int j = 0; j < NT_O; ++j) {
@@ -205,7 +228,7 @@ constexpr size_t f32_smem_bytes() {
   return (size_t)(3 * 64 * f32_row_stride<DH>() + BM * PS) * sizeof(float);
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
@@ -213,7 +236,7 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
                           int64_t q_sb, int64_t q_sn, int64_t q_sh,
                           int64_t k_sb, int64_t k_sn, int64_t k_sh,
                           int64_t v_sb, int64_t v_sn, int64_t v_sh,
-                          float scale, int /*vec*/) {
+                          float scale, int /*vec*/, Dropout drop) {
   static_assert(DH % 16 == 0, "each of a row's 4 threads owns DH/16 float4 groups");
   constexpr int KS = f32_row_stride<DH>();
   constexpr int G = DH / 16;           // float4 column groups per thread
@@ -239,6 +262,7 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
   float4 acc[G];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) acc[gi] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const uint32_t row_x = DROP ? drop_q_term(drop, q0 + r) + drop_bh_term(b * H + h) : 0u;
 
   const int n_tiles = (N + BN - 1) / BN;
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -282,7 +306,12 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
     for (int j = 0; j < SC; ++j) {
       const float p = expf(s[j] - m_new);
       rs += p;
-      prow[cg + TPR * j] = p;
+      if constexpr (DROP) {
+        const int key = k0 + cg + TPR * j;
+        prow[cg + TPR * j] = drop_keep(drop, row_x + drop_k_term(drop, key)) ? p : 0.f;
+      } else {
+        prow[cg + TPR * j] = p;
+      }
     }
     rs += __shfl_xor_sync(0xffffffffu, rs, 1);
     rs += __shfl_xor_sync(0xffffffffu, rs, 2);
@@ -312,7 +341,7 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
 
   const int n = q0 + r;
   if (n < N) {
-    const float inv_l = 1.f / l_i;
+    const float inv_l = 1.f / (DROP ? l_i * drop.keep_prob : l_i);
     float* orow = o + (((int64_t)b * N + n) * H + h) * DH;
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
@@ -328,19 +357,19 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int N, int H, const int64_t* st, float scale, int vec,
-                   cudaStream_t stream) {
+                   const Dropout& drop, cudaStream_t stream) {
   constexpr bool TC = sizeof(T) == 2;
   constexpr size_t smem = TC ? tc_smem_bytes<DH>() : f32_smem_bytes<DH>();
   constexpr int threads = TC ? TC_THREADS : F32_THREADS;
   void (*kern)(const T*, const T*, const T*, T*, float*, int, int, int64_t, int64_t, int64_t,
-               int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, float, int);
+               int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, float, int, Dropout);
   if constexpr (TC) {
-    kern = flash_attn_fwd_bf16_kernel<DH>;
+    kern = flash_attn_fwd_bf16_kernel<DH, DROP>;
   } else {
-    kern = flash_attn_fwd_f32_kernel<DH>;
+    kern = flash_attn_fwd_f32_kernel<DH, DROP>;
   }
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -348,23 +377,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   kern<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, N, H,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, vec);
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, vec, drop);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool DROP>
 cudaError_t dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int N, int H, const int64_t* st,
-                        float scale, int vec, cudaStream_t stream) {
+                        float scale, int vec, const Dropout& d, cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, B, N, H, st, scale, vec, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, N, H, st, scale, vec, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, N, H, st, scale, vec, stream);
-    case 80: return launch<T, 80>(q, k, v, o, lse, B, N, H, st, scale, vec, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, N, H, st, scale, vec, stream);
-    case 160: return launch<T, 160>(q, k, v, o, lse, B, N, H, st, scale, vec, stream);
+    case 16: return launch<T, 16, DROP>(q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
+    case 32: return launch<T, 32, DROP>(q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
+    case 64: return launch<T, 64, DROP>(q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
+    case 80: return launch<T, 80, DROP>(q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
+    case 128: return launch<T, 128, DROP>(q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
+    case 160: return launch<T, 160, DROP>(q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, void* o,
+                     float* lse, int B, int N, int H, const int64_t* st,
+                     float scale, int vec, int drop, const Dropout& d, cudaStream_t stream) {
+  if (drop) return dispatch_dh<T, true>(dh, q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
+  return dispatch_dh<T, false>(dh, q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
 }
 
 }  // namespace
@@ -372,17 +409,23 @@ cudaError_t dispatch_dh(int dh, const void* q, const void* k, const void* v, voi
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 9 element strides, (batch,
-// sequence, head) for q, then k, then v. Returns a cudaError_t (0 = success);
-// the launch is asynchronous on `stream`.
+// sequence, head) for q, then k, then v. drop != 0 runs the dropout
+// instantiation with the seed, the global offsets q0 and k0 of the first
+// query and key row, the uint32 threshold, float32(1 - rate) and its
+// float32 reciprocal. Returns a cudaError_t (0 = success); the launch is
+// asynchronous on `stream`.
 int vitax_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int dtype, int B, int N, int H, int dh,
-                         const int64_t* strides, float scale, void* stream) {
+                         const int64_t* strides, float scale, int drop, uint32_t seed,
+                         uint32_t q0, uint32_t k0, uint32_t threshold, float keep_prob,
+                         float inv_keep_prob, void* stream) {
   if (B < 1 || N < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* ptrs[3] = {q, k, v};
   const int vec = vitax::rows_vectorizable(ptrs, 3, strides, 9);
-  if (dtype == 0) return (int)dispatch_dh<float>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, s);
-  if (dtype == 1) return (int)dispatch_dh<vitax::bf16>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, s);
+  const vitax::Dropout d{seed, q0, k0, threshold, keep_prob, inv_keep_prob};
+  if (dtype == 0) return (int)dispatch<float>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, drop, d, s);
+  if (dtype == 1) return (int)dispatch<vitax::bf16>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, drop, d, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,9 @@
 // Helpers shared by the flash-attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): bf16 tensor-core fragments through mma.sync
-// m16n8k16, and 64-row tile copies from strided (B, N, H, Dh) views into
-// shared memory. Each kernel source is its own shared library; this header
-// is compiled into each of them.
+// m16n8k16, 64-row tile copies from strided (B, N, H, Dh) views into
+// shared memory, and the attention-dropout keep decision. Each kernel
+// source is its own shared library; this header is compiled into each of
+// them.
 
 #pragma once
 
@@ -94,6 +95,51 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* base, int
     const int n = n0 + row;
     dst[row * KS + d] = n < N ? base[(int64_t)n * s_n + d] : 0.f;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Attention dropout: the counter hash of vitax/ops/attention.py
+// dropout_keep_mask (:78-132). Score element (q, k) of block bh (b * H + h
+// with the call's whole head count) is kept when
+//   fmix32(fmix32(((q + q0) * GOLD_Q + (k + k0) * GOLD_K + bh * GOLD_BH) ^ seed))
+//     >= threshold
+// in uint32 arithmetic, with threshold = min(int(rate * 2^32), 2^32 - 1)
+// computed on the host as the JAX package does. A kernel sums the terms it
+// hoists out of its loops (the row's q or k term and the bh term) once per
+// row, and adds the other per element: two fmix32 and a compare, about 19
+// integer operations an element. Bit identity with the JAX package forbids
+// sharing one hash among several elements.
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t FMIX_C1 = 0x85EBCA6Bu;
+constexpr uint32_t FMIX_C2 = 0xC2B2AE35u;
+constexpr uint32_t GOLD_Q = 0x9E3779B1u;
+constexpr uint32_t GOLD_K = 0x85EBCA77u;
+constexpr uint32_t GOLD_BH = 0xC2B2AE3Du;
+
+struct Dropout {
+  uint32_t seed, q0, k0, threshold;
+  float keep_prob;        // float32(1 - rate): o = acc / (l * keep_prob)
+  float inv_keep_prob;    // 1 / keep_prob rounded to float32: a kept element's mask / (1 - rate)
+};
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= FMIX_C1;
+  x ^= x >> 13;
+  x *= FMIX_C2;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t drop_q_term(const Dropout& d, int q) { return ((uint32_t)q + d.q0) * GOLD_Q; }
+__device__ __forceinline__ uint32_t drop_k_term(const Dropout& d, int k) { return ((uint32_t)k + d.k0) * GOLD_K; }
+__device__ __forceinline__ uint32_t drop_bh_term(int bh) { return (uint32_t)bh * GOLD_BH; }
+
+// The keep decision for the element whose terms sum to x (the q term, the
+// k term and the bh term).
+__device__ __forceinline__ bool drop_keep(const Dropout& d, uint32_t x) {
+  return fmix32(fmix32(x ^ d.seed)) >= d.threshold;
 }
 
 // 16-byte row loads need every base 16-byte aligned and every stride a

@@ -3,6 +3,7 @@
 from vitax_torch.models.vit import (  # noqa: F401
     Attention,
     Block,
+    DropoutSeeds,
     Mlp,
     PatchEmbed,
     VisionTransformer,

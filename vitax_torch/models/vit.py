@@ -16,6 +16,17 @@ per-block remat with the none_saveable policy. Without grad (eval, serve)
 the forward is the plain loop. Module and parameter names mirror the Flax
 paths (vitax_torch/checkpoint/convert.py maps one onto the other).
 
+Dropout (the Flax model's deterministic=False) is on only when the caller
+passes `DropoutSeeds`: one uint32 seed a block and one for pos dropout,
+the counterpart of the Flax "dropout" rng split per block. Never keyed on
+self.training: the eval step and the serve engine pass none and run the
+rate-0 kernel. Attention dropout runs in the attention kernels, their mask
+a counter hash of the block's seed. The proj, mlp and pos dropouts draw
+from a torch.Generator seeded from the seed inside the block (or the
+forward, for pos), so a checkpointed block's recompute redraws the same
+masks: torch.utils.checkpoint restores only the default generators' states.
+Those three masks are torch's draws, not the JAX package's threefry bits.
+
 Quantized serving (build_model with a quant dtype): every Dense site (qkv,
 proj, fc1, fc2 with act=True; the head with act=False) is a QuantLinear
 holding the int8 or float8_e4m3fn (out, in) weight and its per-channel
@@ -28,7 +39,7 @@ then the unchanged Dense in the site's dtype.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vitax_torch.checkpoint.consolidate import QUANT_TORCH_DTYPES
 from vitax_torch.config import Config
-from vitax_torch.ops.attention import reference_attention
+from vitax_torch.ops.attention import make_dense_dropout, reference_attention
 from vitax_torch.ops.dequant_matmul import dequantize_leaf
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -46,6 +57,30 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # (absolute bounds +/-0.04; torch's default a=-2, b=2 would be +/-100 sigma).
 INIT_STD = 0.02
 INIT_BOUND = 2 * INIT_STD
+
+
+class DropoutSeeds(NamedTuple):
+    """The seeds of one dropout forward: one uint32 per block (its attention
+    mask's hash seed and its proj/mlp generator's seed) and one for pos
+    dropout."""
+    blocks: Tuple[int, ...]
+    pos: int = 0
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate, kept values divided
+    by 1 - rate in x's type, dropped ones 0. A no-op without a generator
+    or at rate 0."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Quant(NamedTuple):
@@ -134,55 +169,74 @@ class PatchEmbed(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection. The core is
     `attention_impl(q, k, v)` on strided (B, N, H, Dh) views of the qkv
-    output, or the dense path when it is None."""
+    output, or the dense path when it is None. Given a seed at att_dropout
+    > 0 the core is the impl's `vitax_dropout` (the dropout kernels), or,
+    on the dense path, dense attention with the same hash mask."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
-                 attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None):
+                 attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None,
+                 att_dropout: float = 0.0, proj_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.att_dropout = att_dropout
+        self.proj_dropout = proj_dropout
         self.qkv = _linear(dim, 3 * dim, quant, True, device)
         self.proj = _linear(dim, dim, quant, True, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, d = x.shape
         qkv = _dense(self.qkv, x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads)
         q, k, v = qkv.unbind(2)      # strided views; the backward stacks dq, dk, dv in one copy
-        core = self.attention_impl or reference_attention
-        out = core(q, k, v).reshape(b, n, d)
-        return _dense(self.proj, out, self.dtype)
+        if seed is None or self.att_dropout == 0.0:
+            out = (self.attention_impl or reference_attention)(q, k, v)
+        else:
+            drop = getattr(self.attention_impl, "vitax_dropout", None) or make_dense_dropout(self.att_dropout)
+            out = drop(q, k, v, seed)
+        out = _dense(self.proj, out.reshape(b, n, d), self.dtype)
+        return _dropout(out, self.proj_dropout, gen)
 
 
 class Mlp(nn.Module):
     """Dense(hidden) -> exact GELU -> Dense(dim)."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype, quant: Optional[Quant] = None,
-                 device=None):
+                 device=None, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.fc1 = _linear(dim, hidden_dim, quant, True, device)
         self.fc2 = _linear(hidden_dim, dim, quant, True, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _dense(self.fc2, F.gelu(_dense(self.fc1, x, self.dtype)), self.dtype)
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = _dropout(F.gelu(_dense(self.fc1, x, self.dtype)), self.dropout, gen)
+        return _dropout(_dense(self.fc2, x, self.dtype), self.dropout, gen)
 
 
 class Block(nn.Module):
     """Pre-norm transformer block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype,
-                 attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None):
+                 attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None,
+                 att_dropout: float = 0.0, mlp_dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.mlp_dropout = mlp_dropout
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
-        self.attn = Attention(dim, num_heads, dtype, attention_impl, quant, device=device)
+        self.attn = Attention(dim, num_heads, dtype, attention_impl, quant, device=device,
+                              att_dropout=att_dropout, proj_dropout=mlp_dropout)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device, dropout=mlp_dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(_layer_norm(self.norm1, x, self.dtype))
-        return x + self.mlp(_layer_norm(self.norm2, x, self.dtype))
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+        """seed: the block's dropout seed, or None (no dropout). Its proj and
+        mlp masks come from a generator made here from the seed, so a
+        recompute under checkpoint draws them again."""
+        gen = _generator(seed, x.device) if seed is not None and self.mlp_dropout > 0.0 else None
+        x = x + self.attn(_layer_norm(self.norm1, x, self.dtype), seed, gen)
+        return x + self.mlp(_layer_norm(self.norm2, x, self.dtype), gen)
 
 
 class VisionTransformer(nn.Module):
@@ -194,20 +248,30 @@ class VisionTransformer(nn.Module):
         self.dtype = _DTYPES[cfg.dtype]
         self.grad_ckpt = cfg.grad_ckpt
         self.quant = quant
+        self.pos_dropout = cfg.pos_dropout
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, d, self.dtype, quant, device=device)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, d, device=device))
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device)
+            Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device,
+                  att_dropout=cfg.att_dropout, mlp_dropout=cfg.mlp_dropout)
             for _ in range(cfg.num_blocks))
         self.norm = nn.LayerNorm(d, eps=1e-6, device=device)
         self.head = _linear(d, cfg.num_classes, quant, False, device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+        """seeds: DropoutSeeds for a dropout forward (training), None for
+        none (eval, serve)."""
         x = self.patch_embed(images) + self.pos_embed.to(self.dtype)
+        if seeds is not None:
+            if len(seeds.blocks) != len(self.blocks):
+                raise ValueError(f"{len(seeds.blocks)} dropout seeds for {len(self.blocks)} blocks")
+            if self.pos_dropout > 0.0:
+                x = _dropout(x, self.pos_dropout, _generator(seeds.pos, x.device))
         remat = self.grad_ckpt and torch.is_grad_enabled()
-        for block in self.blocks:
-            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+        for i, block in enumerate(self.blocks):
+            seed = None if seeds is None else seeds.blocks[i]
+            x = checkpoint(block, x, seed, use_reentrant=False) if remat else block(x, seed)
         x = _layer_norm(self.norm, x, self.dtype).mean(dim=1)
         return _dense(self.head, x, torch.float32)
 

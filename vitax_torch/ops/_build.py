@@ -8,9 +8,11 @@ source that includes PyTorch's headers takes minutes. Nothing here runs at
 import: the CPU tests import every module of the port on a host with no
 nvcc and no card.
 
-``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its path went
-through the kernels.
+``LAUNCHES`` counts kernel launches by name: one key per source, plus
+``flash_attn_fwd_drop`` and ``flash_attn_bwd_drop`` for the attention
+kernels' dropout instantiations. A wrapper adds one where it launches its
+kernel and nowhere else, so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu", "flash_attn_bwd": "flash_attn_
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+DROPOUT_KERNELS = ("flash_attn_fwd_drop", "flash_attn_bwd_drop")
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, dict] = {}

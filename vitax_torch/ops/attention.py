@@ -1,6 +1,6 @@
 """Attention core: the Hopper flash-attention kernels and their plain versions.
 
-Counterpart of vitax/ops/attention.py. All functions take the model's
+Counterpart of vitax/ops/attention.py. The kernels take the model's
 (B, N, H, Dh) layout. On a CUDA tensor a dispatcher launches the
 hand-written kernel (vitax_torch/csrc/flash_attn_fwd.cu for the forward,
 flash_attn_bwd.cu for the backward) or raises; on a CPU tensor it runs the
@@ -8,22 +8,132 @@ plain version. There is no fallback from the card to the plain version.
 `flash4_with_lse` is the differentiable core (the port of the JAX
 package's custom-VJP flash4_with_lse): an autograd Function whose forward
 and backward are those dispatchers.
+
+Attention dropout runs inside the same kernels (a compile-time flag of
+each): the keep-mask of score element (b, h, q, k) is the JAX package's
+counter hash of (seed, b*H + h, q + q0, k + k0) (`dropout_keep_mask`), so
+the backward regenerates the forward's mask and both are bit for bit the
+JAX kernels' decisions. `flash4_dropout_lse` (kernels A6c/A6d) is the 4D
+entry point. The BH entry points (`flash_bh_with_lse`, A3/A3b, and
+`flash_bh_dropout_lse`, A6a/A6b) run the same kernels on (B*H, N, 1, Dh)
+views of a (B*H, N, Dh) input, where the kernel's block index b*H + h is
+the BH row, as the TPU kernel's program_id(0) is.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vitax_torch.ops import _build
 
 KERNEL = "flash_attn_fwd"
 BWD_KERNEL = "flash_attn_bwd"
+DROP_KERNEL = "flash_attn_fwd_drop"        # launch counters of the dropout instantiations
+DROP_BWD_KERNEL = "flash_attn_bwd_drop"
 # head dims the kernels are instantiated for (dispatch_dh in csrc/flash_attn_{fwd,bwd}.cu)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# ---------------------------------------------------------------------------
+# in-kernel dropout RNG (vitax/ops/attention.py:78-132)
+# ---------------------------------------------------------------------------
+# The keep/drop decision of score element (q, k) of block bh is
+#   fmix32(fmix32(((q+q0)*GOLD_Q + (k+k0)*GOLD_K + bh*GOLD_BH) ^ seed)) >= T
+# in uint32 arithmetic, with T = min(int(rate * 2**32), 2**32 - 1). The
+# kernels compute it in csrc/flash_common.cuh. Here uint32 values are held
+# in int64 (torch has no uint32 >> on the CPU) and every product is taken
+# in 16-bit halves, so nothing overflows int64.
+
+_FMIX_C1 = 0x85EBCA6B
+_FMIX_C2 = 0xC2B2AE35
+_GOLD_Q = 0x9E3779B1
+_GOLD_K = 0x85EBCA77
+_GOLD_BH = 0xC2B2AE3D
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for uint32 values x held in int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, _FMIX_C1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _FMIX_C2)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    """T with P(bits < T) = rate, computed in Python as the JAX package does."""
+    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def _keep(seed: int, bh: torch.Tensor, qi: torch.Tensor, kj: torch.Tensor, rate: float) -> torch.Tensor:
+    """Bool keep decisions for broadcastable int64 block indices `bh`, query
+    positions `qi` and key positions `kj` (global: offsets already added)."""
+    x = (_mul32(qi & _MASK32, _GOLD_Q) + _mul32(kj & _MASK32, _GOLD_K)
+         + _mul32(bh & _MASK32, _GOLD_BH)) & _MASK32
+    bits = _fmix32(_fmix32(x ^ (int(seed) & _MASK32)))
+    return bits >= dropout_threshold(rate)
+
+
+def dropout_keep_mask(seed: int, bh_index: int, nq: int, nk: int, rate: float, transposed: bool = False,
+                      q0: int = 0, k0: int = 0, device=None) -> torch.Tensor:
+    """float32 {0, 1} keep-mask of one (batch, head) score block: (nq, nk),
+    or (nk, nq) with the same element decisions when transposed (the 4D
+    TPU kernel's score space). q0 and k0 offset the rows and columns to
+    global token positions."""
+    qi = torch.arange(nq, dtype=torch.int64, device=device) + q0
+    kj = torch.arange(nk, dtype=torch.int64, device=device) + k0
+    bh = torch.tensor(bh_index, dtype=torch.int64, device=device)
+    if transposed:
+        return _keep(seed, bh, qi[None, :], kj[:, None], rate).float()
+    return _keep(seed, bh, qi[:, None], kj[None, :], rate).float()
+
+
+class Dropout(NamedTuple):
+    """Attention dropout of one call: the uint32 seed, the rate in (0, 1),
+    and the global offsets of the call's first query and key row."""
+    seed: int
+    rate: float
+    q0: int = 0
+    k0: int = 0
+
+
+def _seedvec(seed: int, q0: int = 0, k0: int = 0) -> Tuple[int, int, int]:
+    """(seed, q0, k0) as uint32 values, the JAX package's seed vector."""
+    return int(seed) & _MASK32, int(q0) & _MASK32, int(k0) & _MASK32
+
+
+def keep_mask_bhqk(drop: Dropout, b: int, h: int, nq: int, nk: int, device) -> torch.Tensor:
+    """float32 {0, 1} (B, H, Nq, Nk) keep-mask: block (b, h) has index
+    b*H + h, as in both TPU kernel families (and the BH row of a (B*H, N,
+    1, Dh) view)."""
+    bh = torch.arange(b * h, dtype=torch.int64, device=device).view(b, h, 1, 1)
+    qi = torch.arange(nq, dtype=torch.int64, device=device).view(nq, 1) + drop.q0
+    kj = torch.arange(nk, dtype=torch.int64, device=device) + drop.k0
+    return _keep(drop.seed, bh, qi, kj, drop.rate).float()
+
+
+def _kernel_dropout_args(drop: Optional[Dropout]):
+    """The dropout scalars of the kernels' C entry points: flag, seed, q0,
+    k0, threshold, keep probability and its reciprocal, both float32 as the
+    JAX kernels round them (1 - rate, and mask / (1 - rate) for a kept
+    element)."""
+    if drop is None:
+        return 0, 0, 0, 0, 0, 1.0, 1.0
+    seed, q0, k0 = _seedvec(drop.seed, drop.q0, drop.k0)
+    keep_prob = np.float32(1.0 - drop.rate)
+    return 1, seed, q0, k0, dropout_threshold(drop.rate), float(keep_prob), float(np.float32(1.0) / keep_prob)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -36,45 +146,83 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def make_dense_dropout(rate: float) -> Callable:
+    """Dense full-sequence attention with the kernels' counter-hash mask:
+    (q, k, v, seed) -> o on (B, N, H, Dh), vitax/ops/attention.py
+    make_dense_dropout: f32 softmax probabilities masked and scaled by
+    1/(1 - rate), PV in f32, cast to the input type."""
+    def dense_drop(q, k, v, seed):
+        b, n, h, dh = q.shape
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * dh ** -0.5
+        p = torch.softmax(s, dim=-1)
+        mask = keep_mask_bhqk(Dropout(seed, rate), b, h, n, n, q.device)
+        o = torch.einsum("bhqk,bkhd->bqhd", p * mask / (1.0 - rate), v.float())
+        return o.to(q.dtype)
+    return dense_drop
+
+
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     """float32 for bf16/f32 inputs (the kernels' accumulation type); float64
     stays float64, so the plain path can be gradchecked."""
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def attention_fwd_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward kernel, in A1's order
-    (vitax/ops/attention.py _fwd4_kernel): f32 scores, max, exp, normalise,
-    cast to the input type, PV with f32 accumulation. Returns o (B, N, H, Dh)
-    in the input type and lse (B, H, N) float32."""
+def attention_fwd_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                           dropout: Optional[Dropout] = None,
+                           normalize_first: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: f32 scores, max, exp, sum, PV
+    with f32 accumulation; o (B, N, H, Dh) in the input type and the
+    unmasked lse (B, H, N) float32. With normalize_first (the 4D kernels A1
+    and A6c, vitax/ops/attention.py _fwd4_kernel / _fwd4_kernel_drop) P is
+    normalised, masked and scaled by 1/(1 - rate) before its cast to the
+    input type; without it (the BH kernels A3 and A6a, _fwd_kernel /
+    _fwd_kernel_drop) the masked P is cast, and the product divided by
+    l (1 - rate) afterwards."""
     acc = _acc_dtype(q)
+    b, n, h, _ = q.shape
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    pn = (p / l).to(v.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", pn.to(acc), v.to(acc)).to(q.dtype)
-    return o, (m + torch.log(l))[..., 0]
+    if dropout is not None:
+        mask = keep_mask_bhqk(dropout, b, h, n, k.shape[1], q.device).to(acc)
+    if normalize_first:
+        pn = p / l if dropout is None else (p * mask) / (l * (1.0 - dropout.rate))
+        o = torch.einsum("bhqk,bkhd->bqhd", pn.to(v.dtype).to(acc), v.to(acc))
+    else:
+        pm = p if dropout is None else p * mask
+        o = torch.einsum("bhqk,bkhd->bhqd", pm.to(v.dtype).to(acc), v.to(acc))
+        o = (o / (l if dropout is None else l * (1.0 - dropout.rate))).transpose(1, 2)
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def attention_bwd_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                            lse: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor],
-                           scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                           scale: float, dropout: Optional[Dropout] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernel, in A2's order and at A2's cast
     points (vitax/ops/attention.py _bwd4_kernel :318-345): P = exp(S - lse)
     from f32 scores; P and dO rounded to the input type for dV = P^T dO;
     dP = dO V^T; delta = rowsum(dO * O) in f32; dS = P (dP - delta + dlse)
     * scale, rounded to the input type for dQ = dS K and dK = dS^T Q; every
-    product accumulates in f32. dlse None means zero. Returns dq, dk, dv
+    product accumulates in f32. dlse None means zero. With dropout (A6b and
+    A6d, _bwd_kernel_drop / _bwd4_kernel_drop) the regenerated mask scaled
+    by 1/(1 - rate), ms, enters twice: dV = (P ms)^T dO and dS = P (dP ms -
+    delta + dlse) * scale; delta needs no change. Returns dq, dk, dv
     (B, N, H, Dh) in the input type."""
     acc = _acc_dtype(q)
     dt = q.dtype
+    b, n, h, _ = q.shape
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     p = torch.exp(s - lse.to(acc)[..., None])                                # (B, H, Nq, Nk)
+    if dropout is not None:
+        ms = keep_mask_bhqk(dropout, b, h, n, k.shape[1], q.device).to(acc) / (1.0 - dropout.rate)
+    a = p if dropout is None else p * ms
     dob = do.to(dt).to(acc)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).to(acc), dob)
+    dv = torch.einsum("bhqk,bqhd->bkhd", a.to(dt).to(acc), dob)
     dp = torch.einsum("bqhd,bkhd->bhqk", dob, v.to(acc))
+    if dropout is not None:
+        dp = dp * ms
     delta = (do.to(acc) * o.to(acc)).sum(dim=-1).transpose(1, 2)            # (B, H, Nq)
     g = dp - delta[..., None]
     if dlse is not None:
@@ -112,16 +260,21 @@ def _check_kernel_inputs(kernel: str, **xs: torch.Tensor) -> None:
             raise ValueError(f"{kernel}: {name}'s head axis must be contiguous, strides {x.stride()}")
 
 
-def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper forward kernel on strided (B, N, H, Dh) CUDA views.
-    Returns (o contiguous (B, N, H, Dh) in the input type, lse (B, H, N) f32)."""
+_DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                     ctypes.c_float, ctypes.c_float]
+
+
+def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                        dropout: Optional[Dropout] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper forward kernel on strided (B, N, H, Dh) CUDA views,
+    its dropout instantiation when `dropout` is given. Returns (o contiguous
+    (B, N, H, Dh) in the input type, lse (B, H, N) f32)."""
     _check_kernel_inputs(KERNEL, q=q, k=k, v=v)
     b, n, h, dh = q.shape
     lib = _build.load(KERNEL)
     fn = lib.vitax_flash_attn_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, *_DROPOUT_ARGTYPES, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     o = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -129,33 +282,37 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 _DTYPE_CODES[q.dtype], b, n, h, dh, strides, float(scale), stream)
+                 _DTYPE_CODES[q.dtype], b, n, h, dh, strides, float(scale), *_kernel_dropout_args(dropout),
+                 stream)
     _build.check(lib, KERNEL, err)
-    _build.LAUNCHES[KERNEL] += 1
+    _build.LAUNCHES[KERNEL if dropout is None else DROP_KERNEL] += 1
     return o, lse
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+                        dropout: Optional[Dropout] = None,
+                        normalize_first: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward dispatcher, (B, N, H, Dh) -> (o, lse (B, H, N)), not
     differentiable. A CUDA tensor goes to the kernel or raises; a CPU
-    tensor goes to the plain version."""
+    tensor goes to the plain version (normalize_first picks the TPU
+    kernel family whose order it follows; the card has one kernel)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cuda":
-        return flash_attn_fwd_cuda(q, k, v, scale)
+        return flash_attn_fwd_cuda(q, k, v, scale, dropout)
     if q.device.type == "cpu":
-        return attention_fwd_with_lse(q, k, v, scale)
+        return attention_fwd_with_lse(q, k, v, scale, dropout, normalize_first)
     raise ValueError(f"{KERNEL}: no path for device {q.device}")
 
 
 def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor],
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        scale: float, dropout: Optional[Dropout] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the Hopper backward kernel (one call = the delta pre-pass, the
-    dK/dV kernel and the dQ kernel) on strided (B, N, H, Dh) CUDA views.
-    dlse None means zero. Returns dq, dk, dv contiguous (B, N, H, Dh) in the
-    input type."""
+    dK/dV kernel and the dQ kernel) on strided (B, N, H, Dh) CUDA views,
+    their dropout instantiations when `dropout` is given. dlse None means
+    zero. Returns dq, dk, dv contiguous (B, N, H, Dh) in the input type."""
     _check_kernel_inputs(BWD_KERNEL, q=q, k=k, v=v, o=o, do=do)
     b, n, h, dh = q.shape
     for name, x in (("lse", lse), ("dlse", dlse)):
@@ -166,7 +323,7 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     lib = _build.load(BWD_KERNEL)
     fn = lib.vitax_flash_attn_bwd
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, *_DROPOUT_ARGTYPES, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dq, dk, dv = (torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device) for _ in range(3))
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -176,33 +333,37 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), None if dlse is None else dlse.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                 _DTYPE_CODES[q.dtype], b, n, h, dh, strides, float(scale), stream)
+                 _DTYPE_CODES[q.dtype], b, n, h, dh, strides, float(scale), *_kernel_dropout_args(dropout),
+                 stream)
     _build.check(lib, BWD_KERNEL, err)
-    _build.LAUNCHES[BWD_KERNEL] += 1
+    _build.LAUNCHES[BWD_KERNEL if dropout is None else DROP_BWD_KERNEL] += 1
     return dq, dk, dv
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor],
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        scale: float, dropout: Optional[Dropout] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward dispatcher: a CUDA tensor goes to the kernel or raises;
     a CPU tensor goes to the plain version."""
     if q.device.type == "cuda":
-        return flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale)
+        return flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, dropout)
     if q.device.type == "cpu":
-        return attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale)
+        return attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, dropout)
     raise ValueError(f"{BWD_KERNEL}: no path for device {q.device}")
 
 
-class _Flash4WithLse(torch.autograd.Function):
+class _FlashWithLse(torch.autograd.Function):
     """(o, lse) from the forward dispatcher; the backward dispatcher takes
-    both cotangents. Saves (q, k, v, o, lse), as the JAX custom VJP does."""
+    both cotangents. Saves (q, k, v, o, lse), as the JAX custom VJPs do;
+    under dropout the backward regenerates the mask from the seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = flash_attention_fwd(q, k, v, scale)
+    def forward(ctx, q, k, v, scale, dropout, normalize_first):
+        o, lse = flash_attention_fwd(q, k, v, scale, dropout, normalize_first)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
+        ctx.dropout = dropout
         ctx.set_materialize_grads(False)    # an unused lse passes None, not zeros
         return o, lse
 
@@ -215,8 +376,8 @@ class _Flash4WithLse(torch.autograd.Function):
             do = do.contiguous()            # kernel reads dO by rows and dlse contiguous
         if dlse is not None:
             dlse = dlse.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse, ctx.scale)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse, ctx.scale, ctx.dropout)
+        return dq, dk, dv, None, None, None
 
 
 def flash4_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -225,7 +386,66 @@ def flash4_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in both outputs: the port of vitax's flash4_with_lse."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _Flash4WithLse.apply(q, k, v, float(scale))
+    return _FlashWithLse.apply(q, k, v, float(scale), None, True)
+
+
+def flash4_dropout_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seedvec: Tuple[int, int, int],
+                       scale: float, rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, H, Dh) attention with in-kernel attention dropout, returning
+    (o, lse (B, H, N)), differentiable in both outputs (kernels A6c/A6d).
+    seedvec: (seed, q0, k0) (_seedvec)."""
+    seed, q0, k0 = seedvec
+    return _FlashWithLse.apply(q, k, v, float(scale), Dropout(seed, float(rate), q0, k0), True)
+
+
+def flash4_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int, scale: float, rate: float,
+                   q0: int = 0, k0: int = 0) -> torch.Tensor:
+    """(B, N, H, Dh) attention with in-kernel attention dropout."""
+    return flash4_dropout_lse(q, k, v, _seedvec(seed, q0, k0), scale, rate)[0]
+
+
+def _bh_call(q, k, v, scale, dropout):
+    """The kernels on (BH, N, 1, Dh) views of (BH, N, Dh) operands; the
+    plain version on the CPU follows the BH kernels' order."""
+    o, lse = _FlashWithLse.apply(q[:, :, None], k[:, :, None], v[:, :, None], float(scale), dropout, False)
+    return o[:, :, 0], lse[:, 0]
+
+
+def flash_bh_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(BH, N, Dh) attention returning (o, lse (BH, N)), differentiable in
+    both outputs: kernels A3/A3b, as A1/A2 on the BH view."""
+    return _bh_call(q, k, v, scale, None)
+
+
+def flash_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    return flash_bh_with_lse(q, k, v, scale)[0]
+
+
+def flash_bh_dropout_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seedvec: Tuple[int, int, int],
+                         scale: float, rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(BH, N, Dh) attention with in-kernel attention dropout, returning
+    (o, lse (BH, N)): kernels A6a/A6b. Row i of the BH layout is block
+    index i of the mask."""
+    seed, q0, k0 = seedvec
+    return _bh_call(q, k, v, scale, Dropout(seed, float(rate), q0, k0))
+
+
+def flash_bh_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int, scale: float, rate: float,
+                     q0: int = 0, k0: int = 0) -> torch.Tensor:
+    return flash_bh_dropout_lse(q, k, v, _seedvec(seed, q0, k0), scale, rate)[0]
+
+
+def _to_bh(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, Dh) -> (B*H, N, Dh)."""
+    b, n, h, dh = x.shape
+    return x.transpose(1, 2).reshape(b * h, n, dh)
+
+
+def _from_bh(x: torch.Tensor, shape) -> torch.Tensor:
+    """(B*H, N, Dh) -> (B, N, H, Dh)."""
+    b, n, h, dh = shape
+    return x.reshape(b, h, n, dh).transpose(1, 2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -235,14 +455,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 def make_attention_impl(cfg, device) -> Optional[Callable]:
     """The attention core for this config on `device`, mirroring
-    vitax/ops/attention.py _tpu_kernel's use_flash_attention policy: None
-    (the model's dense path) when the flag is off, else the flash dispatcher.
-    On the card the kernels must have the head dim built; that is checked
-    here, once, instead of at the first step or request."""
+    vitax/ops/attention.py make_attention_impl on one device: None (the
+    model's dense path) when the flag is off, else the flash dispatcher.
+    With --att_dropout > 0 the returned core carries `vitax_dropout`,
+    (q, k, v, seed) -> o through the dropout kernels (_tpu_dropout_kernel),
+    which the model runs when it is given seeds. The JAX package's
+    VMEM-driven choice between its 4D, BH and streaming kernels has no
+    counterpart: the strided kernel serves every N. On the card the
+    kernels must have the head dim built; that is checked here, once,
+    instead of at the first step or request."""
     if not cfg.use_flash_attention:
         return None
     dh = cfg.embed_dim // cfg.num_heads
     if torch.device(device).type == "cuda" and dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"use_flash_attention: the {KERNEL} kernel has no head dim {dh} "
                          f"(supported: {SUPPORTED_HEAD_DIMS}); pass --no_flash_attention")
-    return flash_attention
+    if cfg.att_dropout <= 0.0:
+        return flash_attention
+    rate = float(cfg.att_dropout)
+
+    def impl(q, k, v):
+        return flash_attention(q, k, v)
+
+    def drop4(q, k, v, seed):
+        return flash4_dropout(q, k, v, seed, q.shape[-1] ** -0.5, rate)
+
+    impl.vitax_dropout = drop4
+    return impl

@@ -5,7 +5,9 @@ The loop dispatches one train step per batch and reads nothing back from
 the device except at a log step: there it fetches the loss once (which
 also waits for the step, so the step time it logs is the device's, not the
 enqueue's). Eval counts stay on the device until the end of the pass. No
-checkpoint, resume or telemetry file yet: those are later slices.
+checkpoint, resume or telemetry file yet: those are later slices. Dropout
+seeds are the JAX loop's data_rng (key(seed + 1), :550) ported as a host
+function of (seed, step, microbatch): train/step.py dropout_seeds.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from vitax_torch.ops.attention import make_attention_impl
 from vitax_torch.ops.fused_optimizer import fused_optimizer_active
 from vitax_torch.platform import DeviceLike, resolve_device
 from vitax_torch.train.state import ADAMW_HPARAMS, TrainState, build_optimizer, make_train_state
-from vitax_torch.train.step import make_eval_step, make_train_step
+from vitax_torch.train.step import _needs_dropout, make_eval_step, make_train_step
 from vitax_torch.utils.logging import master_print
 from vitax_torch.utils.metrics import SmoothedValue
 
@@ -55,6 +57,10 @@ def train(cfg: Config, device: DeviceLike = None,
 
     attention_impl = make_attention_impl(cfg, device)
     master_print(f"attention core: {'flash4_with_lse' if attention_impl else 'dense'} on {device.type}")
+    if _needs_dropout(cfg):
+        where = "in the flash core" if attention_impl else "dense"
+        master_print(f"dropout: att {cfg.att_dropout} ({where}), mlp and proj {cfg.mlp_dropout}, "
+                     f"pos {cfg.pos_dropout}; seeds per (step, microbatch, block) from seed {cfg.seed}")
     model = build_model(cfg, device, attention_impl=attention_impl).train()
     steps_per_epoch = cfg.steps_per_epoch or train_loader.steps_per_epoch
     max_iteration = steps_per_epoch * cfg.num_epochs

@@ -8,17 +8,26 @@ the grad_norm metric, then clip+AdamW through fused_clip_adamw: the Hopper
 kernel on the card, its plain version on the CPU. Nothing in the step reads a
 value back to the host: metrics stay tensors on the device until the loop
 fetches them at a log step.
+
+Under dropout (any rate above 0) each microbatch's forward gets
+DropoutSeeds from `dropout_seeds(cfg, step, k)`, a function on the host of
+(cfg.seed, the pre-step count, the microbatch index): the counterpart of
+the JAX step's fold_in(fold_in(key(seed + 1), step), k) and the model's
+per-block rng split, with seeds of the port's own. The same run, or a
+resume at the same step, draws the same masks.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vitax_torch.config import Config
 from vitax_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from vitax_torch.models.vit import DropoutSeeds
 from vitax_torch.ops.fused_optimizer import fused_clip_adamw, fused_optimizer_active, global_norm
 from vitax_torch.train.state import AdamW, TrainState
 
@@ -34,6 +43,19 @@ def prepare_images(images: torch.Tensor) -> torch.Tensor:
     mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
     std = torch.as_tensor(IMAGENET_STD, device=images.device)
     return (images.float() / 255.0 - mean) / std
+
+
+def _needs_dropout(cfg: Config) -> bool:
+    return (cfg.pos_dropout > 0) or (cfg.att_dropout > 0) or (cfg.mlp_dropout > 0)
+
+
+def dropout_seeds(cfg: Config, step: int, k: int) -> DropoutSeeds:
+    """The uint32 dropout seeds of microbatch k of the step taken at count
+    `step`: one per block, and one for pos dropout, from numpy's
+    SeedSequence over (cfg.seed + 1, step, k) (the JAX loop keys dropout
+    with key(seed + 1)). Pure host arithmetic: no device read-back."""
+    words = np.random.SeedSequence((cfg.seed + 1, step, k)).generate_state(cfg.num_blocks + 1, np.uint32)
+    return DropoutSeeds(blocks=tuple(int(w) for w in words[1:]), pos=int(words[0]))
 
 
 def _microbatch_split(batch: Batch, k_steps: int) -> List[Batch]:
@@ -66,26 +88,29 @@ def make_train_step(cfg: Config, optimizer: AdamW, device) -> Callable[[TrainSta
     """train_step(state, batch) -> (state, metrics): metrics `loss` and
     `grad_norm` are device tensors, `lr_step` the post-step count (the
     reference logs lr after lr_scheduler.step()), `images` and `tokens` the
-    step's work counts. The state is updated in place and returned."""
+    step's work counts. The state is updated in place and returned. Under
+    dropout, microbatch k of the step at count `state.step` runs with
+    dropout_seeds(cfg, state.step, k)."""
     update = _make_update_fn(cfg, optimizer, device)
     k_steps = cfg.grad_accum_steps
+    dropout = _needs_dropout(cfg)
 
-    def loss_fn(model, batch: Batch) -> torch.Tensor:
-        logits = model(prepare_images(batch["image"]))
+    def loss_fn(model, batch: Batch, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+        logits = model(prepare_images(batch["image"]), seeds)
         return F.cross_entropy(logits.float(), batch["label"])
 
     def train_step(state: TrainState, batch: Batch):
         model = state.model
         model.zero_grad(set_to_none=True)
         if k_steps == 1:
-            loss = loss_fn(model, batch)
+            loss = loss_fn(model, batch, dropout_seeds(cfg, state.step, 0) if dropout else None)
             loss.backward()
             loss = loss.detach()
         else:
             # per-microbatch backward, grads summed in float32 in p.grad
             loss = torch.zeros((), dtype=torch.float32, device=device)
-            for mb in _microbatch_split(batch, k_steps):
-                loss_k = loss_fn(model, mb)
+            for k, mb in enumerate(_microbatch_split(batch, k_steps)):
+                loss_k = loss_fn(model, mb, dropout_seeds(cfg, state.step, k) if dropout else None)
                 loss_k.backward()
                 loss = loss + loss_k.detach()
             loss = loss * (1.0 / k_steps)
