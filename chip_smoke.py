@@ -19,10 +19,21 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      optimizer over leaves of assorted sizes, with the clip triggered and
      idle; the dequant matmul weight-only with int8 and fp8 weights, and
      act mode bitwise);
+  3L. the streaming entries (vitax_torch/ops/flash_blocked.py, the
+     counterparts of A4, A5a and A5b) against their plain versions at N >
+     2048: the ViT-L shape (2, 4096, 16, 64), a ragged N 4097 and Dh 160 at
+     N 2304, bf16 and f32, rate 0 and 0.1 with global offsets past 2048,
+     and phase 7L's (2, 9216, 16, 64) in bf16 at offsets 0; dlse, a
+     bitwise repeat, a seed off by one beyond every bar; the BH entries;
+     the mask read back from the kernel past 2048;
   4. kernel timing (CUDA events) of the attention kernels (with and
      without dropout, 4D and BH) and the dequant matmul at their main-path
      shapes, beside the plain version, PyTorch's own library call and the
      least time the card could take;
+  4L. the streaming path's kernels at the ViT-L shape, N 4096 and 9216,
+     rate 0 and 0.1: the forward, the backward call and (torch.profiler)
+     its dK/dV and dQ kernels, beside SDPA, the bounds and (N 4096 only)
+     the plain versions;
   5. model check: the 10B-width ViT at depth 2 with the kernels against the
      dense path on the same weights: logits (no grad), then the loss and
      every parameter's gradient (bf16, batch 8), without dropout and with
@@ -51,6 +62,11 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      against phase 7's, one step's loss and grad norm repeated bitwise
      from the same state and seeds, sec/iter, images/s, MFU, peak memory
      and a profile of one steady step;
+  7L. the long-context train path: train() at the ViT-L width, 4 blocks,
+     batch 2, at N 4096 and 9216, N 4096 under att_dropout 0.1 and N 9216
+     under remat_policy dots_attn_saveable, each with its launch counts
+     checked against the steps, sec/iter, images/s, MFU, peak memory and
+     a profile of one steady step;
   8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -166,6 +182,39 @@ TRAIN_DROPOUT = dict(TRAIN, att_dropout=DROP_RATE, mlp_dropout=DROP_RATE)
 DROP_SEED = 2024
 DROP_CHECK_SHAPES = ((2, 197, 4, 64), (2, 50, 2, 16))     # ragged, checked with global offsets
 DROP_OFFSETS = (5, 17)                   # q0, k0 of those checks
+# Phases 3L, 4L and 7L: past MAX_SEQ_IN_VMEM (2048) tokens the streaming
+# entries (vitax_torch/ops/flash_blocked.py, the counterparts of A4, A5a
+# and A5b) launch the same kernels, counted under their own keys. The
+# long-context configuration is the JAX ladder's (tools/long_context_ladder.py
+# :44-47): ViT-L width (D 1024, 16 heads, Dh 64, patch 14), 4 blocks, batch 2.
+LONG_SHAPE = (2, 4096, 16, 64)
+LONG_OFFSETS = (2100, 3000)              # q0, k0 of the checks: global positions past 2048
+# Phase 3L's cases: (shape, types, dropout q0/k0). The ViT-L shape at N 4096,
+# a ragged N, Dh 160, and phase 7L's N 9216 in its own type with the offsets
+# 0 the model calls the kernels at.
+LONG_CHECK_CASES = ((LONG_SHAPE, ("bfloat16", "float32"), LONG_OFFSETS),
+                    ((1, 4097, 4, 64), ("bfloat16", "float32"), LONG_OFFSETS),
+                    ((1, 2304, 2, 160), ("bfloat16", "float32"), LONG_OFFSETS),
+                    ((2, 9216, 16, 64), ("bfloat16",), (0, 0)))
+LONG_TILE = 64                           # the kernels' tile: the plain versions run at 64 x 64 here
+LONG_TIME_NS = (4096, 9216)
+# The streaming entries against the plain versions (A4's and A5's order at
+# 64 x 64 tiles) on the card: max |d| / max |ref| of o and of each of dq,
+# dk, dv, and max |dlse| absolute. bf16: the kernels round P (and, in the
+# backward, P and dS) to bf16 in registers where A5's order keeps the
+# backward in f32, in another summation order; f32: summation order only.
+# The worst readings over these shapes on an H100 80GB HBM3 at 700 W were
+# 6.1e-3 (o, N 9216 under dropout) and 7.5e-3 (dv, N 9216) in bf16, 2.9e-6
+# and 3.0e-6 in f32, and 1.9e-6 on lse (two f32 ulps at N 9216), so the
+# bars are about 2.5-3x those. A seed off by one lands 0.37-0.96 of max
+# |ref| away, and dropping dlse moves dq and dk by 0.07-0.96.
+LONG_TOL = {"bfloat16": (1.6e-2, 2e-2, 5e-6), "float32": (1e-5, 1e-5, 5e-6)}
+TRAIN_LONG = dict(patch_size=14, embed_dim=1024, num_heads=16, num_blocks=4, batch_size=2, num_classes=1000,
+                  fake_data=True, max_steps=8, warmup_steps=4, log_step_interval=1, eval_max_batches=1,
+                  test_epoch_interval=1)
+LONG_RUNS = (("N 4096", dict(image_size=896)), ("N 9216", dict(image_size=1344)),
+             (f"N 4096, att_dropout {DROP_RATE}", dict(image_size=896, att_dropout=DROP_RATE)),
+             ("N 9216, remat_policy dots_attn_saveable", dict(image_size=1344, remat_policy="dots_attn_saveable")))
 
 
 def fail(msg: str) -> None:
@@ -606,6 +655,178 @@ def check_mask_recovery(torch):
                 fail(f"the kernel's dropout mask is not the plain mask ({dtype})")
 
 
+def check_streaming(torch):
+    """Phase 3L: the streaming entries against the plain versions on the
+    card at N > 2048: blocked_with_lse (the 4D entries' core) on strided
+    views of one qkv tensor, with autograd, at LONG_CHECK_CASES (the ViT-L
+    shape at N 4096, a ragged N and Dh 160 in bf16 and f32 with global
+    offsets past 2048; phase 7L's N 9216 in bf16 at offsets 0), rate 0 and
+    0.1, a nonzero dlse, and each backward run twice, bitwise equal. The plain
+    versions run at the kernels' 64 x 64 tiles on the kernels' o and lse.
+    Under dropout the plain version at a seed off by one, at rate 0 without
+    dlse, must land beyond the bars. Then the BH entries once, and the mask
+    read back. Every case prints before the phase fails. Returns max |d| of
+    o and of dk/dv and dq at the ViT-L shape in bf16 at rate 0."""
+    from vitax_torch.ops.attention import Dropout, _from_bh, _to_bh
+    from vitax_torch.ops.flash_blocked import blocked_with_lse, streaming_bwd_with_lse, streaming_fwd_with_lse
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs, bad = {}, []
+    for shape, dtypes, offsets in LONG_CHECK_CASES:
+        b, n, h, dh = shape
+        scale = dh ** -0.5
+        for dtype in dtypes:
+            for rate in (0.0, DROP_RATE):
+                drop = Dropout(DROP_SEED, rate, *offsets) if rate else None
+                q, k, v, do, dlse = attention_operands(torch, shape, dtype, SEED + 20)
+                qkv = torch.stack((q, k, v), dim=2)
+                grads = []
+                for _ in range(2):
+                    leaf = qkv.clone().requires_grad_(True)
+                    o, lse = blocked_with_lse(*leaf.unbind(2), scale, LONG_TILE, LONG_TILE, drop)
+                    torch.autograd.backward((o, lse), (do, dlse))
+                    grads.append(leaf.grad.unbind(2))
+                o, lse = o.detach(), lse.detach()
+                with torch.no_grad():
+                    bh = [_to_bh(x) for x in (q, k, v)]
+                    args = (*bh, _to_bh(o), lse.reshape(b * h, n), _to_bh(do))
+                    o_ref, lse_ref = streaming_fwd_with_lse(*bh, scale, LONG_TILE, LONG_TILE, drop)
+                    want = streaming_bwd_with_lse(*args, dlse.reshape(b * h, n), scale, LONG_TILE, LONG_TILE, drop)
+                    if drop is None:
+                        o_off = None
+                        other = streaming_bwd_with_lse(*args, None, scale, LONG_TILE, LONG_TILE)
+                    else:
+                        off = drop._replace(seed=DROP_SEED + 1)
+                        o_off = _from_bh(streaming_fwd_with_lse(*bh, scale, LONG_TILE, LONG_TILE, off)[0], shape)
+                        other = streaming_bwd_with_lse(*args, dlse.reshape(b * h, n), scale, LONG_TILE,
+                                                       LONG_TILE, off)
+                o_ref = _from_bh(o_ref, shape)
+                want = [_from_bh(w, shape) for w in want]
+                other = [_from_bh(w, shape) for w in other]
+                torch.cuda.synchronize()
+                tol_o, tol_g, tol_lse = LONG_TOL[dtype]
+                e_o = rel_err(torch, o, o_ref)
+                d_lse = (lse - lse_ref.reshape(b, h, n)).abs().max().item()
+                e_g = [rel_err(torch, a, w) for a, w in zip(grads[0], want)]
+                e_other = [rel_err(torch, a, w) for a, w in zip(grads[0], other)]
+                e_o_off = None if o_off is None else rel_err(torch, o, o_off)
+                repeat = all(torch.equal(a, a2) for a, a2 in zip(*grads))
+                finite = bool(torch.isfinite(o.float()).all()) and all(bool(torch.isfinite(a.float()).all())
+                                                                       for a in grads[0])
+                # the other arm must be told apart: every grad under a wrong seed, dq and dk without dlse
+                told = e_other if drop is not None else e_other[:2]
+                ok = (finite and repeat and e_o <= tol_o and d_lse <= tol_lse and all(e <= tol_g for e in e_g)
+                      and all(e > tol_g for e in told) and (e_o_off is None or e_o_off > tol_o))
+                what = "seed off by one" if drop is not None else "plain without dlse"
+                say(f"[3L check] blocked_with_lse {shape} {dtype} rate {rate}"
+                    + (f" q0/k0 {drop.q0}/{drop.k0}" if drop else "")
+                    + f": o max|d|/max|ref| {e_o:.2e} (<= {tol_o}"
+                    + ("" if e_o_off is None else f"; seed off by one {e_o_off:.2e}")
+                    + f"), max|dlse| {d_lse:.2e} (<= {tol_lse}); "
+                    + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
+                    + f" (<= {tol_g}; {what}: " + ", ".join(f"{e:.2e}" for e in e_other)
+                    + f"); bitwise repeat {repeat} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(f"{shape} {dtype} rate {rate}")
+                if shape == LONG_SHAPE and dtype == "bfloat16" and drop is None:
+                    errs["flash_attn_fwd_stream"] = (o.float() - o_ref.float()).abs().max().item()
+                    errs["flash_attn_bwd_stream_dkdv"] = max((a.float() - w.float()).abs().max().item()
+                                                             for a, w in zip(grads[0][1:], want[1:]))
+                    errs["flash_attn_bwd_stream_dq"] = (grads[0][0].float() - want[0].float()).abs().max().item()
+                    errs["flash_attn_bwd_stream"] = max(errs["flash_attn_bwd_stream_dkdv"],
+                                                        errs["flash_attn_bwd_stream_dq"])
+                del q, k, v, do, dlse, qkv, leaf, grads, o, lse, o_ref, lse_ref, want, other, o_off, bh, args
+        torch.cuda.empty_cache()
+    bad += check_streaming_bh(torch)
+    bad += check_stream_mask_recovery(torch)
+    if bad:
+        fail(f"the streaming entries disagree with their plain versions: {bad}")
+    return errs
+
+
+def check_streaming_bh(torch):
+    """blocked_bh_with_lse and blocked_bh_dropout_lse on a (B*H, N, Dh)
+    copy of the ragged long shape, f32, with offsets: forward and autograd
+    backward with dlse against the plain versions. Returns the failures."""
+    from vitax_torch.ops.attention import Dropout, _to_bh
+    from vitax_torch.ops.flash_blocked import (blocked_bh_dropout_lse, blocked_bh_with_lse, streaming_bwd_with_lse,
+                                               streaming_fwd_with_lse)
+    shape = LONG_CHECK_CASES[1][0]
+    b, n, h, dh = shape
+    scale = dh ** -0.5
+    q4, k4, v4, do4, dlse = attention_operands(torch, shape, "float32", SEED + 22)
+    q, k, v, do = (_to_bh(x).contiguous() for x in (q4, k4, v4, do4))
+    dlse = dlse.reshape(b * h, n)
+    bad = []
+    tol_o, tol_g, tol_lse = LONG_TOL["float32"]
+    for drop in (None, Dropout(DROP_SEED, DROP_RATE, *LONG_OFFSETS)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        if drop is None:
+            o, lse = blocked_bh_with_lse(*leaves, scale, LONG_TILE, LONG_TILE)
+        else:
+            o, lse = blocked_bh_dropout_lse(*leaves, (drop.seed, drop.q0, drop.k0), scale, drop.rate, LONG_TILE,
+                                            LONG_TILE)
+        torch.autograd.backward((o, lse), (do, dlse))
+        with torch.no_grad():
+            o_ref, lse_ref = streaming_fwd_with_lse(q, k, v, scale, LONG_TILE, LONG_TILE, drop)
+            want = streaming_bwd_with_lse(q, k, v, o.detach(), lse.detach(), do, dlse, scale, LONG_TILE,
+                                          LONG_TILE, drop)
+        torch.cuda.synchronize()
+        e_o = rel_err(torch, o.detach(), o_ref)
+        d_lse = (lse.detach() - lse_ref).abs().max().item()
+        e_g = [rel_err(torch, x.grad, w) for x, w in zip(leaves, want)]
+        ok = e_o <= tol_o and d_lse <= tol_lse and all(e <= tol_g for e in e_g)
+        name = "blocked_bh" + ("_with_lse" if drop is None else "_dropout_lse")
+        say(f"[3L check] {name} {tuple(q.shape)} float32 q0/k0 {LONG_OFFSETS[0]}/{LONG_OFFSETS[1]}: o max|d|/max|ref| "
+            f"{e_o:.2e} (<= {tol_o}), max|dlse| {d_lse:.2e} (<= {tol_lse}); "
+            + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g)) + f" (<= {tol_g}) "
+            + ("ok" if ok else "FAIL"))
+        if not ok:
+            bad.append(name)
+    return bad
+
+
+def check_stream_mask_recovery(torch):
+    """The mask read back out of the kernel through the streaming entries
+    at N 4096, past 2048: q = k = 0 makes P uniform, and V[key, d] = 1 for
+    key = 2112 + d (Dh 128) makes o[q, d] = mask(q, 2112 + d) / (N (1 -
+    rate)), a 128-key window of the mask at global offsets (2100, 3000).
+    It must equal the plain hash bit for bit on the 4D and the BH entry and
+    differ from a seed off by one. Returns the failures."""
+    from vitax_torch.ops.attention import Dropout, _keep, _to_bh
+    from vitax_torch.ops.flash_blocked import blocked_bh_dropout_lse, blocked_with_lse
+    b, h, n, dh, kw = 1, 2, 4096, 128, 2112
+    drop = Dropout(DROP_SEED, DROP_RATE, *LONG_OFFSETS)
+    idx = dict(dtype=torch.int64, device="cuda")
+    bhs = torch.arange(b * h, **idx).view(-1, 1, 1)
+    rows = torch.arange(n, **idx).view(n, 1) + drop.q0
+    cols = torch.arange(kw, kw + dh, **idx) + drop.k0
+    mask = _keep(drop.seed, bhs, rows, cols, drop.rate)
+    off = _keep(drop.seed + 1, bhs, rows, cols, drop.rate)
+    bad = []
+    with torch.inference_mode():
+        for dtype in ("bfloat16", "float32"):
+            zero = torch.zeros(b, n, h, dh, device="cuda", dtype=getattr(torch, dtype))
+            v = zero.clone()
+            v[:, kw:kw + dh] = torch.eye(dh, device="cuda", dtype=zero.dtype)[None, :, None, :]
+            o4, _ = blocked_with_lse(zero, zero, v, 1.0, LONG_TILE, LONG_TILE, drop)
+            obh, _ = blocked_bh_dropout_lse(_to_bh(zero), _to_bh(zero), _to_bh(v), (drop.seed, drop.q0, drop.k0),
+                                            1.0, drop.rate, LONG_TILE, LONG_TILE)
+            pat4 = _to_bh(o4) != 0
+            patbh = obh != 0
+            kept = _to_bh(o4).float()[mask]
+            spread = (kept * (n * (1.0 - DROP_RATE)) - 1).abs().max().item()
+            n_off = int((pat4 != off).sum().item())
+            ok = (torch.equal(pat4, mask) and torch.equal(patbh, mask) and n_off > 0
+                  and spread <= (8e-3 if dtype == "bfloat16" else 1e-5))
+            say(f"[3L check] dropout mask from the kernel through the streaming entries, {dtype}, (B {b}, H {h}, "
+                f"N {n}), keys {kw}-{kw + dh - 1}, q0/k0 {drop.q0}/{drop.k0}: 4D pattern == plain mask "
+                f"{torch.equal(pat4, mask)}, BH pattern == plain mask {torch.equal(patbh, mask)}, kept share "
+                f"{mask.float().mean().item():.4f}, kept values within {spread:.1e} of 1/(N(1-rate)); a seed off by "
+                f"one differs at {n_off} of {mask.numel()} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"mask read back ({dtype})")
+    return bad
+
 def adamw_diff(torch, got, ref):
     """(max |d|, elements outside rtol / atol) of the kernel's p, mu, nu
     lists against the plain version's."""
@@ -866,6 +1087,131 @@ def time_dropout_and_bh(torch, card):
     torch.cuda.empty_cache()
     return timing
 
+
+def long_bound_ms(shape, dtype: str, tensors: int, rows: int, flop_units: int, dropout: bool):
+    """Least time of one streaming kernel or call on (B, N, H, Dh):
+    `tensors` (B, N, H, Dh) tensors each read or written once and `rows`
+    (B, H, N) float32 rows (lse, delta), over HBM bandwidth; flop_units B H
+    N^2 Dh FLOP over the tensor-core peak; under dropout also the hash, once
+    an element, over the INT32 rate. Returns (ms, bound_by, bytes, FLOP,
+    INT32 operations)."""
+    b, n, h, dh = shape
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = tensors * b * n * h * dh * elem + rows * b * h * n * 4
+    flops = flop_units * b * h * n * n * dh
+    int_ops = HASH_OPS_PER_ELEMENT * b * h * n * n if dropout else 0
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": max(flops / PEAK_FLOPS[dtype],
+                                                                  int_ops / INT32_OPS_PER_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by, nbytes, flops, int_ops
+
+
+# (tensors, f32 rows, FLOP units) of each streaming piece: the forward (q,
+# k, v read, o written; lse; QK^T and PV), the dK/dV kernel (q, k, v, dO
+# read, dk, dv written; lse and delta; S, dP, dV, dK), the dQ kernel (q, k,
+# v, dO read, dq written; S, dP, dQ) and the backward call (q, k, v, o, dO
+# read, dq, dk, dv written; lse; the five products once).
+LONG_PIECES = {"fwd": (4, 1, 4), "dkdv": (6, 2, 8), "dq": (5, 2, 6), "bwd": (8, 1, 10)}
+STREAM_TIMING_NAMES = {"fwd": "flash_attn_fwd_stream", "bwd": "flash_attn_bwd_stream",
+                       "dkdv": "flash_attn_bwd_stream_dkdv", "dq": "flash_attn_bwd_stream_dq"}
+BWD_KERNEL_NAMES = {"dkdv": "bwd_dkdv", "dq": "bwd_dq", "delta": "delta_kernel"}
+
+
+def bwd_kernel_ms(torch, bwd, calls: int = 3):
+    """Device ms per launch of each of the backward call's three kernels
+    (one launch each a call), from torch.profiler over `calls` calls: the
+    recorded time over the recorded launches, which need not be all of
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            bwd()
+        torch.cuda.synchronize()
+    out = {}
+    for piece, pat in BWD_KERNEL_NAMES.items():
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and pat in e.key]
+        total_ms, count = sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
+        if count == 0 or total_ms <= 0:
+            fail(f"torch.profiler recorded no device time for the backward's {piece} kernel")
+        out[piece] = total_ms / count
+    return out
+
+
+def time_streaming(torch, card):
+    """Phase 4L: the streaming path's kernels at the ViT-L shape, N 4096
+    and 9216, bf16, offsets 0 as the model calls them, rate 0 and 0.1
+    (CUDA events): the forward and the backward call (dlse None), the
+    dK/dV and dQ kernels and the delta pre-pass apart (torch.profiler),
+    PyTorch's flash attention (F.scaled_dot_product_attention and its flash
+    backward on (B, H, N, Dh), dropout_p as the row's rate: its own Philox
+    mask, a yardstick of time only), the bounds, and at N 4096 only the
+    plain versions at 64 x 64 tiles, timed once. Returns the `kernels`
+    line's timing of A4, A5a and A5b (N 4096, rate 0)."""
+    import torch.nn.functional as F
+    from vitax_torch.ops.attention import Dropout, _to_bh, flash_attn_bwd_cuda, flash_attn_fwd_cuda
+    from vitax_torch.ops.flash_blocked import streaming_dkv, streaming_dq, streaming_fwd_with_lse
+    sdpa_fwd = torch.ops.aten._scaled_dot_product_flash_attention
+    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    timing = {}
+    for n in LONG_TIME_NS:
+        shape = (LONG_SHAPE[0], n, *LONG_SHAPE[2:])
+        b, _, h, dh = shape
+        scale = dh ** -0.5
+        q, k, v, do, _ = attention_operands(torch, shape, "bfloat16", SEED + 30)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        with torch.inference_mode():
+            for rate in (0.0, DROP_RATE):
+                d = Dropout(DROP_SEED, rate) if rate else None
+                fwd = lambda: flash_attn_fwd_cuda(q, k, v, scale, d)  # noqa: E731
+                f_ms = time_ms(torch, fwd, iters=20)
+                f_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, dropout_p=rate,
+                                                                              scale=scale), iters=20)
+                f_ms2 = time_ms(torch, fwd, iters=20)
+                o, lse = fwd()
+                bwd = lambda: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale, d)  # noqa: E731
+                b_ms = time_ms(torch, bwd, iters=10)
+                sd = sdpa_fwd(qt, kt, vt, rate, False, False, scale=scale)
+                b_lib = time_ms(torch, lambda: sdpa_bwd(dot, qt, kt, vt, sd[0], sd[1], sd[2], sd[3], sd[4], sd[5],
+                                                        rate, False, sd[6], sd[7], scale=scale), iters=10)
+                b_ms2 = time_ms(torch, bwd, iters=10)
+                split = bwd_kernel_ms(torch, bwd)
+                plain = {}
+                if n == LONG_TIME_NS[0]:
+                    bh = [_to_bh(x) for x in (q, k, v)]
+                    bargs = (*bh, _to_bh(o), lse.reshape(b * h, n), _to_bh(do), None, scale, LONG_TILE, LONG_TILE, d)
+                    plain["fwd"] = time_ms(torch, lambda: streaming_fwd_with_lse(*bh, scale, LONG_TILE, LONG_TILE, d),
+                                           iters=1, warmup=1)
+                    plain["dkdv"] = time_ms(torch, lambda: streaming_dkv(*bargs), iters=1, warmup=1)
+                    plain["dq"] = time_ms(torch, lambda: streaming_dq(*bargs), iters=1, warmup=1)
+                    plain["bwd"] = plain["dkdv"] + plain["dq"]
+                    del bh, bargs
+                got = {"fwd": (min(f_ms, f_ms2), f"{f_ms:.4f} / {f_ms2:.4f}", f_lib),
+                       "bwd": (min(b_ms, b_ms2), f"{b_ms:.4f} / {b_ms2:.4f}", b_lib),
+                       "dkdv": (split["dkdv"], f"{split['dkdv']:.4f}", b_lib),
+                       "dq": (split["dq"], f"{split['dq']:.4f}", b_lib)}
+                for piece, (ms, shown, lib) in got.items():
+                    bound = long_bound_ms(shape, "bfloat16", *LONG_PIECES[piece], d is not None)
+                    say(f"[4L time] streaming {piece} {shape} bf16 rate {rate}: kernel {shown} ms"
+                        + (f" (delta pre-pass {split['delta']:.4f} ms besides)" if piece == "bwd" else "")
+                        + (f", plain (64 x 64 tiles, timed once) {plain[piece]:.1f} ms" if plain else "")
+                        + f", sdpa flash {'backward, whole call' if piece != 'fwd' else 'forward'} (dropout_p "
+                        f"{rate}) {lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: {bound[2] / 1e6:.1f} MB, "
+                        f"{bound[3] / 1e12:.3f} TFLOP" + (f", {bound[4] / 1e9:.2f} G INT32 ops of the hash"
+                                                          if d is not None else "")
+                        + f"; tensor-core share {bound[3] / PEAK_FLOPS['bfloat16'] * 1e3 / ms * 100:.1f}%) [{card}]")
+                    if n == LONG_TIME_NS[0] and d is None:
+                        # no PyTorch call computes dK/dV or dQ alone: SDPA's
+                        # backward stands beside the whole call only
+                        timing[STREAM_TIMING_NAMES[piece]] = {
+                            "ms": ms, "plain_ms": plain[piece], "library_ms": None if piece in ("dkdv", "dq") else lib,
+                            "bound_ms": bound[0], "bound_by": bound[1]}
+                del o, lse, sd
+        del q, k, v, do, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return timing
 
 def phase_model_check(torch):
     from vitax_torch.config import Config
@@ -1283,7 +1629,7 @@ def phase_train(torch, card):
     # block, one optimizer launch; the eval adds a forward per block per batch
     want = {"flash_attn_fwd": cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks,
             "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps, "dequant_matmul": 0,
-            "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0}
+            "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0)}
     if launches != want:
         fail(f"train() launched {launches}; expected {want}")
     times = [r["step_seconds"] for r in steps[2:]]          # steps 3 to 12
@@ -1312,7 +1658,8 @@ def phase_train(torch, card):
                    f"depth {cfg.num_blocks})", card, "7", top=14)
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}       # a warm step, then the profiled one
     want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1,
-                 "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0}
+                 "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
+                 **dict.fromkeys(_build.STREAM_KERNELS, 0)}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7 train] launches per steady step {per_step}")
@@ -1362,7 +1709,7 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
     n = cfg.num_blocks
     want = {"flash_attn_fwd": cfg.eval_max_batches * n, "flash_attn_fwd_drop": cfg.max_steps * 2 * n,
             "flash_attn_bwd": 0, "flash_attn_bwd_drop": cfg.max_steps * n, "fused_adamw": cfg.max_steps,
-            "dequant_matmul": 0}
+            "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0)}
     if launches != want:
         fail(f"train() under dropout launched {launches}; expected {want}")
     times = [r["step_seconds"] for r in steps[2:]]
@@ -1415,7 +1762,7 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
                    f"{cfg.batch_size}, depth {n})", card, "7d", top=14)
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}
     want_step = {"flash_attn_fwd": 0, "flash_attn_fwd_drop": 2 * n, "flash_attn_bwd": 0, "flash_attn_bwd_drop": n,
-                 "fused_adamw": 1, "dequant_matmul": 0}
+                 "fused_adamw": 1, "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0)}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps under dropout launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7d train] launches per steady step {per_step}")
@@ -1424,6 +1771,80 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
     torch.cuda.empty_cache()
     return launches
 
+
+def phase_train_long(torch, card):
+    """Phase 7L: the long-context train path, train() at the JAX ladder's
+    shape (ViT-L width, 4 blocks, batch 2, fake data, 8 steps and a 1-batch
+    eval) at N 4096 and 9216, N 4096 under att_dropout 0.1 and N 9216 under
+    dots_attn_saveable: each run's launches checked against its steps (per
+    step 2 attention forwards a block, a forward and its recompute, or 1
+    under dots_attn_saveable, and 1 backward a block, all through the
+    streaming keys; the whole-N keys at 0), sec/iter, images/s, MFU, peak
+    memory, and a profile of one steady step. Returns the launches summed
+    over the runs."""
+    from vitax_torch.config import Config
+    from vitax_torch.ops import _build
+    from vitax_torch.telemetry.flops import model_flops_per_step, peak_tflops
+    from vitax_torch.train.loop import train
+    from vitax_torch.train.state import build_optimizer
+    from vitax_torch.train.step import make_train_step
+
+    total = {}
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    for label, over in LONG_RUNS:
+        cfg = Config(seed=SEED, **TRAIN_LONG, **over).validate()
+        records = []
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state = train(cfg, "cuda", records=records)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = [r for r in records if "loss" in r]
+        losses = [r["loss"] for r in steps]
+        if len(steps) != cfg.max_steps or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"7L {label}: train() logged {len(steps)} steps, losses {losses}; expected {cfg.max_steps} finite "
+                 f"and falling")
+        n_blk = cfg.num_blocks
+        fwd_per_block = 1 if cfg.remat_policy == "dots_attn_saveable" else 2
+        drop = cfg.att_dropout > 0
+        per_step = {k: 0 for k in _build.LAUNCHES}
+        per_step["flash_attn_fwd_stream_drop" if drop else "flash_attn_fwd_stream"] = fwd_per_block * n_blk
+        per_step["flash_attn_bwd_stream_drop" if drop else "flash_attn_bwd_stream"] = n_blk
+        per_step["fused_adamw"] = 1
+        want = {k: v * cfg.max_steps for k, v in per_step.items()}
+        want["flash_attn_fwd_stream"] += cfg.eval_max_batches * n_blk      # the eval: rate 0, no recompute
+        if launches != want:
+            fail(f"7L {label}: train() launched {launches}; expected {want}")
+        times = [r["step_seconds"] for r in steps[2:]]
+        sec_per_iter = float(np.median(times))
+        mfu = (model_flops_per_step(cfg) / sec_per_iter / (peak * 1e12)) if peak else None
+        say(f"[7L train] {label}: ViT-L width (D {cfg.embed_dim}, {cfg.num_heads} heads), depth {n_blk}, batch "
+            f"{cfg.batch_size}, image {cfg.image_size}, N {cfg.num_patches}, attention "
+            f"{state.model.blocks[0].attn.attention_impl.vitax_name}, remat {cfg.remat_policy}: {cfg.max_steps} "
+            f"steps + eval in {wall:.1f}s; losses " + " ".join(f"{x:.4f}" for x in losses))
+        say(f"[7L train] {label}: sec/iter median of steps 3-{cfg.max_steps} {sec_per_iter:.4f} s (min "
+            f"{min(times):.4f}, max {max(times):.4f}); {cfg.batch_size / sec_per_iter:.2f} images/s; MFU "
+            + (f"{mfu * 100:.2f}% of {peak:.0f} TFLOP/s bf16" if mfu is not None else "not measured (no peak)")
+            + f" ({model_flops_per_step(cfg) / 1e12:.3f} TFLOP a step, the N^2 attention counted); "
+            f"max_memory_allocated {peak_gb:.2f} GB; launches {launches} [{card}]")
+
+        optimizer, _ = build_optimizer(cfg, 100)
+        train_step = make_train_step(cfg, optimizer, "cuda")
+        batch = {"image": torch.zeros((cfg.batch_size, cfg.image_size, cfg.image_size, 3), device="cuda"),
+                 "label": torch.zeros(cfg.batch_size, dtype=torch.int64, device="cuda")}
+        _build.reset_launches()
+        profile_device(torch, lambda: train_step(state, batch), f"{label}: one train step", card, "7L", top=10)
+        got = {k: v // 2 for k, v in _build.LAUNCHES.items()}          # a warm step, then the profiled one
+        if got != per_step or any(v % 2 for v in _build.LAUNCHES.values()):
+            fail(f"7L {label}: two steady train steps launched {dict(_build.LAUNCHES)}; expected {per_step} a step")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        del state, train_step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
 
 def time_fused_adamw(torch, state, card):
     """The fused optimizer on the trained state's own params, mu and nu and
@@ -1480,26 +1901,9 @@ def time_fused_adamw(torch, state, card):
                "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
-    try:
-        import vitax_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"the vitax_torch package is not beside chip_smoke.py ({e})")
-    card = phase_env(torch)
-    phase_build()
-    errs = phase_kernel_check(torch)
-    timing = phase_kernel_timing(torch, card)
-    phase_model_check(torch)
-    serve_launches, engine_f32 = phase_main_path(torch, card)
-    quant_launches = phase_quant_serve(torch, card, engine_f32)
-    del engine_f32
-    gc.collect()                           # free the 40 GB engine before the train path
-    torch.cuda.empty_cache()
-    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0 = phase_train(torch, card)
-    drop_launches = phase_train_dropout(torch, card, loss0)
+def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches):
+    """The `kernels` JSON entries: every kernel with its launches on the main
+    paths of this run, its check's max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda", "source": fwd_src,
@@ -1512,7 +1916,7 @@ def main() -> int:
          "max_abs_err": errs["flash_attn_bwd"], **timing["flash_attn_bwd"]},
         {"name": "fused_adamw", "route": "cuda", "source": "vitax_torch/csrc/fused_adamw.cu",
          "replaces": "vitax/ops/fused_optimizer.py:112",
-         "launches": train_launches["fused_adamw"] + drop_launches["fused_adamw"],
+         "launches": train_launches["fused_adamw"] + drop_launches["fused_adamw"] + long_launches["fused_adamw"],
          "max_abs_err": max(errs["fused_adamw"], errs["fused_adamw_table"]), **timing["fused_adamw"]},
         {"name": "dequant_matmul", "route": "cuda", "source": "vitax_torch/csrc/dequant_matmul.cu",
          "replaces": "vitax/ops/dequant_matmul.py:92", "launches": quant_launches["dequant_matmul"],
@@ -1530,6 +1934,48 @@ def main() -> int:
                             ("flash_bh_fwd_drop", fwd_src, 491), ("flash_bh_bwd_drop", bwd_src, 513)):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": f"vitax/ops/attention.py:{line}",
                         "launches": 0, "max_abs_err": errs[name], **timing[name]})
+    # The streaming path (phase 7L) launches A1's and A2's kernels through
+    # vitax_torch/ops/flash_blocked.py; each backward call (the entry at
+    # blocked_bwd_padded, beside SDPA's whole backward) runs both A5
+    # counterparts, listed apart with no library call. Launches count both
+    # rates; the times are N 4096, rate 0.
+    fwd_launches = long_launches["flash_attn_fwd_stream"] + long_launches["flash_attn_fwd_stream_drop"]
+    bwd_launches = long_launches["flash_attn_bwd_stream"] + long_launches["flash_attn_bwd_stream_drop"]
+    for name, src, line, launches in (("flash_attn_fwd_stream", fwd_src, 63, fwd_launches),
+                                      ("flash_attn_bwd_stream", bwd_src, 244, bwd_launches),
+                                      ("flash_attn_bwd_stream_dkdv", bwd_src, 152, bwd_launches),
+                                      ("flash_attn_bwd_stream_dq", bwd_src, 205, bwd_launches)):
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": f"vitax/ops/flash_blocked.py:{line}", "launches": launches,
+                        "max_abs_err": errs[name], **timing[name]})
+    return kernels
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    try:
+        import vitax_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the vitax_torch package is not beside chip_smoke.py ({e})")
+    card = phase_env(torch)
+    phase_build()
+    errs = phase_kernel_check(torch)
+    errs.update(check_streaming(torch))
+    timing = phase_kernel_timing(torch, card)
+    timing.update(time_streaming(torch, card))
+    phase_model_check(torch)
+    serve_launches, engine_f32 = phase_main_path(torch, card)
+    quant_launches = phase_quant_serve(torch, card, engine_f32)
+    del engine_f32
+    gc.collect()                           # free the 40 GB engine before the train path
+    torch.cuda.empty_cache()
+    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0 = phase_train(torch, card)
+    drop_launches = phase_train_dropout(torch, card, loss0)
+    long_launches = phase_train_long(torch, card)
+    kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
+                           long_launches)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

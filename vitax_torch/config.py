@@ -10,6 +10,7 @@ import argparse
 import dataclasses
 
 QUANT_DTYPE_CHOICES = ("", "int8", "float8_e4m3")     # --serve_quant_dtype: the __quant__ schema's dtypes
+REMAT_POLICIES = ("none_saveable", "dots_saveable", "dots_attn_saveable")    # --remat_policy (vitax/config.py:748)
 
 
 @dataclasses.dataclass
@@ -46,6 +47,8 @@ class Config:
     clip_grad_norm: float = 1.0
     warmup_steps: int = 10000
     grad_ckpt: bool = True              # recompute each block in the backward (--no_grad_ckpt clears)
+    remat_policy: str = "none_saveable" # what a recomputed block keeps (only if grad_ckpt): nothing; its
+    #   matmul outputs (dots_saveable); those and the attention core's o and lse (dots_attn_saveable)
     grad_accum_steps: int = 1           # K > 1: K strided microbatches of B/K per optimizer step
     fused_optimizer: str = "auto"       # auto | on | off, as in vitax; the card always runs the clip+AdamW kernel, and off raises there
     steps_per_epoch: int = 0            # 0 = dataset length // batch_size
@@ -103,6 +106,8 @@ class Config:
             (self.grad_accum_steps >= 1 and self.batch_size % self.grad_accum_steps == 0,
              f"--batch_size {self.batch_size} must be a multiple of --grad_accum_steps "
              f"{self.grad_accum_steps} (>= 1)"),
+            (self.remat_policy in REMAT_POLICIES,
+             f"unknown remat_policy {self.remat_policy!r} (expected one of {', '.join(REMAT_POLICIES)})"),
             (self.fused_optimizer in ("auto", "on", "off"),
              f"unknown fused_optimizer {self.fused_optimizer!r} (expected 'auto', 'on' or 'off')"),
             (self.log_step_interval >= 1, f"--log_step_interval must be >= 1, got {self.log_step_interval}"),
@@ -161,6 +166,7 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--no_flash_attention", "store_false", "use_flash_attention"),
                ("--no_grad_ckpt", "store_false", "grad_ckpt"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "fused_optimizer": ["auto", "on", "off"],
+            "remat_policy": list(REMAT_POLICIES),
             "serve_quant_dtype": list(QUANT_DTYPE_CHOICES), "serve_act_quant": ["off", "int8"],
             "fused_dequant": ["auto", "on", "off"]}
 

@@ -10,11 +10,18 @@ float32 and its output is cast to cfg.dtype; the head computes in float32.
 
 Blocks are a ModuleList run in a Python loop: eager PyTorch has no scan to
 amortize. With grad_ckpt (the default) and grad enabled, each block runs
-under torch.utils.checkpoint (non-reentrant): only its input is kept, and
-the backward recomputes the block, the counterpart of the JAX model's
-per-block remat with the none_saveable policy. Without grad (eval, serve)
-the forward is the plain loop. Module and parameter names mirror the Flax
-paths (vitax_torch/checkpoint/convert.py maps one onto the other).
+under torch.utils.checkpoint (non-reentrant) and the backward recomputes
+it, the counterpart of the JAX model's per-block remat, with what it keeps
+set by cfg.remat_policy (vitax/models/vit.py:317-339; `remat_block`):
+none_saveable keeps only the block's input; dots_saveable also keeps every
+matmul output (selective checkpointing over aten mm/addmm/bmm), so
+the recompute redoes the rest, the attention core included, as in JAX,
+where that core is a custom call and no dot; dots_attn_saveable runs the
+core between two such regions, so its autograd Function keeps q, k, v, o
+and lse and the forward kernel never runs again in the backward. Without
+grad (eval, serve) the forward is the plain loop. Module and parameter
+names mirror the Flax paths (vitax_torch/checkpoint/convert.py maps one
+onto the other).
 
 Dropout (the Flax model's deterministic=False) is on only when the caller
 passes `DropoutSeeds`: one uint32 seed a block and one for pos dropout,
@@ -44,10 +51,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from vitax_torch.checkpoint.consolidate import QUANT_TORCH_DTYPES
-from vitax_torch.config import Config
+from vitax_torch.config import REMAT_POLICIES, Config
 from vitax_torch.ops.attention import make_dense_dropout, reference_attention
 from vitax_torch.ops.dequant_matmul import dequantize_leaf
 
@@ -171,7 +178,9 @@ class Attention(nn.Module):
     `attention_impl(q, k, v)` on strided (B, N, H, Dh) views of the qkv
     output, or the dense path when it is None. Given a seed at att_dropout
     > 0 the core is the impl's `vitax_dropout` (the dropout kernels), or,
-    on the dense path, dense attention with the same hash mask."""
+    on the dense path, dense attention with the same hash mask. The block
+    calls its three steps (project, core, output) one by one, so that
+    `remat_block` can keep the core out of a recomputed region."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None,
@@ -185,18 +194,21 @@ class Attention(nn.Module):
         self.qkv = _linear(dim, 3 * dim, quant, True, device)
         self.proj = _linear(dim, dim, quant, True, device)
 
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    def project(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q, k, v (B, N, H, Dh): strided views of the qkv output; the
+        backward stacks dq, dk, dv in one copy."""
         b, n, d = x.shape
-        qkv = _dense(self.qkv, x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads)
-        q, k, v = qkv.unbind(2)      # strided views; the backward stacks dq, dk, dv in one copy
+        return _dense(self.qkv, x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads).unbind(2)
+
+    def core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         if seed is None or self.att_dropout == 0.0:
-            out = (self.attention_impl or reference_attention)(q, k, v)
-        else:
-            drop = getattr(self.attention_impl, "vitax_dropout", None) or make_dense_dropout(self.att_dropout)
-            out = drop(q, k, v, seed)
-        out = _dense(self.proj, out.reshape(b, n, d), self.dtype)
-        return _dropout(out, self.proj_dropout, gen)
+            return (self.attention_impl or reference_attention)(q, k, v)
+        drop = getattr(self.attention_impl, "vitax_dropout", None) or make_dense_dropout(self.att_dropout)
+        return drop(q, k, v, seed)
+
+    def output(self, out: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, n = out.shape[:2]
+        return _dropout(_dense(self.proj, out.reshape(b, n, -1), self.dtype), self.proj_dropout, gen)
 
 
 class Mlp(nn.Module):
@@ -230,13 +242,51 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device, dropout=mlp_dropout)
 
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
-        """seed: the block's dropout seed, or None (no dropout). Its proj and
-        mlp masks come from a generator made here from the seed, so a
-        recompute under checkpoint draws them again."""
+    def attention_inputs(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The block up to its attention core: norm1 and the qkv projection."""
+        return self.attn.project(_layer_norm(self.norm1, x, self.dtype))
+
+    def finish(self, x: torch.Tensor, out: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+        """The block after its attention core `out`: proj, the residuals,
+        norm2 and the mlp. The proj and mlp masks come from a generator
+        made here from the seed, so a recompute under checkpoint draws them
+        again."""
         gen = _generator(seed, x.device) if seed is not None and self.mlp_dropout > 0.0 else None
-        x = x + self.attn(_layer_norm(self.norm1, x, self.dtype), seed, gen)
+        x = x + self.attn.output(out, gen)
         return x + self.mlp(_layer_norm(self.norm2, x, self.dtype), gen)
+
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+        """seed: the block's dropout seed, or None (no dropout)."""
+        return self.finish(x, self.attn.core(*self.attention_inputs(x), seed), seed)
+
+
+# F.linear is CompositeImplicitAutograd: the policy sees the mm/addmm it
+# decomposes to, never aten.linear itself.
+_DOT_OPS = frozenset(getattr(torch.ops.aten, name).default for name in ("mm", "addmm", "bmm"))
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_saved():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def remat_block(block: Block, x: torch.Tensor, seed: Optional[int], policy: str) -> torch.Tensor:
+    """The block under non-reentrant checkpoint, keeping what `policy`
+    (one of REMAT_POLICIES) names: its input only, also its matmul
+    outputs, or those and the attention core's (q, k, v, o, lse), the core
+    then running outside the two recomputed regions."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r} (expected one of {', '.join(REMAT_POLICIES)})")
+    if policy == "none_saveable":
+        return checkpoint(block, x, seed, use_reentrant=False)
+    if policy == "dots_saveable":
+        return checkpoint(block, x, seed, use_reentrant=False, context_fn=_dots_saved)
+    q, k, v = checkpoint(block.attention_inputs, x, use_reentrant=False, context_fn=_dots_saved)
+    out = block.attn.core(q, k, v, seed)
+    return checkpoint(block.finish, x, out, seed, use_reentrant=False, context_fn=_dots_saved)
 
 
 class VisionTransformer(nn.Module):
@@ -247,6 +297,7 @@ class VisionTransformer(nn.Module):
         super().__init__()
         self.dtype = _DTYPES[cfg.dtype]
         self.grad_ckpt = cfg.grad_ckpt
+        self.remat_policy = cfg.remat_policy
         self.quant = quant
         self.pos_dropout = cfg.pos_dropout
         d = cfg.embed_dim
@@ -271,7 +322,7 @@ class VisionTransformer(nn.Module):
         remat = self.grad_ckpt and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             seed = None if seeds is None else seeds.blocks[i]
-            x = checkpoint(block, x, seed, use_reentrant=False) if remat else block(x, seed)
+            x = remat_block(block, x, seed, self.remat_policy) if remat else block(x, seed)
         x = _layer_norm(self.norm, x, self.dtype).mean(dim=1)
         return _dense(self.head, x, torch.float32)
 

@@ -10,9 +10,11 @@ nvcc and no card.
 
 ``LAUNCHES`` counts kernel launches by name: one key per source, plus
 ``flash_attn_fwd_drop`` and ``flash_attn_bwd_drop`` for the attention
-kernels' dropout instantiations. A wrapper adds one where it launches its
-kernel and nowhere else, so a run can show that its path went through the
-kernels.
+kernels' dropout instantiations, and the four ``STREAM_KERNELS`` keys for
+the same kernels launched past 2048 tokens, where the streaming entries
+(ops/flash_blocked.py) take over (ops/attention.py `launch_key`). A
+wrapper adds one where it launches its kernel and nowhere else, so a run
+can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DROPOUT_KERNELS = ("flash_attn_fwd_drop", "flash_attn_bwd_drop")
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS)}
+STREAM_KERNELS = ("flash_attn_fwd_stream", "flash_attn_bwd_stream", "flash_attn_fwd_stream_drop",
+                  "flash_attn_bwd_stream_drop")
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS, *STREAM_KERNELS)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, dict] = {}

@@ -18,6 +18,10 @@ entry point. The BH entry points (`flash_bh_with_lse`, A3/A3b, and
 `flash_bh_dropout_lse`, A6a/A6b) run the same kernels on (B*H, N, 1, Dh)
 views of a (B*H, N, Dh) input, where the kernel's block index b*H + h is
 the BH row, as the TPU kernel's program_id(0) is.
+
+Past MAX_SEQ_IN_VMEM tokens `make_attention_impl` takes the streaming
+entries of vitax_torch/ops/flash_blocked.py (the counterparts of the TPU
+kernels A4, A5a and A5b), as the JAX package's `_select_path` does.
 """
 
 from __future__ import annotations
@@ -37,6 +41,15 @@ DROP_BWD_KERNEL = "flash_attn_bwd_drop"
 # head dims the kernels are instantiated for (dispatch_dh in csrc/flash_attn_{fwd,bwd}.cu)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernels' grid is (ceil(N / 64), H, B); CUDA caps its y and z sizes.
+MAX_GRID_YZ = 65535
+# vitax/ops/attention.py:41: past this many tokens the JAX package streams
+# K/V blocks (vitax/ops/flash_blocked.py) instead of holding (N, N) scores.
+MAX_SEQ_IN_VMEM = 2048
+# Launch counters, (whole-N, whole-N dropout, streaming, streaming dropout),
+# of the forward and of the backward call.
+_FWD_KEYS = (KERNEL, DROP_KERNEL, *_build.STREAM_KERNELS[0::2])
+_BWD_KEYS = (BWD_KERNEL, DROP_BWD_KERNEL, *_build.STREAM_KERNELS[1::2])
 
 # ---------------------------------------------------------------------------
 # in-kernel dropout RNG (vitax/ops/attention.py:78-132)
@@ -233,10 +246,19 @@ def attention_bwd_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o:
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def check_grid(kernel: str, b: int, n: int, h: int) -> None:
+    """Raise unless a (B, N, H, Dh) call fits the kernels' grid (ceil(N /
+    64), H, B): B and H at most MAX_GRID_YZ each. On a (B*H, N, 1, Dh) BH
+    view, B is the B*H row count."""
+    if b > MAX_GRID_YZ or h > MAX_GRID_YZ:
+        raise ValueError(f"{kernel}: batch {b} and heads {h} must each be <= {MAX_GRID_YZ}, the CUDA "
+                         f"grid's y/z limit (grid (ceil(N/64), H, B); on a BH view B is the B*H rows)")
+
+
 def _check_kernel_inputs(kernel: str, **xs: torch.Tensor) -> None:
     """The (B, N, H, Dh) operands a kernel takes: one CUDA device, one type
     (float32 or bfloat16), one shape, a built head dim, a contiguous head
-    axis."""
+    axis, a shape that fits the grid."""
     names = ", ".join(xs)
     ts = list(xs.values())
     q = ts[0]
@@ -255,6 +277,7 @@ def _check_kernel_inputs(kernel: str, **xs: torch.Tensor) -> None:
         raise ValueError(f"{kernel}: head dim {dh} not built (supported: {SUPPORTED_HEAD_DIMS})")
     if min(b, n, h) < 1:
         raise ValueError(f"{kernel}: empty input {tuple(q.shape)}")
+    check_grid(kernel, b, n, h)
     for name, x in xs.items():
         if x.stride(3) != 1:
             raise ValueError(f"{kernel}: {name}'s head axis must be contiguous, strides {x.stride()}")
@@ -264,11 +287,21 @@ _DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_ui
                      ctypes.c_float, ctypes.c_float]
 
 
+def launch_key(n: int, dropout: Optional[Dropout], backward: bool) -> str:
+    """The `_build.LAUNCHES` key a kernel call of sequence length n counts
+    under: the whole-N keys up to MAX_SEQ_IN_VMEM tokens, the streaming ones
+    (`_build.STREAM_KERNELS`) past it, where make_attention_impl takes the
+    streaming entries; each with its dropout twin."""
+    keys = _BWD_KEYS if backward else _FWD_KEYS
+    return keys[2 * (n > MAX_SEQ_IN_VMEM) + (dropout is not None)]
+
+
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                         dropout: Optional[Dropout] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper forward kernel on strided (B, N, H, Dh) CUDA views,
     its dropout instantiation when `dropout` is given. Returns (o contiguous
-    (B, N, H, Dh) in the input type, lse (B, H, N) f32)."""
+    (B, N, H, Dh) in the input type, lse (B, H, N) f32). The launch counts
+    under `launch_key`."""
     _check_kernel_inputs(KERNEL, q=q, k=k, v=v)
     b, n, h, dh = q.shape
     lib = _build.load(KERNEL)
@@ -285,7 +318,7 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
                  _DTYPE_CODES[q.dtype], b, n, h, dh, strides, float(scale), *_kernel_dropout_args(dropout),
                  stream)
     _build.check(lib, KERNEL, err)
-    _build.LAUNCHES[KERNEL if dropout is None else DROP_KERNEL] += 1
+    _build.LAUNCHES[launch_key(n, dropout, backward=False)] += 1
     return o, lse
 
 
@@ -312,7 +345,8 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """Launch the Hopper backward kernel (one call = the delta pre-pass, the
     dK/dV kernel and the dQ kernel) on strided (B, N, H, Dh) CUDA views,
     their dropout instantiations when `dropout` is given. dlse None means
-    zero. Returns dq, dk, dv contiguous (B, N, H, Dh) in the input type."""
+    zero. Returns dq, dk, dv contiguous (B, N, H, Dh) in the input type.
+    The call counts under `launch_key`."""
     _check_kernel_inputs(BWD_KERNEL, q=q, k=k, v=v, o=o, do=do)
     b, n, h, dh = q.shape
     for name, x in (("lse", lse), ("dlse", dlse)):
@@ -336,7 +370,7 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                  _DTYPE_CODES[q.dtype], b, n, h, dh, strides, float(scale), *_kernel_dropout_args(dropout),
                  stream)
     _build.check(lib, BWD_KERNEL, err)
-    _build.LAUNCHES[BWD_KERNEL if dropout is None else DROP_BWD_KERNEL] += 1
+    _build.LAUNCHES[launch_key(n, dropout, backward=True)] += 1
     return dq, dk, dv
 
 
@@ -354,16 +388,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
 
 
 class _FlashWithLse(torch.autograd.Function):
-    """(o, lse) from the forward dispatcher; the backward dispatcher takes
-    both cotangents. Saves (q, k, v, o, lse), as the JAX custom VJPs do;
-    under dropout the backward regenerates the mask from the seed."""
+    """(o, lse) from a forward dispatcher `fwd(q, k, v, scale, dropout)`;
+    the backward dispatcher `bwd(q, k, v, o, lse, do, dlse, scale,
+    dropout)` takes both cotangents. Saves (q, k, v, o, lse), as the JAX
+    custom VJPs do; under dropout the backward regenerates the mask from
+    the seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, dropout, normalize_first):
-        o, lse = flash_attention_fwd(q, k, v, scale, dropout, normalize_first)
+    def forward(ctx, q, k, v, scale, dropout, fwd, bwd):
+        o, lse = fwd(q, k, v, scale, dropout)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
         ctx.dropout = dropout
+        ctx.bwd = bwd
         ctx.set_materialize_grads(False)    # an unused lse passes None, not zeros
         return o, lse
 
@@ -376,8 +413,8 @@ class _FlashWithLse(torch.autograd.Function):
             do = do.contiguous()            # kernel reads dO by rows and dlse contiguous
         if dlse is not None:
             dlse = dlse.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse, ctx.scale, ctx.dropout)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = ctx.bwd(q, k, v, o, lse, do, dlse, ctx.scale, ctx.dropout)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash4_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -386,7 +423,7 @@ def flash4_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in both outputs: the port of vitax's flash4_with_lse."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashWithLse.apply(q, k, v, float(scale), None, True)
+    return _FlashWithLse.apply(q, k, v, float(scale), None, flash_attention_fwd, flash_attention_bwd)
 
 
 def flash4_dropout_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seedvec: Tuple[int, int, int],
@@ -395,7 +432,8 @@ def flash4_dropout_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seedve
     (o, lse (B, H, N)), differentiable in both outputs (kernels A6c/A6d).
     seedvec: (seed, q0, k0) (_seedvec)."""
     seed, q0, k0 = seedvec
-    return _FlashWithLse.apply(q, k, v, float(scale), Dropout(seed, float(rate), q0, k0), True)
+    return _FlashWithLse.apply(q, k, v, float(scale), Dropout(seed, float(rate), q0, k0), flash_attention_fwd,
+                               flash_attention_bwd)
 
 
 def flash4_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int, scale: float, rate: float,
@@ -404,10 +442,15 @@ def flash4_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int,
     return flash4_dropout_lse(q, k, v, _seedvec(seed, q0, k0), scale, rate)[0]
 
 
+def _fwd_bh_order(q, k, v, scale, dropout):
+    return flash_attention_fwd(q, k, v, scale, dropout, normalize_first=False)
+
+
 def _bh_call(q, k, v, scale, dropout):
     """The kernels on (BH, N, 1, Dh) views of (BH, N, Dh) operands; the
     plain version on the CPU follows the BH kernels' order."""
-    o, lse = _FlashWithLse.apply(q[:, :, None], k[:, :, None], v[:, :, None], float(scale), dropout, False)
+    o, lse = _FlashWithLse.apply(q[:, :, None], k[:, :, None], v[:, :, None], float(scale), dropout,
+                                 _fwd_bh_order, flash_attention_bwd)
     return o[:, :, 0], lse[:, 0]
 
 
@@ -453,32 +496,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return flash4_with_lse(q, k, v)[0]
 
 
+flash_attention.vitax_name = "whole-N"
+
+
+def _select_path(n: int) -> str:
+    """The streaming branch of vitax/ops/attention.py _select_path: the
+    streaming entries past MAX_SEQ_IN_VMEM tokens, the whole-N ones up to
+    it. The JAX package's VMEM-driven choice between its 4D and BH kernels
+    at N <= MAX_SEQ_IN_VMEM has no counterpart: the 4D entry serves them."""
+    return "streaming" if n > MAX_SEQ_IN_VMEM else "4d"
+
+
+def _named(fn: Callable, name: str) -> Callable:
+    """A new impl calling `fn`, tagged with a name for the startup log."""
+    def impl(q, k, v):
+        return fn(q, k, v)
+    impl.vitax_name = name
+    return impl
+
+
 def make_attention_impl(cfg, device) -> Optional[Callable]:
     """The attention core for this config on `device`, mirroring
     vitax/ops/attention.py make_attention_impl on one device: None (the
-    model's dense path) when the flag is off, else the flash dispatcher.
-    With --att_dropout > 0 the returned core carries `vitax_dropout`,
-    (q, k, v, seed) -> o through the dropout kernels (_tpu_dropout_kernel),
-    which the model runs when it is given seeds. The JAX package's
-    VMEM-driven choice between its 4D, BH and streaming kernels has no
-    counterpart: the strided kernel serves every N. On the card the
-    kernels must have the head dim built; that is checked here, once,
-    instead of at the first step or request."""
+    model's dense path) when the flag is off; else the whole-N flash core
+    up to MAX_SEQ_IN_VMEM tokens and the streaming one past it
+    (`_select_path`, as `_tpu_kernel` chooses), named by `vitax_name` for
+    the startup log. With --att_dropout > 0 the returned core carries
+    `vitax_dropout`, (q, k, v, seed) -> o through the dropout kernels of
+    the same path (`_tpu_dropout_kernel`), which the model runs when it is
+    given seeds. On the card the kernels must have the head dim built; that
+    is checked here, once, instead of at the first step or request."""
     if not cfg.use_flash_attention:
         return None
     dh = cfg.embed_dim // cfg.num_heads
     if torch.device(device).type == "cuda" and dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"use_flash_attention: the {KERNEL} kernel has no head dim {dh} "
                          f"(supported: {SUPPORTED_HEAD_DIMS}); pass --no_flash_attention")
-    if cfg.att_dropout <= 0.0:
-        return flash_attention
     rate = float(cfg.att_dropout)
+    if _select_path(cfg.num_patches) == "streaming":
+        from vitax_torch.ops.flash_blocked import blocked_dropout_attention, blocked_flash_attention
+        kernel = blocked_flash_attention
 
-    def impl(q, k, v):
-        return flash_attention(q, k, v)
+        def drop(q, k, v, seed):
+            return blocked_dropout_attention(q, k, v, seed, rate)
+    else:
+        kernel = flash_attention
 
-    def drop4(q, k, v, seed):
-        return flash4_dropout(q, k, v, seed, q.shape[-1] ** -0.5, rate)
-
-    impl.vitax_dropout = drop4
+        def drop(q, k, v, seed):
+            return flash4_dropout(q, k, v, seed, q.shape[-1] ** -0.5, rate)
+    if rate <= 0.0:
+        return kernel
+    impl = _named(kernel, kernel.vitax_name)
+    impl.vitax_dropout = drop
     return impl

@@ -56,7 +56,8 @@ def train(cfg: Config, device: DeviceLike = None,
     master_print(f"\n=== dataset ===\n{train_ds!r}\n")
 
     attention_impl = make_attention_impl(cfg, device)
-    master_print(f"attention core: {'flash4_with_lse' if attention_impl else 'dense'} on {device.type}")
+    master_print(f"attention core: {getattr(attention_impl, 'vitax_name', 'dense')} on {device.type} "
+                 f"(N {cfg.num_patches}); grad_ckpt {cfg.grad_ckpt}, remat_policy {cfg.remat_policy}")
     if _needs_dropout(cfg):
         where = "in the flash core" if attention_impl else "dense"
         master_print(f"dropout: att {cfg.att_dropout} ({where}), mlp and proj {cfg.mlp_dropout}, "
