@@ -18,7 +18,9 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      dropout mask recovered from the kernel bit for bit; the fused
      optimizer over leaves of assorted sizes, with the clip triggered and
      idle; the dequant matmul weight-only with int8 and fp8 weights, and
-     act mode bitwise);
+     act mode bitwise: its wgmma kernel at the main-path shapes and, on
+     both tiles, at shapes with ragged M, F and K tails, its general
+     kernel at ragged-K shapes and at proj, each line naming its kernel);
   3L. the streaming entries (vitax_torch/ops/flash_blocked.py, the
      counterparts of A4, A5a and A5b) against their plain versions at N >
      2048: the ViT-L shape (2, 4096, 16, 64), a ragged N 4097 and Dh 160 at
@@ -29,7 +31,9 @@ Phases, each printing one line (or a few), any failure exits non-zero:
   4. kernel timing (CUDA events) of the attention kernels (with and
      without dropout, 4D and BH) and the dequant matmul at their main-path
      shapes, beside the plain version, PyTorch's own library call and the
-     least time the card could take;
+     least time the card could take; the dequant matmul's wgmma kernel,
+     its general kernel and the other wgmma tile in turns at bucket 8's
+     and bucket 1's rows, and the host's time per wrapper call;
   4L. the streaming path's kernels at the ViT-L shape, N 4096 and 9216,
      rate 0 and 0.1: the forward, the backward call and (torch.profiler)
      its dK/dV and dQ kernels, beside SDPA, the bounds and (N 4096 only)
@@ -47,7 +51,8 @@ Phases, each printing one line (or a few), any failure exits non-zero:
   6q. quantized serving: that model quantized on the card to int8 and to
      fp8, three engines (int8 weight-only, int8 with int8 activations, fp8
      weight-only) each answering the same traffic over HTTP, with
-     dequant_matmul's launches checked at 129 per engine batch, the
+     dequant_matmul's launches checked at 129 per engine batch, every
+     block-site launch on the wgmma kernel, the
      footprint, a profile of one bucket-8 forward, latency, and an accuracy
      gate against the full-precision engine on 64 seeded images;
   7. train main path: train() on the 10B-width model cut to depth 8, batch
@@ -146,13 +151,21 @@ MODEL_GRAD_REL_TOL = 2.5e-2
 # sites and 8 (one row an image) at the head.
 DEQUANT_SITES = (("qkv", 5120, 15360, 32), ("proj", 5120, 5120, 32), ("fc1", 5120, 20480, 32),
                  ("fc2", 20480, 5120, 32), ("head", 5120, 1000, 1))
+# Ragged K (K % 16 != 0): the general kernel takes them.
 DEQUANT_CHECK_SHAPES = ((5, 33, 17), (130, 257, 96), (1, 8, 4), (200, 520, 300))
+# The wgmma kernel with ragged tails: M, F and K (4112 = 64 x 64 + 16) past
+# a tile, and bucket 1's M 256 at the qkv site; each checked on every kernel.
+DEQUANT_TAIL_SHAPES = ((2056, 5120, 1000), (130, 528, 392), (200, 4112, 300), (256, 5120, 15360))
+# Phase 4 times kernel C at bucket 8's and bucket 1's rows.
+DEQUANT_TIMING_M = (2048, 256)
 # Weight-only: max |d| <= tol * max |ref| against the f32 plain version. bf16
 # x: the tensor cores sum exact bf16 products in another order (and truncate
 # inside an mma), f32 x: FMAs in another order. The worst readings at these
 # shapes on an H100 80GB HBM3 at 700 W were 2.10e-5 (bf16, K 20480) and
 # 2.76e-6 (f32, K 5120) of max |ref| (PERF.md), so the bars are about 3x and
-# 3.6x those. Act mode must be bitwise equal. A check whose scales are
+# 3.6x those. The wgmma kernels and the tail shapes read the same 2.10e-5
+# (every kernel, fp8 weights, K 20480) and 3.69e-6 (f32 x, the general
+# kernel at the tail shapes) on the same card. Act mode must be bitwise equal. A check whose scales are
 # dropped, or whose sx is forced to 1, must land beyond the bar (it lands
 # 1.6e3-5.7e3 and 21-96 times max |ref| away).
 DEQUANT_TOL = {"bfloat16": 6e-5, "float32": 1e-5}
@@ -391,7 +404,7 @@ def phase_kernel_check(torch):
     errs.update(check_bh_entries(torch))
     check_mask_recovery(torch)
     errs["fused_adamw"] = check_fused_adamw(torch)
-    errs["dequant_matmul"] = check_dequant_matmul(torch)
+    errs.update(check_dequant_matmul(torch))
     return errs
 
 
@@ -407,54 +420,66 @@ def dequant_operands(torch, m, k, f, dtype, seed):
     return x, q, s.reshape(-1).contiguous()
 
 
-def check_dequant_matmul(torch) -> float:
-    """Kernel C against its plain versions: weight-only with int8 and fp8
-    weights and bf16 x at the five main-path (K, F) pairs (M 2048, and the
-    head at M 1 and 8), plus f32 x at ragged small shapes; act mode (int8 x
-    int8) bitwise at all of them. Each check also measures how far a broken
-    kernel would land (scales dropped; sx forced to 1) and fails unless
-    that is beyond the bar. Returns max |d| of weight-only at the main-path
-    shapes."""
-    from vitax_torch.ops.dequant_matmul import _matmul_plain, dequant_matmul_cuda, quantize_activations
-    shapes = [(2048, k, f) for _, k, f, n in DEQUANT_SITES if n > 1] + [(1, 5120, 1000), (8, 5120, 1000)]
-    shapes += list(DEQUANT_CHECK_SHAPES)
-    worst = 0.0
+def check_dequant_matmul(torch) -> dict:
+    """Kernel C against its plain versions, every kernel that takes the
+    operands (each line names it, and marks the one `choose_kernel` gives):
+    weight-only with int8 and fp8 weights and bf16 x at the five main-path
+    (K, F) pairs (M 2048, and the head at M 1 and 8), at the tail shapes and
+    at the ragged-K shapes (the general kernel alone); f32 x below M 2048
+    (the general kernel); act mode (int8 x int8) bitwise at all of them.
+    Each check also measures how far a broken kernel would land (scales
+    dropped; sx forced to 1) and fails unless that is beyond the bar.
+    Returns max |d| of weight-only at the main-path shapes, on the chosen
+    kernel and on the general one."""
+    from vitax_torch.ops.dequant_matmul import (KERNELS, _matmul_plain, choose_kernel, dequant_matmul_cuda,
+                                                kernel_takes, quantize_activations)
+    main = [(2048, k, f) for _, k, f, n in DEQUANT_SITES if n > 1] + [(1, 5120, 1000), (8, 5120, 1000)]
+    shapes = main + list(DEQUANT_TAIL_SHAPES) + list(DEQUANT_CHECK_SHAPES)
+    worst = {"dequant_matmul": 0.0, "dequant_matmul_general": 0.0}
     with torch.inference_mode():
         for i, (m, k, f) in enumerate(shapes):
-            on_path = m in (2048, 8) and (k, f) in {(kk, ff) for _, kk, ff, _ in DEQUANT_SITES}
+            on_path = (m, k, f) in main
             for dtype in ("int8", "float8_e4m3"):
                 x, q, s = dequant_operands(torch, m, k, f, dtype, SEED + i)
-                for xdt in (("bfloat16",) if m == 2048 else ("bfloat16", "float32")):
-                    xx = x.to(getattr(torch, xdt))
-                    got = dequant_matmul_cuda(xx, q, s)
+                for xx in ((x.to(torch.bfloat16),) if m == 2048 else (x.to(torch.bfloat16), x)):
+                    xdt = str(xx.dtype).replace("torch.", "")
+                    chosen = choose_kernel(xx, q)
                     want = _matmul_plain(xx, q, s, None)
                     dropped = _matmul_plain(xx, q, torch.ones_like(s), None)
-                    torch.cuda.synchronize()
                     ref = want.abs().max().item()
-                    d = (got - want).abs().max().item()
-                    d_broken = (got - dropped).abs().max().item()
                     bar = DEQUANT_TOL[xdt] * ref
-                    ok = bool(torch.isfinite(got).all()) and d <= bar and d_broken > bar
-                    say(f"[3 check] dequant_matmul {m}x{k}x{f} {dtype} w, {xdt} x: max|d| {d:.3e} "
-                        f"(<= {bar:.3e}, max|ref| {ref:.3e}, ratio {d / ref:.2e}); scales dropped: "
-                        f"{d_broken:.3e} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        fail(f"dequant_matmul disagrees with its plain version at {m}x{k}x{f} {dtype} {xdt}")
-                    if on_path and xdt == "bfloat16":
-                        worst = max(worst, d)
+                    for kern in [kn for kn in KERNELS if kernel_takes(kn, xx, q)]:
+                        got = dequant_matmul_cuda(xx, q, s, kernel=kern)
+                        torch.cuda.synchronize()
+                        d = (got - want).abs().max().item()
+                        d_broken = (got - dropped).abs().max().item()
+                        ok = bool(torch.isfinite(got).all()) and d <= bar and d_broken > bar
+                        say(f"[3 check] dequant_matmul {m}x{k}x{f} {dtype} w, {xdt} x, {kern}"
+                            f"{' (chosen)' if kern == chosen else ''}: max|d| {d:.3e} (<= {bar:.3e}, max|ref| "
+                            f"{ref:.3e}, ratio {d / ref:.2e}); scales dropped: {d_broken:.3e} {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            fail(f"dequant_matmul ({kern}) disagrees with its plain version at {m}x{k}x{f} {dtype} "
+                                 f"{xdt}")
+                        if on_path and xdt == "bfloat16" and kern in (chosen, "general"):
+                            key = "dequant_matmul_general" if kern == "general" else "dequant_matmul"
+                            worst[key] = max(worst[key], d)
                 if dtype == "int8":
                     xq, sx = quantize_activations(x.to(torch.bfloat16))
-                    got = dequant_matmul_cuda(xq, q, s, sx)
+                    chosen = choose_kernel(xq, q)
                     want = _matmul_plain(xq, q, s, sx)
                     forced = _matmul_plain(xq, q, s, torch.ones_like(sx))
-                    torch.cuda.synchronize()
-                    equal = torch.equal(got, want)
-                    d_broken = (got - forced).abs().max().item()
-                    ok = equal and d_broken > DEQUANT_TOL["bfloat16"] * want.abs().max().item()
-                    say(f"[3 check] dequant_matmul {m}x{k}x{f} act int8 x int8: bitwise equal {equal}; "
-                        f"sx forced to 1: max|d| {d_broken:.3e} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        fail(f"dequant_matmul act mode is not bitwise equal to its plain version at {m}x{k}x{f}")
+                    for kern in [kn for kn in KERNELS if kernel_takes(kn, xq, q)]:
+                        got = dequant_matmul_cuda(xq, q, s, sx, kernel=kern)
+                        torch.cuda.synchronize()
+                        equal = torch.equal(got, want)
+                        d_broken = (got - forced).abs().max().item()
+                        ok = equal and d_broken > DEQUANT_TOL["bfloat16"] * want.abs().max().item()
+                        say(f"[3 check] dequant_matmul {m}x{k}x{f} act int8 x int8, {kern}"
+                            f"{' (chosen)' if kern == chosen else ''}: bitwise equal {equal}; sx forced to 1: "
+                            f"max|d| {d_broken:.3e} {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            fail(f"dequant_matmul ({kern}) act mode is not bitwise equal to its plain version at "
+                                 f"{m}x{k}x{f}")
                 del x, q, s
     torch.cuda.empty_cache()
     return worst
@@ -905,7 +930,7 @@ def phase_kernel_timing(torch, card):
                                  "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}}
     timing["flash_attn_bwd"] = time_attention_train_shape(torch, card)
     timing.update(time_dropout_and_bh(torch, card))
-    timing["dequant_matmul"] = time_dequant_matmul(torch, card)
+    timing.update(time_dequant_matmul(torch, card))
     return timing
 
 
@@ -921,63 +946,125 @@ def dequant_bound_ms(m, k, f, act: bool):
 
 
 def time_dequant_matmul(torch, card):
-    """Kernel C at each main-path site (M 2048; the head at M 8), CUDA
-    events: weight-only with int8 and fp8 weights (bf16 x) and act mode,
-    beside the plain versions, the bound and the library yardsticks
-    (weight-only: F.linear on a weight dequantized to bf16 beforehand, which
-    reads 2 bytes a weight where the kernel reads 1; act: torch._int_mm and
-    the same epilogue). Returns the weight-only int8 timing summed over the
-    129 launches of one bucket-8 forward, the `kernels` line's entry."""
+    """Kernel C at each main-path site, at bucket 8's M 2048 and bucket 1's
+    M 256 (the head at M 8 and 1), CUDA events, in turns for each mode
+    (weight-only with int8 and fp8 weights and bf16 x, act mode): the
+    kernel `choose_kernel` gives ("new"), the general mma.sync kernel
+    ("old"), the wgmma kernel's other tile, then new and old again; beside the plain versions (M 2048), the bound, the share of the
+    tensor-core peak and the library yardsticks (weight-only: F.linear on a
+    weight dequantized to bf16 beforehand, which reads 2 bytes a weight
+    where the kernel reads 1; act: torch._int_mm and the same epilogue).
+    Sums over the 129 launches of a forward, and the host's time per call
+    of the wrapper (the wgmma kernel encodes two tensor maps each call).
+    Returns the `kernels` line's entries: the chosen kernels' weight-only
+    int8 time summed over bucket 8's 129 launches, and the general
+    kernel's."""
     import torch.nn.functional as F
-    from vitax_torch.ops.dequant_matmul import _matmul_plain, dequant_matmul_cuda, quantize_activations
-    sums = {key: 0.0 for key in ("wo", "wo2", "fp8", "act", "plain", "plain_act", "lib", "lib_act", "bound",
-                                 "bound_act")}
-    fwd_bytes = fwd_ops = 0
+    from vitax_torch.ops.dequant_matmul import (KERNELS, _matmul_plain, choose_kernel, dequant_matmul_cuda,
+                                                kernel_takes, quantize_activations)
+    result = {}
     with torch.inference_mode():
-        for i, (site, k, f, n) in enumerate(DEQUANT_SITES):
-            m = 2048 if n > 1 else 8
-            x, q, s = dequant_operands(torch, m, k, f, "int8", SEED + 40 + i)
-            xb = x.to(torch.bfloat16)
-            _, q8, s8 = dequant_operands(torch, m, k, f, "float8_e4m3", SEED + 40 + i)
-            wd = (q.float() * s[:, None]).to(torch.bfloat16)
-            iters = 20 if n > 1 else 200
-            wo = time_ms(torch, lambda: dequant_matmul_cuda(xb, q, s), iters=iters)
-            fp8 = time_ms(torch, lambda: dequant_matmul_cuda(xb, q8, s8), iters=iters)
-            plain = time_ms(torch, lambda: _matmul_plain(xb, q, s, None), iters=max(3, iters // 10))
-            lib = time_ms(torch, lambda: F.linear(xb, wd), iters=iters)
-            wo2 = time_ms(torch, lambda: dequant_matmul_cuda(xb, q, s), iters=iters)
-            b_ms, b_by, nbytes, ops = dequant_bound_ms(m, k, f, act=False)
-            line = (f"[4 time] dequant_matmul {site} {m}x{k}x{f}: weight-only int8 {wo:.4f} / {wo2:.4f} ms, "
-                    f"fp8 {fp8:.4f} ms, plain {plain:.4f} ms, F.linear bf16 {lib:.4f} ms, bound {b_ms:.4f} ms "
-                    f"({b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
-            for key, v in (("wo", wo), ("wo2", wo2), ("fp8", fp8), ("plain", plain), ("lib", lib), ("bound", b_ms)):
-                sums[key] += n * v
-            fwd_bytes, fwd_ops = fwd_bytes + n * nbytes, fwd_ops + n * ops
-            if n > 1:                                   # the head never act-quantizes
+        for big_m in DEQUANT_TIMING_M:
+            sums: dict = {}
+            fwd_bytes = fwd_ops = 0
+
+            def add(key, v, n):
+                sums[key] = sums.get(key, 0.0) + n * v
+
+            for i, (site, k, f, n) in enumerate(DEQUANT_SITES):
+                m = big_m if n > 1 else big_m // 256
+                x, q, s = dequant_operands(torch, m, k, f, "int8", SEED + 40 + i)
+                xb = x.to(torch.bfloat16)
+                _, q8, s8 = dequant_operands(torch, m, k, f, "float8_e4m3", SEED + 40 + i)
+                wd = (q.float() * s[:, None]).to(torch.bfloat16)
                 xq, sx = quantize_activations(xb)
-                act = time_ms(torch, lambda: dequant_matmul_cuda(xq, q, s, sx), iters=iters)
-                plain_act = time_ms(torch, lambda: _matmul_plain(xq, q, s, sx), iters=3)
-                lib_act = time_ms(torch, lambda: (torch._int_mm(xq, q.t()).float() * sx) * s, iters=iters)
-                a_ms, a_by, _, _ = dequant_bound_ms(m, k, f, act=True)
-                line += (f"; act {act:.4f} ms, plain {plain_act:.4f} ms, _int_mm + epilogue {lib_act:.4f} ms, "
-                         f"bound {a_ms:.4f} ms ({a_by})")
-                for key, v in (("act", act), ("plain_act", plain_act), ("lib_act", lib_act), ("bound_act", a_ms)):
-                    sums[key] += n * v
-            else:                                       # so the act forward runs it weight-only
-                for key, v in (("act", wo), ("plain_act", plain), ("lib_act", lib), ("bound_act", b_ms)):
-                    sums[key] += n * v
-            say(line + f" [{card}]")
-            del x, q, s, xb, q8, s8, wd
-    torch.cuda.empty_cache()
-    say(f"[4 time] dequant_matmul, one bucket-8 forward's {sum(n for *_, n in DEQUANT_SITES)} launches: "
-        f"weight-only int8 {sums['wo']:.3f} / {sums['wo2']:.3f} ms, fp8 {sums['fp8']:.3f} ms, plain "
-        f"{sums['plain']:.3f} ms, F.linear bf16 {sums['lib']:.3f} ms, bound {sums['bound']:.3f} ms; act (head "
-        f"weight-only) {sums['act']:.3f} ms, plain {sums['plain_act']:.3f} ms, _int_mm {sums['lib_act']:.3f} ms, "
-        f"bound {sums['bound_act']:.3f} ms [{card}]")
-    # the forward's 129 calls as one piece of work: its bytes and its operations
-    t_bytes, t_ops = fwd_bytes / HBM_BYTES_PER_S * 1e3, fwd_ops / PEAK_FLOPS["bfloat16"] * 1e3
-    return {"ms": min(sums["wo"], sums["wo2"]), "plain_ms": sums["plain"], "library_ms": sums["lib"],
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                iters = 20 if m >= 2048 else 100
+                calls = {"wo": (lambda kern: dequant_matmul_cuda(xb, q, s, kernel=kern), xb),
+                         "fp8": (lambda kern: dequant_matmul_cuda(xb, q8, s8, kernel=kern), xb),
+                         "act": (lambda kern: dequant_matmul_cuda(xq, q, s, sx, kernel=kern), xq)}
+                b_ms, b_by, nbytes, ops = dequant_bound_ms(m, k, f, act=False)
+                a_ms, _, _, _ = dequant_bound_ms(m, k, f, act=True)
+                parts = []
+                for mode in (("wo", "fp8", "act") if n > 1 else ("wo", "fp8")):   # the head never act-quantizes
+                    fn, xin = calls[mode]
+                    chosen = choose_kernel(xin, q)
+                    others = [kn for kn in KERNELS if kn not in (chosen, "general") and kernel_takes(kn, xin, q)]
+                    t = {}
+                    for turn, kern in enumerate([chosen, "general", *others, chosen, "general"]):
+                        v = time_ms(torch, lambda: fn(kern), iters=iters)
+                        t.setdefault(kern, []).append(v)
+                    best = {kern: min(v) for kern, v in t.items()}
+                    bound = a_ms if mode == "act" else b_ms
+                    parts.append(f"{mode}: new {chosen} {t[chosen][0]:.4f} / {t[chosen][1]:.4f}, old general "
+                                 f"{t['general'][0]:.4f} / {t['general'][1]:.4f}"
+                                 + "".join(f", {kn} {best[kn]:.4f}" for kn in others)
+                                 + f" ms; new at {bound / best[chosen] * 100:.1f}% of its bound")
+                    modes_here = [mode] + (["act"] if mode == "wo" and n == 1 else [])   # the act forward
+                    for md in modes_here:                                          # runs the head weight-only
+                        add(f"{md} new", best[chosen], n)
+                        for turn in (0, 1):
+                            add(f"{md} new {turn}", t[chosen][turn], n)
+                            add(f"{md} old {turn}", t["general"][turn], n)
+                        for kern in (best if md == mode else ("general", "wgmma_ss_n128", "wgmma_ss_n256")):
+                            add(f"{md} k {kern}", best.get(kern, best[chosen]), n)
+                lib = time_ms(torch, lambda: F.linear(xb, wd), iters=iters)
+                lib_act = (time_ms(torch, lambda: (torch._int_mm(xq, q.t()).float() * sx) * s, iters=iters)
+                           if n > 1 else lib)
+                line = (f"[4 time] dequant_matmul {site} {m}x{k}x{f}: " + "; ".join(parts)
+                        + f"; F.linear bf16 {lib:.4f} ms" + (f", _int_mm + epilogue {lib_act:.4f} ms" if n > 1 else "")
+                        + f"; bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), act "
+                        f"{a_ms:.4f} ms")
+                if big_m == 2048:
+                    plain = time_ms(torch, lambda: _matmul_plain(xb, q, s, None), iters=3)
+                    plain_act = time_ms(torch, lambda: _matmul_plain(xq, q, s, sx), iters=3) if n > 1 else plain
+                    line += f"; plain {plain:.4f} ms, act {plain_act:.4f} ms"
+                    add("plain", plain, n)
+                    add("plain_act", plain_act, n)
+                say(line + f" [{card}]")
+                add("lib", lib, n)
+                add("lib_act", lib_act, n)
+                add("bound", b_ms, n)
+                add("bound_act", a_ms if n > 1 else b_ms, n)
+                fwd_bytes, fwd_ops = fwd_bytes + n * nbytes, fwd_ops + n * ops
+                if site == "proj" and big_m == 2048:
+                    host = {}
+                    for kern in (choose_kernel(xb, q), "general"):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        for _ in range(20):
+                            dequant_matmul_cuda(xb, q, s, kernel=kern)
+                        host[kern] = (time.perf_counter() - t0) / 20 * 1e6
+                        torch.cuda.synchronize()
+                    say(f"[4 time] dequant_matmul host time per wrapper call (enqueue, no sync): "
+                        + ", ".join(f"{kern} {us:.1f} us" for kern, us in host.items())
+                        + " (the wgmma kernel encodes two tensor maps a call)")
+                del x, q, s, xb, q8, s8, wd, xq
+            torch.cuda.empty_cache()
+            n_launch = sum(n for *_, n in DEQUANT_SITES)
+            per_mode = []
+            for mode, bound in (("wo", sums["bound"]), ("fp8", sums["bound"]), ("act", sums["bound_act"])):
+                per_kernel = sorted(((key.split(" ", 2)[2], v) for key, v in sums.items()
+                                     if key.startswith(mode + " k ")), key=lambda kv: KERNELS[kv[0]])
+                per_mode.append(f"{mode}: new {sums[mode + ' new']:.3f} ms (in turns {sums[mode + ' new 0']:.3f}, "
+                                f"{sums[mode + ' new 1']:.3f}; {bound / sums[mode + ' new'] * 100:.1f}% of the bound), "
+                                f"old (general) in turns {sums[mode + ' old 0']:.3f}, {sums[mode + ' old 1']:.3f} ms; "
+                                f"each kernel at every site: "
+                                + ", ".join(f"{kern} {v:.3f}" for kern, v in per_kernel) + " ms")
+            say(f"[4 time] dequant_matmul at M {big_m}, one forward's {n_launch} launches (head at M {big_m // 256}"
+                f"; act runs it weight-only): " + "; ".join(per_mode)
+                + f"; F.linear bf16 {sums['lib']:.3f} ms, _int_mm {sums['lib_act']:.3f} ms; bound {sums['bound']:.3f} "
+                f"ms, act {sums['bound_act']:.3f} ms"
+                + (f"; plain {sums['plain']:.3f} ms, act {sums['plain_act']:.3f} ms" if "plain" in sums else "")
+                + f" [{card}]")
+            if big_m == 2048:
+                # the forward's 129 calls as one piece of work: its bytes and its operations
+                t_bytes, t_ops = fwd_bytes / HBM_BYTES_PER_S * 1e3, fwd_ops / PEAK_FLOPS["bfloat16"] * 1e3
+                bound = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                result = {"dequant_matmul": {"ms": sums["wo new"], "plain_ms": sums["plain"],
+                                             "library_ms": sums["lib"], **bound},
+                          "dequant_matmul_general": {"ms": sums["wo k general"], "plain_ms": sums["plain"],
+                                                     "library_ms": sums["lib"], **bound}}
+    return result
 
 
 def time_attention_train_shape(torch, card):
@@ -1388,7 +1475,8 @@ KERNEL_GROUPS = (("flash_attn_fwd_drop", r"flash_attn_fwd_\w+_kernel<\d+, true>"
                  ("flash_attn_fwd", r"flash_attn_fwd"),
                  ("flash_attn_bwd_drop", r"(bwd_dkdv|bwd_dq)_\w+_kernel<\d+, true>"),
                  ("flash_attn_bwd", r"bwd_dkdv|bwd_dq|delta_kernel"),
-                 ("fused_adamw", r"fused_adamw"), ("dequant_matmul", r"dequant_matmul"),
+                 ("fused_adamw", r"fused_adamw"), ("dequant_matmul_wgmma", r"dequant_matmul_wgmma"),
+                 ("dequant_matmul_general", r"dequant_matmul"),
                  ("gemm", r"gemm|xmma|nvjet|cutlass|sm90_"))
 
 
@@ -1572,12 +1660,19 @@ def phase_quant_serve(torch, card, engine_f32):
         if launches["dequant_matmul"] != per_forward * batches:
             fail(f"{label}: dequant_matmul launched {launches['dequant_matmul']} times for {batches} engine "
                  f"batches; expected {per_forward} per batch")
+        # every block site (K 5120 or 20480, M 256-2048) takes the wgmma
+        # kernel; the head (M 1-8) takes what choose_kernel gives it
+        wgmma, general = launches["dequant_matmul_wgmma"], launches["dequant_matmul_general"]
+        if wgmma + general != launches["dequant_matmul"] or wgmma < (per_forward - 1) * batches:
+            fail(f"{label}: {wgmma} wgmma and {general} general launches for {batches} engine batches; every one "
+                 f"of the {(per_forward - 1) * batches} block-site launches must take the wgmma kernel")
         if metrics["weights_dtype"] != dtype or metrics["act_quant"] != act or metrics["fused_dequant"] is not True:
             fail(f"{label}: /metrics reports {metrics['weights_dtype']}, {metrics['act_quant']}, "
                  f"{metrics['fused_dequant']}")
         total = {name: total.get(name, 0) + v for name, v in launches.items()}
         say(f"[{label}] {traffic_line(metrics, batches, lat, wall)}; dequant_matmul launches "
-            f"{launches['dequant_matmul']} ({per_forward} per batch), flash_attn_fwd {launches['flash_attn_fwd']}; "
+            f"{launches['dequant_matmul']} ({per_forward} per batch): wgmma {wgmma}, general {general}; "
+            f"flash_attn_fwd {launches['flash_attn_fwd']}; "
             f"memory_allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
         x = np.zeros((8, cfg.image_size, cfg.image_size, 3), np.uint8)
@@ -1629,7 +1724,8 @@ def phase_train(torch, card):
     # block, one optimizer launch; the eval adds a forward per block per batch
     want = {"flash_attn_fwd": cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks,
             "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps, "dequant_matmul": 0,
-            "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0)}
+            "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
+            **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if launches != want:
         fail(f"train() launched {launches}; expected {want}")
     times = [r["step_seconds"] for r in steps[2:]]          # steps 3 to 12
@@ -1659,7 +1755,7 @@ def phase_train(torch, card):
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}       # a warm step, then the profiled one
     want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1,
                  "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
-                 **dict.fromkeys(_build.STREAM_KERNELS, 0)}
+                 **dict.fromkeys(_build.STREAM_KERNELS, 0), **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7 train] launches per steady step {per_step}")
@@ -1709,7 +1805,8 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
     n = cfg.num_blocks
     want = {"flash_attn_fwd": cfg.eval_max_batches * n, "flash_attn_fwd_drop": cfg.max_steps * 2 * n,
             "flash_attn_bwd": 0, "flash_attn_bwd_drop": cfg.max_steps * n, "fused_adamw": cfg.max_steps,
-            "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0)}
+            "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
+            **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if launches != want:
         fail(f"train() under dropout launched {launches}; expected {want}")
     times = [r["step_seconds"] for r in steps[2:]]
@@ -1762,7 +1859,8 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
                    f"{cfg.batch_size}, depth {n})", card, "7d", top=14)
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}
     want_step = {"flash_attn_fwd": 0, "flash_attn_fwd_drop": 2 * n, "flash_attn_bwd": 0, "flash_attn_bwd_drop": n,
-                 "fused_adamw": 1, "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0)}
+                 "fused_adamw": 1, "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
+                 **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps under dropout launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7d train] launches per steady step {per_step}")
@@ -1921,6 +2019,12 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
         {"name": "dequant_matmul", "route": "cuda", "source": "vitax_torch/csrc/dequant_matmul.cu",
          "replaces": "vitax/ops/dequant_matmul.py:92", "launches": quant_launches["dequant_matmul"],
          "max_abs_err": errs["dequant_matmul"], **timing["dequant_matmul"]},
+        # C's general (mma.sync) kernel, for shapes TMA does not take; no
+        # main-path site launches it (its count is phase 6q's), phase 3
+        # holds it at the ragged shapes and at proj, phase 4 times it
+        {"name": "dequant_matmul_general", "route": "cuda", "source": "vitax_torch/csrc/dequant_matmul.cu",
+         "replaces": "vitax/ops/dequant_matmul.py:92", "launches": quant_launches["dequant_matmul_general"],
+         "max_abs_err": errs["dequant_matmul_general"], **timing["dequant_matmul_general"]},
         {"name": "flash_attn_fwd_drop", "route": "cuda", "source": fwd_src,
          "replaces": "vitax/ops/attention.py:625", "launches": drop_launches["flash_attn_fwd_drop"],
          "max_abs_err": errs["flash_attn_fwd_drop"], **timing["flash_attn_fwd_drop"]},

@@ -390,16 +390,21 @@ def test_quant_flags_parse_with_jax_spelling():
 # --- on the card ----------------------------------------------------------------
 
 
+# The wgmma kernel with ragged M, F and K tails (chip_smoke.py's DEQUANT_TAIL_SHAPES)
+TAIL_SHAPES = [(2056, 5120, 1000), (130, 528, 392), (200, 4112, 300), (256, 5120, 15360)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", SHAPES + [(8, 5120, 1000), (200, 520, 300)])
+@pytest.mark.parametrize("m,k,n", SHAPES + [(8, 5120, 1000), (200, 520, 300)] + TAIL_SHAPES)
 def test_kernel_matches_plain_on_card(m, k, n):
     """Weight-only (bf16 and f32 x, int8 and fp8 w) within 1e-5 relative of
-    the plain version (summation order); act mode bitwise; one launch each."""
+    the plain version (summation order); act mode bitwise; one launch each,
+    counted under the kernel `choose_kernel` gives the shape."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from vitax_torch.checkpoint.consolidate import quantize_tensor
     from vitax_torch.ops import _build
-    from vitax_torch.ops.dequant_matmul import dequant_matmul_cuda
+    from vitax_torch.ops.dequant_matmul import choose_kernel, dequant_matmul_cuda
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).cuda()
@@ -408,9 +413,11 @@ def test_kernel_matches_plain_on_card(m, k, n):
         q, s = quantize_tensor(w, (1,), dtype)
         s = s.reshape(-1).contiguous()
         for xt in (x, x.to(torch.bfloat16)):
-            before = _build.LAUNCHES["dequant_matmul"]
+            key = "dequant_matmul_" + ("general" if choose_kernel(xt, q) == "general" else "wgmma")
+            before = dict(_build.LAUNCHES)
             got = dequant_matmul(xt, q, s)
-            assert _build.LAUNCHES["dequant_matmul"] == before + 1
+            assert _build.LAUNCHES["dequant_matmul"] == before["dequant_matmul"] + 1
+            assert _build.LAUNCHES[key] == before[key] + 1
             want = dequant_matmul_plain(xt, q, s)
             assert _rel_err(got.cpu(), want.cpu()) <= 1e-5
         if dtype == "int8":

@@ -12,7 +12,9 @@ nvcc and no card.
 ``flash_attn_fwd_drop`` and ``flash_attn_bwd_drop`` for the attention
 kernels' dropout instantiations, and the four ``STREAM_KERNELS`` keys for
 the same kernels launched past 2048 tokens, where the streaming entries
-(ops/flash_blocked.py) take over (ops/attention.py `launch_key`). A
+(ops/flash_blocked.py) take over (ops/attention.py `launch_key`), and the
+two `DEQUANT_KERNELS` keys that split `dequant_matmul`'s launches between
+its wgmma and its general kernel (ops/dequant_matmul.py `choose_kernel`). A
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels.
 """
@@ -45,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DROPOUT_KERNELS = ("flash_attn_fwd_drop", "flash_attn_bwd_drop")
 STREAM_KERNELS = ("flash_attn_fwd_stream", "flash_attn_bwd_stream", "flash_attn_fwd_stream_drop",
                   "flash_attn_bwd_stream_drop")
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS, *STREAM_KERNELS)}
+DEQUANT_KERNELS = ("dequant_matmul_wgmma", "dequant_matmul_general")
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS, *STREAM_KERNELS, *DEQUANT_KERNELS)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, dict] = {}

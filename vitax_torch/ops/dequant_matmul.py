@@ -18,6 +18,13 @@ On a CUDA tensor `dequant_matmul` launches vitax_torch/csrc/dequant_matmul.cu
 or raises; on a CPU tensor it runs the plain version `dequant_matmul_plain`,
 which is also the kernel's oracle on the card. The dequantized weight is
 never materialised on the card's path.
+
+The source holds two kernels. `choose_kernel` picks one on the host from
+the shape, the types and the alignment alone: the wgmma kernel (TMA-fed,
+warp-specialised) wherever TMA's rules hold, which every Dense site of the
+serve models meets, and the general mma.sync kernel for ragged K,
+misaligned bases and float32 x. A launch that fails raises; nothing falls
+back to the other kernel or to the plain version.
 """
 
 from __future__ import annotations
@@ -37,6 +44,15 @@ WEIGHT_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _X_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 # act mode sums K products of at most 127^2 in int32
 MAX_ACT_K = (2 ** 31 - 1) // (127 * 127)
+# The kernels of csrc/dequant_matmul.cu by their selector in the C entry
+# point: the general kernel, and the wgmma kernel in two arrangements, each
+# with 128 x 128 or 128 x 256 output tiles: "ss" (act mode, int8 x) reads
+# both int8 operands from shared memory, "rs" (weight-only, bfloat16 x)
+# converts the codes into registers as the A operand of the swapped product.
+KERNELS = {"general": 0, "wgmma_ss_n128": 1, "wgmma_ss_n256": 2, "wgmma_rs_n128": 3, "wgmma_rs_n256": 4}
+# TMA copies tiles from 16-byte-aligned bases whose rows are a multiple of
+# 16 bytes apart: K % 16 for the 1-byte codes (and int8 x), K % 8 for bf16 x.
+TMA_ALIGN = 16
 
 
 def fused_dequant_active(cfg, device) -> bool:
@@ -87,12 +103,7 @@ def _matmul_plain(x2d: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 def _check_kernel_inputs(x2d: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                          sx: Optional[torch.Tensor]) -> None:
-    dev = x2d.device
-    if dev.type != "cuda":
-        raise ValueError(f"{KERNEL}: CUDA tensors only, got {dev}")
     ts = {"x": x2d, "w": w, "scale": scale} | ({"sx": sx} if sx is not None else {})
-    if any(t.device != dev for t in ts.values()):
-        raise ValueError(f"{KERNEL}: operands on different devices {[str(t.device) for t in ts.values()]}")
     if any(not t.is_contiguous() for t in ts.values()):
         raise ValueError(f"{KERNEL}: operands must be contiguous")
     if w.dtype not in WEIGHT_DTYPES or w.dim() != 2:
@@ -113,30 +124,102 @@ def _check_kernel_inputs(x2d: torch.Tensor, w: torch.Tensor, scale: torch.Tensor
             raise ValueError(f"{KERNEL}: sx must be a float32 scalar, got {sx.dtype} {tuple(sx.shape)}")
         if x2d.shape[1] > MAX_ACT_K:
             raise ValueError(f"{KERNEL}: act mode needs K <= {MAX_ACT_K} (int32 sums), got {x2d.shape[1]}")
+    # the device last, so the checks above are reachable from a CPU test
+    dev = x2d.device
+    if dev.type != "cuda":
+        raise ValueError(f"{KERNEL}: CUDA tensors only, got {dev}")
+    if any(t.device != dev for t in ts.values()):
+        raise ValueError(f"{KERNEL}: operands on different devices {[str(t.device) for t in ts.values()]}")
+
+
+def wgmma_takes(x2d: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether TMA's rules hold for these operands: bfloat16 or int8 x,
+    16-byte-aligned bases, K % 16 == 0 (rows of codes a multiple of 16
+    bytes)."""
+    return (x2d.dtype in (torch.bfloat16, torch.int8) and x2d.shape[-1] % TMA_ALIGN == 0
+            and x2d.data_ptr() % TMA_ALIGN == 0 and w.data_ptr() % TMA_ALIGN == 0)
+
+
+# The time of a 128 x 256 tile over a 128 x 128 one, by arrangement,
+# fitted to both tiles' times at the 10B model's four block sites at M 2048
+# and M 256 (chip_smoke.py phase 4 on an H100 80GB HBM3 at 700 W, PERF.md);
+# the SMs run whole waves of tiles.
+TILE_256_COST = {"ss": 1.63, "rs": 1.47}
+NUM_SMS = 132
+
+
+def wgmma_tile(route: str, m: int, f: int) -> str:
+    """The wgmma kernel's tile for an (m, f) output in arrangement `route`
+    ("ss": 128 rows of x by 128 or 256 channels; "rs": 128 or 256 rows of
+    x by 128 channels): the one whose waves over the H100's 132 SMs cost
+    less, 256 on a tie."""
+    def waves(n: int) -> int:
+        tiles = -(-m // 128) * -(-f // n) if route == "ss" else -(-m // n) * -(-f // 128)
+        return -(-tiles // NUM_SMS)
+    return f"wgmma_{route}_n256" if TILE_256_COST[route] * waves(256) <= waves(128) else f"wgmma_{route}_n128"
+
+
+def choose_kernel(x2d: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel one launch takes, a plain host-side function of the
+    shape, the types and the alignment: where TMA's rules hold, the wgmma
+    kernel, "rs" for bfloat16 x (weight-only) and "ss" for int8 x (act
+    mode); elsewhere the general kernel. Works on tensors of any device."""
+    if wgmma_takes(x2d, w):
+        return wgmma_tile("rs" if x2d.dtype == torch.bfloat16 else "ss", x2d.shape[0], w.shape[0])
+    return "general"
+
+
+def kernel_takes(kernel: str, x2d: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether `kernel` (a KERNELS name) takes these operands: the general
+    kernel takes every type the wrapper does, the wgmma kernel what TMA's
+    rules allow, "rs" with bfloat16 x and "ss" with int8 x."""
+    if kernel == "general":
+        return True
+    route = "rs" if x2d.dtype == torch.bfloat16 else "ss"
+    return wgmma_takes(x2d, w) and kernel.startswith(f"wgmma_{route}_")
+
+
+def resolve_kernel(x2d: torch.Tensor, w: torch.Tensor, kernel: Optional[str] = None) -> str:
+    """`kernel` checked against what it takes, or `choose_kernel`'s choice
+    when None. An unknown name, or a kernel asked for operands it does not
+    take, raises: nothing is sent elsewhere."""
+    if kernel is None:
+        return choose_kernel(x2d, w)
+    if kernel not in KERNELS:
+        raise ValueError(f"{KERNEL}: no kernel {kernel!r}; one of {sorted(KERNELS)}")
+    if not kernel_takes(kernel, x2d, w):
+        raise ValueError(f"{KERNEL}: {kernel} does not take {x2d.dtype} x with K {x2d.shape[1]} (the wgmma kernel "
+                         f"needs K % {TMA_ALIGN} == 0, {TMA_ALIGN}-byte-aligned x and w, and bfloat16 x for rs, "
+                         f"int8 x for ss)")
+    return kernel
 
 
 def dequant_matmul_cuda(x2d: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                        sx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        sx: Optional[torch.Tensor] = None, kernel: Optional[str] = None) -> torch.Tensor:
     """One launch of the Hopper kernel: (M, K) x (F, K) -> (M, F) float32.
     sx None is weight-only (x bfloat16 or float32); a float32 scalar sx on
-    the card is act mode (x int8 codes, int8 w)."""
+    the card is act mode (x int8 codes, int8 w). `kernel` (a KERNELS name)
+    overrides `choose_kernel`, for checks and timing; a wgmma kernel asked
+    for operands it does not take raises."""
     _check_kernel_inputs(x2d, w, scale, sx)
+    kernel = resolve_kernel(x2d, w, kernel)
     m, k = x2d.shape
     f = w.shape[0]
     lib = _build.load(KERNEL)
     fn = lib.vitax_dequant_matmul
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((m, f), dtype=torch.float32, device=x2d.device)
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = fn(x2d.data_ptr(), _X_CODES[x2d.dtype], w.data_ptr(), WEIGHT_DTYPES[w.dtype],
                  scale.data_ptr(), sx.data_ptr() if sx is not None else None, out.data_ptr(), m, k, f,
-                 stream)
+                 KERNELS[kernel], stream)
     _build.check(lib, KERNEL, err)
     _build.LAUNCHES[KERNEL] += 1
+    _build.LAUNCHES[KERNEL + ("_general" if kernel == "general" else "_wgmma")] += 1
     return out
 
 
