@@ -11,8 +11,14 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      every instantiation, the attention kernels' dropout ones included;
   3. kernel check: each kernel against its plain PyTorch version on the
      card, at the shapes the serve and train paths give it plus small
-     ragged ones (the attention backward with a nonzero dlse and a bitwise
-     repeat; the attention kernels' dropout instantiations at the train
+     ragged ones (the attention forward on each of its bf16 kernels in
+     turn, wgmma and general, each line naming its kernel, also at the
+     edges of the wgmma kernel's 128-row tiles, N 127, 129, 383 at Dh 160
+     and 4224 at Dh 64, and a misaligned view and a negative scale that
+     must take the general kernel: the wgmma kernel forced on them raises,
+     its C entry refuses them;
+     the attention backward with a nonzero dlse and a bitwise repeat; the
+     attention kernels' dropout instantiations at the train
      shape and ragged ones with global offsets, a seed off by one landing
      past every bar; the BH entry points with and without dropout; the
      dropout mask recovered from the kernel bit for bit; the fused
@@ -25,19 +31,22 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      counterparts of A4, A5a and A5b) against their plain versions at N >
      2048: the ViT-L shape (2, 4096, 16, 64), a ragged N 4097 and Dh 160 at
      N 2304, bf16 and f32, rate 0 and 0.1 with global offsets past 2048,
-     and phase 7L's (2, 9216, 16, 64) in bf16 at offsets 0; dlse, a
-     bitwise repeat, a seed off by one beyond every bar; the BH entries;
-     the mask read back from the kernel past 2048;
+     and phase 7L's (2, 9216, 16, 64) in bf16 at offsets 0, each bf16 case
+     on both forward kernels; dlse, a bitwise repeat, a seed off by one
+     beyond every bar; the BH entries; the mask read back from the kernel
+     past 2048;
   4. kernel timing (CUDA events) of the attention kernels (with and
-     without dropout, 4D and BH) and the dequant matmul at their main-path
-     shapes, beside the plain version, PyTorch's own library call and the
-     least time the card could take; the dequant matmul's wgmma kernel,
-     its general kernel and the other wgmma tile in turns at bucket 8's
-     and bucket 1's rows, and the host's time per wrapper call;
+     without dropout, 4D and BH; the forward's wgmma and general kernels in
+     turns, each with its share of the tensor-core peak) and the dequant
+     matmul at their main-path shapes, beside the plain version, PyTorch's
+     own library call and the least time the card could take; the dequant
+     matmul's wgmma kernel, its general kernel and the other wgmma tile in
+     turns at bucket 8's and bucket 1's rows, and the host's time per
+     wrapper call;
   4L. the streaming path's kernels at the ViT-L shape, N 4096 and 9216,
-     rate 0 and 0.1: the forward, the backward call and (torch.profiler)
-     its dK/dV and dQ kernels, beside SDPA, the bounds and (N 4096 only)
-     the plain versions;
+     rate 0 and 0.1: the forward (both kernels in turns), the backward call
+     and (torch.profiler) its dK/dV and dQ kernels, beside SDPA, the bounds
+     and (N 4096 only) the plain versions;
   5. model check: the 10B-width ViT at depth 2 with the kernels against the
      dense path on the same weights: logits (no grad), then the loss and
      every parameter's gradient (bf16, batch 8), without dropout and with
@@ -46,8 +55,9 @@ Phases, each printing one line (or a few), any failure exits non-zero:
   6. serve main path: a full-width, full-depth 10B InferenceEngine (seeded
      init on the card) behind the HTTP server, answering 32 /predict
      requests from 8 threads and one /predict_batch of 8 images, with every
-     kernel's launch count read around exactly that traffic, then a
-     profile of one bucket-8 forward;
+     kernel's launch count read around exactly that traffic (every
+     attention forward on the wgmma kernel, here and in phases 6q to 7L),
+     then a profile of one bucket-8 forward;
   6q. quantized serving: that model quantized on the card to int8 and to
      fp8, three engines (int8 weight-only, int8 with int8 activations, fp8
      weight-only) each answering the same traffic over HTTP, with
@@ -111,8 +121,13 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 HASH_OPS_PER_ELEMENT = 19
 
 SERVE_SHAPE = (8, 256, 32, 160)          # (B, N, H, Dh) of the 10B model at bucket 8
+SERVE_BLOCKS = 32                        # its depth: attention forwards a serve batch
 TRAIN_SHAPE = (32, 256, 32, 160)         # ... at the train path's batch 32
 CHECK_SHAPES = (SERVE_SHAPE, (4, 256, 16, 64), (2, 50, 2, 16), (2, 197, 4, 64))
+# The edges of the forward's wgmma tiles (128 queries a CTA, 128 keys a K/V
+# tile): N one short of, one past and one short of three tiles at Dh 160,
+# and 33 tiles at Dh 64.
+FWD_EDGE_SHAPES = ((1, 127, 2, 160), (1, 129, 2, 160), (1, 383, 2, 160), (1, 4224, 4, 64))
 TOL = {"bfloat16": (1.6e-2, 1e-3), "float32": (1e-5, 1e-5)}   # max |do|, max |dlse|
 # Attention backward, for each of dq, dk, dv: max |d| <= tol * max |ref|.
 # bf16: the kernel rounds P and dS to bf16 in registers, the plain version
@@ -209,7 +224,7 @@ LONG_CHECK_CASES = ((LONG_SHAPE, ("bfloat16", "float32"), LONG_OFFSETS),
                     ((1, 4097, 4, 64), ("bfloat16", "float32"), LONG_OFFSETS),
                     ((1, 2304, 2, 160), ("bfloat16", "float32"), LONG_OFFSETS),
                     ((2, 9216, 16, 64), ("bfloat16",), (0, 0)))
-LONG_TILE = 64                           # the kernels' tile: the plain versions run at 64 x 64 here
+LONG_TILE = 64                           # the plain versions run at 64 x 64 tiles here
 LONG_TIME_NS = (4096, 9216)
 # The streaming entries against the plain versions (A4's and A5's order at
 # 64 x 64 tiles) on the card: max |d| / max |ref| of o and of each of dq,
@@ -376,29 +391,42 @@ def phase_build():
     say(f"[2 build] all kernels in {time.perf_counter() - t0:.1f}s")
 
 
+def fwd_kernels(q, k, v):
+    """The forward kernels that take these operands, the one
+    `choose_fwd_kernel` gives first: both bf16 kernels where the wgmma
+    kernel takes them, else the general one."""
+    from vitax_torch.ops.attention import FWD_KERNELS, choose_fwd_kernel, wgmma_takes
+    chosen = choose_fwd_kernel(q, k, v)
+    return [chosen] + [kn for kn in FWD_KERNELS if kn != chosen and (kn == "general" or wgmma_takes(q, k, v))]
+
+
 def phase_kernel_check(torch):
     from vitax_torch.ops.attention import attention_fwd_with_lse, flash_attn_fwd_cuda
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = {}
     with torch.inference_mode():
-        for shape in CHECK_SHAPES:
+        for shape in CHECK_SHAPES + FWD_EDGE_SHAPES:
             for dtype in ("bfloat16", "float32"):
                 q, k, v = qkv_views(torch, shape, dtype, SEED)
                 scale = shape[-1] ** -0.5
-                o, lse = flash_attn_fwd_cuda(q, k, v, scale)
                 o_ref, lse_ref = attention_fwd_with_lse(q, k, v, scale)
-                torch.cuda.synchronize()
-                d_o = (o.float() - o_ref.float()).abs().max().item()
-                d_lse = (lse - lse_ref).abs().max().item()
-                finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
-                tol_o, tol_lse = TOL[dtype]
-                ok = finite and d_o <= tol_o and d_lse <= tol_lse
-                say(f"[3 check] flash_attn_fwd {shape} {dtype}: max|do| {d_o:.3e} (<= {tol_o}) "
-                    f"max|dlse| {d_lse:.3e} (<= {tol_lse}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    fail(f"flash_attn_fwd disagrees with its plain version at {shape} {dtype}")
-                errs[(shape, dtype)] = d_o
+                kernels = fwd_kernels(q, k, v)
+                for kern in kernels:
+                    o, lse = flash_attn_fwd_cuda(q, k, v, scale, kernel=kern)
+                    torch.cuda.synchronize()
+                    d_o = (o.float() - o_ref.float()).abs().max().item()
+                    d_lse = (lse - lse_ref).abs().max().item()
+                    finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
+                    tol_o, tol_lse = TOL[dtype]
+                    ok = finite and d_o <= tol_o and d_lse <= tol_lse
+                    say(f"[3 check] flash_attn_fwd {shape} {dtype}, {kern}{' (chosen)' if kern == kernels[0] else ''}: "
+                        f"max|do| {d_o:.3e} (<= {tol_o}) max|dlse| {d_lse:.3e} (<= {tol_lse}) {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"flash_attn_fwd ({kern}) disagrees with its plain version at {shape} {dtype}")
+                    errs[(shape, dtype, kern)] = d_o
+                del q, k, v, o, lse, o_ref, lse_ref
+    check_general_only_operands(torch)
     errs["flash_attn_bwd"] = check_attention_backward(torch)
     errs.update(check_dropout_kernels(torch))
     errs.update(check_bh_entries(torch))
@@ -406,6 +434,49 @@ def phase_kernel_check(torch):
     errs["fused_adamw"] = check_fused_adamw(torch)
     errs.update(check_dequant_matmul(torch))
     return errs
+
+
+def check_general_only_operands(torch):
+    """Operands only the general kernel takes: q, k, v views of a qkv tensor
+    whose base sits one element (2 bytes) off 16 bytes, and aligned ones
+    with a negative scale (the wgmma kernel takes the max of the raw scores
+    and needs scale > 0). `choose_fwd_kernel` gives the general kernel,
+    which agrees with the plain version; the wgmma kernel forced on them
+    raises in Python, and its C entry, called directly, refuses them too."""
+    import ctypes
+    from vitax_torch.ops import _build
+    from vitax_torch.ops.attention import (FWD_KERNELS, KERNEL, _DTYPE_CODES, _kernel_dropout_args,
+                                           attention_fwd_with_lse, choose_fwd_kernel, flash_attn_fwd_cuda)
+    b, n, h, dh = shape = (2, 197, 4, 64)
+    for offset, scale in ((1, dh ** -0.5), (0, -(dh ** -0.5))):
+        arr = np.random.default_rng(SEED).standard_normal(b * n * 3 * h * dh + offset).astype(np.float32)
+        qkv = torch.from_numpy(arr).to("cuda", torch.bfloat16)[offset:].view(b, n, 3, h, dh)
+        q, k, v = qkv.unbind(2)
+        with torch.inference_mode():
+            chosen = choose_fwd_kernel(q, k, v, scale)
+            o, lse = flash_attn_fwd_cuda(q, k, v, scale)
+            o_ref, lse_ref = attention_fwd_with_lse(q, k, v, scale)
+            torch.cuda.synchronize()
+            d_o = (o.float() - o_ref.float()).abs().max().item()
+            d_lse = (lse - lse_ref).abs().max().item()
+            try:
+                flash_attn_fwd_cuda(q, k, v, scale, kernel="wgmma")
+                raised = False
+            except ValueError:
+                raised = True
+            lib = _build.load(KERNEL)
+            strides = (ctypes.c_int64 * 9)(*(st for x in (q, k, v) for st in x.stride()[:3]))
+            err = lib.vitax_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                                           _DTYPE_CODES[q.dtype], b, n, h, dh, strides, scale,
+                                           *_kernel_dropout_args(None), FWD_KERNELS["wgmma"],
+                                           torch.cuda.current_stream().cuda_stream)
+        tol_o, tol_lse = TOL["bfloat16"]
+        ok = chosen == "general" and d_o <= tol_o and d_lse <= tol_lse and raised and err != 0
+        say(f"[3 check] flash_attn_fwd {shape} bfloat16, base {q.data_ptr() % 16} bytes off 16, scale {scale:+.4f}: "
+            f"takes {chosen}, max|do| {d_o:.3e} max|dlse| {d_lse:.3e}; wgmma forced raises {raised}, its C entry "
+            f"returns {err} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("operands only the general kernel takes did not take it, or the wgmma kernel took them")
 
 
 def dequant_operands(torch, m, k, f, dtype, seed):
@@ -547,9 +618,10 @@ def check_dropout_kernels(torch):
     (A6c, A6d) against their plain versions: at the train shape (bf16,
     offsets 0 as the train path calls them) and at ragged shapes in bf16
     and f32 with global offsets, a nonzero dlse and a bitwise repeat of
-    the backward. The plain version at a seed off by one must land beyond
-    every bar. Returns max |d| of o and of the gradients at the train
-    shape."""
+    the backward; each forward kernel that takes the operands in turn. The
+    plain version at a seed off by one must land beyond every bar. Returns
+    max |d| of o and of the gradients at the train shape (the chosen
+    kernel)."""
     from vitax_torch.ops.attention import (Dropout, attention_bwd_with_lse, attention_fwd_with_lse,
                                            flash_attn_bwd_cuda, flash_attn_fwd_cuda)
     errs = {}
@@ -561,35 +633,41 @@ def check_dropout_kernels(torch):
             drop = Dropout(DROP_SEED, DROP_RATE, q0, k0)
             off = drop._replace(seed=DROP_SEED + 1)
             scale = shape[-1] ** -0.5
-            o, lse = flash_attn_fwd_cuda(q, k, v, scale, drop)
             o_ref, lse_ref = attention_fwd_with_lse(q, k, v, scale, drop)
             o_off, _ = attention_fwd_with_lse(q, k, v, scale, off)
-            got = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop)
-            again = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop)
-            want = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, drop)
-            wrong = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, off)
-            torch.cuda.synchronize()
-            tol_o, tol_g = DROP_TOL[dtype]
-            e_o, e_off = rel_err(torch, o, o_ref), rel_err(torch, o, o_off)
-            d_lse = (lse - lse_ref).abs().max().item()
-            e_g = [rel_err(torch, a, w) for a, w in zip(got, want)]
-            e_g_off = [rel_err(torch, a, w) for a, w in zip(got, wrong)]
-            repeat = all(torch.equal(a, a2) for a, a2 in zip(got, again))
-            finite = bool(torch.isfinite(o.float()).all()) and all(bool(torch.isfinite(a.float()).all()) for a in got)
-            ok = (finite and repeat and e_o <= tol_o < e_off and d_lse <= TOL[dtype][1]
-                  and all(e <= tol_g < e2 for e, e2 in zip(e_g, e_g_off)))
-            say(f"[3 check] flash_attn dropout {shape} {dtype} rate {DROP_RATE} q0/k0 {q0}/{k0}: o max|d|/max|ref| "
-                f"{e_o:.2e} (<= {tol_o}; seed off by one {e_off:.2e}), max|dlse| {d_lse:.2e}; "
-                + ", ".join(f"{nm} {e:.2e} (<= {tol_g}; seed off by one {e2:.2e})"
-                            for nm, e, e2 in zip(("dq", "dk", "dv"), e_g, e_g_off))
-                + f"; bitwise repeat {repeat} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"the dropout attention kernels disagree with their plain versions at {shape} {dtype}")
-            if shape == TRAIN_SHAPE:
-                errs["flash_attn_fwd_drop"] = (o.float() - o_ref.float()).abs().max().item()
-                errs["flash_attn_bwd_drop"] = max((a.float() - w.float()).abs().max().item()
-                                                  for a, w in zip(got, want))
-            del q, k, v, do, dlse, o, lse, o_ref, o_off, got, again, want, wrong
+            kernels = fwd_kernels(q, k, v)
+            for kern in kernels:
+                o, lse = flash_attn_fwd_cuda(q, k, v, scale, drop, kernel=kern)
+                got = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop)
+                again = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop)
+                want = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, drop)
+                wrong = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, off)
+                torch.cuda.synchronize()
+                tol_o, tol_g = DROP_TOL[dtype]
+                e_o, e_off = rel_err(torch, o, o_ref), rel_err(torch, o, o_off)
+                d_lse = (lse - lse_ref).abs().max().item()
+                e_g = [rel_err(torch, a, w) for a, w in zip(got, want)]
+                e_g_off = [rel_err(torch, a, w) for a, w in zip(got, wrong)]
+                repeat = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+                finite = bool(torch.isfinite(o.float()).all()) and all(bool(torch.isfinite(a.float()).all())
+                                                                       for a in got)
+                ok = (finite and repeat and e_o <= tol_o < e_off and d_lse <= TOL[dtype][1]
+                      and all(e <= tol_g < e2 for e, e2 in zip(e_g, e_g_off)))
+                say(f"[3 check] flash_attn dropout {shape} {dtype} rate {DROP_RATE} q0/k0 {q0}/{k0}, forward {kern}"
+                    f"{' (chosen)' if kern == kernels[0] else ''}: o max|d|/max|ref| {e_o:.2e} (<= {tol_o}; seed off "
+                    f"by one {e_off:.2e}), max|dlse| {d_lse:.2e}; "
+                    + ", ".join(f"{nm} {e:.2e} (<= {tol_g}; seed off by one {e2:.2e})"
+                                for nm, e, e2 in zip(("dq", "dk", "dv"), e_g, e_g_off))
+                    + f"; bitwise repeat {repeat} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"the dropout attention kernels ({kern} forward) disagree with their plain versions at "
+                         f"{shape} {dtype}")
+                if shape == TRAIN_SHAPE and kern == kernels[0]:
+                    errs["flash_attn_fwd_drop"] = (o.float() - o_ref.float()).abs().max().item()
+                    errs["flash_attn_bwd_drop"] = max((a.float() - w.float()).abs().max().item()
+                                                      for a, w in zip(got, want))
+                del o, lse, got, again, want, wrong
+            del q, k, v, do, dlse, o_ref, o_off
     torch.cuda.empty_cache()
     return errs
 
@@ -598,11 +676,11 @@ def check_bh_entries(torch):
     """The BH entry points on (B*H, N, Dh): flash_bh_with_lse (A3, A3b)
     and flash_bh_dropout_lse (A6a, A6b), forward and autograd backward with
     a nonzero dlse, against the plain versions in the BH kernels' order on
-    (B*H, N, 1, Dh) views; at the train shape's rows (bf16) and a ragged
-    f32 shape with offsets. Returns max |d| of each entry at the train
-    shape."""
+    (B*H, N, 1, Dh) views; at the train shape's rows (bf16, each forward
+    kernel in turn) and a ragged f32 shape with offsets. Returns max |d| of
+    each entry at the train shape (the chosen kernel)."""
     from vitax_torch.ops.attention import (Dropout, _to_bh, attention_bwd_with_lse, attention_fwd_with_lse,
-                                           flash_bh_dropout_lse, flash_bh_with_lse)
+                                           flash_bh_dropout_lse, flash_bh_with_lse, forced_fwd_kernel)
     errs = {}
     for shape, dtype, (q0, k0) in ((TRAIN_SHAPE, "bfloat16", (0, 0)), (DROP_CHECK_SHAPES[0], "float32", DROP_OFFSETS)):
         q4, k4, v4, do4, dlse = attention_operands(torch, shape, dtype, SEED + 12)
@@ -610,37 +688,41 @@ def check_bh_entries(torch):
         dlse = dlse.reshape(-1, shape[1])
         scale = shape[-1] ** -0.5
         del q4, k4, v4, do4
+        kernels = fwd_kernels(*(x[:, :, None] for x in (q, k, v)))
         for drop in (None, Dropout(DROP_SEED, DROP_RATE, q0, k0)):
-            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            if drop is None:
-                o, lse = flash_bh_with_lse(*leaves, scale)
-            else:
-                o, lse = flash_bh_dropout_lse(*leaves, (drop.seed, drop.q0, drop.k0), scale, drop.rate)
-            torch.autograd.backward((o, lse), (do, dlse))
-            with torch.no_grad():
-                views = [x[:, :, None] for x in (q, k, v)]
-                o_ref, lse_ref = attention_fwd_with_lse(*views, scale, drop, normalize_first=False)
-                want = attention_bwd_with_lse(*views, o.detach()[:, :, None], lse.detach()[:, None],
-                                              do[:, :, None], dlse[:, None], scale, drop)
-            torch.cuda.synchronize()
-            tol_o, tol_g = DROP_TOL[dtype]
-            e_o = rel_err(torch, o.detach(), o_ref[:, :, 0])
-            d_lse = (lse.detach() - lse_ref[:, 0]).abs().max().item()
-            e_g = [rel_err(torch, x.grad, w[:, :, 0]) for x, w in zip(leaves, want)]
-            ok = e_o <= tol_o and d_lse <= TOL[dtype][1] and all(e <= tol_g for e in e_g)
-            name = "flash_bh" + ("" if drop is None else "_drop")
-            say(f"[3 check] {name} {tuple(q.shape)} {dtype}" + ("" if drop is None else f" q0/k0 {q0}/{k0}")
-                + f": o max|d|/max|ref| {e_o:.2e} (<= {tol_o}), max|dlse| {d_lse:.2e}; "
-                + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
-                + f" (<= {tol_g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{name} disagrees with its plain version at {tuple(q.shape)} {dtype}")
-            if shape == TRAIN_SHAPE:
-                suffix = "" if drop is None else "_drop"
-                errs["flash_bh_fwd" + suffix] = (o.detach().float() - o_ref[:, :, 0].float()).abs().max().item()
-                errs["flash_bh_bwd" + suffix] = max((x.grad.float() - w[:, :, 0].float()).abs().max().item()
-                                                    for x, w in zip(leaves, want))
-            del leaves, o, lse, o_ref, lse_ref, want
+            for kern in kernels:
+                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                with forced_fwd_kernel(kern):
+                    if drop is None:
+                        o, lse = flash_bh_with_lse(*leaves, scale)
+                    else:
+                        o, lse = flash_bh_dropout_lse(*leaves, (drop.seed, drop.q0, drop.k0), scale, drop.rate)
+                torch.autograd.backward((o, lse), (do, dlse))
+                with torch.no_grad():
+                    views = [x[:, :, None] for x in (q, k, v)]
+                    o_ref, lse_ref = attention_fwd_with_lse(*views, scale, drop, normalize_first=False)
+                    want = attention_bwd_with_lse(*views, o.detach()[:, :, None], lse.detach()[:, None],
+                                                  do[:, :, None], dlse[:, None], scale, drop)
+                torch.cuda.synchronize()
+                tol_o, tol_g = DROP_TOL[dtype]
+                e_o = rel_err(torch, o.detach(), o_ref[:, :, 0])
+                d_lse = (lse.detach() - lse_ref[:, 0]).abs().max().item()
+                e_g = [rel_err(torch, x.grad, w[:, :, 0]) for x, w in zip(leaves, want)]
+                ok = e_o <= tol_o and d_lse <= TOL[dtype][1] and all(e <= tol_g for e in e_g)
+                name = "flash_bh" + ("" if drop is None else "_drop")
+                say(f"[3 check] {name} {tuple(q.shape)} {dtype}" + ("" if drop is None else f" q0/k0 {q0}/{k0}")
+                    + f", forward {kern}{' (chosen)' if kern == kernels[0] else ''}: o max|d|/max|ref| {e_o:.2e} "
+                    f"(<= {tol_o}), max|dlse| {d_lse:.2e}; "
+                    + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
+                    + f" (<= {tol_g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{name} ({kern} forward) disagrees with its plain version at {tuple(q.shape)} {dtype}")
+                if shape == TRAIN_SHAPE and kern == kernels[0]:
+                    suffix = "" if drop is None else "_drop"
+                    errs["flash_bh_fwd" + suffix] = (o.detach().float() - o_ref[:, :, 0].float()).abs().max().item()
+                    errs["flash_bh_bwd" + suffix] = max((x.grad.float() - w[:, :, 0].float()).abs().max().item()
+                                                        for x, w in zip(leaves, want))
+                del leaves, o, lse, o_ref, lse_ref, want
         del q, k, v, do, dlse
     torch.cuda.empty_cache()
     return errs
@@ -651,8 +733,10 @@ def check_mask_recovery(torch):
     = I (N = Dh = 128) makes o = mask / (N (1 - rate)), so the nonzero
     pattern of o is the kernel's keep-mask. It must equal the plain
     dropout_keep_mask bit for bit on the 4D and the BH entry, with global
-    offsets, and differ from the mask of a seed off by one."""
-    from vitax_torch.ops.attention import Dropout, _to_bh, flash_attn_fwd_cuda, flash_bh_dropout_lse, keep_mask_bhqk
+    offsets, for each forward kernel that takes the operands, and differ
+    from the mask of a seed off by one."""
+    from vitax_torch.ops.attention import (Dropout, _to_bh, flash_attn_fwd_cuda, flash_bh_dropout_lse,
+                                           forced_fwd_kernel, keep_mask_bhqk)
     b, h, n = 2, 3, 128
     drop = Dropout(DROP_SEED, DROP_RATE, 3, 1000)
     mask = keep_mask_bhqk(drop, b, h, n, n, "cuda")
@@ -661,23 +745,26 @@ def check_mask_recovery(torch):
         for dtype in ("bfloat16", "float32"):
             zero = torch.zeros(b, n, h, n, device="cuda", dtype=getattr(torch, dtype))
             eye = torch.eye(n, device="cuda", dtype=zero.dtype)[None, :, None, :].expand(b, n, h, n).contiguous()
-            o4, _ = flash_attn_fwd_cuda(zero, zero, eye, 1.0, drop)
-            obh, _ = flash_bh_dropout_lse(_to_bh(zero), _to_bh(zero), _to_bh(eye), (drop.seed, drop.q0, drop.k0),
-                                          1.0, drop.rate)
-            pat4 = (o4 != 0).float().transpose(1, 2)
-            patbh = (obh != 0).float().reshape(b, h, n, n)
-            kept = o4.float().transpose(1, 2)[mask.bool()]
-            value = 1.0 / (n * (1.0 - DROP_RATE))
-            spread = (kept / value - 1).abs().max().item()
-            n_off = int((pat4 != off).sum().item())
-            ok = (torch.equal(pat4, mask) and torch.equal(patbh, mask) and n_off > 0
-                  and spread <= (8e-3 if dtype == "bfloat16" else 1e-6))
-            say(f"[3 check] dropout mask from the kernel, {dtype}, (B {b}, H {h}, N {n}), q0/k0 {drop.q0}/{drop.k0}: "
-                f"4D pattern == plain mask {torch.equal(pat4, mask)}, BH pattern == plain mask "
-                f"{torch.equal(patbh, mask)}, kept share {mask.mean().item():.4f}, kept values within {spread:.1e} of "
-                f"1/(N(1-rate)); a seed off by one differs at {n_off} of {mask.numel()} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"the kernel's dropout mask is not the plain mask ({dtype})")
+            for kern in fwd_kernels(zero, zero, eye):
+                with forced_fwd_kernel(kern):
+                    o4, _ = flash_attn_fwd_cuda(zero, zero, eye, 1.0, drop)
+                    obh, _ = flash_bh_dropout_lse(_to_bh(zero), _to_bh(zero), _to_bh(eye),
+                                                  (drop.seed, drop.q0, drop.k0), 1.0, drop.rate)
+                pat4 = (o4 != 0).float().transpose(1, 2)
+                patbh = (obh != 0).float().reshape(b, h, n, n)
+                kept = o4.float().transpose(1, 2)[mask.bool()]
+                value = 1.0 / (n * (1.0 - DROP_RATE))
+                spread = (kept / value - 1).abs().max().item()
+                n_off = int((pat4 != off).sum().item())
+                ok = (torch.equal(pat4, mask) and torch.equal(patbh, mask) and n_off > 0
+                      and spread <= (8e-3 if dtype == "bfloat16" else 1e-6))
+                say(f"[3 check] dropout mask from the kernel, {dtype}, {kern}, (B {b}, H {h}, N {n}), q0/k0 "
+                    f"{drop.q0}/{drop.k0}: 4D pattern == plain mask {torch.equal(pat4, mask)}, BH pattern == plain "
+                    f"mask {torch.equal(patbh, mask)}, kept share {mask.mean().item():.4f}, kept values within "
+                    f"{spread:.1e} of 1/(N(1-rate)); a seed off by one differs at {n_off} of {mask.numel()} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"the kernel's dropout mask is not the plain mask ({dtype}, {kern})")
 
 
 def check_streaming(torch):
@@ -686,13 +773,14 @@ def check_streaming(torch):
     views of one qkv tensor, with autograd, at LONG_CHECK_CASES (the ViT-L
     shape at N 4096, a ragged N and Dh 160 in bf16 and f32 with global
     offsets past 2048; phase 7L's N 9216 in bf16 at offsets 0), rate 0 and
-    0.1, a nonzero dlse, and each backward run twice, bitwise equal. The plain
-    versions run at the kernels' 64 x 64 tiles on the kernels' o and lse.
+    0.1, each forward kernel that takes the operands in turn, a nonzero
+    dlse, and each backward run twice, bitwise equal. The plain versions run
+    at 64 x 64 tiles on the kernels' o and lse.
     Under dropout the plain version at a seed off by one, at rate 0 without
     dlse, must land beyond the bars. Then the BH entries once, and the mask
     read back. Every case prints before the phase fails. Returns max |d| of
     o and of dk/dv and dq at the ViT-L shape in bf16 at rate 0."""
-    from vitax_torch.ops.attention import Dropout, _from_bh, _to_bh
+    from vitax_torch.ops.attention import Dropout, _from_bh, _to_bh, forced_fwd_kernel
     from vitax_torch.ops.flash_blocked import blocked_with_lse, streaming_bwd_with_lse, streaming_fwd_with_lse
     torch.backends.cuda.matmul.allow_tf32 = False
     errs, bad = {}, []
@@ -700,14 +788,15 @@ def check_streaming(torch):
         b, n, h, dh = shape
         scale = dh ** -0.5
         for dtype in dtypes:
-            for rate in (0.0, DROP_RATE):
+            q, k, v, do, dlse = attention_operands(torch, shape, dtype, SEED + 20)
+            qkv = torch.stack((q, k, v), dim=2)
+            for rate, kern in ((r, kn) for r in (0.0, DROP_RATE) for kn in fwd_kernels(*qkv.unbind(2))):
                 drop = Dropout(DROP_SEED, rate, *offsets) if rate else None
-                q, k, v, do, dlse = attention_operands(torch, shape, dtype, SEED + 20)
-                qkv = torch.stack((q, k, v), dim=2)
                 grads = []
                 for _ in range(2):
                     leaf = qkv.clone().requires_grad_(True)
-                    o, lse = blocked_with_lse(*leaf.unbind(2), scale, LONG_TILE, LONG_TILE, drop)
+                    with forced_fwd_kernel(kern):
+                        o, lse = blocked_with_lse(*leaf.unbind(2), scale, LONG_TILE, LONG_TILE, drop)
                     torch.autograd.backward((o, lse), (do, dlse))
                     grads.append(leaf.grad.unbind(2))
                 o, lse = o.detach(), lse.detach()
@@ -744,22 +833,23 @@ def check_streaming(torch):
                 what = "seed off by one" if drop is not None else "plain without dlse"
                 say(f"[3L check] blocked_with_lse {shape} {dtype} rate {rate}"
                     + (f" q0/k0 {drop.q0}/{drop.k0}" if drop else "")
-                    + f": o max|d|/max|ref| {e_o:.2e} (<= {tol_o}"
+                    + f", forward {kern}: o max|d|/max|ref| {e_o:.2e} (<= {tol_o}"
                     + ("" if e_o_off is None else f"; seed off by one {e_o_off:.2e}")
                     + f"), max|dlse| {d_lse:.2e} (<= {tol_lse}); "
                     + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
                     + f" (<= {tol_g}; {what}: " + ", ".join(f"{e:.2e}" for e in e_other)
                     + f"); bitwise repeat {repeat} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    bad.append(f"{shape} {dtype} rate {rate}")
-                if shape == LONG_SHAPE and dtype == "bfloat16" and drop is None:
+                    bad.append(f"{shape} {dtype} rate {rate} {kern}")
+                if shape == LONG_SHAPE and dtype == "bfloat16" and drop is None and kern == "wgmma":
                     errs["flash_attn_fwd_stream"] = (o.float() - o_ref.float()).abs().max().item()
                     errs["flash_attn_bwd_stream_dkdv"] = max((a.float() - w.float()).abs().max().item()
                                                              for a, w in zip(grads[0][1:], want[1:]))
                     errs["flash_attn_bwd_stream_dq"] = (grads[0][0].float() - want[0].float()).abs().max().item()
                     errs["flash_attn_bwd_stream"] = max(errs["flash_attn_bwd_stream_dkdv"],
                                                         errs["flash_attn_bwd_stream_dq"])
-                del q, k, v, do, dlse, qkv, leaf, grads, o, lse, o_ref, lse_ref, want, other, o_off, bh, args
+                del leaf, grads, o, lse, o_ref, lse_ref, want, other, o_off, bh, args
+            del q, k, v, do, dlse, qkv
         torch.cuda.empty_cache()
     bad += check_streaming_bh(torch)
     bad += check_stream_mask_recovery(torch)
@@ -817,7 +907,7 @@ def check_stream_mask_recovery(torch):
     rate)), a 128-key window of the mask at global offsets (2100, 3000).
     It must equal the plain hash bit for bit on the 4D and the BH entry and
     differ from a seed off by one. Returns the failures."""
-    from vitax_torch.ops.attention import Dropout, _keep, _to_bh
+    from vitax_torch.ops.attention import Dropout, _keep, _to_bh, forced_fwd_kernel
     from vitax_torch.ops.flash_blocked import blocked_bh_dropout_lse, blocked_with_lse
     b, h, n, dh, kw = 1, 2, 4096, 128, 2112
     drop = Dropout(DROP_SEED, DROP_RATE, *LONG_OFFSETS)
@@ -833,23 +923,26 @@ def check_stream_mask_recovery(torch):
             zero = torch.zeros(b, n, h, dh, device="cuda", dtype=getattr(torch, dtype))
             v = zero.clone()
             v[:, kw:kw + dh] = torch.eye(dh, device="cuda", dtype=zero.dtype)[None, :, None, :]
-            o4, _ = blocked_with_lse(zero, zero, v, 1.0, LONG_TILE, LONG_TILE, drop)
-            obh, _ = blocked_bh_dropout_lse(_to_bh(zero), _to_bh(zero), _to_bh(v), (drop.seed, drop.q0, drop.k0),
-                                            1.0, drop.rate, LONG_TILE, LONG_TILE)
-            pat4 = _to_bh(o4) != 0
-            patbh = obh != 0
-            kept = _to_bh(o4).float()[mask]
-            spread = (kept * (n * (1.0 - DROP_RATE)) - 1).abs().max().item()
-            n_off = int((pat4 != off).sum().item())
-            ok = (torch.equal(pat4, mask) and torch.equal(patbh, mask) and n_off > 0
-                  and spread <= (8e-3 if dtype == "bfloat16" else 1e-5))
-            say(f"[3L check] dropout mask from the kernel through the streaming entries, {dtype}, (B {b}, H {h}, "
-                f"N {n}), keys {kw}-{kw + dh - 1}, q0/k0 {drop.q0}/{drop.k0}: 4D pattern == plain mask "
-                f"{torch.equal(pat4, mask)}, BH pattern == plain mask {torch.equal(patbh, mask)}, kept share "
-                f"{mask.float().mean().item():.4f}, kept values within {spread:.1e} of 1/(N(1-rate)); a seed off by "
-                f"one differs at {n_off} of {mask.numel()} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                bad.append(f"mask read back ({dtype})")
+            for kern in fwd_kernels(zero, zero, v):
+                with forced_fwd_kernel(kern):
+                    o4, _ = blocked_with_lse(zero, zero, v, 1.0, LONG_TILE, LONG_TILE, drop)
+                    obh, _ = blocked_bh_dropout_lse(_to_bh(zero), _to_bh(zero), _to_bh(v),
+                                                    (drop.seed, drop.q0, drop.k0), 1.0, drop.rate, LONG_TILE,
+                                                    LONG_TILE)
+                pat4 = _to_bh(o4) != 0
+                patbh = obh != 0
+                kept = _to_bh(o4).float()[mask]
+                spread = (kept * (n * (1.0 - DROP_RATE)) - 1).abs().max().item()
+                n_off = int((pat4 != off).sum().item())
+                ok = (torch.equal(pat4, mask) and torch.equal(patbh, mask) and n_off > 0
+                      and spread <= (8e-3 if dtype == "bfloat16" else 1e-5))
+                say(f"[3L check] dropout mask from the kernel through the streaming entries, {dtype}, {kern}, (B {b}, "
+                    f"H {h}, N {n}), keys {kw}-{kw + dh - 1}, q0/k0 {drop.q0}/{drop.k0}: 4D pattern == plain mask "
+                    f"{torch.equal(pat4, mask)}, BH pattern == plain mask {torch.equal(patbh, mask)}, kept share "
+                    f"{mask.float().mean().item():.4f}, kept values within {spread:.1e} of 1/(N(1-rate)); a seed off "
+                    f"by one differs at {n_off} of {mask.numel()} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(f"mask read back ({dtype}, {kern})")
     return bad
 
 def adamw_diff(torch, got, ref):
@@ -911,23 +1004,60 @@ def check_fused_adamw(torch) -> float:
     return worst
 
 
+def time_fwd_kernels(torch, q, k, v, scale, d=None, iters=50):
+    """The forward's wgmma and general kernels on the same operands, in turns
+    (wgmma, general, general, wgmma), CUDA events: {kernel: (best, "a / b")}.
+    Operands the wgmma kernel does not take time the general kernel alone."""
+    from vitax_torch.ops.attention import flash_attn_fwd_cuda
+    kernels = fwd_kernels(q, k, v)
+    order = kernels + kernels[::-1]
+    got = {}
+    for kern in order:
+        got.setdefault(kern, []).append(time_ms(torch, lambda: flash_attn_fwd_cuda(q, k, v, scale, d, kernel=kern),
+                                                iters=iters))
+    return {kern: (min(ts), " / ".join(f"{t:.4f}" for t in ts)) for kern, ts in got.items()}
+
+
+def fwd_time_text(times, bound_ms, flops) -> str:
+    """`wgmma a / b ms (x% of the tensor-core peak), general ...`."""
+    return ", ".join(f"{kern} {shown} ms ({flops / PEAK_FLOPS['bfloat16'] * 1e3 / best * 100:.1f}% of the tensor-core "
+                     f"peak, {bound_ms / best * 100:.1f}% of the bound)" for kern, (best, shown) in times.items())
+
+
 def phase_kernel_timing(torch, card):
     import torch.nn.functional as F
     from vitax_torch.ops.attention import attention_fwd_with_lse, flash_attn_fwd_cuda
     q, k, v = qkv_views(torch, SERVE_SHAPE, "bfloat16", SEED)
     scale = SERVE_SHAPE[-1] ** -0.5
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bound_ms, bound_by, nbytes, flops = attention_bound_ms(SERVE_SHAPE, "bfloat16")
     with torch.inference_mode():
-        kernel_ms = time_ms(torch, lambda: flash_attn_fwd_cuda(q, k, v, scale), iters=100)
+        times = time_fwd_kernels(torch, q, k, v, scale, iters=100)
         plain_ms = time_ms(torch, lambda: attention_fwd_with_lse(q, k, v, scale), iters=20)
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=100)
-        kernel_ms2 = time_ms(torch, lambda: flash_attn_fwd_cuda(q, k, v, scale), iters=100)
-    bound_ms, bound_by, nbytes, flops = attention_bound_ms(SERVE_SHAPE, "bfloat16")
-    say(f"[4 time] flash_attn_fwd {SERVE_SHAPE} bf16: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{card}]")
-    timing = {"flash_attn_fwd": {"ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms,
-                                 "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}}
+        host = {}
+        for kern in times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                flash_attn_fwd_cuda(q, k, v, scale, kernel=kern)
+            host[kern] = (time.perf_counter() - t0) / 20 * 1e6
+            torch.cuda.synchronize()
+        device = {kern: profiled_ms(torch, lambda: flash_attn_fwd_cuda(q, k, v, scale, kernel=kern),
+                                    {kern: FWD_KERNEL_NAMES[kern]}, 50)[kern] for kern in times}
+    say(f"[4 time] flash_attn_fwd {SERVE_SHAPE} bf16, CUDA events over back-to-back calls: "
+        f"{fwd_time_text(times, bound_ms, flops)}; plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{card}]")
+    say("[4 time] flash_attn_fwd host time per wrapper call (enqueue, no sync): "
+        + ", ".join(f"{kern} {us:.1f} us" for kern, us in host.items())
+        + f" (the wgmma kernel encodes three tensor maps a call; a bucket-8 forward makes {SERVE_BLOCKS} calls); "
+        "the kernels' own device time per launch (torch.profiler): "
+        + fwd_time_text({kern: (ms, f"{ms:.4f}") for kern, ms in device.items()}, bound_ms, flops) + f" [{card}]")
+    # a wrapper call's host time exceeds the wgmma kernel's here, so the
+    # profiler's device time is the kernel's time
+    timing = {f"flash_attn_fwd{'' if kern == 'wgmma' else '_general'}": {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        for kern, ms in device.items()}
     timing["flash_attn_bwd"] = time_attention_train_shape(torch, card)
     timing.update(time_dropout_and_bh(torch, card))
     timing.update(time_dequant_matmul(torch, card))
@@ -1081,7 +1211,7 @@ def time_attention_train_shape(torch, card):
     do = torch.from_numpy(rng.standard_normal(TRAIN_SHAPE).astype(np.float32)).to("cuda", torch.bfloat16)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     with torch.inference_mode():
-        fwd_ms = time_ms(torch, lambda: flash_attn_fwd_cuda(q, k, v, scale), iters=50)
+        fwd_times = time_fwd_kernels(torch, q, k, v, scale)
         fwd_plain_ms = time_ms(torch, lambda: attention_fwd_with_lse(q, k, v, scale), iters=10)
         fwd_lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=50)
         o, lse = flash_attn_fwd_cuda(q, k, v, scale)
@@ -1097,8 +1227,8 @@ def time_attention_train_shape(torch, card):
         library_ms = time_ms(torch, library_bwd, iters=50)
         bwd_ms2 = time_ms(torch, lambda: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale), iters=50)
     fb_ms, fb_by, fb_bytes, fb_flops = attention_bound_ms(TRAIN_SHAPE, "bfloat16")
-    say(f"[4 time] flash_attn_fwd {TRAIN_SHAPE} bf16: kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, "
-        f"sdpa {fwd_lib_ms:.4f} ms, bound {fb_ms:.4f} ms ({fb_by}: {fb_bytes / 1e6:.1f} MB, "
+    say(f"[4 time] flash_attn_fwd {TRAIN_SHAPE} bf16: {fwd_time_text(fwd_times, fb_ms, fb_flops)}; plain "
+        f"{fwd_plain_ms:.4f} ms, sdpa {fwd_lib_ms:.4f} ms, bound {fb_ms:.4f} ms ({fb_by}: {fb_bytes / 1e6:.1f} MB, "
         f"{fb_flops / 1e9:.2f} GFLOP) [{card}]")
     bound_ms, bound_by, nbytes, flops = attention_bwd_bound_ms(TRAIN_SHAPE, "bfloat16")
     say(f"[4 time] flash_attn_bwd {TRAIN_SHAPE} bf16: kernel {bwd_ms:.4f} / {bwd_ms2:.4f} ms, "
@@ -1110,8 +1240,8 @@ def time_attention_train_shape(torch, card):
 
 def time_dropout_and_bh(torch, card):
     """CUDA events at the train shape (bf16; dlse None as the train path
-    calls the backward): the dropout forward and backward beside A1 and A2
-    on the same inputs, the plain versions, PyTorch's flash attention with
+    calls the backward): the dropout forward (both forward kernels in turns)
+    and backward beside A1 and A2 on the same inputs, the plain versions, PyTorch's flash attention with
     dropout_p (its own Philox mask: a yardstick of time only) and the
     bound; then the BH entries' kernels on (B*H, N, 1, Dh) views of a
     (B*H, N, Dh) copy, with and without dropout, beside their plain
@@ -1134,13 +1264,12 @@ def time_dropout_and_bh(torch, card):
             for d in (None, drop) if layout == "bh" else (drop,):
                 rate = 0.0 if d is None else d.rate
                 fwd = lambda: flash_attn_fwd_cuda(q_, k_, v_, scale, d)  # noqa: E731
-                ms = time_ms(torch, fwd, iters=50)
+                f_times = time_fwd_kernels(torch, q_, k_, v_, scale, d)
                 a1_ms = time_ms(torch, lambda: flash_attn_fwd_cuda(q_, k_, v_, scale), iters=50)
                 plain_ms = time_ms(torch, lambda: attention_fwd_with_lse(q_, k_, v_, scale, d, first), iters=3,
                                    warmup=1)
                 lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(*lib[:3], dropout_p=rate,
                                                                                scale=scale), iters=50)
-                ms2 = time_ms(torch, fwd, iters=50)
                 o, lse = fwd()
                 o0, lse0 = flash_attn_fwd_cuda(q_, k_, v_, scale)
                 sd = sdpa_fwd(*lib[:3], rate, False, False, scale=scale)
@@ -1160,14 +1289,17 @@ def time_dropout_and_bh(torch, card):
                 suffix = "" if d is None else "_drop"
                 label = f"{base}{suffix} {'(B*H, N, 1, Dh) view' if layout == 'bh' else TRAIN_SHAPE} bf16" + (
                     "" if d is None else f" rate {rate}")
-                for kind, k_ms, k_ms2, ref_ms, p_ms, l_ms, bound in (
-                        ("fwd", ms, ms2, a1_ms, plain_ms, lib_ms, fb), ("bwd", b_ms, b_ms2, a2_ms, b_plain, b_lib, bb)):
-                    say(f"[4 time] {label} {kind}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, rate-0 kernel on the same "
-                        f"inputs {ref_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa flash (dropout_p {rate}) {l_ms:.4f} ms, "
-                        f"bound {bound[0]:.4f} ms ({bound[1]}: {bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP"
+                for kind, (k_ms, shown), ref_ms, p_ms, l_ms, bound in (
+                        ("fwd", f_times["wgmma"], a1_ms, plain_ms, lib_ms, fb),
+                        ("bwd", (min(b_ms, b_ms2), f"kernel {b_ms:.4f} / {b_ms2:.4f} ms"), a2_ms, b_plain, b_lib, bb)):
+                    if kind == "fwd":
+                        shown = fwd_time_text(f_times, bound[0], bound[3])
+                    say(f"[4 time] {label} {kind}: {shown}, rate-0 kernel on the same inputs {ref_ms:.4f} ms, plain "
+                        f"{p_ms:.4f} ms, sdpa flash (dropout_p {rate}) {l_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                        f"({bound[1]}: {bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP"
                         + (f", {bound[4] / 1e9:.3f} G INT32 ops of the hash" if d is not None else "") + f") [{card}]")
                     name = ("flash_attn_" if layout == "4d" else "flash_bh_") + kind + suffix
-                    timing[name] = {"ms": min(k_ms, k_ms2), "plain_ms": p_ms, "library_ms": l_ms,
+                    timing[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                                     "bound_ms": bound[0], "bound_by": bound[1]}
                 del o, lse, o0, lse0, sd
     del q, k, v, do, bh, layouts
@@ -1202,36 +1334,46 @@ LONG_PIECES = {"fwd": (4, 1, 4), "dkdv": (6, 2, 8), "dq": (5, 2, 6), "bwd": (8, 
 STREAM_TIMING_NAMES = {"fwd": "flash_attn_fwd_stream", "bwd": "flash_attn_bwd_stream",
                        "dkdv": "flash_attn_bwd_stream_dkdv", "dq": "flash_attn_bwd_stream_dq"}
 BWD_KERNEL_NAMES = {"dkdv": "bwd_dkdv", "dq": "bwd_dq", "delta": "delta_kernel"}
+FWD_KERNEL_NAMES = {"wgmma": "flash_attn_fwd_wgmma_kernel", "general": "flash_attn_fwd_(bf16|f32)_kernel"}
+
+
+def profiled_ms(torch, fn, patterns, calls: int):
+    """Device ms per launch of the kernels whose names match each of
+    `patterns` ({piece: regex}), from torch.profiler over `calls` calls of
+    `fn`: the recorded time over the recorded launches, which need not be
+    all of them. Unlike CUDA events around back-to-back calls, this is the
+    kernels' own time where the wrapper's host time exceeds it."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for piece, pat in patterns.items():
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and re.search(pat, e.key)]
+        total_ms, count = sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
+        if count == 0 or total_ms <= 0:
+            fail(f"torch.profiler recorded no device time for the {piece} kernel")
+        out[piece] = total_ms / count
+    return out
 
 
 def bwd_kernel_ms(torch, bwd, calls: int = 3):
     """Device ms per launch of each of the backward call's three kernels
-    (one launch each a call), from torch.profiler over `calls` calls: the
-    recorded time over the recorded launches, which need not be all of
-    them."""
-    from torch.profiler import ProfilerActivity, profile
-    bwd()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            bwd()
-        torch.cuda.synchronize()
-    out = {}
-    for piece, pat in BWD_KERNEL_NAMES.items():
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and pat in e.key]
-        total_ms, count = sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
-        if count == 0 or total_ms <= 0:
-            fail(f"torch.profiler recorded no device time for the backward's {piece} kernel")
-        out[piece] = total_ms / count
-    return out
+    (one launch each a call)."""
+    return profiled_ms(torch, bwd, BWD_KERNEL_NAMES, calls)
 
 
 def time_streaming(torch, card):
     """Phase 4L: the streaming path's kernels at the ViT-L shape, N 4096
     and 9216, bf16, offsets 0 as the model calls them, rate 0 and 0.1
-    (CUDA events): the forward and the backward call (dlse None), the
-    dK/dV and dQ kernels and the delta pre-pass apart (torch.profiler),
+    (CUDA events): the forward (its wgmma and general kernels in turns) and
+    the backward call (dlse None), the dK/dV and dQ kernels and the delta
+    pre-pass apart (torch.profiler),
     PyTorch's flash attention (F.scaled_dot_product_attention and its flash
     backward on (B, H, N, Dh), dropout_p as the row's rate: its own Philox
     mask, a yardstick of time only), the bounds, and at N 4096 only the
@@ -1253,10 +1395,9 @@ def time_streaming(torch, card):
             for rate in (0.0, DROP_RATE):
                 d = Dropout(DROP_SEED, rate) if rate else None
                 fwd = lambda: flash_attn_fwd_cuda(q, k, v, scale, d)  # noqa: E731
-                f_ms = time_ms(torch, fwd, iters=20)
+                f_times = time_fwd_kernels(torch, q, k, v, scale, d, iters=20)
                 f_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, dropout_p=rate,
                                                                               scale=scale), iters=20)
-                f_ms2 = time_ms(torch, fwd, iters=20)
                 o, lse = fwd()
                 bwd = lambda: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale, d)  # noqa: E731
                 b_ms = time_ms(torch, bwd, iters=10)
@@ -1275,13 +1416,14 @@ def time_streaming(torch, card):
                     plain["dq"] = time_ms(torch, lambda: streaming_dq(*bargs), iters=1, warmup=1)
                     plain["bwd"] = plain["dkdv"] + plain["dq"]
                     del bh, bargs
-                got = {"fwd": (min(f_ms, f_ms2), f"{f_ms:.4f} / {f_ms2:.4f}", f_lib),
+                got = {"fwd": (f_times["wgmma"][0], None, f_lib),
                        "bwd": (min(b_ms, b_ms2), f"{b_ms:.4f} / {b_ms2:.4f}", b_lib),
                        "dkdv": (split["dkdv"], f"{split['dkdv']:.4f}", b_lib),
                        "dq": (split["dq"], f"{split['dq']:.4f}", b_lib)}
                 for piece, (ms, shown, lib) in got.items():
                     bound = long_bound_ms(shape, "bfloat16", *LONG_PIECES[piece], d is not None)
-                    say(f"[4L time] streaming {piece} {shape} bf16 rate {rate}: kernel {shown} ms"
+                    shown = (fwd_time_text(f_times, bound[0], bound[3]) if piece == "fwd" else f"kernel {shown} ms")
+                    say(f"[4L time] streaming {piece} {shape} bf16 rate {rate}: {shown}"
                         + (f" (delta pre-pass {split['delta']:.4f} ms besides)" if piece == "bwd" else "")
                         + (f", plain (64 x 64 tiles, timed once) {plain[piece]:.1f} ms" if plain else "")
                         + f", sdpa flash {'backward, whole call' if piece != 'fwd' else 'forward'} (dropout_p "
@@ -1392,7 +1534,8 @@ def check_dropout_model(torch, model, images, labels):
         grads.append({n: p.grad for n, p in m.named_parameters()})
         launched.append({k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]})
         del m
-    want = {"flash_attn_fwd_drop": 2 * cfg.num_blocks, "flash_attn_bwd_drop": cfg.num_blocks}
+    want = {"flash_attn_fwd_drop": 2 * cfg.num_blocks, "flash_attn_bwd_drop": cfg.num_blocks,
+            "flash_attn_fwd_wgmma": 2 * cfg.num_blocks}
     groups = grad_groups(torch, grads[0], grads[1])
     loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
     worst = max(groups.values())
@@ -1578,6 +1721,9 @@ def serve_over_http(torch, engine, cfg, label: str):
     if launches["flash_attn_fwd"] != cfg.num_blocks * batches:
         fail(f"{label}: flash_attn_fwd launched {launches['flash_attn_fwd']} times for {batches} engine batches; "
              f"expected {cfg.num_blocks} per batch")
+    if (launches["flash_attn_fwd_wgmma"], launches["flash_attn_fwd_general"]) != (launches["flash_attn_fwd"], 0):
+        fail(f"{label}: of {launches['flash_attn_fwd']} attention forwards, {launches['flash_attn_fwd_wgmma']} took "
+             f"the wgmma kernel and {launches['flash_attn_fwd_general']} the general one; every one must take wgmma")
     return launches, metrics, batches, np.sort(np.asarray(latencies)), wall
 
 
@@ -1611,8 +1757,9 @@ def phase_main_path(torch, card):
         f"warmup " + ", ".join(f"{b}:{s:.2f}s" for b, s in warm.items()))
     launches, metrics, batches, lat, wall = serve_over_http(torch, engine, cfg, "6 main")
     say(f"[6 main] {traffic_line(metrics, batches, lat, wall)}; "
-        f"flash_attn_fwd launches {launches['flash_attn_fwd']}; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+        f"flash_attn_fwd launches {launches['flash_attn_fwd']} (wgmma {launches['flash_attn_fwd_wgmma']}, general "
+        f"{launches['flash_attn_fwd_general']}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
     profile_forward(torch, engine, cfg, card)
     return launches, engine
 
@@ -1672,7 +1819,7 @@ def phase_quant_serve(torch, card, engine_f32):
         total = {name: total.get(name, 0) + v for name, v in launches.items()}
         say(f"[{label}] {traffic_line(metrics, batches, lat, wall)}; dequant_matmul launches "
             f"{launches['dequant_matmul']} ({per_forward} per batch): wgmma {wgmma}, general {general}; "
-            f"flash_attn_fwd {launches['flash_attn_fwd']}; "
+            f"flash_attn_fwd {launches['flash_attn_fwd']} (wgmma {launches['flash_attn_fwd_wgmma']}); "
             f"memory_allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
         x = np.zeros((8, cfg.image_size, cfg.image_size, 3), np.uint8)
@@ -1722,9 +1869,10 @@ def phase_train(torch, card):
         fail("the trained model does not have the expected parameter count")
     # per optimizer step: a forward and a recompute per block, a backward per
     # block, one optimizer launch; the eval adds a forward per block per batch
-    want = {"flash_attn_fwd": cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks,
-            "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps, "dequant_matmul": 0,
-            "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
+    n_fwd = cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks
+    want = {"flash_attn_fwd": n_fwd, "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps,
+            "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
+            **dict.fromkeys(_build.STREAM_KERNELS, 0), "flash_attn_fwd_wgmma": n_fwd, "flash_attn_fwd_general": 0,
             **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if launches != want:
         fail(f"train() launched {launches}; expected {want}")
@@ -1755,7 +1903,8 @@ def phase_train(torch, card):
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}       # a warm step, then the profiled one
     want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1,
                  "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
-                 **dict.fromkeys(_build.STREAM_KERNELS, 0), **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
+                 **dict.fromkeys(_build.STREAM_KERNELS, 0), "flash_attn_fwd_wgmma": 2 * cfg.num_blocks,
+                 "flash_attn_fwd_general": 0, **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7 train] launches per steady step {per_step}")
@@ -1806,6 +1955,7 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
     want = {"flash_attn_fwd": cfg.eval_max_batches * n, "flash_attn_fwd_drop": cfg.max_steps * 2 * n,
             "flash_attn_bwd": 0, "flash_attn_bwd_drop": cfg.max_steps * n, "fused_adamw": cfg.max_steps,
             "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
+            "flash_attn_fwd_wgmma": cfg.eval_max_batches * n + cfg.max_steps * 2 * n, "flash_attn_fwd_general": 0,
             **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if launches != want:
         fail(f"train() under dropout launched {launches}; expected {want}")
@@ -1860,6 +2010,7 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}
     want_step = {"flash_attn_fwd": 0, "flash_attn_fwd_drop": 2 * n, "flash_attn_bwd": 0, "flash_attn_bwd_drop": n,
                  "fused_adamw": 1, "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
+                 "flash_attn_fwd_wgmma": 2 * n, "flash_attn_fwd_general": 0,
                  **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps under dropout launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
@@ -1912,8 +2063,10 @@ def phase_train_long(torch, card):
         per_step["flash_attn_fwd_stream_drop" if drop else "flash_attn_fwd_stream"] = fwd_per_block * n_blk
         per_step["flash_attn_bwd_stream_drop" if drop else "flash_attn_bwd_stream"] = n_blk
         per_step["fused_adamw"] = 1
+        per_step["flash_attn_fwd_wgmma"] = fwd_per_block * n_blk           # every forward on the wgmma kernel
         want = {k: v * cfg.max_steps for k, v in per_step.items()}
-        want["flash_attn_fwd_stream"] += cfg.eval_max_batches * n_blk      # the eval: rate 0, no recompute
+        for key in ("flash_attn_fwd_stream", "flash_attn_fwd_wgmma"):
+            want[key] += cfg.eval_max_batches * n_blk                       # the eval: rate 0, no recompute
         if launches != want:
             fail(f"7L {label}: train() launched {launches}; expected {want}")
         times = [r["step_seconds"] for r in steps[2:]]
@@ -2008,7 +2161,15 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
          "replaces": "vitax/ops/attention.py:275",
          "launches": (serve_launches["flash_attn_fwd"] + quant_launches["flash_attn_fwd"]
                       + train_launches["flash_attn_fwd"] + drop_launches["flash_attn_fwd"]),
-         "max_abs_err": errs[(SERVE_SHAPE, "bfloat16")], **timing["flash_attn_fwd"]},
+         "max_abs_err": errs[(SERVE_SHAPE, "bfloat16", "wgmma")], **timing["flash_attn_fwd"]},
+        # the forward's general (mma.sync) kernel, for operands TMA does not
+        # take; no main-path launch takes it (its count over every main path),
+        # phase 3 holds it at every shape, phase 4 times it in turns
+        {"name": "flash_attn_fwd_general", "route": "cuda", "source": fwd_src,
+         "replaces": "vitax/ops/attention.py:275",
+         "launches": sum(ls["flash_attn_fwd_general"] for ls in (serve_launches, quant_launches, train_launches,
+                                                                  drop_launches, long_launches)),
+         "max_abs_err": errs[(SERVE_SHAPE, "bfloat16", "general")], **timing["flash_attn_fwd_general"]},
         {"name": "flash_attn_bwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_bwd.cu",
          "replaces": "vitax/ops/attention.py:302", "launches": train_launches["flash_attn_bwd"],
          "max_abs_err": errs["flash_attn_bwd"], **timing["flash_attn_bwd"]},

@@ -19,9 +19,11 @@ from vitax.ops.attention import reference_attention as jax_reference_attention
 from vitax_torch.config import Config
 from vitax_torch.ops import _build
 from vitax_torch.ops.attention import (
+    FWD_KERNELS,
     SUPPORTED_HEAD_DIMS,
     attention_bwd_with_lse,
     attention_fwd_with_lse,
+    choose_fwd_kernel,
     flash4_with_lse as torch_flash4_with_lse,
     flash_attention,
     flash_attention_bwd,
@@ -225,20 +227,29 @@ def test_library_name_follows_the_source(tmp_path, monkeypatch):
 @pytest.mark.parametrize("shape", [(2, 50, 2, 16), (2, 197, 4, 64), (1, 64, 2, 160), (1, 130, 3, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(cuda, shape, dtype):
+    """The dispatcher's kernel, then each forward kernel that takes the
+    operands (wgmma and general for bf16 at Dh 64 and 160), against the
+    plain version; each launch counts under its kernel's key."""
     torch.backends.cuda.matmul.allow_tf32 = False
     b, n, h, dh = shape
     arr = np.random.default_rng(5).standard_normal((b, n, 3, h, dh)).astype(np.float32)
     qkv = torch.from_numpy(arr).to(cuda, getattr(torch, dtype))
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]       # strided views, never copied
-    before = _build.LAUNCHES["flash_attn_fwd"]
-    with torch.inference_mode():
-        o, lse = flash_attention_fwd(q, k, v)
-        o_ref, lse_ref = attention_fwd_with_lse(q, k, v, dh ** -0.5)
-    torch.cuda.synchronize()
-    assert _build.LAUNCHES["flash_attn_fwd"] == before + 1
+    chosen = choose_fwd_kernel(q, k, v)
+    assert chosen == ("wgmma" if dtype == "bfloat16" and dh in (64, 160) else "general")
     tol_o, tol_lse = (1e-5, 1e-5) if dtype == "float32" else (1.6e-2, 1e-3)
-    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
-    assert (lse - lse_ref).abs().max().item() <= tol_lse
+    for kernel in [None] + [name for name in FWD_KERNELS if name == "general" or chosen == "wgmma"]:
+        before = dict(_build.LAUNCHES)
+        with torch.inference_mode():
+            o, lse = flash_attention_fwd(q, k, v) if kernel is None else flash_attn_fwd_cuda(q, k, v, dh ** -0.5,
+                                                                                              kernel=kernel)
+            o_ref, lse_ref = attention_fwd_with_lse(q, k, v, dh ** -0.5)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"] + 1
+        key = f"flash_attn_fwd_{kernel or chosen}"
+        assert _build.LAUNCHES[key] == before[key] + 1
+        assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+        assert (lse - lse_ref).abs().max().item() <= tol_lse
 
 
 @pytest.mark.gpu

@@ -25,6 +25,7 @@ from vitax_torch.ops.attention import (
     _from_bh,
     _select_path,
     _to_bh,
+    choose_fwd_kernel,
     attention_bwd_with_lse,
     attention_fwd_with_lse,
     check_grid,
@@ -305,9 +306,9 @@ def cuda():
 @pytest.mark.parametrize("shape", [(1, 2304, 2, 64), (1, 4097, 2, 16), (1, 2200, 1, 160)])
 def test_streaming_kernels_match_plain_on_card(cuda, shape, dtype, rate):
     """The streaming entry on strided card tensors (the kernels) against
-    the plain versions at the kernels' 64 x 64 tiles, with offsets past
-    2048 and a nonzero dlse, at the bars of chip_smoke.py's phase 3L; the
-    launches count under the streaming keys only."""
+    the plain versions at 64 x 64 tiles, with offsets past 2048 and a
+    nonzero dlse, at the bars of chip_smoke.py's phase 3L; the launches
+    count under the streaming keys only (and the forward's kernel key)."""
     b, n, h, dh = shape
     td = getattr(torch, dtype)
     qkv = torch.from_numpy(_np((b, n, 3, h, dh), 0)).to(cuda, td)
@@ -320,7 +321,9 @@ def test_streaming_kernels_match_plain_on_card(cuda, shape, dtype, rate):
     torch.autograd.backward((o, lse), (do, dlse))
     moved = {key: val - before[key] for key, val in _build.LAUNCHES.items() if val != before[key]}
     suffix = "" if drop is None else "_drop"
-    assert moved == {f"flash_attn_fwd_stream{suffix}": 1, f"flash_attn_bwd_stream{suffix}": 1}
+    kernel = choose_fwd_kernel(*qkv.unbind(2))
+    assert moved == {f"flash_attn_fwd_stream{suffix}": 1, f"flash_attn_bwd_stream{suffix}": 1,
+                     f"flash_attn_fwd_{kernel}": 1}
     with torch.no_grad():
         bh = [_to_bh(x) for x in qkv.unbind(2)]
         o_ref, lse_ref = streaming_fwd_with_lse(*bh, dh ** -0.5, 64, 64, drop)

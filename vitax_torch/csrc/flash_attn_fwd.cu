@@ -8,17 +8,20 @@
 // probabilities, o = (P * mask) v / (l * (1 - rate)), with the keep-mask of
 // the counter hash in flash_common.cuh. The online softmax keeps m and l
 // unmasked; only the PV accumulator takes the masked P, so lse stays
-// m + log(l) of the unmasked scores, as in the JAX kernels. The rate-0
-// instantiations are the code they were before dropout existed.
+// m + log(l) of the unmasked scores, as in the JAX kernels. Past 2048
+// tokens the same kernels serve the streaming entries (ops/flash_blocked.py,
+// the counterpart of vitax/ops/flash_blocked.py:_fwd_kernel).
 //
 // What bounds it on the card: at the 10B serve shape (B=8, N=256, H=32,
 // Dh=160, bf16) the call does 10.74 GFLOP against 84.1 MB of q, k, v, o and
 // lse traffic, 128 FLOP per byte, below the H100's ~295 in bf16: it is
-// memory-bound. The design keeps the (N, N) scores out of device memory:
-// each CTA owns a 64-query tile, streams 64-key K/V tiles through shared
-// memory and keeps the running max m, the running sum l and the f32 output
-// accumulator on chip (online softmax), dividing by l once at the end. So
-// device memory sees q, k, v read once per query tile and o, lse written once.
+// memory-bound. At the long-context shape (N 4096 and 9216, Dh 64) it does
+// N/16 FLOP a byte and is bound by the tensor cores (989 TFLOP/s bf16), and
+// at Dh 64 nearly as much by the exponentials (one MUFU op a score, 16 a
+// clock an SM). The design keeps the (N, N) scores out of device memory:
+// each CTA owns a query tile, streams K/V tiles through shared memory and
+// keeps the running max m, the running sum l and the f32 output
+// accumulator on chip (online softmax), dividing by l once at the end.
 //
 // q, k, v are strided (B, N, H, Dh) views (the model passes slices of the
 // (B, N, 3, H, Dh) qkv projection output, never copied); the last axis must
@@ -26,26 +29,47 @@
 // lse contiguous (B, H, N) in float32. Any N >= 1 works: rows and key
 // columns past N are masked.
 //
-// Two kernels, one per input type:
-// - bfloat16 (the serve path): tensor cores through mma.sync m16n8k16 with
-//   f32 accumulation; 4 warps, 16 query rows each; scores, softmax state
-//   and the output accumulator live in registers, and P goes from the score
-//   accumulators straight into the PV product's A operand. V stays
-//   row-major in shared memory, as loaded; ldmatrix.trans reads it as the
-//   PV product's B operand.
+// Three kernels; ops/attention.py `choose_fwd_kernel` picks one from the
+// type, the head dim, the alignment, the strides and the scale's sign,
+// never on a failure:
+// - wgmma (bfloat16, Dh 64, 128 and 160, scale > 0: every main path), one
+//   CTA of three warpgroups a 128-query tile of one (b, h). Warpgroup 0
+//   gives up its registers (setmaxnreg) and one of its threads loads Q once
+//   and keeps a ring of K/V stages filled by TMA (4-D tensor maps over the
+//   strided views: no copy; full barriers for K and V apart, one empty
+//   barrier a stage). Warpgroups 1 and 2 take 64 query rows each: S = Q K^T
+//   by wgmma m64nBNk16 from shared memory (both K-major), the online
+//   softmax in registers, then O += P V by wgmma with P straight from the
+//   score registers (a chunk of S's accumulators packed to bf16 pairs is the
+//   A fragment of a k16 step) and V read as it was loaded, keys by rows
+//   with Dh contiguous: wgmma's MN-major B. Dh 64 and 128 arrive in boxes of
+//   64 columns with TMA's 128-byte swizzle, Dh 160 in five boxes of 32
+//   with the 64-byte swizzle (no padding to 192). The output goes through
+//   the warpgroup's own rows of the Q tile to 16-byte row stores. The two
+//   consumer warpgroups run unsynchronised, so one's softmax and hash run
+//   under the other's products. The max is taken on the raw scores and the
+//   scale goes into the exponent (2^x, one FFMA a score), hence scale > 0.
+//   Tiles, swizzle and the loop were chosen by measurement (PERF.md): a
+//   pipelined loop with warpgroup ping-pong and three consumer warpgroups
+//   measured no better on an H100 80GB HBM3 at 700 W.
+// - general bfloat16 (other head dims, misaligned bases or strides):
+//   tensor cores through mma.sync m16n8k16 with f32 accumulation; 4 warps,
+//   16 query rows each, 64-key tiles loaded synchronously into padded
+//   shared rows; V read with ldmatrix.trans as the PV product's B operand.
 // - float32: CUDA-core FMAs from shared memory, exact f32 throughout.
-// wgmma, TMA and a pipelined K/V ring are later work. Numerics: A1
-// normalises P before the PV product; these kernels divide by l after it
-// (and round the unnormalised P to bf16 for the bf16 product), which differs
-// by about one bf16 ulp of the output.
+// Numerics: A1 normalises P before the PV product; these kernels divide by
+// l after it (and round the unnormalised P to bf16 for the bf16 products),
+// which differs by about one bf16 ulp of the output.
 //
 // Dropout costs integer instructions: each score element needs its own hash
 // (two fmix32, about 19 INT32 operations), 1.28 G operations at the train
-// shape, which is near the call's bytes bound on the card's INT32 lanes. The row's
-// hash terms are computed once per row; the per-element part sits in the
-// softmax loop, after the row sum, where P is cleared for dropped keys.
+// shape, which is near the call's bytes bound on the card's INT32 lanes.
+// The row's hash terms are computed once per row; the per-element part sits
+// in the softmax loop, after the row sum, where P is cleared for dropped
+// keys. At long N the wgmma kernel under dropout runs at that INT32 floor.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -55,7 +79,7 @@ constexpr int BM = TILE;        // query rows per CTA
 constexpr int BN = TILE;        // key rows per K/V tile
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync)
+// bfloat16, the general kernel: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
@@ -211,6 +235,324 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
           pack_bf16(acc[j][2 * r] * inv_l, acc[j][2 * r + 1] * inv_l);
     }
     if (t == 0) lse[((int64_t)b * H + h) * N + n] = m_r[r] + logf(l_r[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16, the wgmma kernel: TMA-fed K/V ring, warp-specialised
+// ---------------------------------------------------------------------------
+
+#define ACC8(c, d, i) \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+
+// d (64 x N, f32) (+)= A (64 x 16) * B (N x 16)^T, A and B bf16 in shared
+// memory, both K-major; scale_d 0 overwrites d. Register i of a thread holds
+// row 16 * warp + lane / 4 + 8 * (i / 2 % 2), column 8 * (i / 4) + 2 *
+// (lane % 4) + i % 2 (the mma.sync m16n8 layout, four warps stacked).
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+
+// d (64 x N, f32) += A (64 x 16, bf16 in registers: four bf16x2 a thread,
+// rows g and g + 8 of its warp's 16, k 2t..2t+1 and 2t+8..2t+9, the
+// mma.sync A layout) * B (16 x N, bf16 in shared memory, MN-major: N
+// contiguous, the transpose bit set).
+template <int N>
+__device__ void wgmma_rs_vt(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                            uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8("+f", d, 0), ACC8("+f", d, 8), ACC8("+f", d, 16), ACC8("+f", d, 24),
+        ACC8("+f", d, 32), ACC8("+f", d, 40), ACC8("+f", d, 48), ACC8("+f", d, 56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_vt<64>(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8("+f", d, 0), ACC8("+f", d, 8), ACC8("+f", d, 16), ACC8("+f", d, 24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_vt<128>(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8("+f", d, 0), ACC8("+f", d, 8), ACC8("+f", d, 16), ACC8("+f", d, 24),
+        ACC8("+f", d, 32), ACC8("+f", d, 40), ACC8("+f", d, 48), ACC8("+f", d, 56)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_vt<160>(float (&d)[80], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : ACC8("+f", d, 0), ACC8("+f", d, 8), ACC8("+f", d, 16), ACC8("+f", d, 24),
+        ACC8("+f", d, 32), ACC8("+f", d, 40), ACC8("+f", d, 48), ACC8("+f", d, 56),
+        ACC8("+f", d, 64), ACC8("+f", d, 72)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The tile of each head dim the kernel is built for: key rows a K/V tile
+// (BN) and the swizzle span of a TMA box row in bytes (SW; a box holds SW /
+// 2 columns). Measured on an H100 80GB HBM3 at 700 W, PERF.md.
+template <int DH>
+struct WgTile;
+template <>
+struct WgTile<64> { static constexpr int BN = 128, SW = 128; };
+template <>
+struct WgTile<128> { static constexpr int BN = 128, SW = 128; };
+template <>
+struct WgTile<160> { static constexpr int BN = 128, SW = 64; };
+
+template <int DH>
+struct WgCfg {
+  static constexpr int BM = 128;                        // query rows a CTA: 64 a consumer warpgroup
+  static constexpr int BN = WgTile<DH>::BN, SW = WgTile<DH>::SW;
+  static constexpr int BC = SW / 2;                     // head-dim columns a TMA box
+  static constexpr int NB = (DH + BC - 1) / BC;         // boxes across the head dim
+  static constexpr int DP = NB * BC;                    // the head dim in whole boxes (TMA zero-fills past DH)
+  static constexpr int Q_BYTES = BM * DP * 2, KV_BYTES = BN * DP * 2;
+  static constexpr int FREE = 232448 - 1024 - Q_BYTES - 8 * 16;
+  static constexpr int STAGES = FREE / (2 * KV_BYTES) < 4 ? FREE / (2 * KV_BYTES) : 4;
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
+  static_assert(DH % 16 == 0 && DP % 16 == 0 && BN % 16 == 0, "whole k16 steps");
+  static_assert(STAGES >= 2, "the K/V ring holds at least two stages");
+};
+
+// Byte offset of element (row, col) in a tile of ROWS rows stored as TMA
+// boxes of SW-byte rows (box j holds columns [j SW/2, (j + 1) SW/2)), with
+// TMA's swizzle: the 16-byte chunk index XOR the row within the swizzle
+// atom (offset bits [4, 7) ^ [7, 10), as many bits as an SW row has chunks).
+// The tile starts 1024-aligned.
+template <int SW, int ROWS>
+__device__ __forceinline__ uint32_t tile_off(int row, int col) {
+  constexpr int BC = SW / 2;
+  const uint32_t off = (uint32_t)((col / BC) * ROWS * SW + row * SW + (col % BC) * 2);
+  return off ^ (((off >> 7) & (SW / 16 - 1)) << 4);
+}
+
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(384, 1)
+flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                            float* __restrict__ lse, int N, int H, float scale, Dropout drop) {
+  using C = WgCfg<DH>;
+  constexpr int BM = C::BM, BN = C::BN, SW = C::SW, BC = C::BC, NB = C::NB, DP = C::DP, ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* kv = qs + C::Q_BYTES;                  // stage s: K at kv + 2 s KV_BYTES, V after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv + 2 * ST * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* empty = v_full + ST;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (N + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 2);                          // one thread of each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\nfence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                              // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int j = 0; j < NB; ++j) tma_load_4d(qs + j * BM * SW, &tq, j * BC, h, q0, b, q_full);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        if (it >= ST) mbar_wait(&empty[s], ((it / ST) - 1) & 1);
+        unsigned char* ks = kv + 2 * s * C::KV_BYTES;
+        mbar_expect_tx(&k_full[s], C::KV_BYTES);
+        for (int j = 0; j < NB; ++j) tma_load_4d(ks + j * BN * SW, &tk, j * BC, h, it * BN, b, &k_full[s]);
+        mbar_expect_tx(&v_full[s], C::KV_BYTES);
+        for (int j = 0; j < NB; ++j)
+          tma_load_4d(ks + C::KV_BYTES + j * BN * SW, &tv, j * BC, h, it * BN, b, &v_full[s]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = (threadIdx.x >> 7) - 1;               // query rows 64 wg .. 64 wg + 63 of the tile
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * warp + g;               // this thread's rows r0 and r0 + 8
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};                // running max of the raw scores
+  float l_r[2] = {0.f, 0.f};                            // this thread's share of the running sum
+  uint32_t row_x[2] = {0u, 0u};                         // dropout: q and bh terms of the two rows
+  if constexpr (DROP) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) row_x[r] = drop_q_term(drop, q0 + r0 + 8 * r) + drop_bh_term(b * H + h);
+  }
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * SW;
+  const float sl2 = scale * LOG2E;                      // scale > 0: the max of the raw scores is the max
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST;
+    const uint32_t ph = (it / ST) & 1;
+    const uint32_t k_addr = smem_u32(kv) + 2 * s * C::KV_BYTES, v_addr = k_addr + C::KV_BYTES;
+    float sc[BN / 2];
+    mbar_wait(&k_full[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {               // a k16 step: box kk / (BC / 16), +32 bytes within it
+      const uint32_t off = (kk / (BC / 16)) * SW, step = (kk % (BC / 16)) * 32;
+      wgmma_ss<BN>(sc, wgmma_desc<SW>(q_addr + off * BM + step, 16, 8 * SW),
+                   wgmma_desc<SW>(k_addr + off * BN + step, 16, 8 * SW), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
+
+    // Online softmax over this tile; every tile holds a valid column (k0 < N).
+    // The scale goes into the exponent: p = 2^(s scale log2(e) - m scale
+    // log2(e)), one FFMA a score, m the running max of the raw scores.
+    const int k0 = it * BN;
+    if (k0 + BN > N) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= N) sc[i] = -INFINITY;
+    }
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    float alpha[2], mb[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2((m_r[r] - mx[r]) * sl2);
+      m_r[r] = mx[r];
+      mb[r] = mx[r] * sl2;
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = ex2(fmaf(sc[i], sl2, -mb[r]));
+      rs[r] += p;
+      if constexpr (DROP) {
+        if (!drop_keep(drop, row_x[r] + drop_k_term(drop, k0 + 8 * (i / 4) + 2 * t + (i & 1)))) p = 0.f;
+      }
+      sc[i] = p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V: the score accumulators of keys [16 kt, 16 kt + 16) are the
+    // A fragment of k16 step kt; V's 16 key rows of that step start 16 SW
+    // bytes further, its column boxes BN SW bytes apart (LBO).
+    uint32_t pa[BN / 4];
+#pragma unroll
+    for (int i = 0; i < BN / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    mbar_wait(&v_full[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BN / 16; ++kt)
+      wgmma_rs_vt<DP>(acc, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3],
+                      wgmma_desc<SW>(v_addr + kt * 16 * SW, BN * SW, 8 * SW));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(pa);
+    if (tid == 0) mbar_arrive(&empty[s]);               // this warpgroup is done with stage s
+  }
+
+  // Epilogue: the row sums across the quad, o = acc / l (l (1 - rate) under
+  // dropout) staged in this warpgroup's own rows of the Q tile (its last
+  // product has read them), then 16-byte row stores; lse by row.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    const float inv_l = 1.f / (DROP ? l_r[r] * drop.keep_prob : l_r[r]);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      *reinterpret_cast<uint32_t*>(qs + tile_off<SW, BM>(r0 + 8 * r, 8 * j + 2 * t)) =
+          pack_bf16(acc[4 * j + 2 * r] * inv_l, acc[4 * j + 2 * r + 1] * inv_l);
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  constexpr int CH = DH / 8;                            // 16-byte chunks of an output row
+  for (int i = tid; i < 64 * CH; i += 128) {
+    const int rr = 64 * wg + i / CH, c = i % CH;
+    const int n = q0 + rr;
+    if (n < N)
+      *reinterpret_cast<uint4*>(o + (((int64_t)b * N + n) * H + h) * DH + 8 * c) =
+          *reinterpret_cast<const uint4*>(qs + tile_off<SW, BM>(rr, 8 * c));
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = q0 + r0 + 8 * r;
+      if (n < N) lse[((int64_t)b * H + h) * N + n] = m_r[r] * scale + logf(l_r[r]);
+    }
   }
 }
 
@@ -404,6 +746,71 @@ cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, void* 
   return dispatch_dh<T, false>(dh, q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
 }
 
+// q, k or v as a 4-D tensor map (Dh, H, N, B) over the strided view (element
+// strides s_h, s_n, s_b), boxes of (SW / 2, 1, rows, 1), SW-swizzled, zeros
+// out of bounds. A dimension of size 1 is never stepped along; it gets the
+// packed stride, so its own (any value) never meets TMA's rules.
+template <int SW>
+bool encode_view(CUtensorMap* map, const void* base, int dh, int H, int N, int B, int64_t s_b, int64_t s_n,
+                 int64_t s_h, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  if (H == 1) s_h = dh;
+  if (N == 1) s_n = s_h * H;
+  if (B == 1) s_b = s_n * N;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_n * 2, (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {SW / 2, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH, bool DROP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int N, int H,
+                         const int64_t* st, float scale, const Dropout& drop, cudaStream_t stream) {
+  using C = WgCfg<DH>;
+  CUtensorMap tq, tk, tv;
+  if (!encode_view<C::SW>(&tq, q, DH, H, N, B, st[0], st[1], st[2], C::BM) ||
+      !encode_view<C::SW>(&tk, k, DH, H, N, B, st[3], st[4], st[5], C::BN) ||
+      !encode_view<C::SW>(&tv, v, DH, H, N, B, st[6], st[7], st[8], C::BN))
+    return cudaErrorNotSupported;
+  static const cudaError_t attr = cudaFuncSetAttribute(flash_attn_fwd_wgmma_kernel<DH, DROP>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((N + C::BM - 1) / C::BM, H, B);      // query tiles of a head fastest: they share its K/V in L2
+  flash_attn_fwd_wgmma_kernel<DH, DROP><<<grid, 384, C::SMEM, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse,
+                                                                        N, H, scale, drop);
+  return cudaGetLastError();
+}
+
+template <bool DROP>
+cudaError_t dispatch_wgmma(int dh, const void* q, const void* k, const void* v, void* o, float* lse, int B, int N,
+                           int H, const int64_t* st, float scale, const Dropout& d, cudaStream_t stream) {
+  switch (dh) {
+    case 64: return launch_wgmma<64, DROP>(q, k, v, o, lse, B, N, H, st, scale, d, stream);
+    case 128: return launch_wgmma<128, DROP>(q, k, v, o, lse, B, N, H, st, scale, d, stream);
+    case 160: return launch_wgmma<160, DROP>(q, k, v, o, lse, B, N, H, st, scale, d, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// What TMA asks of a view: 16-byte-aligned bases, and every stride of a
+// dimension longer than 1 a multiple of 8 elements (16 bytes).
+bool wgmma_takes(const void* const* ptrs, const int64_t* st, int B, int N, int H) {
+  const int sizes[3] = {B, N, H};
+  for (int i = 0; i < 3; ++i) {
+    if ((reinterpret_cast<uintptr_t>(ptrs[i]) & 15u) != 0) return false;
+    for (int a = 0; a < 3; ++a)
+      if (sizes[a] > 1 && st[3 * i + a] % 8 != 0) return false;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -412,18 +819,28 @@ extern "C" {
 // sequence, head) for q, then k, then v. drop != 0 runs the dropout
 // instantiation with the seed, the global offsets q0 and k0 of the first
 // query and key row, the uint32 threshold, float32(1 - rate) and its
-// float32 reciprocal. Returns a cudaError_t (0 = success); the launch is
+// float32 reciprocal. kernel: 0 the general kernel (mma.sync for bfloat16,
+// CUDA cores for float32), 1 the wgmma kernel (bfloat16, Dh 64, 128 or 160,
+// a finite scale > 0, what TMA takes: wgmma_takes); operands a kernel does
+// not take are refused, never sent elsewhere. Returns a cudaError_t (0 = success); the launch is
 // asynchronous on `stream`.
 int vitax_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int dtype, int B, int N, int H, int dh,
                          const int64_t* strides, float scale, int drop, uint32_t seed,
                          uint32_t q0, uint32_t k0, uint32_t threshold, float keep_prob,
-                         float inv_keep_prob, void* stream) {
+                         float inv_keep_prob, int kernel, void* stream) {
   if (B < 1 || N < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* ptrs[3] = {q, k, v};
-  const int vec = vitax::rows_vectorizable(ptrs, 3, strides, 9);
   const vitax::Dropout d{seed, q0, k0, threshold, keep_prob, inv_keep_prob};
+  if (kernel == 1) {
+    if (dtype != 1 || !(scale > 0.f && scale < INFINITY) || !wgmma_takes(ptrs, strides, B, N, H))
+      return (int)cudaErrorInvalidValue;
+    if (drop) return (int)dispatch_wgmma<true>(dh, q, k, v, o, lse, B, N, H, strides, scale, d, s);
+    return (int)dispatch_wgmma<false>(dh, q, k, v, o, lse, B, N, H, strides, scale, d, s);
+  }
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
+  const int vec = vitax::rows_vectorizable(ptrs, 3, strides, 9);
   if (dtype == 0) return (int)dispatch<float>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, drop, d, s);
   if (dtype == 1) return (int)dispatch<vitax::bf16>(dh, q, k, v, o, lse, B, N, H, strides, scale, vec, drop, d, s);
   return (int)cudaErrorInvalidValue;

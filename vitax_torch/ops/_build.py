@@ -12,9 +12,12 @@ nvcc and no card.
 ``flash_attn_fwd_drop`` and ``flash_attn_bwd_drop`` for the attention
 kernels' dropout instantiations, and the four ``STREAM_KERNELS`` keys for
 the same kernels launched past 2048 tokens, where the streaming entries
-(ops/flash_blocked.py) take over (ops/attention.py `launch_key`), and the
-two `DEQUANT_KERNELS` keys that split `dequant_matmul`'s launches between
-its wgmma and its general kernel (ops/dequant_matmul.py `choose_kernel`). A
+(ops/flash_blocked.py) take over (ops/attention.py `launch_key`), the two
+`FLASH_FWD_KERNELS` keys that split every attention forward launch
+between the forward's wgmma and its general kernel (ops/attention.py
+`choose_fwd_kernel`), and the two `DEQUANT_KERNELS` keys that split
+`dequant_matmul`'s launches the same way (ops/dequant_matmul.py
+`choose_kernel`). A
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels.
 """
@@ -47,8 +50,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DROPOUT_KERNELS = ("flash_attn_fwd_drop", "flash_attn_bwd_drop")
 STREAM_KERNELS = ("flash_attn_fwd_stream", "flash_attn_bwd_stream", "flash_attn_fwd_stream_drop",
                   "flash_attn_bwd_stream_drop")
+FLASH_FWD_KERNELS = ("flash_attn_fwd_wgmma", "flash_attn_fwd_general")
 DEQUANT_KERNELS = ("dequant_matmul_wgmma", "dequant_matmul_general")
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS, *STREAM_KERNELS, *DEQUANT_KERNELS)}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS, *STREAM_KERNELS, *FLASH_FWD_KERNELS,
+                                                 *DEQUANT_KERNELS)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, dict] = {}
@@ -135,6 +140,23 @@ def load(name: str) -> ctypes.CDLL:
             lib.vitax_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def load_variant(path: str, tag: str) -> ctypes.CDLL:
+    """A copy of a kernel source with one change (a variant, for the A/B
+    tools in vitax_torch/tools), built with the same flags into
+    `_build/lib<tag>.so` and bound; its nvcc report is the library's
+    `ptxas` attribute."""
+    out = os.path.join(BUILD_DIR, f"lib{tag}.so")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", out, path], capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {path}:\n{r.stderr}")
+    lib = ctypes.CDLL(out)
+    lib.vitax_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.vitax_cuda_error_string.restype = ctypes.c_char_p
+    lib.ptxas = r.stderr
+    return lib
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -22,12 +22,20 @@ the BH row, as the TPU kernel's program_id(0) is.
 Past MAX_SEQ_IN_VMEM tokens `make_attention_impl` takes the streaming
 entries of vitax_torch/ops/flash_blocked.py (the counterparts of the TPU
 kernels A4, A5a and A5b), as the JAX package's `_select_path` does.
+
+The forward source holds two kernels for bfloat16: the wgmma kernel (TMA
+and wgmma, every main path) and the general mma.sync kernel (float32 has
+its own CUDA-core kernel, counted as general). `choose_fwd_kernel` picks
+one from the type, the head dim, the bases' alignment, the strides and
+the scale's sign; a kernel forced on operands it does not take raises,
+and nothing gives way to another kernel on a failure.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +49,14 @@ DROP_BWD_KERNEL = "flash_attn_bwd_drop"
 # head dims the kernels are instantiated for (dispatch_dh in csrc/flash_attn_{fwd,bwd}.cu)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernels' grid is (ceil(N / 64), H, B); CUDA caps its y and z sizes.
+# The forward's kernels (the C entry's `kernel` argument) and the head dims
+# its wgmma kernel is built for (dispatch_wgmma in csrc/flash_attn_fwd.cu);
+# the others take the general kernel.
+FWD_KERNELS = {"general": 0, "wgmma": 1}
+WGMMA_HEAD_DIMS = (64, 128, 160)
+TMA_ALIGN = 16                                  # bytes: TMA's base alignment and stride unit
+_F32_MAX = float(np.finfo(np.float32).max)      # the C entry takes the scale as a float32
+# The kernels' grid is (ceil(N / tile), H, B); CUDA caps its y and z sizes.
 MAX_GRID_YZ = 65535
 # vitax/ops/attention.py:41: past this many tokens the JAX package streams
 # K/V blocks (vitax/ops/flash_blocked.py) instead of holding (N, N) scores.
@@ -248,11 +263,11 @@ def attention_bwd_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o:
 
 def check_grid(kernel: str, b: int, n: int, h: int) -> None:
     """Raise unless a (B, N, H, Dh) call fits the kernels' grid (ceil(N /
-    64), H, B): B and H at most MAX_GRID_YZ each. On a (B*H, N, 1, Dh) BH
+    tile), H, B): B and H at most MAX_GRID_YZ each. On a (B*H, N, 1, Dh) BH
     view, B is the B*H row count."""
     if b > MAX_GRID_YZ or h > MAX_GRID_YZ:
         raise ValueError(f"{kernel}: batch {b} and heads {h} must each be <= {MAX_GRID_YZ}, the CUDA "
-                         f"grid's y/z limit (grid (ceil(N/64), H, B); on a BH view B is the B*H rows)")
+                         f"grid's y/z limit (grid (ceil(N/tile), H, B); on a BH view B is the B*H rows)")
 
 
 def _check_kernel_inputs(kernel: str, **xs: torch.Tensor) -> None:
@@ -296,18 +311,85 @@ def launch_key(n: int, dropout: Optional[Dropout], backward: bool) -> str:
     return keys[2 * (n > MAX_SEQ_IN_VMEM) + (dropout is not None)]
 
 
+def wgmma_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> bool:
+    """Whether the forward's wgmma kernel takes these (B, N, H, Dh)
+    operands: bfloat16, a head dim it is built for, a finite scale > 0 (it
+    takes the max of the raw scores and puts the scale into the exponent;
+    None is the default Dh ** -0.5), and what TMA asks of each view: a
+    16-byte-aligned base and the stride of every dimension longer than 1 a
+    multiple of 16 bytes (8 elements). Reads types, shapes, strides and
+    addresses only, so it works on tensors of any device."""
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)) or q.shape[-1] not in WGMMA_HEAD_DIMS:
+        return False
+    if scale is not None and not (0.0 < scale <= _F32_MAX and np.float32(scale) > 0):   # as the C entry sees it
+        return False
+    unit = TMA_ALIGN // q.element_size()
+    return all(x.data_ptr() % TMA_ALIGN == 0
+               and all(size == 1 or stride % unit == 0 for size, stride in zip(x.shape[:3], x.stride()[:3]))
+               for x in (q, k, v))
+
+
+def choose_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> str:
+    """The forward kernel one launch takes, a plain host-side function of
+    the types, the head dim, the alignment, the strides and the scale:
+    "wgmma" where `wgmma_takes`, else "general" (the mma.sync kernel for
+    bfloat16, the CUDA-core kernel for float32)."""
+    return "wgmma" if wgmma_takes(q, k, v, scale) else "general"
+
+
+_forced_fwd: Optional[str] = None
+
+
+@contextlib.contextmanager
+def forced_fwd_kernel(kernel: Optional[str]) -> Iterator[None]:
+    """Every forward launch inside the block takes `kernel` (a FWD_KERNELS
+    name; None restores `choose_fwd_kernel`), through whichever entry calls
+    it: the checks and timings that hold each kernel in turn. A launch whose
+    operands the kernel does not take raises."""
+    global _forced_fwd
+    if kernel is not None and kernel not in FWD_KERNELS:
+        raise ValueError(f"{KERNEL}: no kernel {kernel!r}; one of {sorted(FWD_KERNELS)}")
+    before, _forced_fwd = _forced_fwd, kernel
+    try:
+        yield
+    finally:
+        _forced_fwd = before
+
+
+def resolve_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernel: Optional[str] = None,
+                       scale: Optional[float] = None) -> str:
+    """`kernel` (or the one `forced_fwd_kernel` set) checked against what it
+    takes, else `choose_fwd_kernel`'s choice. An unknown name, or the wgmma
+    kernel asked for operands it does not take, raises: nothing is sent
+    elsewhere."""
+    kernel = kernel or _forced_fwd
+    if kernel is None:
+        return choose_fwd_kernel(q, k, v, scale)
+    if kernel not in FWD_KERNELS:
+        raise ValueError(f"{KERNEL}: no kernel {kernel!r}; one of {sorted(FWD_KERNELS)}")
+    if kernel == "wgmma" and not wgmma_takes(q, k, v, scale):
+        raise ValueError(f"{KERNEL}: wgmma does not take {q.dtype} (B, N, H, Dh) {tuple(q.shape)} with strides "
+                         f"{[x.stride() for x in (q, k, v)]} and scale {scale} (it needs bfloat16, Dh in "
+                         f"{WGMMA_HEAD_DIMS}, a finite scale > 0, {TMA_ALIGN}-byte-aligned bases and strides a "
+                         f"multiple of {TMA_ALIGN} bytes)")
+    return kernel
+
+
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                        dropout: Optional[Dropout] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper forward kernel on strided (B, N, H, Dh) CUDA views,
-    its dropout instantiation when `dropout` is given. Returns (o contiguous
-    (B, N, H, Dh) in the input type, lse (B, H, N) f32). The launch counts
-    under `launch_key`."""
+                        dropout: Optional[Dropout] = None,
+                        kernel: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a Hopper forward kernel on strided (B, N, H, Dh) CUDA views,
+    its dropout instantiation when `dropout` is given: `kernel` (a
+    FWD_KERNELS name) or `resolve_fwd_kernel`'s choice. Returns (o
+    contiguous (B, N, H, Dh) in the input type, lse (B, H, N) f32). The
+    launch counts under `launch_key` and under its kernel's key."""
     _check_kernel_inputs(KERNEL, q=q, k=k, v=v)
+    kernel = resolve_fwd_kernel(q, k, v, kernel, float(scale))
     b, n, h, dh = q.shape
     lib = _build.load(KERNEL)
     fn = lib.vitax_flash_attn_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, *_DROPOUT_ARGTYPES, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, *_DROPOUT_ARGTYPES, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     o = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -316,9 +398,10 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  _DTYPE_CODES[q.dtype], b, n, h, dh, strides, float(scale), *_kernel_dropout_args(dropout),
-                 stream)
+                 FWD_KERNELS[kernel], stream)
     _build.check(lib, KERNEL, err)
     _build.LAUNCHES[launch_key(n, dropout, backward=False)] += 1
+    _build.LAUNCHES[f"{KERNEL}_{kernel}"] += 1
     return o, lse
 
 

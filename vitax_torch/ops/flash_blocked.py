@@ -6,8 +6,10 @@ kernels are A4 (`_fwd_kernel`, the forward over (bq, bk) tiles with an
 online softmax), A5a (`_dkv_kernel`, dK and dV over the q blocks) and A5b
 (`_dq_kernel`, dQ over the k blocks). On the card their counterparts are
 the port's own hand-written kernels, which never hold the scores either:
-csrc/flash_attn_fwd.cu streams 64-row K/V tiles through shared memory with
-the same online softmax (A4), and csrc/flash_attn_bwd.cu runs a delta
+csrc/flash_attn_fwd.cu streams K/V tiles through shared memory with the
+same online softmax (A4; its wgmma kernel through a TMA-fed ring of
+128-key tiles, its general kernel 64 at a time; ops/attention.py
+`choose_fwd_kernel`), and csrc/flash_attn_bwd.cu runs a delta
 pre-pass, a dK/dV kernel over the query tiles (A5a) and a dQ kernel over
 the K/V tiles (A5b). Their dropout instantiations hash each score element
 at its global (q0 + q, k0 + k) coordinates, as A4 and A5 do.
@@ -19,7 +21,7 @@ seed vector (seed, q0, k0), never a mask.
   `blocked_dropout_attention` on the strided (B, N, H, Dh) views as given
   (the kernel's block index b*H + h is JAX's BH row, so no relayout), the
   `blocked_bh_*` entries on (B*H, N, 1, Dh) views. block_q and block_k are
-  validated and set nothing: the kernels' own 64 x 64 tiles apply.
+  validated and set nothing: the kernels' own tiles apply.
 - On a CPU tensor it runs the plain versions below, which follow the TPU
   kernels tile by tile at (block_q, block_k).
 Past MAX_SEQ_IN_VMEM tokens the kernel wrappers count their launches under
@@ -198,7 +200,8 @@ def streaming_bwd_with_lse(q, k, v, o, lse, do, dlse, scale: float, bq: int, bk:
 
 def _streaming_fwd(bq: int, bk: int):
     """The forward dispatcher on (B, N, H, Dh) for _FlashWithLse: a CUDA
-    tensor launches A1's kernel (the counterpart of A4) or raises; a CPU
+    tensor launches A1's kernels (the counterpart of A4; the one
+    `choose_fwd_kernel` gives) or raises; a CPU
     tensor runs the plain version at (bq, bk) in the BH layout."""
     def fwd(q, k, v, scale, dropout):
         if q.device.type == "cuda":
@@ -251,7 +254,7 @@ def blocked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, b
                             block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
     """Streaming flash attention, (B, N, H, Dh) -> (B, N, H, Dh),
     differentiable. On the card the kernels take the strided views as
-    given and tile them 64 x 64; block_q and block_k (validated) tile the
+    given and tile them themselves; block_q and block_k (validated) tile the
     plain version on the CPU, capped at N rounded up to 128."""
     bq, bk = block_sizes(q.shape[1], block_q, block_k)
     return blocked_with_lse(q, k, v, q.shape[-1] ** -0.5, bq, bk, None)[0]

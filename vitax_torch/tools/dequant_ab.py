@@ -17,8 +17,6 @@ forward, with the card's name and power limit. Needs a card.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import os
 import subprocess
 import sys
 
@@ -30,18 +28,6 @@ from vitax_torch.ops.dequant_matmul import KERNEL, _matmul_plain, dequant_matmul
 SITES = (("qkv", 5120, 15360), ("proj", 5120, 5120), ("fc1", 5120, 20480), ("fc2", 20480, 5120))
 LAUNCHES_PER_SITE = 32
 WEIGHT_ONLY_TOL = 6e-5          # chip_smoke.py DEQUANT_TOL["bfloat16"], of max |ref|
-
-
-def load_variant(path: str) -> ctypes.CDLL:
-    out = os.path.join(_build.BUILD_DIR, "libdequant_matmul_variant.so")
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, path], capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {path}:\n{r.stderr}")
-    lib = ctypes.CDLL(out)
-    lib.vitax_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.vitax_cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def time_ms(fn, iters: int) -> float:
@@ -78,7 +64,7 @@ def main(argv=None) -> int:
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                            capture_output=True, text=True).stdout.strip()
-    libs = {"tree": _build.load(KERNEL), "variant": load_variant(args.variant)}
+    libs = {"tree": _build.load(KERNEL), "variant": _build.load_variant(args.variant, "dequant_matmul_variant")}
     sums = {}
     with torch.inference_mode():
         for m in args.m:

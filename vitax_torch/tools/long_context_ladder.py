@@ -14,8 +14,8 @@ which stops at the first row that runs out of memory or whose step takes
 more than --max_step_s; the last line says which stopped it.
 
 There is no (block_q, block_k) sweep: on the card the streaming entries
-run the kernels' own 64 x 64 tiles (block_q and block_k tile only the
-plain versions), and the JAX ladder's winning blocks are a TPU result.
+run the kernels' own tiles (block_q and block_k tile only the plain
+versions), and the JAX ladder's winning blocks are a TPU result.
 
 Each row is one JSON line on stdout: {"n", "dense", "device",
 "ms_per_step", "peak_gb", "loss", "timed_steps", "error"}. A file is
