@@ -400,6 +400,16 @@ def fwd_kernels(q, k, v):
     return [chosen] + [kn for kn in FWD_KERNELS if kn != chosen and (kn == "general" or wgmma_takes(q, k, v))]
 
 
+def bwd_kernels(q, k, v, o, do):
+    """The backward kernels that take these operands, the one
+    `choose_bwd_kernel` gives first: both bf16 kernel families where the
+    wgmma kernels take them, else the general one."""
+    from vitax_torch.ops.attention import BWD_KERNELS, bwd_wgmma_takes, choose_bwd_kernel
+    chosen = choose_bwd_kernel(q, k, v, o, do)
+    return [chosen] + [kn for kn in BWD_KERNELS
+                       if kn != chosen and (kn == "general" or bwd_wgmma_takes(q, k, v, o, do))]
+
+
 def phase_kernel_check(torch):
     from vitax_torch.ops.attention import attention_fwd_with_lse, flash_attn_fwd_cuda
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -427,7 +437,7 @@ def phase_kernel_check(torch):
                     errs[(shape, dtype, kern)] = d_o
                 del q, k, v, o, lse, o_ref, lse_ref
     check_general_only_operands(torch)
-    errs["flash_attn_bwd"] = check_attention_backward(torch)
+    errs.update(check_attention_backward(torch))
     errs.update(check_dropout_kernels(torch))
     errs.update(check_bh_entries(torch))
     check_mask_recovery(torch)
@@ -556,12 +566,13 @@ def check_dequant_matmul(torch) -> dict:
     return worst
 
 
-def check_attention_backward(torch) -> float:
-    """The backward kernel against its plain version, bf16 and f32, with a
+def check_attention_backward(torch) -> dict:
+    """Each backward kernel that takes the operands (wgmma and general in
+    bf16 at Dh 64 and 160) against the plain version, bf16 and f32, with a
     nonzero dlse, at the train shape and the ragged shapes; each call twice,
-    bitwise equal. Returns max |d| at the train shape in bf16."""
+    bitwise equal. Returns max |d| at the train shape in bf16, by kernel."""
     from vitax_torch.ops.attention import attention_bwd_with_lse, flash_attn_bwd_cuda, flash_attn_fwd_cuda
-    worst = 0.0
+    worst = {}
     with torch.inference_mode():
         for shape in (TRAIN_SHAPE,) + CHECK_SHAPES[1:]:
             b, n, h, dh = shape
@@ -572,29 +583,31 @@ def check_attention_backward(torch) -> float:
                 dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda()
                 scale = dh ** -0.5
                 o, lse = flash_attn_fwd_cuda(q, k, v, scale)
-                got = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale)
-                again = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale)
                 want = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale)
                 no_dlse = attention_bwd_with_lse(q, k, v, o, lse, do, None, scale)
-                torch.cuda.synchronize()
-                errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
                 refs = [w.float().abs().max().item() for w in want]
                 bars = [BWD_TOL[dtype] * r for r in refs]
                 dlse_term = [(w.float() - w0.float()).abs().max().item() for w, w0 in zip(want[:2], no_dlse[:2])]
-                repeat = all(torch.equal(a, a2) for a, a2 in zip(got, again))
-                finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
                 visible = all(t > b for t, b in zip(dlse_term, bars[:2]))
-                ok = finite and repeat and visible and all(e <= b for e, b in zip(errs, bars))
-                say(f"[3 check] flash_attn_bwd {shape} {dtype}: "
-                    + ", ".join(f"{nm} max|d| {e:.3e} (<= {b:.3e}, max|ref| {r:.3e}, ratio {e / r:.2e})"
-                                for nm, e, b, r in zip(("dq", "dk", "dv"), errs, bars, refs))
-                    + f"; dlse term moves dq {dlse_term[0]:.3e} dk {dlse_term[1]:.3e}; bitwise repeat "
-                    f"{repeat} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    fail(f"flash_attn_bwd disagrees with its plain version at {shape} {dtype}")
-                d = max(errs)
-                if shape == TRAIN_SHAPE and dtype == "bfloat16":
-                    worst = d
+                kernels = bwd_kernels(q, k, v, o, do)
+                for kern in kernels:
+                    got = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, kernel=kern)
+                    again = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, kernel=kern)
+                    torch.cuda.synchronize()
+                    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+                    repeat = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+                    finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+                    ok = finite and repeat and visible and all(e <= b for e, b in zip(errs, bars))
+                    say(f"[3 check] flash_attn_bwd {shape} {dtype}, {kern}{' (chosen)' if kern == kernels[0] else ''}: "
+                        + ", ".join(f"{nm} max|d| {e:.3e} (<= {b:.3e}, max|ref| {r:.3e}, ratio {e / r:.2e})"
+                                    for nm, e, b, r in zip(("dq", "dk", "dv"), errs, bars, refs))
+                        + f"; dlse term moves dq {dlse_term[0]:.3e} dk {dlse_term[1]:.3e}; bitwise repeat "
+                        f"{repeat} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"flash_attn_bwd ({kern}) disagrees with its plain version at {shape} {dtype}")
+                    if shape == TRAIN_SHAPE and dtype == "bfloat16":
+                        worst["flash_attn_bwd" + ("" if kern == "wgmma" else "_general")] = max(errs)
+                    del got, again
     return worst
 
 
@@ -636,10 +649,10 @@ def check_dropout_kernels(torch):
             o_ref, lse_ref = attention_fwd_with_lse(q, k, v, scale, drop)
             o_off, _ = attention_fwd_with_lse(q, k, v, scale, off)
             kernels = fwd_kernels(q, k, v)
-            for kern in kernels:
+            for kern, bkern in ((kn, bk) for kn in kernels for bk in bwd_kernels(q, k, v, o_ref, do)):
                 o, lse = flash_attn_fwd_cuda(q, k, v, scale, drop, kernel=kern)
-                got = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop)
-                again = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop)
+                got = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop, kernel=bkern)
+                again = flash_attn_bwd_cuda(q, k, v, o, lse, do, dlse, scale, drop, kernel=bkern)
                 want = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, drop)
                 wrong = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale, off)
                 torch.cuda.synchronize()
@@ -654,15 +667,16 @@ def check_dropout_kernels(torch):
                 ok = (finite and repeat and e_o <= tol_o < e_off and d_lse <= TOL[dtype][1]
                       and all(e <= tol_g < e2 for e, e2 in zip(e_g, e_g_off)))
                 say(f"[3 check] flash_attn dropout {shape} {dtype} rate {DROP_RATE} q0/k0 {q0}/{k0}, forward {kern}"
-                    f"{' (chosen)' if kern == kernels[0] else ''}: o max|d|/max|ref| {e_o:.2e} (<= {tol_o}; seed off "
+                    f"{' (chosen)' if kern == kernels[0] else ''}, backward {bkern}: o max|d|/max|ref| {e_o:.2e} "
+                    f"(<= {tol_o}; seed off "
                     f"by one {e_off:.2e}), max|dlse| {d_lse:.2e}; "
                     + ", ".join(f"{nm} {e:.2e} (<= {tol_g}; seed off by one {e2:.2e})"
                                 for nm, e, e2 in zip(("dq", "dk", "dv"), e_g, e_g_off))
                     + f"; bitwise repeat {repeat} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    fail(f"the dropout attention kernels ({kern} forward) disagree with their plain versions at "
-                         f"{shape} {dtype}")
-                if shape == TRAIN_SHAPE and kern == kernels[0]:
+                    fail(f"the dropout attention kernels ({kern} forward, {bkern} backward) disagree with their plain "
+                         f"versions at {shape} {dtype}")
+                if shape == TRAIN_SHAPE and kern == kernels[0] and bkern == "wgmma":
                     errs["flash_attn_fwd_drop"] = (o.float() - o_ref.float()).abs().max().item()
                     errs["flash_attn_bwd_drop"] = max((a.float() - w.float()).abs().max().item()
                                                       for a, w in zip(got, want))
@@ -680,7 +694,8 @@ def check_bh_entries(torch):
     kernel in turn) and a ragged f32 shape with offsets. Returns max |d| of
     each entry at the train shape (the chosen kernel)."""
     from vitax_torch.ops.attention import (Dropout, _to_bh, attention_bwd_with_lse, attention_fwd_with_lse,
-                                           flash_bh_dropout_lse, flash_bh_with_lse, forced_fwd_kernel)
+                                           flash_bh_dropout_lse, flash_bh_with_lse, forced_bwd_kernel,
+                                           forced_fwd_kernel)
     errs = {}
     for shape, dtype, (q0, k0) in ((TRAIN_SHAPE, "bfloat16", (0, 0)), (DROP_CHECK_SHAPES[0], "float32", DROP_OFFSETS)):
         q4, k4, v4, do4, dlse = attention_operands(torch, shape, dtype, SEED + 12)
@@ -689,15 +704,16 @@ def check_bh_entries(torch):
         scale = shape[-1] ** -0.5
         del q4, k4, v4, do4
         kernels = fwd_kernels(*(x[:, :, None] for x in (q, k, v)))
+        bkernels = bwd_kernels(*(x[:, :, None] for x in (q, k, v, torch.empty_like(q), do)))
         for drop in (None, Dropout(DROP_SEED, DROP_RATE, q0, k0)):
-            for kern in kernels:
+            for kern, bkern in ((kn, bk) for kn in kernels for bk in bkernels):
                 leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-                with forced_fwd_kernel(kern):
+                with forced_fwd_kernel(kern), forced_bwd_kernel(bkern):
                     if drop is None:
                         o, lse = flash_bh_with_lse(*leaves, scale)
                     else:
                         o, lse = flash_bh_dropout_lse(*leaves, (drop.seed, drop.q0, drop.k0), scale, drop.rate)
-                torch.autograd.backward((o, lse), (do, dlse))
+                    torch.autograd.backward((o, lse), (do, dlse))
                 with torch.no_grad():
                     views = [x[:, :, None] for x in (q, k, v)]
                     o_ref, lse_ref = attention_fwd_with_lse(*views, scale, drop, normalize_first=False)
@@ -711,13 +727,15 @@ def check_bh_entries(torch):
                 ok = e_o <= tol_o and d_lse <= TOL[dtype][1] and all(e <= tol_g for e in e_g)
                 name = "flash_bh" + ("" if drop is None else "_drop")
                 say(f"[3 check] {name} {tuple(q.shape)} {dtype}" + ("" if drop is None else f" q0/k0 {q0}/{k0}")
-                    + f", forward {kern}{' (chosen)' if kern == kernels[0] else ''}: o max|d|/max|ref| {e_o:.2e} "
+                    + f", forward {kern}{' (chosen)' if kern == kernels[0] else ''}, backward {bkern}"
+                    + f"{' (chosen)' if bkern == bkernels[0] else ''}: o max|d|/max|ref| {e_o:.2e} "
                     f"(<= {tol_o}), max|dlse| {d_lse:.2e}; "
                     + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
                     + f" (<= {tol_g}) {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    fail(f"{name} ({kern} forward) disagrees with its plain version at {tuple(q.shape)} {dtype}")
-                if shape == TRAIN_SHAPE and kern == kernels[0]:
+                    fail(f"{name} ({kern} forward, {bkern} backward) disagrees with its plain version at "
+                         f"{tuple(q.shape)} {dtype}")
+                if shape == TRAIN_SHAPE and kern == kernels[0] and bkern == bkernels[0]:
                     suffix = "" if drop is None else "_drop"
                     errs["flash_bh_fwd" + suffix] = (o.detach().float() - o_ref[:, :, 0].float()).abs().max().item()
                     errs["flash_bh_bwd" + suffix] = max((x.grad.float() - w[:, :, 0].float()).abs().max().item()
@@ -773,14 +791,16 @@ def check_streaming(torch):
     views of one qkv tensor, with autograd, at LONG_CHECK_CASES (the ViT-L
     shape at N 4096, a ragged N and Dh 160 in bf16 and f32 with global
     offsets past 2048; phase 7L's N 9216 in bf16 at offsets 0), rate 0 and
-    0.1, each forward kernel that takes the operands in turn, a nonzero
-    dlse, and each backward run twice, bitwise equal. The plain versions run
-    at 64 x 64 tiles on the kernels' o and lse.
+    0.1, each forward kernel that takes the operands in turn and under each
+    backward kernel that does, a nonzero dlse, and each backward run twice,
+    bitwise equal. The plain versions run at 64 x 64 tiles on the kernels' o
+    and lse.
     Under dropout the plain version at a seed off by one, at rate 0 without
     dlse, must land beyond the bars. Then the BH entries once, and the mask
     read back. Every case prints before the phase fails. Returns max |d| of
-    o and of dk/dv and dq at the ViT-L shape in bf16 at rate 0."""
-    from vitax_torch.ops.attention import Dropout, _from_bh, _to_bh, forced_fwd_kernel
+    o and of dk/dv and dq (and the general backward's) at the ViT-L shape in
+    bf16 at rate 0."""
+    from vitax_torch.ops.attention import Dropout, _from_bh, _to_bh, forced_bwd_kernel, forced_fwd_kernel
     from vitax_torch.ops.flash_blocked import blocked_with_lse, streaming_bwd_with_lse, streaming_fwd_with_lse
     torch.backends.cuda.matmul.allow_tf32 = False
     errs, bad = {}, []
@@ -790,15 +810,18 @@ def check_streaming(torch):
         for dtype in dtypes:
             q, k, v, do, dlse = attention_operands(torch, shape, dtype, SEED + 20)
             qkv = torch.stack((q, k, v), dim=2)
+            bkernels = bwd_kernels(*qkv.unbind(2), torch.empty_like(q), do)
             for rate, kern in ((r, kn) for r in (0.0, DROP_RATE) for kn in fwd_kernels(*qkv.unbind(2))):
                 drop = Dropout(DROP_SEED, rate, *offsets) if rate else None
-                grads = []
-                for _ in range(2):
-                    leaf = qkv.clone().requires_grad_(True)
-                    with forced_fwd_kernel(kern):
-                        o, lse = blocked_with_lse(*leaf.unbind(2), scale, LONG_TILE, LONG_TILE, drop)
-                    torch.autograd.backward((o, lse), (do, dlse))
-                    grads.append(leaf.grad.unbind(2))
+                runs = {}
+                for bkern in bkernels:
+                    runs[bkern] = []
+                    for _ in range(2):
+                        leaf = qkv.clone().requires_grad_(True)
+                        with forced_fwd_kernel(kern), forced_bwd_kernel(bkern):
+                            o, lse = blocked_with_lse(*leaf.unbind(2), scale, LONG_TILE, LONG_TILE, drop)
+                            torch.autograd.backward((o, lse), (do, dlse))
+                        runs[bkern].append(leaf.grad.unbind(2))
                 o, lse = o.detach(), lse.detach()
                 with torch.no_grad():
                     bh = [_to_bh(x) for x in (q, k, v)]
@@ -820,35 +843,37 @@ def check_streaming(torch):
                 tol_o, tol_g, tol_lse = LONG_TOL[dtype]
                 e_o = rel_err(torch, o, o_ref)
                 d_lse = (lse - lse_ref.reshape(b, h, n)).abs().max().item()
-                e_g = [rel_err(torch, a, w) for a, w in zip(grads[0], want)]
-                e_other = [rel_err(torch, a, w) for a, w in zip(grads[0], other)]
                 e_o_off = None if o_off is None else rel_err(torch, o, o_off)
-                repeat = all(torch.equal(a, a2) for a, a2 in zip(*grads))
-                finite = bool(torch.isfinite(o.float()).all()) and all(bool(torch.isfinite(a.float()).all())
-                                                                       for a in grads[0])
-                # the other arm must be told apart: every grad under a wrong seed, dq and dk without dlse
-                told = e_other if drop is not None else e_other[:2]
-                ok = (finite and repeat and e_o <= tol_o and d_lse <= tol_lse and all(e <= tol_g for e in e_g)
-                      and all(e > tol_g for e in told) and (e_o_off is None or e_o_off > tol_o))
-                what = "seed off by one" if drop is not None else "plain without dlse"
-                say(f"[3L check] blocked_with_lse {shape} {dtype} rate {rate}"
-                    + (f" q0/k0 {drop.q0}/{drop.k0}" if drop else "")
-                    + f", forward {kern}: o max|d|/max|ref| {e_o:.2e} (<= {tol_o}"
-                    + ("" if e_o_off is None else f"; seed off by one {e_o_off:.2e}")
-                    + f"), max|dlse| {d_lse:.2e} (<= {tol_lse}); "
-                    + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
-                    + f" (<= {tol_g}; {what}: " + ", ".join(f"{e:.2e}" for e in e_other)
-                    + f"); bitwise repeat {repeat} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    bad.append(f"{shape} {dtype} rate {rate} {kern}")
-                if shape == LONG_SHAPE and dtype == "bfloat16" and drop is None and kern == "wgmma":
-                    errs["flash_attn_fwd_stream"] = (o.float() - o_ref.float()).abs().max().item()
-                    errs["flash_attn_bwd_stream_dkdv"] = max((a.float() - w.float()).abs().max().item()
-                                                             for a, w in zip(grads[0][1:], want[1:]))
-                    errs["flash_attn_bwd_stream_dq"] = (grads[0][0].float() - want[0].float()).abs().max().item()
-                    errs["flash_attn_bwd_stream"] = max(errs["flash_attn_bwd_stream_dkdv"],
-                                                        errs["flash_attn_bwd_stream_dq"])
-                del leaf, grads, o, lse, o_ref, lse_ref, want, other, o_off, bh, args
+                for bkern, grads in runs.items():
+                    e_g = [rel_err(torch, a, w) for a, w in zip(grads[0], want)]
+                    e_other = [rel_err(torch, a, w) for a, w in zip(grads[0], other)]
+                    repeat = all(torch.equal(a, a2) for a, a2 in zip(*grads))
+                    finite = bool(torch.isfinite(o.float()).all()) and all(bool(torch.isfinite(a.float()).all())
+                                                                           for a in grads[0])
+                    # the other arm must be told apart: every grad under a wrong seed, dq and dk without dlse
+                    told = e_other if drop is not None else e_other[:2]
+                    ok = (finite and repeat and e_o <= tol_o and d_lse <= tol_lse and all(e <= tol_g for e in e_g)
+                          and all(e > tol_g for e in told) and (e_o_off is None or e_o_off > tol_o))
+                    what = "seed off by one" if drop is not None else "plain without dlse"
+                    say(f"[3L check] blocked_with_lse {shape} {dtype} rate {rate}"
+                        + (f" q0/k0 {drop.q0}/{drop.k0}" if drop else "")
+                        + f", forward {kern}, backward {bkern}: o max|d|/max|ref| {e_o:.2e} (<= {tol_o}"
+                        + ("" if e_o_off is None else f"; seed off by one {e_o_off:.2e}")
+                        + f"), max|dlse| {d_lse:.2e} (<= {tol_lse}); "
+                        + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
+                        + f" (<= {tol_g}; {what}: " + ", ".join(f"{e:.2e}" for e in e_other)
+                        + f"); bitwise repeat {repeat} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        bad.append(f"{shape} {dtype} rate {rate} {kern} forward, {bkern} backward")
+                    if shape == LONG_SHAPE and dtype == "bfloat16" and drop is None and kern == "wgmma":
+                        suffix = "" if bkern == "wgmma" else "_general"
+                        errs["flash_attn_fwd_stream"] = (o.float() - o_ref.float()).abs().max().item()
+                        dkdv = max((a.float() - w.float()).abs().max().item() for a, w in zip(grads[0][1:], want[1:]))
+                        dq = (grads[0][0].float() - want[0].float()).abs().max().item()
+                        errs["flash_attn_bwd_stream" + suffix] = max(dkdv, dq)
+                        if bkern == "wgmma":
+                            errs["flash_attn_bwd_stream_dkdv"], errs["flash_attn_bwd_stream_dq"] = dkdv, dq
+                del leaf, runs, grads, o, lse, o_ref, lse_ref, want, other, o_off, bh, args
             del q, k, v, do, dlse, qkv
         torch.cuda.empty_cache()
     bad += check_streaming_bh(torch)
@@ -1004,18 +1029,22 @@ def check_fused_adamw(torch) -> float:
     return worst
 
 
+def time_in_turns(torch, call, kernels, iters):
+    """Kernels on the same operands, in turns (wgmma, general, general,
+    wgmma), CUDA events: {kernel: (best, "a / b")}. `call(kernel)` makes
+    one call."""
+    got = {}
+    for kern in kernels + kernels[::-1]:
+        got.setdefault(kern, []).append(time_ms(torch, lambda: call(kern), iters=iters))
+    return {kern: (min(ts), " / ".join(f"{t:.4f}" for t in ts)) for kern, ts in got.items()}
+
+
 def time_fwd_kernels(torch, q, k, v, scale, d=None, iters=50):
-    """The forward's wgmma and general kernels on the same operands, in turns
-    (wgmma, general, general, wgmma), CUDA events: {kernel: (best, "a / b")}.
+    """The forward's wgmma and general kernels in turns (`time_in_turns`).
     Operands the wgmma kernel does not take time the general kernel alone."""
     from vitax_torch.ops.attention import flash_attn_fwd_cuda
-    kernels = fwd_kernels(q, k, v)
-    order = kernels + kernels[::-1]
-    got = {}
-    for kern in order:
-        got.setdefault(kern, []).append(time_ms(torch, lambda: flash_attn_fwd_cuda(q, k, v, scale, d, kernel=kern),
-                                                iters=iters))
-    return {kern: (min(ts), " / ".join(f"{t:.4f}" for t in ts)) for kern, ts in got.items()}
+    return time_in_turns(torch, lambda kern: flash_attn_fwd_cuda(q, k, v, scale, d, kernel=kern),
+                         fwd_kernels(q, k, v), iters)
 
 
 def fwd_time_text(times, bound_ms, flops) -> str:
@@ -1058,7 +1087,7 @@ def phase_kernel_timing(torch, card):
     timing = {f"flash_attn_fwd{'' if kern == 'wgmma' else '_general'}": {
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         for kern, ms in device.items()}
-    timing["flash_attn_bwd"] = time_attention_train_shape(torch, card)
+    timing.update(time_attention_train_shape(torch, card))
     timing.update(time_dropout_and_bh(torch, card))
     timing.update(time_dequant_matmul(torch, card))
     return timing
@@ -1197,11 +1226,19 @@ def time_dequant_matmul(torch, card):
     return result
 
 
+def bwd_time_text(times, bound_ms, lib_ms) -> str:
+    """`wgmma a / b ms (x% of the bound, y x sdpa), general ...`."""
+    return ", ".join(f"{kern} {shown} ms ({bound_ms / best * 100:.1f}% of the bound, {best / lib_ms:.2f}x sdpa)"
+                     for kern, (best, shown) in times.items())
+
+
 def time_attention_train_shape(torch, card):
-    """The forward and the backward kernel at the train shape (bf16, dlse
-    None as the train path calls it). library_ms of the backward is
-    PyTorch's flash-attention backward op on the outputs of its own flash
-    forward (torch.ops.aten._scaled_dot_product_flash_attention_backward)."""
+    """The forward and the backward kernels at the train shape (bf16, dlse
+    None as the train path calls it), the backward's wgmma and general
+    kernels in turns. library_ms of the backward is PyTorch's
+    flash-attention backward op on the outputs of its own flash forward
+    (torch.ops.aten._scaled_dot_product_flash_attention_backward). Returns
+    the timing of both backward kernels."""
     import torch.nn.functional as F
     from vitax_torch.ops.attention import (attention_bwd_with_lse, attention_fwd_with_lse,
                                            flash_attn_bwd_cuda, flash_attn_fwd_cuda)
@@ -1222,20 +1259,25 @@ def time_attention_train_shape(torch, card):
                 dot, qt, kt, vt, sdpa[0], sdpa[1], sdpa[2], sdpa[3], sdpa[4], sdpa[5], 0.0, False,
                 sdpa[6], sdpa[7], scale=scale)
 
-        bwd_ms = time_ms(torch, lambda: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale), iters=50)
+        call = lambda kern: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale, kernel=kern)  # noqa: E731
+        kernels = bwd_kernels(q, k, v, o, do)
+        times = time_in_turns(torch, call, kernels, 50)
         plain_ms = time_ms(torch, lambda: attention_bwd_with_lse(q, k, v, o, lse, do, None, scale), iters=10)
         library_ms = time_ms(torch, library_bwd, iters=50)
-        bwd_ms2 = time_ms(torch, lambda: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale), iters=50)
+        split = {kern: bwd_kernel_ms(torch, lambda: call(kern)) for kern in kernels}
     fb_ms, fb_by, fb_bytes, fb_flops = attention_bound_ms(TRAIN_SHAPE, "bfloat16")
     say(f"[4 time] flash_attn_fwd {TRAIN_SHAPE} bf16: {fwd_time_text(fwd_times, fb_ms, fb_flops)}; plain "
         f"{fwd_plain_ms:.4f} ms, sdpa {fwd_lib_ms:.4f} ms, bound {fb_ms:.4f} ms ({fb_by}: {fb_bytes / 1e6:.1f} MB, "
         f"{fb_flops / 1e9:.2f} GFLOP) [{card}]")
     bound_ms, bound_by, nbytes, flops = attention_bwd_bound_ms(TRAIN_SHAPE, "bfloat16")
-    say(f"[4 time] flash_attn_bwd {TRAIN_SHAPE} bf16: kernel {bwd_ms:.4f} / {bwd_ms2:.4f} ms, "
+    say(f"[4 time] flash_attn_bwd {TRAIN_SHAPE} bf16, in turns: {bwd_time_text(times, bound_ms, library_ms)}; "
         f"plain {plain_ms:.4f} ms, sdpa flash backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{card}]")
-    return {"ms": min(bwd_ms, bwd_ms2), "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+        f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); per launch (torch.profiler) "
+        + "; ".join(f"{kern} dK/dV {sp['dkdv']:.4f}, dQ {sp['dq']:.4f}, delta {sp['delta']:.4f} ms"
+                    for kern, sp in split.items()) + f" [{card}]")
+    return {f"flash_attn_bwd{'' if kern == 'wgmma' else '_general'}": {
+        "ms": best, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        for kern, (best, _) in times.items()}
 
 
 def time_dropout_and_bh(torch, card):
@@ -1273,14 +1315,14 @@ def time_dropout_and_bh(torch, card):
                 o, lse = fwd()
                 o0, lse0 = flash_attn_fwd_cuda(q_, k_, v_, scale)
                 sd = sdpa_fwd(*lib[:3], rate, False, False, scale=scale)
-                bwd = lambda: flash_attn_bwd_cuda(q_, k_, v_, o, lse, do_, None, scale, d)  # noqa: E731
-                b_ms = time_ms(torch, bwd, iters=30)
+                b_times = time_in_turns(
+                    torch, lambda kern: flash_attn_bwd_cuda(q_, k_, v_, o, lse, do_, None, scale, d, kernel=kern),
+                    bwd_kernels(q_, k_, v_, o, do_), 30)
                 a2_ms = time_ms(torch, lambda: flash_attn_bwd_cuda(q_, k_, v_, o0, lse0, do_, None, scale), iters=30)
                 b_plain = time_ms(torch, lambda: attention_bwd_with_lse(q_, k_, v_, o, lse, do_, None, scale, d),
                                   iters=3, warmup=1)
                 b_lib = time_ms(torch, lambda: sdpa_bwd(lib[3], *lib[:3], sd[0], sd[1], sd[2], sd[3], sd[4], sd[5],
                                                         rate, False, sd[6], sd[7], scale=scale), iters=30)
-                b_ms2 = time_ms(torch, bwd, iters=30)
                 fb = (attention_drop_bound_ms(TRAIN_SHAPE, "bfloat16", False) if d is not None
                       else (*attention_bound_ms(TRAIN_SHAPE, "bfloat16"), 0))
                 bb = (attention_drop_bound_ms(TRAIN_SHAPE, "bfloat16", True) if d is not None
@@ -1291,9 +1333,9 @@ def time_dropout_and_bh(torch, card):
                     "" if d is None else f" rate {rate}")
                 for kind, (k_ms, shown), ref_ms, p_ms, l_ms, bound in (
                         ("fwd", f_times["wgmma"], a1_ms, plain_ms, lib_ms, fb),
-                        ("bwd", (min(b_ms, b_ms2), f"kernel {b_ms:.4f} / {b_ms2:.4f} ms"), a2_ms, b_plain, b_lib, bb)):
-                    if kind == "fwd":
-                        shown = fwd_time_text(f_times, bound[0], bound[3])
+                        ("bwd", b_times["wgmma"], a2_ms, b_plain, b_lib, bb)):
+                    shown = (fwd_time_text(f_times, bound[0], bound[3]) if kind == "fwd"
+                             else "in turns: " + bwd_time_text(b_times, bound[0], l_ms))
                     say(f"[4 time] {label} {kind}: {shown}, rate-0 kernel on the same inputs {ref_ms:.4f} ms, plain "
                         f"{p_ms:.4f} ms, sdpa flash (dropout_p {rate}) {l_ms:.4f} ms, bound {bound[0]:.4f} ms "
                         f"({bound[1]}: {bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP"
@@ -1340,31 +1382,20 @@ FWD_KERNEL_NAMES = {"wgmma": "flash_attn_fwd_wgmma_kernel", "general": "flash_at
 def profiled_ms(torch, fn, patterns, calls: int):
     """Device ms per launch of the kernels whose names match each of
     `patterns` ({piece: regex}), from torch.profiler over `calls` calls of
-    `fn`: the recorded time over the recorded launches, which need not be
-    all of them. Unlike CUDA events around back-to-back calls, this is the
-    kernels' own time where the wrapper's host time exceeds it."""
-    import re
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for piece, pat in patterns.items():
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and re.search(pat, e.key)]
-        total_ms, count = sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
-        if count == 0 or total_ms <= 0:
+    `fn` (vitax_torch.tools.attn_fwd_ab.profiled_ms). Unlike CUDA events
+    around back-to-back calls, this is the kernels' own time where the
+    wrapper's host time exceeds it."""
+    from vitax_torch.tools.attn_fwd_ab import profiled_ms as device_ms
+    out = device_ms(fn, patterns, calls)
+    for piece, ms in out.items():
+        if not ms > 0:
             fail(f"torch.profiler recorded no device time for the {piece} kernel")
-        out[piece] = total_ms / count
     return out
 
 
 def bwd_kernel_ms(torch, bwd, calls: int = 3):
     """Device ms per launch of each of the backward call's three kernels
-    (one launch each a call)."""
+    (one launch each a call; one kernel family at a time)."""
     return profiled_ms(torch, bwd, BWD_KERNEL_NAMES, calls)
 
 
@@ -1372,13 +1403,15 @@ def time_streaming(torch, card):
     """Phase 4L: the streaming path's kernels at the ViT-L shape, N 4096
     and 9216, bf16, offsets 0 as the model calls them, rate 0 and 0.1
     (CUDA events): the forward (its wgmma and general kernels in turns) and
-    the backward call (dlse None), the dK/dV and dQ kernels and the delta
-    pre-pass apart (torch.profiler),
+    the backward call (dlse None; its wgmma and general kernels in turns),
+    each backward's dK/dV and dQ kernels and the delta pre-pass apart
+    (torch.profiler),
     PyTorch's flash attention (F.scaled_dot_product_attention and its flash
     backward on (B, H, N, Dh), dropout_p as the row's rate: its own Philox
     mask, a yardstick of time only), the bounds, and at N 4096 only the
     plain versions at 64 x 64 tiles, timed once. Returns the `kernels`
-    line's timing of A4, A5a and A5b (N 4096, rate 0)."""
+    line's timing of A4, A5a and A5b (N 4096, rate 0), and of the general
+    backward."""
     import torch.nn.functional as F
     from vitax_torch.ops.attention import Dropout, _to_bh, flash_attn_bwd_cuda, flash_attn_fwd_cuda
     from vitax_torch.ops.flash_blocked import streaming_dkv, streaming_dq, streaming_fwd_with_lse
@@ -1399,13 +1432,13 @@ def time_streaming(torch, card):
                 f_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, dropout_p=rate,
                                                                               scale=scale), iters=20)
                 o, lse = fwd()
-                bwd = lambda: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale, d)  # noqa: E731
-                b_ms = time_ms(torch, bwd, iters=10)
+                call = lambda kern: flash_attn_bwd_cuda(q, k, v, o, lse, do, None, scale, d, kernel=kern)  # noqa: E731
+                kernels = bwd_kernels(q, k, v, o, do)
+                b_times = time_in_turns(torch, call, kernels, 10)
                 sd = sdpa_fwd(qt, kt, vt, rate, False, False, scale=scale)
                 b_lib = time_ms(torch, lambda: sdpa_bwd(dot, qt, kt, vt, sd[0], sd[1], sd[2], sd[3], sd[4], sd[5],
                                                         rate, False, sd[6], sd[7], scale=scale), iters=10)
-                b_ms2 = time_ms(torch, bwd, iters=10)
-                split = bwd_kernel_ms(torch, bwd)
+                split = {kern: bwd_kernel_ms(torch, lambda: call(kern)) for kern in kernels}
                 plain = {}
                 if n == LONG_TIME_NS[0]:
                     bh = [_to_bh(x) for x in (q, k, v)]
@@ -1416,27 +1449,34 @@ def time_streaming(torch, card):
                     plain["dq"] = time_ms(torch, lambda: streaming_dq(*bargs), iters=1, warmup=1)
                     plain["bwd"] = plain["dkdv"] + plain["dq"]
                     del bh, bargs
-                got = {"fwd": (f_times["wgmma"][0], None, f_lib),
-                       "bwd": (min(b_ms, b_ms2), f"{b_ms:.4f} / {b_ms2:.4f}", b_lib),
-                       "dkdv": (split["dkdv"], f"{split['dkdv']:.4f}", b_lib),
-                       "dq": (split["dq"], f"{split['dq']:.4f}", b_lib)}
-                for piece, (ms, shown, lib) in got.items():
+                got = {"fwd": (f_times["wgmma"][0], None, f_lib), "bwd": (b_times["wgmma"][0], None, b_lib),
+                       "dkdv": (split["wgmma"]["dkdv"], None, b_lib), "dq": (split["wgmma"]["dq"], None, b_lib)}
+                for piece, (ms, _, lib) in got.items():
                     bound = long_bound_ms(shape, "bfloat16", *LONG_PIECES[piece], d is not None)
-                    shown = (fwd_time_text(f_times, bound[0], bound[3]) if piece == "fwd" else f"kernel {shown} ms")
+                    if piece == "fwd":
+                        shown = fwd_time_text(f_times, bound[0], bound[3])
+                    elif piece == "bwd":
+                        shown = "in turns: " + bwd_time_text(b_times, bound[0], lib) + " (delta pre-pass " + ", ".join(
+                            f"{kern} {sp['delta']:.4f}" for kern, sp in split.items()) + " ms besides)"
+                    else:
+                        shown = ", ".join(f"{kern} {sp[piece]:.4f} ms" for kern, sp in split.items())
                     say(f"[4L time] streaming {piece} {shape} bf16 rate {rate}: {shown}"
-                        + (f" (delta pre-pass {split['delta']:.4f} ms besides)" if piece == "bwd" else "")
                         + (f", plain (64 x 64 tiles, timed once) {plain[piece]:.1f} ms" if plain else "")
                         + f", sdpa flash {'backward, whole call' if piece != 'fwd' else 'forward'} (dropout_p "
                         f"{rate}) {lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: {bound[2] / 1e6:.1f} MB, "
                         f"{bound[3] / 1e12:.3f} TFLOP" + (f", {bound[4] / 1e9:.2f} G INT32 ops of the hash"
                                                           if d is not None else "")
-                        + f"; tensor-core share {bound[3] / PEAK_FLOPS['bfloat16'] * 1e3 / ms * 100:.1f}%) [{card}]")
+                        + f"; the wgmma kernels' tensor-core share "
+                        f"{bound[3] / PEAK_FLOPS['bfloat16'] * 1e3 / ms * 100:.1f}%) [{card}]")
                     if n == LONG_TIME_NS[0] and d is None:
                         # no PyTorch call computes dK/dV or dQ alone: SDPA's
                         # backward stands beside the whole call only
                         timing[STREAM_TIMING_NAMES[piece]] = {
                             "ms": ms, "plain_ms": plain[piece], "library_ms": None if piece in ("dkdv", "dq") else lib,
                             "bound_ms": bound[0], "bound_by": bound[1]}
+                        if piece == "bwd":
+                            timing["flash_attn_bwd_stream_general"] = dict(timing["flash_attn_bwd_stream"],
+                                                                           ms=b_times["general"][0])
                 del o, lse, sd
         del q, k, v, do, qt, kt, vt, dot
         torch.cuda.empty_cache()
@@ -1478,8 +1518,10 @@ def phase_model_check(torch):
         loss.backward()
         losses.append(loss.item())
         grads.append({n: p.grad for n, p in m.named_parameters()})
-    if _build.LAUNCHES["flash_attn_bwd"] - before["flash_attn_bwd"] != cfg.num_blocks:
-        fail("the model's backward did not go through flash_attn_bwd once per block")
+    bwd_calls = {k: _build.LAUNCHES[k] - before[k] for k in ("flash_attn_bwd", *_build.FLASH_BWD_KERNELS)}
+    if bwd_calls != {"flash_attn_bwd": cfg.num_blocks, "flash_attn_bwd_wgmma": cfg.num_blocks,
+                     "flash_attn_bwd_general": 0}:
+        fail(f"the model's backward did not go through flash_attn_bwd's wgmma kernels once per block: {bwd_calls}")
     groups = grad_groups(torch, grads[0], grads[1])
     loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
     worst = max(groups.values())
@@ -1535,7 +1577,7 @@ def check_dropout_model(torch, model, images, labels):
         launched.append({k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]})
         del m
     want = {"flash_attn_fwd_drop": 2 * cfg.num_blocks, "flash_attn_bwd_drop": cfg.num_blocks,
-            "flash_attn_fwd_wgmma": 2 * cfg.num_blocks}
+            "flash_attn_fwd_wgmma": 2 * cfg.num_blocks, "flash_attn_bwd_wgmma": cfg.num_blocks}
     groups = grad_groups(torch, grads[0], grads[1])
     loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
     worst = max(groups.values())
@@ -1873,6 +1915,7 @@ def phase_train(torch, card):
     want = {"flash_attn_fwd": n_fwd, "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps,
             "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
             **dict.fromkeys(_build.STREAM_KERNELS, 0), "flash_attn_fwd_wgmma": n_fwd, "flash_attn_fwd_general": 0,
+            "flash_attn_bwd_wgmma": cfg.max_steps * cfg.num_blocks, "flash_attn_bwd_general": 0,
             **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if launches != want:
         fail(f"train() launched {launches}; expected {want}")
@@ -1904,7 +1947,8 @@ def phase_train(torch, card):
     want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1,
                  "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
                  **dict.fromkeys(_build.STREAM_KERNELS, 0), "flash_attn_fwd_wgmma": 2 * cfg.num_blocks,
-                 "flash_attn_fwd_general": 0, **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
+                 "flash_attn_fwd_general": 0, "flash_attn_bwd_wgmma": cfg.num_blocks, "flash_attn_bwd_general": 0,
+                 **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7 train] launches per steady step {per_step}")
@@ -1956,6 +2000,7 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
             "flash_attn_bwd": 0, "flash_attn_bwd_drop": cfg.max_steps * n, "fused_adamw": cfg.max_steps,
             "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
             "flash_attn_fwd_wgmma": cfg.eval_max_batches * n + cfg.max_steps * 2 * n, "flash_attn_fwd_general": 0,
+            "flash_attn_bwd_wgmma": cfg.max_steps * n, "flash_attn_bwd_general": 0,
             **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if launches != want:
         fail(f"train() under dropout launched {launches}; expected {want}")
@@ -2010,8 +2055,8 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}
     want_step = {"flash_attn_fwd": 0, "flash_attn_fwd_drop": 2 * n, "flash_attn_bwd": 0, "flash_attn_bwd_drop": n,
                  "fused_adamw": 1, "dequant_matmul": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
-                 "flash_attn_fwd_wgmma": 2 * n, "flash_attn_fwd_general": 0,
-                 **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
+                 "flash_attn_fwd_wgmma": 2 * n, "flash_attn_fwd_general": 0, "flash_attn_bwd_wgmma": n,
+                 "flash_attn_bwd_general": 0, **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps under dropout launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7d train] launches per steady step {per_step}")
@@ -2064,6 +2109,7 @@ def phase_train_long(torch, card):
         per_step["flash_attn_bwd_stream_drop" if drop else "flash_attn_bwd_stream"] = n_blk
         per_step["fused_adamw"] = 1
         per_step["flash_attn_fwd_wgmma"] = fwd_per_block * n_blk           # every forward on the wgmma kernel
+        per_step["flash_attn_bwd_wgmma"] = n_blk                           # every backward on the wgmma kernels
         want = {k: v * cfg.max_steps for k, v in per_step.items()}
         for key in ("flash_attn_fwd_stream", "flash_attn_fwd_wgmma"):
             want[key] += cfg.eval_max_batches * n_blk                       # the eval: rate 0, no recompute
@@ -2173,6 +2219,14 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
         {"name": "flash_attn_bwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_bwd.cu",
          "replaces": "vitax/ops/attention.py:302", "launches": train_launches["flash_attn_bwd"],
          "max_abs_err": errs["flash_attn_bwd"], **timing["flash_attn_bwd"]},
+        # the backward's general (mma.sync) kernels, for operands TMA does not
+        # take; no main-path call takes them (their count over every main
+        # path), phases 3 and 3L hold them, phases 4 and 4L time them in turns
+        {"name": "flash_attn_bwd_general", "route": "cuda", "source": bwd_src,
+         "replaces": "vitax/ops/attention.py:302",
+         "launches": sum(ls["flash_attn_bwd_general"] for ls in (serve_launches, quant_launches, train_launches,
+                                                                  drop_launches, long_launches)),
+         "max_abs_err": errs["flash_attn_bwd_general"], **timing["flash_attn_bwd_general"]},
         {"name": "fused_adamw", "route": "cuda", "source": "vitax_torch/csrc/fused_adamw.cu",
          "replaces": "vitax/ops/fused_optimizer.py:112",
          "launches": train_launches["fused_adamw"] + drop_launches["fused_adamw"] + long_launches["fused_adamw"],
@@ -2209,7 +2263,9 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
     for name, src, line, launches in (("flash_attn_fwd_stream", fwd_src, 63, fwd_launches),
                                       ("flash_attn_bwd_stream", bwd_src, 244, bwd_launches),
                                       ("flash_attn_bwd_stream_dkdv", bwd_src, 152, bwd_launches),
-                                      ("flash_attn_bwd_stream_dq", bwd_src, 205, bwd_launches)):
+                                      ("flash_attn_bwd_stream_dq", bwd_src, 205, bwd_launches),
+                                      ("flash_attn_bwd_stream_general", bwd_src, 244,
+                                       long_launches["flash_attn_bwd_general"])):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"vitax/ops/flash_blocked.py:{line}", "launches": launches,
                         "max_abs_err": errs[name], **timing[name]})

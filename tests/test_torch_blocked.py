@@ -308,7 +308,9 @@ def test_streaming_kernels_match_plain_on_card(cuda, shape, dtype, rate):
     """The streaming entry on strided card tensors (the kernels) against
     the plain versions at 64 x 64 tiles, with offsets past 2048 and a
     nonzero dlse, at the bars of chip_smoke.py's phase 3L; the launches
-    count under the streaming keys only (and the forward's kernel key)."""
+    count under the streaming keys only (and the forward's and the
+    backward's kernel keys: the wgmma backward for bf16 at Dh 64 and 160,
+    the general one for f32 and Dh 16)."""
     b, n, h, dh = shape
     td = getattr(torch, dtype)
     qkv = torch.from_numpy(_np((b, n, 3, h, dh), 0)).to(cuda, td)
@@ -322,8 +324,9 @@ def test_streaming_kernels_match_plain_on_card(cuda, shape, dtype, rate):
     moved = {key: val - before[key] for key, val in _build.LAUNCHES.items() if val != before[key]}
     suffix = "" if drop is None else "_drop"
     kernel = choose_fwd_kernel(*qkv.unbind(2))
+    bwd_kernel = "wgmma" if dtype == "bfloat16" and dh in (64, 160) else "general"
     assert moved == {f"flash_attn_fwd_stream{suffix}": 1, f"flash_attn_bwd_stream{suffix}": 1,
-                     f"flash_attn_fwd_{kernel}": 1}
+                     f"flash_attn_fwd_{kernel}": 1, f"flash_attn_bwd_{bwd_kernel}": 1}
     with torch.no_grad():
         bh = [_to_bh(x) for x in qkv.unbind(2)]
         o_ref, lse_ref = streaming_fwd_with_lse(*bh, dh ** -0.5, 64, 64, drop)

@@ -313,7 +313,8 @@ def test_long_context_model_on_card_matches_cpu(att_dropout):
     (l_cpu, loss_cpu, g_cpu, moved_cpu), (l_gpu, loss_gpu, g_gpu, moved_gpu) = out
     suffix = "_drop" if att_dropout else ""
     assert moved_cpu == {} and moved_gpu == {f"flash_attn_fwd_stream{suffix}": 4, f"flash_attn_bwd_stream{suffix}": 2,
-                                             "flash_attn_fwd_general": 4}     # f32, Dh 16
+                                             "flash_attn_fwd_general": 4,     # f32, Dh 16
+                                             "flash_attn_bwd_general": 2}
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-4, atol=1e-4)
     assert abs(loss_gpu - loss_cpu) <= 1e-4
     for name, g in g_cpu.items():

@@ -69,7 +69,7 @@
 // keys. At long N the wgmma kernel under dropout runs at that INT32 floor.
 
 #include "flash_common.cuh"
-#include "hopper_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -242,109 +242,6 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 // bfloat16, the wgmma kernel: TMA-fed K/V ring, warp-specialised
 // ---------------------------------------------------------------------------
 
-#define ACC8(c, d, i) \
-  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
-
-// d (64 x N, f32) (+)= A (64 x 16) * B (N x 16)^T, A and B bf16 in shared
-// memory, both K-major; scale_d 0 overwrites d. Register i of a thread holds
-// row 16 * warp + lane / 4 + 8 * (i / 2 % 2), column 8 * (i / 4) + 2 *
-// (lane % 4) + i % 2 (the mma.sync m16n8 layout, four warps stacked).
-template <int N>
-__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
-
-// d (64 x N, f32) += A (64 x 16, bf16 in registers: four bf16x2 a thread,
-// rows g and g + 8 of its warp's 16, k 2t..2t+1 and 2t+8..2t+9, the
-// mma.sync A layout) * B (16 x N, bf16 in shared memory, MN-major: N
-// contiguous, the transpose bit set).
-template <int N>
-__device__ void wgmma_rs_vt(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                            uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC8("+f", d, 0), ACC8("+f", d, 8), ACC8("+f", d, 16), ACC8("+f", d, 24),
-        ACC8("+f", d, 32), ACC8("+f", d, 40), ACC8("+f", d, 48), ACC8("+f", d, 56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_vt<64>(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8("+f", d, 0), ACC8("+f", d, 8), ACC8("+f", d, 16), ACC8("+f", d, 24)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_vt<128>(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8("+f", d, 0), ACC8("+f", d, 8), ACC8("+f", d, 16), ACC8("+f", d, 24),
-        ACC8("+f", d, 32), ACC8("+f", d, 40), ACC8("+f", d, 48), ACC8("+f", d, 56)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_vt<160>(float (&d)[80], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79"
-      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : ACC8("+f", d, 0), ACC8("+f", d, 8), ACC8("+f", d, 16), ACC8("+f", d, 24),
-        ACC8("+f", d, 32), ACC8("+f", d, 40), ACC8("+f", d, 48), ACC8("+f", d, 56),
-        ACC8("+f", d, 64), ACC8("+f", d, 72)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float LOG2E = 1.4426950408889634f;
-
 // The tile of each head dim the kernel is built for: key rows a K/V tile
 // (BN) and the swizzle span of a TMA box row in bytes (SW; a box holds SW /
 // 2 columns). Measured on an H100 80GB HBM3 at 700 W, PERF.md.
@@ -371,18 +268,6 @@ struct WgCfg {
   static_assert(DH % 16 == 0 && DP % 16 == 0 && BN % 16 == 0, "whole k16 steps");
   static_assert(STAGES >= 2, "the K/V ring holds at least two stages");
 };
-
-// Byte offset of element (row, col) in a tile of ROWS rows stored as TMA
-// boxes of SW-byte rows (box j holds columns [j SW/2, (j + 1) SW/2)), with
-// TMA's swizzle: the 16-byte chunk index XOR the row within the swizzle
-// atom (offset bits [4, 7) ^ [7, 10), as many bits as an SW row has chunks).
-// The tile starts 1024-aligned.
-template <int SW, int ROWS>
-__device__ __forceinline__ uint32_t tile_off(int row, int col) {
-  constexpr int BC = SW / 2;
-  const uint32_t off = (uint32_t)((col / BC) * ROWS * SW + row * SW + (col % BC) * 2);
-  return off ^ (((off >> 7) & (SW / 16 - 1)) << 4);
-}
 
 template <int DH, bool DROP>
 __global__ void __launch_bounds__(384, 1)
@@ -746,30 +631,6 @@ cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, void* 
   return dispatch_dh<T, false>(dh, q, k, v, o, lse, B, N, H, st, scale, vec, d, stream);
 }
 
-// q, k or v as a 4-D tensor map (Dh, H, N, B) over the strided view (element
-// strides s_h, s_n, s_b), boxes of (SW / 2, 1, rows, 1), SW-swizzled, zeros
-// out of bounds. A dimension of size 1 is never stepped along; it gets the
-// packed stride, so its own (any value) never meets TMA's rules.
-template <int SW>
-bool encode_view(CUtensorMap* map, const void* base, int dh, int H, int N, int B, int64_t s_b, int64_t s_n,
-                 int64_t s_h, int rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  if (H == 1) s_h = dh;
-  if (N == 1) s_n = s_h * H;
-  if (B == 1) s_b = s_n * N;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_n * 2, (cuuint64_t)s_b * 2};
-  const cuuint32_t box[4] = {SW / 2, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DH, bool DROP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int N, int H,
                          const int64_t* st, float scale, const Dropout& drop, cudaStream_t stream) {
@@ -799,18 +660,6 @@ cudaError_t dispatch_wgmma(int dh, const void* q, const void* k, const void* v, 
   }
 }
 
-// What TMA asks of a view: 16-byte-aligned bases, and every stride of a
-// dimension longer than 1 a multiple of 8 elements (16 bytes).
-bool wgmma_takes(const void* const* ptrs, const int64_t* st, int B, int N, int H) {
-  const int sizes[3] = {B, N, H};
-  for (int i = 0; i < 3; ++i) {
-    if ((reinterpret_cast<uintptr_t>(ptrs[i]) & 15u) != 0) return false;
-    for (int a = 0; a < 3; ++a)
-      if (sizes[a] > 1 && st[3 * i + a] % 8 != 0) return false;
-  }
-  return true;
-}
-
 }  // namespace
 
 extern "C" {
@@ -821,7 +670,7 @@ extern "C" {
 // query and key row, the uint32 threshold, float32(1 - rate) and its
 // float32 reciprocal. kernel: 0 the general kernel (mma.sync for bfloat16,
 // CUDA cores for float32), 1 the wgmma kernel (bfloat16, Dh 64, 128 or 160,
-// a finite scale > 0, what TMA takes: wgmma_takes); operands a kernel does
+// a finite scale > 0, what TMA takes: tma_takes); operands a kernel does
 // not take are refused, never sent elsewhere. Returns a cudaError_t (0 = success); the launch is
 // asynchronous on `stream`.
 int vitax_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
@@ -834,7 +683,7 @@ int vitax_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   const void* ptrs[3] = {q, k, v};
   const vitax::Dropout d{seed, q0, k0, threshold, keep_prob, inv_keep_prob};
   if (kernel == 1) {
-    if (dtype != 1 || !(scale > 0.f && scale < INFINITY) || !wgmma_takes(ptrs, strides, B, N, H))
+    if (dtype != 1 || !(scale > 0.f && scale < INFINITY) || !vitax::tma_takes(ptrs, 3, strides, B, N, H))
       return (int)cudaErrorInvalidValue;
     if (drop) return (int)dispatch_wgmma<true>(dh, q, k, v, o, lse, B, N, H, strides, scale, d, s);
     return (int)dispatch_wgmma<false>(dh, q, k, v, o, lse, B, N, H, strides, scale, d, s);

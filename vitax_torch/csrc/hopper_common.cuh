@@ -1,10 +1,11 @@
 // Hopper (sm_90a) helpers shared by the wgmma kernels (dequant_matmul.cu,
-// flash_attn_fwd.cu): shared-memory addresses and wgmma matrix
-// descriptors, mbarriers, TMA tile loads, the wgmma fence / commit / wait
-// and the register pin that keeps the compiler off registers an
-// asynchronous product still reads or writes, and the tensor-map encoder
-// from the driver. Each kernel source is its own shared library; this
-// header is compiled into each of them.
+// flash_attn_fwd.cu, flash_attn_bwd.cu): shared-memory addresses and wgmma
+// matrix descriptors, mbarriers, TMA tile loads, the wgmma fence / commit /
+// wait and the register pin that keeps the compiler off registers an
+// asynchronous product still reads or writes, the tensor-map encoder of
+// the CUDA driver API, and the 4-D maps over strided (B, N, H, Dh) views. Each
+// kernel source is its own shared library; this header is compiled into
+// each of them.
 
 #pragma once
 
@@ -127,6 +128,43 @@ inline EncodeTiledFn encode_tiled() {
     return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
   }();
   return fn;
+}
+
+// A bf16 (B, N, H, Dh) view as a 4-D tensor map (Dh, H, N, B) (element
+// strides s_h, s_n, s_b), boxes of (SW / 2, 1, rows, 1), SW-swizzled, zeros
+// out of bounds. A dimension of size 1 is never stepped along; it gets the
+// packed stride, so its own (any value) never meets TMA's rules.
+template <int SW>
+bool encode_view(CUtensorMap* map, const void* base, int dh, int H, int N, int B, int64_t s_b, int64_t s_n,
+                 int64_t s_h, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  if (H == 1) s_h = dh;
+  if (N == 1) s_n = s_h * H;
+  if (B == 1) s_b = s_n * N;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_n * 2, (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {SW / 2, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What TMA asks of n (B, N, H, Dh) views (element strides (batch, sequence,
+// head) of view i at st[3 i]): 16-byte-aligned bases, and every stride of a
+// dimension longer than 1 a multiple of 8 elements (16 bytes).
+inline bool tma_takes(const void* const* ptrs, int n, const int64_t* st, int B, int N, int H) {
+  const int sizes[3] = {B, N, H};
+  for (int i = 0; i < n; ++i) {
+    if ((reinterpret_cast<uintptr_t>(ptrs[i]) & 15u) != 0) return false;
+    for (int a = 0; a < 3; ++a)
+      if (sizes[a] > 1 && st[3 * i + a] % 8 != 0) return false;
+  }
+  return true;
 }
 
 }  // namespace vitax

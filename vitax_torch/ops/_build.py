@@ -15,7 +15,9 @@ the same kernels launched past 2048 tokens, where the streaming entries
 (ops/flash_blocked.py) take over (ops/attention.py `launch_key`), the two
 `FLASH_FWD_KERNELS` keys that split every attention forward launch
 between the forward's wgmma and its general kernel (ops/attention.py
-`choose_fwd_kernel`), and the two `DEQUANT_KERNELS` keys that split
+`choose_fwd_kernel`), the two `FLASH_BWD_KERNELS` keys that split every
+backward call the same way (`choose_bwd_kernel`), and the two
+`DEQUANT_KERNELS` keys that split
 `dequant_matmul`'s launches the same way (ops/dequant_matmul.py
 `choose_kernel`). A
 wrapper adds one where it launches its kernel and nowhere else, so a run
@@ -51,9 +53,10 @@ DROPOUT_KERNELS = ("flash_attn_fwd_drop", "flash_attn_bwd_drop")
 STREAM_KERNELS = ("flash_attn_fwd_stream", "flash_attn_bwd_stream", "flash_attn_fwd_stream_drop",
                   "flash_attn_bwd_stream_drop")
 FLASH_FWD_KERNELS = ("flash_attn_fwd_wgmma", "flash_attn_fwd_general")
+FLASH_BWD_KERNELS = ("flash_attn_bwd_wgmma", "flash_attn_bwd_general")
 DEQUANT_KERNELS = ("dequant_matmul_wgmma", "dequant_matmul_general")
 LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS, *STREAM_KERNELS, *FLASH_FWD_KERNELS,
-                                                 *DEQUANT_KERNELS)}
+                                                 *FLASH_BWD_KERNELS, *DEQUANT_KERNELS)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, dict] = {}

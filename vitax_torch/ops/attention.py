@@ -23,12 +23,13 @@ Past MAX_SEQ_IN_VMEM tokens `make_attention_impl` takes the streaming
 entries of vitax_torch/ops/flash_blocked.py (the counterparts of the TPU
 kernels A4, A5a and A5b), as the JAX package's `_select_path` does.
 
-The forward source holds two kernels for bfloat16: the wgmma kernel (TMA
-and wgmma, every main path) and the general mma.sync kernel (float32 has
-its own CUDA-core kernel, counted as general). `choose_fwd_kernel` picks
-one from the type, the head dim, the bases' alignment, the strides and
-the scale's sign; a kernel forced on operands it does not take raises,
-and nothing gives way to another kernel on a failure.
+Each source holds two kernel families for bfloat16: the wgmma kernels (TMA
+and wgmma, every main path) and the general mma.sync ones (float32 has its
+own CUDA-core kernels, counted as general). `choose_fwd_kernel` and
+`choose_bwd_kernel` pick one from the types, the head dim, the bases'
+alignment, the strides and the scale's sign; a kernel forced on operands
+it does not take raises, and nothing gives way to another kernel on a
+failure.
 """
 
 from __future__ import annotations
@@ -49,10 +50,12 @@ DROP_BWD_KERNEL = "flash_attn_bwd_drop"
 # head dims the kernels are instantiated for (dispatch_dh in csrc/flash_attn_{fwd,bwd}.cu)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The forward's kernels (the C entry's `kernel` argument) and the head dims
-# its wgmma kernel is built for (dispatch_wgmma in csrc/flash_attn_fwd.cu);
-# the others take the general kernel.
+# The forward's and the backward's kernels (the C entries' `kernel`
+# argument) and the head dims their wgmma kernels are built for
+# (dispatch_wgmma in csrc/flash_attn_{fwd,bwd}.cu); the others take the
+# general kernels.
 FWD_KERNELS = {"general": 0, "wgmma": 1}
+BWD_KERNELS = {"general": 0, "wgmma": 1}
 WGMMA_HEAD_DIMS = (64, 128, 160)
 TMA_ALIGN = 16                                  # bytes: TMA's base alignment and stride unit
 _F32_MAX = float(np.finfo(np.float32).max)      # the C entry takes the scale as a float32
@@ -311,22 +314,37 @@ def launch_key(n: int, dropout: Optional[Dropout], backward: bool) -> str:
     return keys[2 * (n > MAX_SEQ_IN_VMEM) + (dropout is not None)]
 
 
-def wgmma_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> bool:
-    """Whether the forward's wgmma kernel takes these (B, N, H, Dh)
-    operands: bfloat16, a head dim it is built for, a finite scale > 0 (it
-    takes the max of the raw scores and puts the scale into the exponent;
-    None is the default Dh ** -0.5), and what TMA asks of each view: a
-    16-byte-aligned base and the stride of every dimension longer than 1 a
-    multiple of 16 bytes (8 elements). Reads types, shapes, strides and
-    addresses only, so it works on tensors of any device."""
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)) or q.shape[-1] not in WGMMA_HEAD_DIMS:
+def _wgmma_operands(xs, head_dim: int, scale: Optional[float]) -> bool:
+    """Whether a wgmma kernel takes these (B, N, H, Dh) views: bfloat16, a
+    head dim it is built for, a finite scale > 0 (it puts the scale into the
+    exponent; None is the default Dh ** -0.5), and what TMA asks of each
+    view: a 16-byte-aligned base and the stride of every dimension longer
+    than 1 a multiple of 16 bytes (8 elements)."""
+    if any(x.dtype != torch.bfloat16 for x in xs) or head_dim not in WGMMA_HEAD_DIMS:
         return False
     if scale is not None and not (0.0 < scale <= _F32_MAX and np.float32(scale) > 0):   # as the C entry sees it
         return False
-    unit = TMA_ALIGN // q.element_size()
+    unit = TMA_ALIGN // xs[0].element_size()
     return all(x.data_ptr() % TMA_ALIGN == 0
                and all(size == 1 or stride % unit == 0 for size, stride in zip(x.shape[:3], x.stride()[:3]))
-               for x in (q, k, v))
+               for x in xs)
+
+
+def wgmma_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> bool:
+    """Whether the forward's wgmma kernel takes these (B, N, H, Dh)
+    operands (`_wgmma_operands`: it takes the max of the raw scores and
+    puts the scale into the exponent). Reads types, shapes, strides and
+    addresses only, so it works on tensors of any device."""
+    return _wgmma_operands((q, k, v), q.shape[-1], scale)
+
+
+def bwd_wgmma_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+                    scale: Optional[float] = None) -> bool:
+    """Whether the backward's wgmma kernels take these (B, N, H, Dh)
+    operands: `_wgmma_operands` of q, k, v, o and dO. dO's layout is the one
+    autograd hands over (`_FlashWithLse.backward`), so it is read like the
+    others."""
+    return _wgmma_operands((q, k, v, o, do), q.shape[-1], scale)
 
 
 def choose_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> str:
@@ -337,23 +355,57 @@ def choose_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: 
     return "wgmma" if wgmma_takes(q, k, v, scale) else "general"
 
 
-_forced_fwd: Optional[str] = None
+def choose_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+                      scale: Optional[float] = None) -> str:
+    """The backward kernels one call takes, as `choose_fwd_kernel`:
+    "wgmma" where `bwd_wgmma_takes`, else "general"."""
+    return "wgmma" if bwd_wgmma_takes(q, k, v, o, do, scale) else "general"
+
+
+_forced = {KERNEL: None, BWD_KERNEL: None}
 
 
 @contextlib.contextmanager
-def forced_fwd_kernel(kernel: Optional[str]) -> Iterator[None]:
+def _forcing(which: str, names, kernel: Optional[str]) -> Iterator[None]:
+    if kernel is not None and kernel not in names:
+        raise ValueError(f"{which}: no kernel {kernel!r}; one of {sorted(names)}")
+    before, _forced[which] = _forced[which], kernel
+    try:
+        yield
+    finally:
+        _forced[which] = before
+
+
+def forced_fwd_kernel(kernel: Optional[str]):
     """Every forward launch inside the block takes `kernel` (a FWD_KERNELS
     name; None restores `choose_fwd_kernel`), through whichever entry calls
     it: the checks and timings that hold each kernel in turn. A launch whose
     operands the kernel does not take raises."""
-    global _forced_fwd
-    if kernel is not None and kernel not in FWD_KERNELS:
-        raise ValueError(f"{KERNEL}: no kernel {kernel!r}; one of {sorted(FWD_KERNELS)}")
-    before, _forced_fwd = _forced_fwd, kernel
-    try:
-        yield
-    finally:
-        _forced_fwd = before
+    return _forcing(KERNEL, FWD_KERNELS, kernel)
+
+
+def forced_bwd_kernel(kernel: Optional[str]):
+    """`forced_fwd_kernel` for the backward calls (a BWD_KERNELS name)."""
+    return _forcing(BWD_KERNEL, BWD_KERNELS, kernel)
+
+
+def _resolve(which: str, names, kernel: Optional[str], chosen: Callable[[], str], takes: Callable[[], bool],
+             operands: str) -> str:
+    kernel = kernel or _forced[which]
+    if kernel is None:
+        return chosen()
+    if kernel not in names:
+        raise ValueError(f"{which}: no kernel {kernel!r}; one of {sorted(names)}")
+    if kernel == "wgmma" and not takes():
+        raise ValueError(f"{which}: wgmma does not take {operands} (it needs bfloat16, Dh in {WGMMA_HEAD_DIMS}, a "
+                         f"finite scale > 0, {TMA_ALIGN}-byte-aligned bases and strides a multiple of "
+                         f"{TMA_ALIGN} bytes)")
+    return kernel
+
+
+def _described(xs, scale) -> str:
+    return (f"{xs[0].dtype} (B, N, H, Dh) {tuple(xs[0].shape)} with strides {[x.stride() for x in xs]} and "
+            f"scale {scale}")
 
 
 def resolve_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernel: Optional[str] = None,
@@ -362,17 +414,17 @@ def resolve_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernel
     takes, else `choose_fwd_kernel`'s choice. An unknown name, or the wgmma
     kernel asked for operands it does not take, raises: nothing is sent
     elsewhere."""
-    kernel = kernel or _forced_fwd
-    if kernel is None:
-        return choose_fwd_kernel(q, k, v, scale)
-    if kernel not in FWD_KERNELS:
-        raise ValueError(f"{KERNEL}: no kernel {kernel!r}; one of {sorted(FWD_KERNELS)}")
-    if kernel == "wgmma" and not wgmma_takes(q, k, v, scale):
-        raise ValueError(f"{KERNEL}: wgmma does not take {q.dtype} (B, N, H, Dh) {tuple(q.shape)} with strides "
-                         f"{[x.stride() for x in (q, k, v)]} and scale {scale} (it needs bfloat16, Dh in "
-                         f"{WGMMA_HEAD_DIMS}, a finite scale > 0, {TMA_ALIGN}-byte-aligned bases and strides a "
-                         f"multiple of {TMA_ALIGN} bytes)")
-    return kernel
+    return _resolve(KERNEL, FWD_KERNELS, kernel, lambda: choose_fwd_kernel(q, k, v, scale),
+                    lambda: wgmma_takes(q, k, v, scale), _described((q, k, v), scale))
+
+
+def resolve_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+                       kernel: Optional[str] = None, scale: Optional[float] = None) -> str:
+    """`resolve_fwd_kernel` for the backward: `kernel` (or the one
+    `forced_bwd_kernel` set) checked against `bwd_wgmma_takes`, else
+    `choose_bwd_kernel`'s choice."""
+    return _resolve(BWD_KERNEL, BWD_KERNELS, kernel, lambda: choose_bwd_kernel(q, k, v, o, do, scale),
+                    lambda: bwd_wgmma_takes(q, k, v, o, do, scale), _described((q, k, v, o, do), scale))
 
 
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -423,13 +475,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
 
 def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor],
-                        scale: float, dropout: Optional[Dropout] = None
+                        scale: float, dropout: Optional[Dropout] = None, kernel: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the Hopper backward kernel (one call = the delta pre-pass, the
-    dK/dV kernel and the dQ kernel) on strided (B, N, H, Dh) CUDA views,
-    their dropout instantiations when `dropout` is given. dlse None means
-    zero. Returns dq, dk, dv contiguous (B, N, H, Dh) in the input type.
-    The call counts under `launch_key`."""
+    """Launch a Hopper backward (one call = the delta pre-pass, the dK/dV
+    kernel and the dQ kernel) on strided (B, N, H, Dh) CUDA views, their
+    dropout instantiations when `dropout` is given: `kernel` (a BWD_KERNELS
+    name) or `resolve_bwd_kernel`'s choice. dlse None means zero. Returns
+    dq, dk, dv contiguous (B, N, H, Dh) in the input type. The call counts
+    under `launch_key` and under its kernel's key."""
     _check_kernel_inputs(BWD_KERNEL, q=q, k=k, v=v, o=o, do=do)
     b, n, h, dh = q.shape
     for name, x in (("lse", lse), ("dlse", dlse)):
@@ -437,10 +490,11 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                               or x.device != q.device or not x.is_contiguous()):
             raise ValueError(f"{BWD_KERNEL}: {name} must be contiguous float32 ({b}, {h}, {n}) on "
                              f"{q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    kernel = resolve_bwd_kernel(q, k, v, o, do, kernel, float(scale))
     lib = _build.load(BWD_KERNEL)
     fn = lib.vitax_flash_attn_bwd
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, *_DROPOUT_ARGTYPES, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, *_DROPOUT_ARGTYPES, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dq, dk, dv = (torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device) for _ in range(3))
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -451,9 +505,10 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                  lse.data_ptr(), None if dlse is None else dlse.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
                  _DTYPE_CODES[q.dtype], b, n, h, dh, strides, float(scale), *_kernel_dropout_args(dropout),
-                 stream)
+                 BWD_KERNELS[kernel], stream)
     _build.check(lib, BWD_KERNEL, err)
     _build.LAUNCHES[launch_key(n, dropout, backward=True)] += 1
+    _build.LAUNCHES[f"{BWD_KERNEL}_{kernel}"] += 1
     return dq, dk, dv
 
 

@@ -33,18 +33,24 @@ TOL_O = 1.6e-2                  # chip_smoke.py TOL["bfloat16"]: max |do|, max |
 TOL_LSE = 1e-3
 
 
+def wgmma_entry(ln: str):
+    """`name<DH, DROP>` of the wgmma kernel instantiation whose mangled
+    name a ptxas or cuobjdump line holds, else None."""
+    m = re.search(r"\d([a-z][a-z_]*wgmma_kernel)ILi(\d+)ELb(\d)E", ln)     # length, then the name
+    return f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>" if m else None
+
+
 def wgmma_report(name: str, ptxas: str) -> None:
     """Registers and spills of each wgmma instantiation in an nvcc -Xptxas -v
     report, and ptxas's warnings about them."""
     entry = None
     for ln in ptxas.splitlines():
-        m = re.search(r"Compiling entry function '\S+wgmma_kernelILi(\d+)ELb(\d)E", ln)
         if "Compiling entry function" in ln:
-            entry = f"wgmma_kernel<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}>" if m else None
+            entry = wgmma_entry(ln)
         elif entry and ("spill" in ln or "Used" in ln):
             print(f"{name}: {entry}: {ln.split(':', 1)[-1].strip()}", flush=True)
-        elif "C7512" in ln:
-            print(f"{name}: {ln.strip()[:160]}", flush=True)
+        elif "C75" in ln:
+            print(f"{name}: {ln.strip()[:200]}", flush=True)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -58,6 +64,27 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_ms(fn, patterns, calls: int) -> dict:
+    """Device ms per launch of the kernels whose names match each of
+    `patterns` ({piece: regex}), from torch.profiler over `calls` calls of
+    `fn`: the recorded time over the recorded launches, which need not be
+    all of them; nan for a piece with no recorded device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for piece, pat in patterns.items():
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and re.search(pat, e.key)]
+        total_ms, count = sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
+        out[piece] = total_ms / count if count and total_ms > 0 else float("nan")
+    return out
 
 
 def main(argv=None) -> int:
