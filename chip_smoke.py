@@ -56,8 +56,10 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      init on the card) behind the HTTP server, answering 32 /predict
      requests from 8 threads and one /predict_batch of 8 images, with every
      kernel's launch count read around exactly that traffic (every
-     attention forward on the wgmma kernel, here and in phases 6q to 7L),
-     then a profile of one bucket-8 forward;
+     attention forward on the wgmma kernel, here and in phases 6q to 7s),
+     then 8 JPEG /predict bodies on a line of their own, each counted
+     under the decode path it must take (native where the decoder builds,
+     else PIL), then a profile of one bucket-8 forward;
   6q. quantized serving: that model quantized on the card to int8 and to
      fp8, three engines (int8 weight-only, int8 with int8 activations, fp8
      weight-only) each answering the same traffic over HTTP, with
@@ -82,6 +84,19 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      under remat_policy dots_attn_saveable, each with its launch counts
      checked against the steps, sec/iter, images/s, MFU, peak memory and
      a profile of one steady step;
+  7i. phase 7's run from an ImageFolder tree that PIL writes at run time
+     (8 classes x 64 JPEGs of 180-640 px, 4 PNGs; val 8 x 8), on the
+     native decoder where g++ finds libjpeg's header, else on the PIL
+     path asked for by name: launches as phase 7, finite losses, the
+     decode counts, the first batch delivered against the dataset's
+     load_batch bitwise, sec/iter beside phase 7's, data_wait_s, a
+     profiled loader-fed window (device idle) and loader-fed against
+     resident-batch steps in turns;
+  7s. the tree packed with vitax_torch.tools.make_shards: the stream
+     batch against the ImageFolder batch of the same samples bitwise, then
+     train() with --data_format stream at depth 2, 8 steps, checked and
+     timed as 7i; then the loaders alone (ShardedLoader and StreamLoader,
+     uint8 at 224^2, at 4 workers and the host's CPU count) in images/s;
   8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -98,6 +113,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -237,6 +253,15 @@ LONG_TIME_NS = (4096, 9216)
 # bars are about 2.5-3x those. A seed off by one lands 0.37-0.96 of max
 # |ref| away, and dropping dlse moves dq and dk by 0.07-0.96.
 LONG_TOL = {"bfloat16": (1.6e-2, 2e-2, 5e-6), "float32": (1e-5, 1e-5, 5e-6)}
+# Phases 7i and 7s: phase 7's run from an ImageFolder tree that PIL writes at
+# run time, and from its packed shards (depth 2, 8 steps); phase 6 also
+# sends SERVE_JPEGS JPEG bodies. The loaders alone run at LOADER_IMAGE.
+DATA_CLASSES, DATA_TRAIN_PER_CLASS, DATA_VAL_PER_CLASS, DATA_PNGS = 8, 64, 8, 4
+TRAIN_TREE = dict(TRAIN, fake_data=False)
+TRAIN_STREAM = dict(TRAIN, fake_data=False, num_blocks=2, max_steps=8, data_format="stream")
+SERVE_JPEGS = 8
+LOADER_IMAGE = 224
+TURNS, TURN_STEPS = 4, 3                 # loader-fed against resident-batch steps, in alternating rounds
 TRAIN_LONG = dict(patch_size=14, embed_dim=1024, num_heads=16, num_blocks=4, batch_size=2, num_classes=1000,
                   fake_data=True, max_steps=8, warmup_steps=4, log_step_interval=1, eval_max_batches=1,
                   test_epoch_interval=1)
@@ -1665,9 +1690,10 @@ KERNEL_GROUPS = (("flash_attn_fwd_drop", r"flash_attn_fwd_\w+_kernel<\d+, true>"
                  ("gemm", r"gemm|xmma|nvjet|cutlass|sm90_"))
 
 
-def profile_device(torch, fn, label: str, card: str, phase: str, top: int = 8) -> None:
+def profile_device(torch, fn, label: str, card: str, phase: str, top: int = 8):
     """Where one call of `fn` spends device time (torch.profiler): wall,
-    device busy and idle, time by kernel group, the top kernels."""
+    device busy and idle, time by kernel group, the top kernels. Returns
+    (wall ms, device busy ms)."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1693,6 +1719,7 @@ def profile_device(torch, fn, label: str, card: str, phase: str, top: int = 8) -
         + f" [{card}]")
     for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:top]:
         say(f"[{phase} profile]   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+    return wall_ms, busy_ms
 
 
 def profile_forward(torch, engine, cfg, card):
@@ -1702,11 +1729,12 @@ def profile_forward(torch, engine, cfg, card):
     profile_device(torch, lambda: engine.predict(x), "bucket-8 forward", card, "6")
 
 
-def serve_over_http(torch, engine, cfg, label: str):
+def serve_over_http(torch, engine, cfg, label: str, extra=None):
     """Put `engine` behind the HTTP server and send it the main path's
     traffic: 32 /predict requests from 8 threads, then one /predict_batch of
     8 images, with every kernel's launch count read around exactly that
-    traffic. Checks the answers and the server's counts; returns (launches,
+    traffic. Checks the answers and the server's counts; then runs
+    `extra(url, ctx)`, if given, before the server stops. Returns (launches,
     /metrics, engine batches, client latencies, wall seconds)."""
     from vitax_torch.ops import _build
     from vitax_torch.serve import start_server, stop_server
@@ -1743,6 +1771,8 @@ def serve_over_http(torch, engine, cfg, label: str):
             fail(f"{label}: requests failed: {errors[:4]}")
         health = http(url + "/healthz")
         metrics = http(url + "/metrics")
+        if extra is not None:
+            extra(url, ctx)
     finally:
         stop_server(httpd, ctx)
 
@@ -1797,11 +1827,16 @@ def phase_main_path(torch, card):
         f"{engine.param_bytes() / 1e9:.1f} GB) depth {cfg.num_blocks} width {cfg.embed_dim} "
         f"heads {cfg.num_heads} patch {cfg.patch_size} image {cfg.image_size}, init {t_init:.1f}s, "
         f"warmup " + ", ".join(f"{b}:{s:.2f}s" for b, s in warm.items()))
-    launches, metrics, batches, lat, wall = serve_over_http(torch, engine, cfg, "6 main")
+    jpeg = {}
+    launches, metrics, batches, lat, wall = serve_over_http(
+        torch, engine, cfg, "6 main", extra=lambda url, ctx: jpeg.update(serve_jpegs(url, ctx, cfg)))
     say(f"[6 main] {traffic_line(metrics, batches, lat, wall)}; "
         f"flash_attn_fwd launches {launches['flash_attn_fwd']} (wgmma {launches['flash_attn_fwd_wgmma']}, general "
         f"{launches['flash_attn_fwd_general']}); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    say(f"[6 jpeg] {SERVE_JPEGS} JPEG /predict bodies ({jpeg['sizes']}) after that traffic, one a thread: decoded "
+        f"{jpeg['decoded']} ({jpeg['why']}); latency p50 {np.percentile(jpeg['lat'], 50) * 1e3:.1f} ms max "
+        f"{jpeg['lat'].max() * 1e3:.1f} ms (client) in {jpeg['wall']:.3f}s [{card}]")
     profile_forward(torch, engine, cfg, card)
     return launches, engine
 
@@ -1877,11 +1912,26 @@ def phase_quant_serve(torch, card, engine_f32):
     return total
 
 
+def train_run_launches(cfg) -> dict:
+    """Every launch count of a rate-0 train() run of cfg at N <= 2048: per
+    optimizer step a forward and a recompute per block, a backward per
+    block, one optimizer launch; the eval adds a forward per block per
+    batch. All on the wgmma kernels."""
+    from vitax_torch.ops import _build
+    n_fwd = cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks
+    return {"flash_attn_fwd": n_fwd, "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps,
+            "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
+            **dict.fromkeys(_build.STREAM_KERNELS, 0), "flash_attn_fwd_wgmma": n_fwd, "flash_attn_fwd_general": 0,
+            "flash_attn_bwd_wgmma": cfg.max_steps * cfg.num_blocks, "flash_attn_bwd_general": 0,
+            **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
+
+
 def phase_train(torch, card):
     """The train main path: train() in process at the 10B width, depth 8,
     batch 32, fake data; then one profiled steady step and the fused
     optimizer checked and timed on the trained state. Returns (launches,
-    (max |d| of B on the state's table, timing of B))."""
+    (max |d| of B on the state's table, timing of B), the first loss,
+    (sec/iter, MFU))."""
     from vitax_torch.config import Config
     from vitax_torch.models.vit import expected_param_count
     from vitax_torch.ops import _build
@@ -1909,14 +1959,7 @@ def phase_train(torch, card):
     n_params = expected_param_count(cfg)
     if sum(p.numel() for p in state.model.parameters()) != n_params:
         fail("the trained model does not have the expected parameter count")
-    # per optimizer step: a forward and a recompute per block, a backward per
-    # block, one optimizer launch; the eval adds a forward per block per batch
-    n_fwd = cfg.max_steps * 2 * cfg.num_blocks + cfg.eval_max_batches * cfg.num_blocks
-    want = {"flash_attn_fwd": n_fwd, "flash_attn_bwd": cfg.max_steps * cfg.num_blocks, "fused_adamw": cfg.max_steps,
-            "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
-            **dict.fromkeys(_build.STREAM_KERNELS, 0), "flash_attn_fwd_wgmma": n_fwd, "flash_attn_fwd_general": 0,
-            "flash_attn_bwd_wgmma": cfg.max_steps * cfg.num_blocks, "flash_attn_bwd_general": 0,
-            **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
+    want = train_run_launches(cfg)
     if launches != want:
         fail(f"train() launched {launches}; expected {want}")
     times = [r["step_seconds"] for r in steps[2:]]          # steps 3 to 12
@@ -1957,7 +2000,7 @@ def phase_train(torch, card):
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, timing, losses[0]
+    return launches, timing, losses[0], (sec_per_iter, mfu)
 
 
 def phase_train_dropout(torch, card, first_loss_rate0: float):
@@ -2143,6 +2186,352 @@ def phase_train_long(torch, card):
         torch.cuda.empty_cache()
     return total
 
+# --- phases 6 (JPEG bodies), 7i, 7s and the loader alone: real images ---------
+
+def jpeg_body(rng, w: int, h: int, colour) -> bytes:
+    """A JPEG (quality 90) of a colour field with stripes and noise, as PIL writes it."""
+    import io
+    from PIL import Image
+    fx, fy = rng.uniform(2, 12, 2)
+    x = np.sin(np.linspace(0, fx * np.pi, w, dtype=np.float32))[None, :, None]
+    y = np.cos(np.linspace(0, fy * np.pi, h, dtype=np.float32))[:, None, None]
+    arr = np.asarray(colour, np.float32) + 50 * x + 40 * y + rng.integers(-20, 21, (h, w, 3))
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def native_choice(phase: str):
+    """(use_native, why): the native decoder where g++ finds libjpeg's
+    header here (a failed build then fails the run), else the PIL path,
+    asked for by name with the reason printed."""
+    from vitax_torch import _native
+    from vitax_torch.data import native
+    reason = _native.missing_toolchain()
+    if reason:
+        say(f"[{phase} data] the native JPEG decoder cannot be built on this machine ({reason}); the PIL path is "
+            f"asked for by name (use_native=False)")
+        return False, f"PIL by request: {reason}"
+    if not native.available():
+        fail(f"the native JPEG decoder failed to build: {_native.unavailable_reason()}")
+    return True, "native"
+
+
+def serve_jpegs(url: str, ctx, cfg) -> dict:
+    """Phase 6's JPEG bodies, one a thread, after the counted traffic: every
+    answer checked, and every body counted under the decode path the
+    server's data says it must take (native where it builds, else PIL)."""
+    rng = np.random.default_rng(SEED + 6)
+    sizes = [(int(w), int(h)) for w, h in rng.integers(180, 641, (SERVE_JPEGS, 2))]
+    bodies = [jpeg_body(rng, w, h, rng.integers(30, 226, 3)) for w, h in sizes]
+    before = ctx.decoded.snapshot()
+    answers, lat, errors = [None] * len(bodies), np.zeros(len(bodies)), []
+
+    def client(i: int) -> None:
+        t = time.perf_counter()
+        try:
+            answers[i] = http(url + "/predict", bodies[i], "image/jpeg")
+        except Exception as e:  # noqa: BLE001 - reported below, the run fails
+            errors.append(f"JPEG request {i}: {e!r}")
+        lat[i] = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"6 jpeg: requests failed: {errors[:4]}")
+    for ans in answers:
+        check_answer(ans, cfg.serve_topk, cfg.num_classes)
+    after = ctx.decoded.snapshot()
+    decoded = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    from vitax_torch.data import native
+    use_native = native.available()
+    want_path = "native" if use_native else "pil"
+    if decoded.get(want_path, 0) != len(bodies) or sum(decoded.get(k, 0) for k in ("native", "pil", "ppm")) != len(
+            bodies):
+        fail(f"6 jpeg: {len(bodies)} JPEG bodies decoded {decoded}; every one must take the {want_path} path")
+    from vitax_torch import _native
+    why = "the native decoder" if use_native else f"PIL: no native decoder here, {_native.unavailable_reason()}"
+    return {"sizes": ", ".join(f"{w}x{h}" for w, h in sizes), "decoded": decoded, "why": why, "lat": lat,
+            "wall": wall}
+
+
+def write_tree(root: str) -> dict:
+    """The ImageFolder tree of phases 7i and 7s, written with PIL: train 8
+    classes x 64 JPEGs of 180-640 px a side (quality 90, each class its own
+    colour under stripes and noise) and 4 PNGs; val 8 x 8 JPEGs."""
+    from PIL import Image
+    rng = np.random.default_rng(SEED + 70)
+    palette = rng.integers(30, 226, (DATA_CLASSES, 3))
+    t0 = time.perf_counter()
+    nbytes = 0
+    for split, per_class in (("train", DATA_TRAIN_PER_CLASS), ("val", DATA_VAL_PER_CLASS)):
+        for c in range(DATA_CLASSES):
+            d = os.path.join(root, split, f"class_{c:02d}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(per_class):
+                w, h = (int(v) for v in rng.integers(180, 641, 2))
+                body = jpeg_body(rng, w, h, palette[c])
+                nbytes += len(body)
+                with open(os.path.join(d, f"{i:03d}.jpg"), "wb") as f:
+                    f.write(body)
+    for k in range(DATA_PNGS):
+        w, h = (int(v) for v in rng.integers(180, 641, 2))
+        arr = np.clip(palette[k] + rng.integers(-30, 31, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(root, "train", f"class_{k:02d}", f"zz_{k}.png"))
+    n_train = DATA_CLASSES * DATA_TRAIN_PER_CLASS + DATA_PNGS
+    say(f"[7i data] tree: train {n_train} images ({DATA_CLASSES} classes x {DATA_TRAIN_PER_CLASS} JPEGs + "
+        f"{DATA_PNGS} PNGs), val {DATA_CLASSES * DATA_VAL_PER_CLASS} JPEGs, {nbytes / 1e6:.1f} MB of JPEG, "
+        f"written in {time.perf_counter() - t0:.1f}s")
+    return {"train": n_train, "val": DATA_CLASSES * DATA_VAL_PER_CLASS}
+
+
+class FirstBatch:
+    """A loader that keeps a host copy of the first batch it delivers and
+    passes everything else through."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.first = None
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def epoch(self, epoch: int, start_step: int = 0):
+        for batch in self.loader.epoch(epoch, start_step):
+            if self.first is None:
+                self.first = {k: v.cpu() for k, v in batch.items()}
+            yield batch
+
+
+def check_decoded(phase: str, c: dict, use_native: bool, batch: int, at_least: int) -> dict:
+    """A dataset's decode counts say every JPEG took the asked-for path, in whole batches."""
+    total = c["native"] + c["pil"]
+    ok = (c["pil_jpeg"] == 0 and c["native"] > 0) if use_native else c["native"] == 0
+    if not ok or total % batch or total < at_least:
+        fail(f"{phase}: the dataset decoded {c}; expected every JPEG through the "
+             f"{'native' if use_native else 'PIL'} path, whole batches of {batch}, at least {at_least} items")
+    return c
+
+
+def train_from_data(torch, cfg, data, phase: str, card: str):
+    """train() on the card from `data` (build_datasets' tuple), its launches
+    checked against its steps as in phase 7; then three steady steps fed by
+    the same loader, profiled. Returns (state, the first batch delivered,
+    launches, {"sec", "mfu", "wait", "idle"})."""
+    from vitax_torch.ops import _build
+    from vitax_torch.telemetry.flops import model_flops_per_step, peak_tflops
+    from vitax_torch.train.loop import train
+    from vitax_torch.train.state import build_optimizer
+    from vitax_torch.train.step import make_train_step
+    train_ds, train_loader, val_ds, val_loader = data
+    tap = FirstBatch(train_loader)
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = train(cfg, "cuda", records=records, data=(train_ds, tap, val_ds, val_loader))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = [r for r in records if "loss" in r]
+    evals = [r for r in records if "top1" in r]
+    losses = [r["loss"] for r in steps]
+    if len(steps) != cfg.max_steps or len(evals) != 1 or not all(np.isfinite(losses)):
+        fail(f"{phase}: train() logged {len(steps)} steps, {len(evals)} evals, losses {losses}; expected "
+             f"{cfg.max_steps} finite and 1")
+    want = train_run_launches(cfg)
+    if launches != want:
+        fail(f"{phase}: train() launched {launches}; expected {want}")
+    times = [r["step_seconds"] for r in steps[2:]]
+    waits = [r["data_wait_s"] for r in steps[2:]]
+    sec = float(np.median(times))
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    mfu = (model_flops_per_step(cfg) / sec / (peak * 1e12)) if peak else None
+    say(f"[{phase} train] {train_ds!r}: 10B width, depth {cfg.num_blocks}, batch {cfg.batch_size}, "
+        f"{cfg.max_steps} steps + eval in {wall:.1f}s; losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; eval top1 {evals[0]['top1']:.4f}")
+    say(f"[{phase} train] sec/iter median of steps 3-{cfg.max_steps} {sec:.4f} s (min {min(times):.4f}, max "
+        f"{max(times):.4f}); {cfg.batch_size / sec:.2f} images/s; MFU "
+        + (f"{mfu * 100:.2f}% of {peak:.0f} TFLOP/s bf16" if mfu is not None else "not measured (no peak)")
+        + f"; data_wait_s a step median {float(np.median(waits)):.4f} (max {max(waits):.4f}); max_memory_allocated "
+        f"{peak_gb:.2f} GB; launches {launches} [{card}]")
+    decoded = train_ds.decoded.snapshot()
+    optimizer, _ = build_optimizer(cfg, 100)
+    train_step = make_train_step(cfg, optimizer, "cuda")
+    it = train_loader.epoch(2)
+    next(it)                                   # the queue fills behind the first batch
+    train_loader.consume_wait_s()
+    wall_ms, busy_ms = profile_device(torch, lambda: [train_step(state, next(it)) for _ in range(3)],
+                                      f"three steps fed by the loader (batch {cfg.batch_size}, depth "
+                                      f"{cfg.num_blocks})", card, phase, top=6)
+    it.close()
+    wait = train_loader.consume_wait_s() / 6
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    say(f"[{phase} train] loader-fed window: device idle {idle * 100:.1f}% of {wall_ms:.2f} ms, data_wait_s a "
+        f"step {wait:.4f} [{card}]")
+    fed, resident = steps_in_turns(torch, train_step, state, train_loader)
+    say(f"[{phase} train] in turns, {TURNS} rounds of {TURN_STEPS} steps, each step's loss fetched as train() "
+        f"does: fed by the loader {np.median(fed):.4f} s a step ({', '.join(f'{x:.4f}' for x in fed)}), one "
+        f"batch resident on the card {np.median(resident):.4f} ({', '.join(f'{x:.4f}' for x in resident)}): "
+        f"{np.median(fed) / np.median(resident):.3f}x [{card}]")
+    del train_step
+    return state, tap.first, launches, {"sec": sec, "mfu": mfu, "wait": float(np.median(waits)), "idle": idle,
+                                        "decoded": decoded}
+
+
+def steps_in_turns(torch, train_step, state, loader):
+    """Steps fed by the loader against steps on one batch already on the
+    card, in alternating rounds (so a drift of the card's speed hits both
+    arms alike), each step's loss fetched as train() does at
+    log_step_interval 1. Returns (fed, resident) seconds a step per round."""
+    if loader.steps_per_epoch < 1 + TURNS * TURN_STEPS:
+        fail(f"an epoch of {loader.steps_per_epoch} batches is too short for {TURNS} rounds of {TURN_STEPS} steps")
+    it = loader.epoch(3)
+    resident = next(it)
+    times = {"fed": [], "resident": []}
+    for r in range(TURNS):
+        for arm in (("fed", "resident") if r % 2 == 0 else ("resident", "fed")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TURN_STEPS):
+                _, metrics = train_step(state, next(it) if arm == "fed" else resident)
+                float(metrics["loss"])
+            times[arm].append((time.perf_counter() - t0) / TURN_STEPS)
+    it.close()
+    return times["fed"], times["resident"]
+
+
+def phase_train_tree(torch, card, root: str, fake: tuple):
+    """Phase 7i: phase 7's run (10B width, depth 8, batch 32, 12 steps, a
+    2-batch eval) from the ImageFolder tree, device_normalize on. Checks
+    its launches, finite losses, the decode counts, and the first batch
+    the loader delivered against the dataset's load_batch of the sampler's
+    first row, bitwise. Returns (launches, use_native)."""
+    from vitax_torch.config import Config
+    from vitax_torch.data.loader import build_datasets
+    use_native, why = native_choice("7i")
+    cfg = Config(seed=SEED, **TRAIN_TREE, data_dir=os.path.join(root, "tree")).validate()
+    data = build_datasets(cfg, "cuda", use_native=use_native)
+    train_ds, train_loader, val_ds, _ = data
+    state, first, launches, m = train_from_data(torch, cfg, data, "7i", card)
+    c = check_decoded("7i", m["decoded"], use_native, cfg.batch_size, cfg.max_steps * cfg.batch_size)
+    v = check_decoded("7i val", val_ds.decoded.snapshot(), use_native, cfg.batch_size,
+                      cfg.eval_max_batches * cfg.batch_size)
+    row = train_loader.sampler.epoch_indices(1)[0]
+    train_ds.set_epoch(1)
+    want_img, want_lbl = train_ds.load_batch(row, cfg.num_workers)
+    same = (first["image"].dtype == torch.uint8 and np.array_equal(first["image"].numpy(), want_img)
+            and np.array_equal(first["label"].numpy(), want_lbl))
+    say(f"[7i check] decode path {why}: train {c}, val {v}; the first batch delivered "
+        f"({tuple(first['image'].shape)} {first['image'].dtype}) equals load_batch of the sampler's first row "
+        f"bitwise: {same}")
+    if not same:
+        fail("7i: the first batch the loader delivered differs from the dataset's load_batch of the same row")
+    sec7, mfu7 = fake
+    say(f"[7i train] from the tree against phase 7's fake data: sec/iter {m['sec']:.4f} / {sec7:.4f} "
+        f"({m['sec'] / sec7:.3f}x), images/s {cfg.batch_size / m['sec']:.2f} / {cfg.batch_size / sec7:.2f}, MFU "
+        + (f"{m['mfu'] * 100:.2f}% / {mfu7 * 100:.2f}%" if m["mfu"] and mfu7 else "not measured")
+        + f"; data_wait_s a step {m['wait']:.4f} [{card}]")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, use_native
+
+
+def phase_train_stream(torch, card, root: str, use_native: bool):
+    """Phase 7s: the same tree packed with the port's make_shards; on the
+    host, the stream dataset's batch for the sampler's first row equals the
+    ImageFolder dataset's for the same global ids, bitwise; then train()
+    with --data_format stream at the 10B width, depth 2, 8 steps, its
+    launches, decode counts and first batch checked. Returns the launches."""
+    from vitax_torch.config import Config
+    from vitax_torch.data.imagefolder import ImageFolderDataset
+    from vitax_torch.data.loader import build_datasets
+    from vitax_torch.data.transforms import TrainTransform
+    from vitax_torch.tools.make_shards import pack_split
+    t0 = time.perf_counter()
+    metas = {split: pack_split(os.path.join(root, "tree", split), os.path.join(root, "shards", split), quiet=True)
+             for split in ("train", "val")}
+    say(f"[7s data] packed with vitax_torch.tools.make_shards in {time.perf_counter() - t0:.2f}s: "
+        + ", ".join(f"{k} {m['num_records']} records in {len(m['shards'])} shard(s)" for k, m in metas.items()))
+    cfg = Config(seed=SEED, **TRAIN_STREAM, data_dir=os.path.join(root, "shards")).validate()
+    data = build_datasets(cfg, "cuda", use_native=use_native)
+    train_ds, train_loader, val_ds, _ = data
+    folder = ImageFolderDataset(os.path.join(root, "tree", "train"), TrainTransform(cfg.image_size, cfg.seed),
+                                use_native=use_native)
+    sampler = train_loader.sampler
+    entries = [(int(s), int(r), sampler.global_id(s, r)) for s, r in sampler.epoch_entries(1)[0]]
+    train_ds.set_epoch(1)
+    folder.set_epoch(1)
+    s_img, s_lbl = train_ds.load_entries(entries, cfg.num_workers)
+    f_img, f_lbl = folder.load_batch([g for _, _, g in entries], cfg.num_workers)
+    same_host = np.array_equal(s_img, f_img) and np.array_equal(s_lbl, f_lbl)
+    say(f"[7s check] the stream batch of the sampler's first row ({len(entries)} global ids from "
+        f"{len({s for s, _, _ in entries})} shard(s)) equals the ImageFolder batch of the same ids bitwise: "
+        f"{same_host}")
+    if not same_host:
+        fail("7s: the stream dataset and the ImageFolder dataset give different pixels for the same samples")
+    before = train_ds.decoded.snapshot()                 # the check above; count what train() decodes
+    state, first, launches, m = train_from_data(torch, cfg, data, "7s", card)
+    c = check_decoded("7s", {k: v - before.get(k, 0) for k, v in m["decoded"].items()}, use_native,
+                      cfg.batch_size, cfg.max_steps * cfg.batch_size)
+    v = check_decoded("7s val", val_ds.decoded.snapshot(), use_native, cfg.batch_size,
+                      cfg.eval_max_batches * cfg.batch_size)
+    same = (np.array_equal(first["image"].numpy(), s_img) and np.array_equal(first["label"].numpy(), s_lbl))
+    say(f"[7s check] decode counts train {c}, val {v}; the first batch delivered equals load_entries of the "
+        f"sampler's first row bitwise: {same}")
+    if not same:
+        fail("7s: the first batch the stream loader delivered differs from load_entries of the same row")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_loaders(torch, root: str, card: str, use_native: bool) -> None:
+    """The loaders alone: one epoch of the train split (16 batches of 32,
+    uint8 at 224^2) copied to the card, at num_workers 4 and the host's CPU
+    count, for ShardedLoader through PIL and (where it builds) the native
+    decoder, and StreamLoader the same."""
+    from vitax_torch.data.imagefolder import ImageFolderDataset
+    from vitax_torch.data.loader import ShardedLoader, ShardedSampler
+    from vitax_torch.data.stream import StreamDataset, StreamLoader, StreamSampler
+    from vitax_torch.data.transforms import TrainTransform
+    from vitax_torch import _native
+    say(f"[7i loader] host: os.cpu_count() {os.cpu_count()}, the tree's files in the page cache")
+    paths = [False, True] if use_native else [False]
+    for native_on in paths:
+        for kind in ("ShardedLoader", "StreamLoader"):
+            for workers in (4, os.cpu_count()):
+                t = TrainTransform(LOADER_IMAGE, SEED)
+                if kind == "ShardedLoader":
+                    ds = ImageFolderDataset(os.path.join(root, "tree", "train"), t, use_native=native_on)
+                    loader = ShardedLoader(ds, ShardedSampler(len(ds), 32, True, SEED), "cuda", workers, 2)
+                else:
+                    ds = StreamDataset(os.path.join(root, "shards", "train"), t, use_native=native_on)
+                    loader = StreamLoader(ds, StreamSampler(ds.meta, 32, True, SEED), "cuda", workers, 2)
+                n = 0
+                t0 = time.perf_counter()
+                for batch in loader.epoch(1):
+                    n += batch["image"].shape[0]
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                c = ds.decoded.snapshot()
+                say(f"[7i loader] {kind}, {'native' if native_on else 'PIL'}, num_workers {workers}: "
+                    f"{n / dt:.1f} images/s ({n} images, uint8 {LOADER_IMAGE}^2, in {dt:.3f}s; decoded {c}) "
+                    f"[{card}]")
+                if kind == "StreamLoader":
+                    loader.close()
+    if not use_native:
+        say(f"[7i loader] native decoder: not measured ({_native.missing_toolchain()})")
+
+
 def time_fused_adamw(torch, state, card):
     """The fused optimizer on the trained state's own params, mu and nu and
     the step's grad leaves (the main path's table: every leaf in one
@@ -2198,15 +2587,18 @@ def time_fused_adamw(torch, state, card):
                "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches):
+def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
+                 data_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run, its check's max |d| and its timing."""
+    paths of this run (phases 7i and 7s in `data_launches`), its check's
+    max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda", "source": fwd_src,
          "replaces": "vitax/ops/attention.py:275",
          "launches": (serve_launches["flash_attn_fwd"] + quant_launches["flash_attn_fwd"]
-                      + train_launches["flash_attn_fwd"] + drop_launches["flash_attn_fwd"]),
+                      + train_launches["flash_attn_fwd"] + drop_launches["flash_attn_fwd"]
+                      + data_launches["flash_attn_fwd"]),
          "max_abs_err": errs[(SERVE_SHAPE, "bfloat16", "wgmma")], **timing["flash_attn_fwd"]},
         # the forward's general (mma.sync) kernel, for operands TMA does not
         # take; no main-path launch takes it (its count over every main path),
@@ -2214,10 +2606,11 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
         {"name": "flash_attn_fwd_general", "route": "cuda", "source": fwd_src,
          "replaces": "vitax/ops/attention.py:275",
          "launches": sum(ls["flash_attn_fwd_general"] for ls in (serve_launches, quant_launches, train_launches,
-                                                                  drop_launches, long_launches)),
+                                                                  drop_launches, long_launches, data_launches)),
          "max_abs_err": errs[(SERVE_SHAPE, "bfloat16", "general")], **timing["flash_attn_fwd_general"]},
         {"name": "flash_attn_bwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_bwd.cu",
-         "replaces": "vitax/ops/attention.py:302", "launches": train_launches["flash_attn_bwd"],
+         "replaces": "vitax/ops/attention.py:302",
+         "launches": train_launches["flash_attn_bwd"] + data_launches["flash_attn_bwd"],
          "max_abs_err": errs["flash_attn_bwd"], **timing["flash_attn_bwd"]},
         # the backward's general (mma.sync) kernels, for operands TMA does not
         # take; no main-path call takes them (their count over every main
@@ -2225,11 +2618,12 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
         {"name": "flash_attn_bwd_general", "route": "cuda", "source": bwd_src,
          "replaces": "vitax/ops/attention.py:302",
          "launches": sum(ls["flash_attn_bwd_general"] for ls in (serve_launches, quant_launches, train_launches,
-                                                                  drop_launches, long_launches)),
+                                                                  drop_launches, long_launches, data_launches)),
          "max_abs_err": errs["flash_attn_bwd_general"], **timing["flash_attn_bwd_general"]},
         {"name": "fused_adamw", "route": "cuda", "source": "vitax_torch/csrc/fused_adamw.cu",
          "replaces": "vitax/ops/fused_optimizer.py:112",
-         "launches": train_launches["fused_adamw"] + drop_launches["fused_adamw"] + long_launches["fused_adamw"],
+         "launches": (train_launches["fused_adamw"] + drop_launches["fused_adamw"] + long_launches["fused_adamw"]
+                      + data_launches["fused_adamw"]),
          "max_abs_err": max(errs["fused_adamw"], errs["fused_adamw_table"]), **timing["fused_adamw"]},
         {"name": "dequant_matmul", "route": "cuda", "source": "vitax_torch/csrc/dequant_matmul.cu",
          "replaces": "vitax/ops/dequant_matmul.py:92", "launches": quant_launches["dequant_matmul"],
@@ -2292,11 +2686,17 @@ def main() -> int:
     del engine_f32
     gc.collect()                           # free the 40 GB engine before the train path
     torch.cuda.empty_cache()
-    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0 = phase_train(torch, card)
+    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0, fake = phase_train(torch, card)
     drop_launches = phase_train_dropout(torch, card, loss0)
     long_launches = phase_train_long(torch, card)
+    with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
+        write_tree(os.path.join(root, "tree"))
+        tree_launches, use_native = phase_train_tree(torch, card, root, fake)
+        stream_launches = phase_train_stream(torch, card, root, use_native)
+        time_loaders(torch, root, card, use_native)
+    data_launches = {k: tree_launches[k] + stream_launches[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
-                           long_launches)
+                           long_launches, data_launches)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

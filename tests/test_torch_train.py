@@ -197,7 +197,7 @@ def test_loader_batches_and_worker_errors():
     loader = ShardedLoader(Broken(), ShardedSampler(16, 4, False, 0), torch.device("cpu"), num_workers=2)
     with pytest.raises(LoaderWorkerError, match="bad sample 5"):
         list(loader.epoch(0))
-    with pytest.raises(ValueError, match="ImageFolder"):
+    with pytest.raises(FileNotFoundError, match="ImageFolder split directory not found: /datasets/imagenet-1k/train"):
         build_datasets(Config(**TINY), torch.device("cpu"))
 
 

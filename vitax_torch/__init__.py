@@ -13,15 +13,20 @@ Package map (mirrors vitax/):
                 dequant matmul: kernels, plain versions, dispatchers; the nvcc build
   checkpoint    npz export reading (quantized exports too), the per-channel
                 weight quantizer, JAX -> torch param and AdamW-state conversion
-  data          the eval image transform, fake ImageNet, the sampler and loader
+  data          fake ImageNet, ImageFolder trees and .vtxshard streams, the train
+                and val transforms, the native JPEG decoder's wrappers, the
+                samplers and loaders
+  _native       the host C++ decoder (decode.cc) and its g++ build
   train         schedule, state, train/eval steps, the loop and its CLI
   telemetry     model FLOPs and MFU
   serve         inference engine (float, int8 and fp8 weights), dynamic
                 batcher, HTTP server, quantized-serving helpers and gate
+  tools         the shard packer and the kernels' A/B and ladder tools
 
-Ported so far: the serve path, single-card training on fake data, and
-quantized serving. ImageFolder data, checkpoints, FSDP and the rest are
-later slices (ROADMAP.md).
+Ported so far: the serve path, single-card training on fake data, from
+an ImageFolder tree or from streaming shards, quantized serving, dropout
+and long context. Checkpoints, FSDP and the rest are later slices
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"

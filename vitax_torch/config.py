@@ -11,13 +11,20 @@ import dataclasses
 
 QUANT_DTYPE_CHOICES = ("", "int8", "float8_e4m3")     # --serve_quant_dtype: the __quant__ schema's dtypes
 REMAT_POLICIES = ("none_saveable", "dots_saveable", "dots_attn_saveable")    # --remat_policy (vitax/config.py:748)
+DATA_FORMATS = ("imagefolder", "stream")                                    # --data_format (vitax/config.py:29)
 
 
 @dataclasses.dataclass
 class Config:
-    # --- data (fake data only in this slice) ---
+    # --- data ---
     data_dir: str = "/datasets/imagenet-1k"
     fake_data: bool = False
+    num_workers: int = 4                # decode threads: the PIL pool, or the native call's own
+    prefetch_batches: int = 2           # host batches ShardedLoader queues ahead of the step (>= 1)
+    data_format: str = "imagefolder"    # imagefolder (a tree at --data_dir) | stream (.vtxshard
+    #   containers at --data_dir, packed by python -m vitax_torch.tools.make_shards)
+    stream_prefetch: int = 2            # host batches the streaming loader queues ahead (>= 1)
+    device_normalize: bool = True       # uint8 batches, normalized on the device (--host_normalize clears)
     resume_epoch: int = 0
     test_epoch_interval: int = 10
     log_step_interval: int = 20
@@ -102,6 +109,20 @@ class Config:
             if not ok:
                 raise ValueError(msg)
         checks = (
+            (self.prefetch_batches >= 1,
+             f"--prefetch_batches must be >= 1, got {self.prefetch_batches}: the loader needs at least one "
+             f"queued batch to hand the consumer"),
+            (self.data_format in DATA_FORMATS,
+             f"unknown data_format {self.data_format!r} (expected 'imagefolder' or 'stream')"),
+            (self.stream_prefetch >= 1,
+             f"--stream_prefetch must be >= 1, got {self.stream_prefetch}: the streaming loader needs at "
+             f"least one queued batch to hand the consumer"),
+            (self.data_format != "stream" or not self.fake_data,
+             "--data_format stream with --fake_data is contradictory: fake data needs no input pipeline — "
+             "generate a shard set from an ImageFolder tree with python -m vitax_torch.tools.make_shards instead"),
+            (self.data_format != "stream" or bool(self.data_dir),
+             "--data_format stream needs --data_dir pointing at a shard root (the output of "
+             "python -m vitax_torch.tools.make_shards, holding train/stream_meta.json)"),
             (self.batch_size >= 1, f"--batch_size must be >= 1, got {self.batch_size}"),
             (self.grad_accum_steps >= 1 and self.batch_size % self.grad_accum_steps == 0,
              f"--batch_size {self.batch_size} must be a multiple of --grad_accum_steps "
@@ -163,9 +184,11 @@ class Config:
 
 # Flags spelled other than --<field>: (flag, action, dest).
 _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
+               ("--host_normalize", "store_false", "device_normalize"),
                ("--no_flash_attention", "store_false", "use_flash_attention"),
                ("--no_grad_ckpt", "store_false", "grad_ckpt"))
-_CHOICES = {"dtype": ["bfloat16", "float32"], "fused_optimizer": ["auto", "on", "off"],
+_CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS),
+            "fused_optimizer": ["auto", "on", "off"],
             "remat_policy": list(REMAT_POLICIES),
             "serve_quant_dtype": list(QUANT_DTYPE_CHOICES), "serve_act_quant": ["off", "int8"],
             "fused_dequant": ["auto", "on", "off"]}

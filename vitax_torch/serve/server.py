@@ -5,8 +5,9 @@ Endpoints, with the JAX server's JSON keys:
   image bytes>, "topk": <optional, <= --serve_topk>}; the image runs the
   eval transform (vitax_torch/data/transforms.py ValTransform), then the
   dynamic batcher; the reply is {"classes", "probs", "latency_ms"}.
-  Binary PPM (P6, maxval 255) bodies are decoded with numpy; every other
-  format goes through PIL, imported at use.
+  JPEG bodies take the native decoder (data/native.py) where it builds,
+  binary PPM (P6, maxval 255) bodies are decoded with numpy, and every
+  other format goes through PIL, imported at use.
 - POST /predict_batch: {"items": [<base64 body>, ...], "content_types":
   [...]}; every item is submitted before any is awaited, so the group
   lands in one bucket. The reply is {"results": [{"status", "body"}, ...]}.
@@ -34,6 +35,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from vitax_torch.config import Config
+from vitax_torch.data import native
+from vitax_torch.data.imagefolder import DecodeCounts
 from vitax_torch.data.transforms import ValTransform
 from vitax_torch.serve.batcher import DynamicBatcher, QueueFull
 from vitax_torch.serve.engine import InferenceEngine, next_bucket
@@ -198,13 +201,30 @@ def decode_ppm(raw: bytes) -> Optional[np.ndarray]:
     return np.frombuffer(raw, np.uint8, need, pos + 1).reshape(height, width, 3)
 
 
-def decode_image_bytes(raw: bytes, transform: ValTransform) -> np.ndarray:
-    """One /predict image body -> transformed uint8 (S, S, 3) array."""
-    img = decode_ppm(raw)
+def decode_image_bytes(raw: bytes, transform: ValTransform, counts: Optional[DecodeCounts] = None) -> np.ndarray:
+    """One /predict image body -> transformed (S, S, 3) array. A JPEG body
+    takes the native decoder with the eval transform's parameters, where
+    the library builds (vitax/serve/server.py:256); binary PPM is parsed
+    with numpy; anything else, or a JPEG the decoder refuses, goes through
+    PIL. `counts` gets one under the path taken: native, ppm or pil."""
+    path = "pil"
+    img = None
+    if native.is_jpeg_bytes(raw) and native.available():
+        img = native.process_bytes(raw, transform.native_params(0, 0, 0), transform.image_size,
+                                   transform.resize_to, normalize=transform.normalize)
+        path = "native" if img is not None else path
     if img is None:
-        from PIL import Image
-        img = np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"))
-    return transform(img)
+        arr = decode_ppm(raw)
+        if arr is not None:
+            path = "ppm"
+        else:
+            from PIL import Image
+            with Image.open(io.BytesIO(raw)) as pil:
+                arr = pil.convert("RGB")
+        img = transform(arr)
+    if counts is not None:
+        counts.add(path, jpeg=native.is_jpeg_bytes(raw))
+    return img
 
 
 class ServeContext:
@@ -219,6 +239,7 @@ class ServeContext:
         self._inflight = 0
         self._flight_cond = threading.Condition()
         self.transform = ValTransform(cfg.image_size)
+        self.decoded = DecodeCounts()
         self.batcher = DynamicBatcher(
             engine.predict, max_batch=cfg.serve_max_batch, max_wait_ms=cfg.max_batch_wait_ms,
             bucket_of=lambda n: next_bucket(n, engine.buckets), queue_max=cfg.serve_queue_max)
@@ -276,7 +297,7 @@ class ServeContext:
                                      f"(--serve_topk caps the served top-k)")
         else:
             raw = body
-        return decode_image_bytes(raw, self.transform), topk
+        return decode_image_bytes(raw, self.transform, self.decoded), topk
 
     def close(self) -> None:
         self.batcher.close()

@@ -7,7 +7,10 @@ also waits for the step, so the step time it logs is the device's, not the
 enqueue's). Eval counts stay on the device until the end of the pass. No
 checkpoint, resume or telemetry file yet: those are later slices. Dropout
 seeds are the JAX loop's data_rng (key(seed + 1), :550) ported as a host
-function of (seed, step, microbatch): train/step.py dropout_seeds.
+function of (seed, step, microbatch): train/step.py dropout_seeds. Each
+log record carries data_wait_s, the seconds a step waited on the loader
+(:654), and each epoch ends with a line saying which decode path (native
+or PIL) fed it.
 """
 
 from __future__ import annotations
@@ -39,11 +42,13 @@ def set_float32_precision() -> None:
 
 
 def train(cfg: Config, device: DeviceLike = None,
-          records: Optional[List[Dict[str, float]]] = None) -> TrainState:
+          records: Optional[List[Dict[str, float]]] = None, data: Optional[tuple] = None) -> TrainState:
     """Train per cfg on `device` (default cuda; raises without a card) and
     return the final state. If `records` is a list, each log step appends
     {"epoch", "step", "loss", "lr", "sec_per_iter", "step_seconds",
-    "grad_norm"} to it, and each eval {"epoch", "top1", "top5"}."""
+    "grad_norm", "data_wait_s"} to it, and each eval {"epoch", "top1",
+    "top5"}. `data` is build_datasets' (train_ds, train_loader, val_ds,
+    val_loader), default build_datasets(cfg, device)."""
     cfg.validate()
     device = resolve_device(device)
     fused = fused_optimizer_active(cfg, device)     # raises for --fused_optimizer off on the card
@@ -52,7 +57,7 @@ def train(cfg: Config, device: DeviceLike = None,
     master_print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                         if device.type == "cuda" else ""))
 
-    train_ds, train_loader, _, val_loader = build_datasets(cfg, device)
+    train_ds, train_loader, _, val_loader = data if data is not None else build_datasets(cfg, device)
     master_print(f"\n=== dataset ===\n{train_ds!r}\n")
 
     attention_impl = make_attention_impl(cfg, device)
@@ -80,15 +85,25 @@ def train(cfg: Config, device: DeviceLike = None,
     train_step = make_train_step(cfg, optimizer, device)
     eval_step = make_eval_step(cfg)
     return _run_epochs(cfg, state, train_step, train_loader, val_loader, eval_step, schedule,
-                       records)
+                       records, train_ds)
+
+
+def _decode_line(dataset) -> Optional[str]:
+    """Which decode path fed the dataset so far, from its counts."""
+    if not hasattr(dataset, "decoded"):
+        return None
+    c = dataset.decoded.snapshot()
+    return (f"decoded so far: {c['native']} items native, {c['pil']} through PIL ({c['pil_jpeg']} of them "
+            f"JPEG); decode path {'native' if dataset.use_native else 'PIL'}")
 
 
 def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_loader, val_loader,
                 eval_step: Callable, schedule: Callable,
-                records: Optional[List[Dict[str, float]]] = None) -> TrainState:
+                records: Optional[List[Dict[str, float]]] = None, train_ds=None) -> TrainState:
     smoothed_loss = SmoothedValue(window_size=5)
     smoothed_time = SmoothedValue(window_size=5)
     total_steps = 0
+    steps_since_record = 0
     for epoch in range(1, cfg.num_epochs + 1):
         master_print(f"starting epoch {epoch}")
         time_epoch_b = time_step_b = time.time()
@@ -98,6 +113,7 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
                 break
             state, metrics = train_step(state, batch)
             total_steps += 1
+            steps_since_record += 1
             will_log = total_steps == 1 or (step + 1) % cfg.log_step_interval == 0
             host_loss = float(metrics["loss"]) if will_log else None    # the log step's one fetch
             t_new = time.time()
@@ -107,15 +123,20 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
             if will_log:
                 lr = float(schedule(metrics["lr_step"]))
                 _run_logging(cfg, epoch, step, host_loss, lr, smoothed_loss, smoothed_time)
+                data_wait_s = train_loader.consume_wait_s() / steps_since_record
+                steps_since_record = 0
                 if records is not None:
                     records.append({"epoch": epoch, "step": total_steps, "loss": host_loss, "lr": lr,
                                     "sec_per_iter": smoothed_time.avg, "step_seconds": step_seconds,
-                                    "grad_norm": float(metrics["grad_norm"])})
+                                    "grad_norm": float(metrics["grad_norm"]), "data_wait_s": data_wait_s})
             if cfg.max_steps and total_steps >= cfg.max_steps:
                 break
         if metrics is not None:
             float(metrics["loss"])             # wait for the last step: honest epoch time
         master_print(f"epoch {epoch} done ({time.time() - time_epoch_b:.2f} sec)")
+        decode = _decode_line(train_ds)
+        if decode:
+            master_print(f"epoch {epoch} {decode}")
         if epoch % cfg.test_epoch_interval == 0 or epoch == cfg.num_epochs:
             top1, top5, _, _ = eval_on_val(cfg, val_loader, eval_step, state)
             master_print(f"accuracy on val: {top1:.4f} (top-5 {top5:.4f})")
