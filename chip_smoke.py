@@ -97,6 +97,17 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      train() with --data_format stream at depth 2, 8 steps, checked and
      timed as 7i; then the loaders alone (ShardedLoader and StreamLoader,
      uint8 at 224^2, at 4 workers and the host's CPU count) in images/s;
+  7c. checkpoint and resume: train() at the 10B width cut to depth 2,
+     batch 32, fake data, att_dropout 0.1, two epochs of 3 steps saving
+     after each (run A); a resume of A's epoch 1 with --resume_epoch 1
+     that trains epoch 2 (run B), its epoch-2 losses and its params, mu,
+     nu and step bitwise equal to A's; --resume_epoch -1 past a torn
+     epoch_3/ restoring epoch 2 bitwise; the stall save_state puts on the
+     loop, the background write (s, GB/s, GB on disk) and the restore
+     (s, GB/s); the resumed state exported with consolidate --dtype int8
+     and served, one bucket-8 batch through kernel C (9 launches), its
+     codes, scales and answers bitwise those of the trained model
+     quantized in memory; launch counts of both runs against their steps;
   8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -108,9 +119,11 @@ result.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -265,6 +278,13 @@ TURNS, TURN_STEPS = 4, 3                 # loader-fed against resident-batch ste
 TRAIN_LONG = dict(patch_size=14, embed_dim=1024, num_heads=16, num_blocks=4, batch_size=2, num_classes=1000,
                   fake_data=True, max_steps=8, warmup_steps=4, log_step_interval=1, eval_max_batches=1,
                   test_epoch_interval=1)
+# Phase 7c: checkpoint and resume at the 10B width cut to depth 2 (7.66 GB
+# of f32 params, mu and nu): two epochs of three steps under att_dropout,
+# a save after each, then a resume of epoch 1; the export then serves one
+# bucket-8 batch through kernel C (4 block sites a block and the head).
+TRAIN_CKPT = dict(num_blocks=2, batch_size=32, fake_data=True, warmup_steps=4, log_step_interval=1,
+                  eval_max_batches=1, att_dropout=DROP_RATE, steps_per_epoch=3, num_epochs=2,
+                  ckpt_epoch_interval=1)
 LONG_RUNS = (("N 4096", dict(image_size=896)), ("N 9216", dict(image_size=1344)),
              (f"N 4096, att_dropout {DROP_RATE}", dict(image_size=896, att_dropout=DROP_RATE)),
              ("N 9216, remat_policy dots_attn_saveable", dict(image_size=1344, remat_policy="dots_attn_saveable")))
@@ -2587,11 +2607,182 @@ def time_fused_adamw(torch, state, card):
                "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def drop_run_launches(cfg, steps: int) -> dict:
+    """Every launch count of a train() run of cfg (N <= 2048) under
+    att_dropout that takes `steps` optimizer steps and one eval of
+    cfg.eval_max_batches: per step each block's dropout forward, its
+    recompute and its dropout backward, one optimizer launch; the eval's
+    rate-0 forwards. All on the wgmma kernels."""
+    from vitax_torch.ops import _build
+    n = cfg.num_blocks
+    fwd, fwd_drop, bwd_drop = cfg.eval_max_batches * n, steps * 2 * n, steps * n
+    return {"flash_attn_fwd": fwd, "flash_attn_fwd_drop": fwd_drop, "flash_attn_bwd": 0,
+            "flash_attn_bwd_drop": bwd_drop, "fused_adamw": steps, "dequant_matmul": 0,
+            **dict.fromkeys(_build.STREAM_KERNELS, 0), "flash_attn_fwd_wgmma": fwd + fwd_drop,
+            "flash_attn_fwd_general": 0, "flash_attn_bwd_wgmma": bwd_drop, "flash_attn_bwd_general": 0,
+            **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
+
+
+def states_equal(torch, a, b) -> bool:
+    """Bitwise: step, count, and every param, mu and nu tensor."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return (a.step == b.step and int(a.count) == int(b.count) and sa.keys() == sb.keys()
+            and all(torch.equal(sa[k], sb[k]) and torch.equal(a.mu[k], b.mu[k]) and torch.equal(a.nu[k], b.nu[k])
+                    for k in sa))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_checkpoint(torch, card, root: str):
+    """Phase 7c: save, resume and export (vitax_torch/checkpoint/). Run A
+    trains two epochs and saves after each; run B resumes A's epoch 1 with
+    --resume_epoch 1 and trains epoch 2; B must equal A bitwise (losses of
+    epoch 2, params, mu, nu, step). --resume_epoch -1 must pick epoch 2 past
+    a torn epoch_3/. Then the timed save and restore, and the int8 export
+    of the resumed state served through kernel C against the trained model
+    quantized in memory. Returns the launches of runs A and B and of the
+    served batch."""
+    from vitax_torch.checkpoint import io as ckpt_io
+    from vitax_torch.checkpoint.consolidate import main as consolidate_main
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import expected_param_count
+    from vitax_torch.ops import _build
+    from vitax_torch.serve import InferenceEngine
+    from vitax_torch.serve.quant import quantize_params_for_serve
+    from vitax_torch.train.loop import train
+
+    ckpt_dir = os.path.join(root, "ckpt")
+    cfg = Config(seed=SEED, **TRAIN_CKPT, ckpt_dir=ckpt_dir).validate()
+    n_params = expected_param_count(cfg)
+    disk = shutil.disk_usage(root)
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    say(f"[7c host] checkpoint dir {ckpt_dir}: {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB; host RAM "
+        f"{ram / 1e9:.1f} GB, {os.cpu_count()} CPUs")
+    runs = {}
+    for name, resume in (("A", 0), ("B", 1)):
+        records = []
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state = train(dataclasses.replace(cfg, resume_epoch=resume), "cuda", records=records)
+        torch.cuda.synchronize()
+        runs[name] = dict(state=state, records=records, launches=dict(_build.LAUNCHES),
+                          wall=time.perf_counter() - t0)
+    a, b = runs["A"], runs["B"]
+    spe = cfg.steps_per_epoch
+    for name, steps in (("A", 2 * spe), ("B", spe)):
+        want = drop_run_launches(cfg, steps)
+        if runs[name]["launches"] != want:
+            fail(f"7c run {name}: train() launched {runs[name]['launches']}; expected {want}")
+    loss_a2 = [r["loss"] for r in a["records"] if "loss" in r and r["epoch"] == 2]
+    loss_b = [r["loss"] for r in b["records"] if "loss" in r]
+    saves_a = [r for r in a["records"] if "ckpt_stall_s" in r]
+    saves_b = [r for r in b["records"] if "ckpt_stall_s" in r]
+    if [r["epoch"] for r in saves_a] != [1, 2] or [r["epoch"] for r in saves_b] != [2]:
+        fail(f"7c: saves of run A at epochs {[r['epoch'] for r in saves_a]}, of run B at "
+             f"{[r['epoch'] for r in saves_b]}; expected [1, 2] and [2]")
+    same = states_equal(torch, a["state"], b["state"]) and loss_b == loss_a2 and len(loss_b) == spe
+    say(f"[7c resume] 10B width, depth {cfg.num_blocks} ({n_params:,} params, {12 * n_params / 1e9:.2f} GB of f32 "
+        f"params, mu and nu), batch {cfg.batch_size}, att_dropout {cfg.att_dropout}: run A 2 epochs of {spe} "
+        f"steps in {a['wall']:.1f}s (saves after epochs 1 and 2), run B resumed epoch 1 and trained epoch 2 in "
+        f"{b['wall']:.1f}s; epoch-2 losses A " + " ".join(f"{x:.6e}" for x in loss_a2) + " / B "
+        + " ".join(f"{x:.6e}" for x in loss_b) + f"; step {a['state'].step} / {b['state'].step}; B equals A "
+        f"bitwise (params, mu, nu, step, losses): {same}")
+    if not same:
+        fail("7c: the resumed run B differs from the uninterrupted run A")
+    if not all(np.isfinite(loss_a2)):
+        fail(f"7c: losses not finite: {loss_a2}")
+
+    torn = os.path.join(ckpt_dir, "epoch_3")
+    os.makedirs(torn)
+    with open(os.path.join(torn, "__0_0.distcp"), "wb") as f:
+        f.write(b"torn")
+    _build.reset_launches()
+    c = train(dataclasses.replace(cfg, resume_epoch=-1), "cuda")
+    if ckpt_io.latest_epoch(ckpt_dir) != 2 or not states_equal(torch, c, a["state"]) or any(_build.LAUNCHES.values()):
+        fail(f"7c: --resume_epoch -1 past the torn epoch_3/ did not restore epoch 2 as A left it "
+             f"(latest {ckpt_io.latest_epoch(ckpt_dir)}, launches {dict(_build.LAUNCHES)})")
+    say(f"[7c resume] --resume_epoch -1 skipped the torn epoch_3/ and restored epoch 2, bitwise A's final state")
+
+    # the timed save (async, as the loop makes it) and restore
+    timed = os.path.join(root, "timed")
+    t0 = time.perf_counter()
+    path = ckpt_io.save_state(timed, 1, b["state"])
+    t1 = time.perf_counter()
+    ckpt_io.wait_until_finished()
+    t2 = time.perf_counter()
+    disk = dir_bytes(path)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ckpt_io.restore_state(timed, 1, c)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    if not states_equal(torch, c, b["state"]):
+        fail("7c: the timed checkpoint did not restore bitwise")
+    say(f"[7c save] save_state stall on the loop thread: run A's epoch-1 save {saves_a[0]['ckpt_stall_s']:.3f} s "
+        f"(its first snapshot allocates the pinned host buffers), a later save {t1 - t0:.3f} s; the background "
+        f"write {t2 - t1:.2f} s, {disk / 1e9:.2f} GB on disk, {disk / 1e9 / (t2 - t1):.2f} GB/s; a waited save "
+        f"(run B's last) {saves_b[0]['ckpt_stall_s']:.2f} s [{card}]")
+    say(f"[7c restore] restore_state of {disk / 1e9:.2f} GB onto the card in {t4 - t3:.2f} s, "
+        f"{disk / 1e9 / (t4 - t3):.2f} GB/s [{card}]")
+    shutil.rmtree(timed)
+    ckpt_io.close()
+    train_launches = {k: v + b["launches"][k] for k, v in a["launches"].items()}
+    del c, a
+    runs.pop("A")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = os.path.join(root, "export_int8.npz")
+    t0 = time.perf_counter()
+    consolidate_main(["--ckpt_dir", ckpt_dir, "--epoch", "2", "--out", out, "--dtype", "int8"])
+    t_export = time.perf_counter() - t0
+    say(f"[7c export] consolidate --dtype int8 of epoch 2: {t_export:.2f} s, {os.path.getsize(out) / 1e9:.2f} GB "
+        f"[{card}]")
+    scfg = dataclasses.replace(cfg, serve_quant_dtype="int8").validate()
+    served = InferenceEngine.from_npz(scfg, out, "cuda")
+    mem = InferenceEngine.from_state(scfg, quantize_params_for_serve(dict(b["state"].model.state_dict()), "int8"),
+                                     "cuda", "int8")
+    sd_npz, sd_mem = served.model.state_dict(), mem.model.state_dict()
+    codes_differ = sum(int((sd_npz[k] != sd_mem[k]).sum()) for k in sd_npz)
+    served.warmup()
+    mem.warmup()
+    x = np.random.default_rng(SEED + 7).integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    _build.reset_launches()
+    ids_s, p_s = served.predict(x)
+    serve_launches = dict(_build.LAUNCHES)
+    ids_m, p_m = mem.predict(x)
+    per_batch = 4 * cfg.num_blocks + 1
+    wgmma = serve_launches["dequant_matmul_wgmma"]
+    if serve_launches["dequant_matmul"] != per_batch or wgmma < per_batch - 1 \
+            or serve_launches["flash_attn_fwd"] != cfg.num_blocks:
+        fail(f"7c: the export's bucket-8 batch launched {serve_launches}; expected dequant_matmul {per_batch} "
+             f"(the block sites on wgmma) and flash_attn_fwd {cfg.num_blocks}")
+    # one quantizer on both sides (the export's on the host, the in-memory
+    # one on the card), so the codes, the scales and the served answers are
+    # the same bit for bit, not only the top-1 the fake-data model makes
+    # easy to share
+    dp = float(np.abs(p_s - p_m).max())
+    same = bool(np.array_equal(ids_s, ids_m)) and dp == 0.0 and codes_differ == 0
+    say(f"[7c serve] the int8 export served one bucket-8 batch: dequant_matmul {serve_launches['dequant_matmul']} "
+        f"launches (wgmma {wgmma}), top-1 {ids_s[:, 0].tolist()}, the trained model quantized in memory "
+        f"{ids_m[:, 0].tolist()}; top-{cfg.serve_topk} ids equal {bool(np.array_equal(ids_s, ids_m))}, max |dp| "
+        f"{dp:.3g}; weights or scales that differ between the two: {codes_differ} [{card}]")
+    if not same or not (np.isfinite(p_s).all() and p_s.shape == (8, cfg.serve_topk)):
+        fail("7c: the int8 export serves other answers, codes or scales than the in-memory quantized model, or "
+             "its probs are not finite")
+    del served, mem, runs, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: train_launches[k] + serve_launches[k] for k in serve_launches}
+
+
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7i and 7s in `data_launches`), its check's
-    max |d| and its timing."""
+    paths of this run (phases 7i, 7s and 7c in `data_launches`), its
+    check's max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda", "source": fwd_src,
@@ -2626,19 +2817,23 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
                       + data_launches["fused_adamw"]),
          "max_abs_err": max(errs["fused_adamw"], errs["fused_adamw_table"]), **timing["fused_adamw"]},
         {"name": "dequant_matmul", "route": "cuda", "source": "vitax_torch/csrc/dequant_matmul.cu",
-         "replaces": "vitax/ops/dequant_matmul.py:92", "launches": quant_launches["dequant_matmul"],
+         "replaces": "vitax/ops/dequant_matmul.py:92",
+         "launches": quant_launches["dequant_matmul"] + data_launches["dequant_matmul"],
          "max_abs_err": errs["dequant_matmul"], **timing["dequant_matmul"]},
         # C's general (mma.sync) kernel, for shapes TMA does not take; no
         # main-path site launches it (its count is phase 6q's), phase 3
         # holds it at the ragged shapes and at proj, phase 4 times it
         {"name": "dequant_matmul_general", "route": "cuda", "source": "vitax_torch/csrc/dequant_matmul.cu",
-         "replaces": "vitax/ops/dequant_matmul.py:92", "launches": quant_launches["dequant_matmul_general"],
+         "replaces": "vitax/ops/dequant_matmul.py:92",
+         "launches": quant_launches["dequant_matmul_general"] + data_launches["dequant_matmul_general"],
          "max_abs_err": errs["dequant_matmul_general"], **timing["dequant_matmul_general"]},
         {"name": "flash_attn_fwd_drop", "route": "cuda", "source": fwd_src,
-         "replaces": "vitax/ops/attention.py:625", "launches": drop_launches["flash_attn_fwd_drop"],
+         "replaces": "vitax/ops/attention.py:625",
+         "launches": drop_launches["flash_attn_fwd_drop"] + data_launches["flash_attn_fwd_drop"],
          "max_abs_err": errs["flash_attn_fwd_drop"], **timing["flash_attn_fwd_drop"]},
         {"name": "flash_attn_bwd_drop", "route": "cuda", "source": bwd_src,
-         "replaces": "vitax/ops/attention.py:659", "launches": drop_launches["flash_attn_bwd_drop"],
+         "replaces": "vitax/ops/attention.py:659",
+         "launches": drop_launches["flash_attn_bwd_drop"] + data_launches["flash_attn_bwd_drop"],
          "max_abs_err": errs["flash_attn_bwd_drop"], **timing["flash_attn_bwd_drop"]},
     ]
     # The BH entry points run the same kernels on (B*H, N, 1, Dh) views; no
@@ -2694,7 +2889,8 @@ def main() -> int:
         tree_launches, use_native = phase_train_tree(torch, card, root, fake)
         stream_launches = phase_train_stream(torch, card, root, use_native)
         time_loaders(torch, root, card, use_native)
-    data_launches = {k: tree_launches[k] + stream_launches[k] for k in tree_launches}
+        ckpt_launches = phase_checkpoint(torch, card, root)
+    data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches)
     say(card)

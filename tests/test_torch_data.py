@@ -419,7 +419,7 @@ def test_decode_image_bytes_matches_jax(tree, native_lib):
 # --- the slice as a whole --------------------------------------------------------
 
 
-def test_train_from_a_tree_matches_jax(tree, monkeypatch, devices8):
+def test_train_from_a_tree_matches_jax(tree, monkeypatch, devices8, tmp_path):
     """The port's train() on the CPU from the tree, 3 steps, against the JAX
     train step from the same weights on the JAX loader's batches of the
     same tree and seed: losses within rtol 2e-4 / atol 2e-5."""
@@ -439,7 +439,7 @@ def test_train_from_a_tree_matches_jax(tree, monkeypatch, devices8):
     from test_torch_train import _flat
 
     run = dict(TINY, data_dir=tree, steps_per_epoch=3, num_epochs=1, max_steps=3, log_step_interval=1,
-               eval_max_batches=1, num_workers=2, seed=5)
+               eval_max_batches=1, num_workers=2, seed=5, ckpt_dir=str(tmp_path))
     jcfg = JaxConfig(**run, scan_blocks=False).validate()
     mesh = build_mesh(jcfg, jax.devices()[:1])
     jmodel = jax_build_model(jcfg)
@@ -471,12 +471,13 @@ def test_train_from_a_tree_matches_jax(tree, monkeypatch, devices8):
     assert all(r["data_wait_s"] >= 0 for r in steps) and len([r for r in records if "top1" in r]) == 1
 
 
-def test_cli_trains_from_a_tree(tree):
+def test_cli_trains_from_a_tree(tree, tmp_path):
     """python -m vitax_torch.train --device cpu --data_dir <tree> trains and
     names the decode path; without --device it needs a card."""
     args = ["--data_dir", tree, "--image_size", "16", "--patch_size", "8", "--embed_dim", "32", "--num_heads", "2",
             "--num_blocks", "1", "--num_classes", "3", "--batch_size", "4", "--max_steps", "2",
-            "--log_step_interval", "1", "--num_workers", "2", "--eval_max_batches", "1", "--num_epochs", "1"]
+            "--log_step_interval", "1", "--num_workers", "2", "--eval_max_batches", "1", "--num_epochs", "1",
+            "--ckpt_dir", str(tmp_path)]
     r = subprocess.run([sys.executable, "-m", "vitax_torch.train", "--device", "cpu", *args], cwd=REPO,
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]

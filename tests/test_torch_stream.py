@@ -207,7 +207,7 @@ def test_cli_packs_and_trains_from_shards(tmp_path):
                         "--data_dir", shards, "--image_size", "16", "--patch_size", "8", "--embed_dim", "32",
                         "--num_heads", "2", "--num_blocks", "1", "--num_classes", "3", "--batch_size", "4",
                         "--max_steps", "2", "--log_step_interval", "1", "--num_workers", "2",
-                        "--eval_max_batches", "1", "--num_epochs", "1"],
+                        "--eval_max_batches", "1", "--num_epochs", "1", "--ckpt_dir", str(tmp_path / "ckpt")],
                        cwd=REPO, capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert "StreamDataset(" in r.stdout and "decode path" in r.stdout and "accuracy on val" in r.stdout

@@ -11,8 +11,10 @@ Package map (mirrors vitax/):
   models        the ViT as nn.Modules (forward; per-block recompute when training)
   ops           flash-attention forward and backward, fused clip+AdamW, the
                 dequant matmul: kernels, plain versions, dispatchers; the nvcc build
-  checkpoint    npz export reading (quantized exports too), the per-channel
-                weight quantizer, JAX -> torch param and AdamW-state conversion
+  checkpoint    train-state save, resume and pruning (torch.distributed.checkpoint
+                with a commit marker), the npz export (quantized too) written
+                and read, the per-channel weight quantizer, JAX <-> torch
+                param and train-state conversion
   data          fake ImageNet, ImageFolder trees and .vtxshard streams, the train
                 and val transforms, the native JPEG decoder's wrappers, the
                 samplers and loaders
@@ -24,9 +26,9 @@ Package map (mirrors vitax/):
   tools         the shard packer and the kernels' A/B and ladder tools
 
 Ported so far: the serve path, single-card training on fake data, from
-an ImageFolder tree or from streaming shards, quantized serving, dropout
-and long context. Checkpoints, FSDP and the rest are later slices
-(ROADMAP.md).
+an ImageFolder tree or from streaming shards, quantized serving, dropout,
+long context, and checkpoint, resume and export. FSDP and the rest are
+later slices (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

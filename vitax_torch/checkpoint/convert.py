@@ -1,4 +1,4 @@
-"""JAX param paths and layouts -> the port's state_dict.
+"""JAX param paths and layouts <-> the port's state_dict.
 
 The Flax tree keeps Dense kernels as (in, out), the conv kernel as
 (kh, kw, cin, cout), LayerNorm params as scale/bias, and its blocks either
@@ -12,12 +12,19 @@ out) -> (out, in), so each output channel's row is contiguous in K (the
 column-major B operand of the kernel's mma); the conv stays quantized too.
 Each one's scale, (1, F) or (L, 1, F) when scanned and (1, 1, 1, F) for
 the conv, becomes the module's per-layer (F,) float32 `qscale`.
+
+The other way, params_to_jax writes a float state_dict in the JAX layout,
+scanned (vitax's default: one "blocks" subtree, each leaf stacked on a
+leading L axis) or unscanned, and train_state_to_jax / train_state_from_jax
+carry the whole train state in the keys of a flattened JAX TrainState:
+"step", "params/params/...", "opt_state/1/0/{count,mu/params/...,
+nu/params/...}" and "opt_state/1/2/count" (the schedule's count).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,3 +106,89 @@ def opt_state_from_jax(mu_flat: Mapping[str, Leaf], nu_flat: Mapping[str, Leaf],
     count becomes an int32 0-d tensor."""
     return (params_from_jax(mu_flat), params_from_jax(nu_flat),
             torch.tensor(int(np.asarray(count)), dtype=torch.int32))
+
+
+# the keys of the AdamW state in a flattened JAX TrainState (optax chain:
+# clip, then (adam, decay, schedule); the scale_by_adam state is 1/0, the
+# schedule's count 1/2)
+_JAX_ADAM = "opt_state/1/0/"
+_JAX_SCHEDULE_COUNT = "opt_state/1/2/count"
+
+
+def _to_jax(torch_leaf: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
+    """(Flax leaf name, value in the Flax layout) of one state_dict leaf."""
+    t = t.detach()
+    if torch_leaf == "bias":
+        return "bias", t
+    if torch_leaf != "weight":
+        raise KeyError(f"unexpected state_dict leaf {torch_leaf!r}")
+    if t.dim() == 4:                          # conv (cout, cin, kh, kw) -> (kh, kw, cin, cout)
+        return "kernel", t.permute(2, 3, 1, 0)
+    if t.dim() == 2:                          # Linear (out, in) -> Dense (in, out)
+        return "kernel", t.t()
+    return "scale", t                         # LayerNorm
+
+
+def params_to_jax(sd: Mapping[str, torch.Tensor], scanned: bool = True) -> Dict[str, torch.Tensor]:
+    """The JAX package's parameters from a float state_dict of
+    VisionTransformer, keyed as in its npz export ("params/...",
+    "/"-joined), contiguous CPU tensors. scanned=True stacks the blocks
+    under "params/blocks/..." on a leading L axis (vitax's default
+    scan_blocks); False writes "params/blocks_<i>/...". The inverse of
+    params_from_jax."""
+    out: Dict[str, torch.Tensor] = {}
+    stacks: Dict[str, List[Tuple[int, torch.Tensor]]] = {}
+    for name, t in sd.items():
+        parts = name.split(".")
+        if name == "pos_embed":
+            out["params/pos_embed"] = t.detach()
+            continue
+        leaf, value = _to_jax(parts[-1], t)
+        if parts[0] == "blocks":
+            rest = "/".join(parts[2:-1] + [leaf])
+            if scanned:
+                stacks.setdefault(f"params/blocks/{rest}", []).append((int(parts[1]), value))
+            else:
+                out[f"params/blocks_{parts[1]}/{rest}"] = value
+        elif parts[0] in ("patch_embed", "norm", "head"):
+            out["params/" + "/".join(parts[:-1] + [leaf])] = value
+        else:
+            raise KeyError(f"unexpected state_dict entry {name!r}")
+    for key, layers in stacks.items():
+        layers.sort(key=lambda iv: iv[0])
+        if [i for i, _ in layers] != list(range(len(layers))):
+            raise KeyError(f"{key}: blocks {[i for i, _ in layers]} are not 0..L-1")
+        out[key] = torch.stack([v for _, v in layers])
+    return {k: v.to("cpu").contiguous() for k, v in out.items()}
+
+
+def train_state_to_jax(sd: Mapping[str, torch.Tensor], mu: Mapping[str, torch.Tensor],
+                       nu: Mapping[str, torch.Tensor], step: int, count: Union[int, torch.Tensor],
+                       scanned: bool = True) -> Dict[str, torch.Tensor]:
+    """The whole train state in the keys of a flattened JAX TrainState
+    (its npz export with --full_state); step and both counts are int32."""
+    def i32(x):
+        return torch.tensor(int(x), dtype=torch.int32)
+    out = {"step": i32(step)}
+    out.update({"params/" + k: v for k, v in params_to_jax(sd, scanned).items()})
+    out[_JAX_ADAM + "count"] = i32(count)
+    for name, moments in (("mu", mu), ("nu", nu)):
+        out.update({f"{_JAX_ADAM}{name}/{k}": v for k, v in params_to_jax(moments, scanned).items()})
+    out[_JAX_SCHEDULE_COUNT] = i32(count)
+    return out
+
+
+def train_state_from_jax(flat: Mapping[str, Leaf]) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor],
+                                                            Dict[str, torch.Tensor], int, torch.Tensor]:
+    """(state_dict, mu, nu, step, count) from the keys of a flattened JAX
+    TrainState (a --full_state npz export of either package)."""
+    groups: Dict[str, Dict[str, Leaf]] = {"params": {}, "mu": {}, "nu": {}}
+    for key, v in flat.items():
+        for group, prefix in (("params", "params/"), ("mu", _JAX_ADAM + "mu/"), ("nu", _JAX_ADAM + "nu/")):
+            if key.startswith(prefix):
+                groups[group][key[len(prefix):]] = v
+    missing = {"step", _JAX_ADAM + "count"} - set(flat)
+    if missing or not groups["params"]:
+        raise KeyError(f"not a full train state: missing {sorted(missing) or 'params/params/...'}")
+    mu, nu, count = opt_state_from_jax(groups["mu"], groups["nu"], flat[_JAX_ADAM + "count"])
+    return params_from_jax(groups["params"]), mu, nu, int(np.asarray(flat["step"])), count

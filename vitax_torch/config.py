@@ -2,7 +2,9 @@
 read, with the names, defaults and CLI flags of vitax/config.py (Config,
 build_parser, validate), so one command line means the same run to both
 packages. Settings whose path is a later slice of the port are rejected by
-validate() with a message that names the slice."""
+validate() with a message that names the slice. The zero-stall and peer
+checkpoint flags (zero_stall_ckpt, replicate_steps, peer_dir) are not
+fields yet: the parser rejects them as unknown arguments."""
 
 from __future__ import annotations
 
@@ -25,7 +27,11 @@ class Config:
     #   containers at --data_dir, packed by python -m vitax_torch.tools.make_shards)
     stream_prefetch: int = 2            # host batches the streaming loader queues ahead (>= 1)
     device_normalize: bool = True       # uint8 batches, normalized on the device (--host_normalize clears)
-    resume_epoch: int = 0
+    ckpt_dir: str = "/tmp/vit_fsdp"
+    resume_epoch: int = 0               # N = resume from epoch N; -1 = auto-resume latest checkpoint
+    ckpt_epoch_interval: int = 10
+    keep_checkpoints: int = 0           # >0: checkpoint GC, prune committed epoch dirs beyond the
+    #   newest K after each save (torn dirs never touched); 0 = keep all
     test_epoch_interval: int = 10
     log_step_interval: int = 20
 
@@ -103,7 +109,6 @@ class Config:
                 ("sp_size", self.sp_size), ("pp_size", self.pp_size))),
              "mesh sizes above 1 (--dp_size/--fsdp_size/--tp_size/--sp_size/--pp_size) wait for "
              "the FSDP and parallelism slices; this slice trains on one card"),
-            (self.resume_epoch == 0, "--resume_epoch waits for the checkpoint slice"),
         )
         for ok, msg in later:
             if not ok:
@@ -132,6 +137,11 @@ class Config:
             (self.fused_optimizer in ("auto", "on", "off"),
              f"unknown fused_optimizer {self.fused_optimizer!r} (expected 'auto', 'on' or 'off')"),
             (self.log_step_interval >= 1, f"--log_step_interval must be >= 1, got {self.log_step_interval}"),
+            (self.ckpt_epoch_interval >= 1,
+             f"--ckpt_epoch_interval must be >= 1, got {self.ckpt_epoch_interval}: a checkpoint is "
+             f"saved every N epochs and at the last one"),
+            (self.keep_checkpoints >= 0,
+             f"--keep_checkpoints must be >= 0 (0 = keep all), got {self.keep_checkpoints}"),
             (self.test_epoch_interval >= 1,
              f"--test_epoch_interval must be >= 1, got {self.test_epoch_interval}"),
             (min(self.steps_per_epoch, self.max_steps, self.eval_max_batches, self.warmup_steps) >= 0,
@@ -192,6 +202,13 @@ _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS),
             "remat_policy": list(REMAT_POLICIES),
             "serve_quant_dtype": list(QUANT_DTYPE_CHOICES), "serve_act_quant": ["off", "int8"],
             "fused_dequant": ["auto", "on", "off"]}
+# vitax/config.py build_parser's help of the checkpoint flags
+_HELP = {"ckpt_dir": "checkpoint root: epoch_<N>/ per saved epoch (default %(default)s)",
+         "resume_epoch": "N = resume from the checkpoint of epoch N; -1 = auto-resume the latest "
+                         "committed one, or start fresh (default %(default)s)",
+         "ckpt_epoch_interval": "save every N epochs and at the last one (default %(default)s)",
+         "keep_checkpoints": ">0: checkpoint GC, prune committed epoch dirs beyond the newest K after "
+                             "each save; torn dirs are never touched (0 = keep all; default %(default)s)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -204,7 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
             continue
         default = getattr(d, f.name)
         parser.add_argument(f"--{f.name}", type=type(default), default=default,
-                            choices=_CHOICES.get(f.name))
+                            choices=_CHOICES.get(f.name), help=_HELP.get(f.name))
     for flag, action, dest in _BOOL_FLAGS:
         parser.add_argument(flag, action=action, dest=dest)
     return parser

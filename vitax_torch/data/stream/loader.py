@@ -121,5 +121,15 @@ class StreamLoader(PrefetchLoader):
         plan = self.sampler.epoch_entries(epoch)[start_step:]
         yield from self._iterate(plan, self._load_host, "vitax-torch-stream-prefetch", epoch)
 
+    def cursor_for_step(self, epoch: int, step: int) -> Dict:
+        """The resume cursor after `step` batches of `epoch`: what a
+        mid-epoch checkpoint's sidecar records."""
+        return self.sampler.cursor_for_step(epoch, step)
+
+    def check_cursor(self, cursor: Dict, resume_step: int) -> None:
+        """Raise if a checkpoint's cursor disagrees with this run's position
+        after `resume_step` batches of the cursor's epoch."""
+        self.sampler.check_cursor(cursor, int(cursor.get("epoch", 0)), resume_step)
+
     def close(self) -> None:
         self.dataset.close()

@@ -11,8 +11,8 @@
   step * local_batch records of its plan, which is (shard_cursor,
   record_offset) into the epoch's shard order. `check_cursor` holds a
   recorded cursor against the one derived now, so a changed shard set
-  fails instead of feeding other records. This slice runs one process;
-  nothing resumes from a cursor yet.
+  fails instead of feeding other records. A mid-epoch checkpoint records
+  the cursor in its sidecar, and the train loop checks it on resume.
 """
 
 from __future__ import annotations
