@@ -108,6 +108,21 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      and served, one bucket-8 batch through kernel C (9 launches), its
      codes, scales and answers bitwise those of the trained model
      quantized in memory; launch counts of both runs against their steps;
+  7f. FSDP2 at world size 1: a one-rank NCCL group made here, after every
+     unwrapped phase, and destroyed at the end of the phase. First the
+     unwrapped reference (phase 7's run cut to 3 steps, on noise images
+     with random labels, where fake data's loss collapses after one
+     update; cudnn deterministic so the patch conv's wgrad is repeatable;
+     made before the group) and a profile of one of its steady steps;
+     then train() under ZeRO-3 at phase 7's configuration, its launch
+     counts (A1 and A2 per block and step on wgmma, one fused_adamw a
+     step), sec/iter, images/s, MFU and peak memory beside phase 7's, and
+     a profile of one steady step split into GEMMs, casts, the FSDP
+     copy-in/out, all-gather and reduce-scatter, the attention kernels
+     and fused_adamw; then 3 steps
+     each of ZeRO-3, ZeRO-2 and DP from the same init, their losses, grad
+     norms and params bitwise the reference's; then a depth-2 sharded save
+     (train() with a checkpoint) restored into a new sharded state, bitwise;
   8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1710,10 +1725,10 @@ KERNEL_GROUPS = (("flash_attn_fwd_drop", r"flash_attn_fwd_\w+_kernel<\d+, true>"
                  ("gemm", r"gemm|xmma|nvjet|cutlass|sm90_"))
 
 
-def profile_device(torch, fn, label: str, card: str, phase: str, top: int = 8):
+def profile_device(torch, fn, label: str, card: str, phase: str, top: int = 8, kernel_groups=None):
     """Where one call of `fn` spends device time (torch.profiler): wall,
-    device busy and idle, time by kernel group, the top kernels. Returns
-    (wall ms, device busy ms)."""
+    device busy and idle, time by kernel group (KERNEL_GROUPS unless
+    given), the top kernels. Returns (wall ms, device busy ms)."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1723,15 +1738,19 @@ def profile_device(torch, fn, label: str, card: str, phase: str, top: int = 8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # a record_function range around device work (FSDP2 marks its steps so)
+    # shows as a device event too: it is no kernel, and would count twice
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("FSDP::")]
     busy_ms = sum(ms for _, ms, _ in kernels)
     if not kernels or busy_ms <= 0:
         fail(f"torch.profiler recorded no device time for {label}")
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    kernel_groups = kernel_groups or KERNEL_GROUPS
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups["other"] = 0.0
     for name, ms, _ in kernels:
-        key = next((g for g, pat in KERNEL_GROUPS if re.search(pat, name)), "other")
+        key = next((g for g, pat in kernel_groups if re.search(pat, name)), "other")
         groups[key] += ms
     say(f"[{phase} profile] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"(idle {max(0.0, 1 - busy_ms / wall_ms) * 100:.1f}%); "
@@ -1946,6 +1965,30 @@ def train_run_launches(cfg) -> dict:
             **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
 
 
+class deterministic_cudnn:
+    """cudnn.deterministic on inside the block: the patch conv's wgrad then
+    runs without atomics, so two runs of one step are bitwise equal."""
+
+    def __init__(self, torch):
+        self.backends = torch.backends.cudnn
+
+    def __enter__(self):
+        self.prev, self.backends.deterministic = self.backends.deterministic, True
+
+    def __exit__(self, *exc):
+        self.backends.deterministic = self.prev
+
+
+def step_launches(cfg) -> dict:
+    """The launches of one steady train step at N <= 2048, rate 0."""
+    from vitax_torch.ops import _build
+    n = cfg.num_blocks
+    return {"flash_attn_fwd": 2 * n, "flash_attn_bwd": n, "fused_adamw": 1, "dequant_matmul": 0,
+            "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0, **dict.fromkeys(_build.STREAM_KERNELS, 0),
+            "flash_attn_fwd_wgmma": 2 * n, "flash_attn_fwd_general": 0, "flash_attn_bwd_wgmma": n,
+            "flash_attn_bwd_general": 0, **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
+
+
 def phase_train(torch, card):
     """The train main path: train() in process at the 10B width, depth 8,
     batch 32, fake data; then one profiled steady step and the fused
@@ -2007,11 +2050,7 @@ def phase_train(torch, card):
     profile_device(torch, lambda: train_step(state, batch), f"one train step (batch {cfg.batch_size}, "
                    f"depth {cfg.num_blocks})", card, "7", top=14)
     per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}       # a warm step, then the profiled one
-    want_step = {"flash_attn_fwd": 2 * cfg.num_blocks, "flash_attn_bwd": cfg.num_blocks, "fused_adamw": 1,
-                 "dequant_matmul": 0, "flash_attn_fwd_drop": 0, "flash_attn_bwd_drop": 0,
-                 **dict.fromkeys(_build.STREAM_KERNELS, 0), "flash_attn_fwd_wgmma": 2 * cfg.num_blocks,
-                 "flash_attn_fwd_general": 0, "flash_attn_bwd_wgmma": cfg.num_blocks, "flash_attn_bwd_general": 0,
-                 **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
+    want_step = step_launches(cfg)
     if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
         fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
     say(f"[7 train] launches per steady step {per_step}")
@@ -2020,7 +2059,9 @@ def phase_train(torch, card):
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, timing, losses[0], (sec_per_iter, mfu)
+    ref = {"sec": sec_per_iter, "mfu": mfu, "peak_gb": peak_gb, "losses": losses,
+           "norms": [r["grad_norm"] for r in steps]}
+    return launches, timing, losses[0], (sec_per_iter, mfu), ref
 
 
 def phase_train_dropout(torch, card, first_loss_rate0: float):
@@ -2093,12 +2134,8 @@ def phase_train_dropout(torch, card, first_loss_rate0: float):
         loss.backward()
         return loss.detach(), global_norm([p.grad for p in model.parameters()])
 
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True       # the patch conv's wgrad: no atomics
-    try:
+    with deterministic_cudnn(torch):
         runs = [loss_and_norm(dropout_seeds(cfg, s, 0)) for s in (cfg.max_steps, cfg.max_steps, cfg.max_steps + 1)]
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     same = torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
     moved = not torch.equal(runs[0][0], runs[2][0])
     say(f"[7d check] one step from the same state and seeds, twice: loss {runs[0][0].item():.9g} / "
@@ -2778,10 +2815,210 @@ def phase_checkpoint(torch, card, root: str):
     return {k: train_launches[k] + serve_launches[k] for k in serve_launches}
 
 
+# Phase 7f: FSDP2 at world size 1. The parity arms run 3 steps of phase 7's
+# configuration from its init, on noise_data; the sharded save runs the 10B
+# width at depth 2.
+FSDP_ARMS = (("ZeRO-3", {}), ("ZeRO-2", dict(reshard_after_forward=False)), ("DP", dict(run_without_fsdp=True)))
+FSDP_PARITY_STEPS = 3
+TRAIN_FSDP_CKPT = dict(num_blocks=2, batch_size=32, fake_data=True, warmup_steps=4, log_step_interval=1,
+                       eval_max_batches=1, steps_per_epoch=2, max_steps=2, num_epochs=1, ckpt_epoch_interval=1)
+# A step under FSDP2: the port's kernels; the collectives and FSDP2's
+# copy-out (NCCL kernels; at one rank NCCL's all-gather and reduce-scatter,
+# and the copy-out of the gathered params, are device-to-device memcpys);
+# FSDP2's copy-in before a reduce-scatter (_chunk_cat, casting the bf16
+# grads into the f32 buffer); the GEMMs; and the dtype casts: the model's
+# (of activations and, unwrapped, of every weight at each use) and FSDP2's
+# f32-to-bf16 cast of each shard before its gather, which share kernels.
+FSDP_GROUPS = (("flash_attn_fwd", r"flash_attn_fwd"), ("flash_attn_bwd", r"bwd_dkdv|bwd_dq|delta_kernel"),
+               ("fused_adamw", r"fused_adamw"), ("collectives and copy-out", r"nccl|Memcpy DtoD"),
+               ("FSDP copy-in", r"chunk_cat|split_with_sizes"),
+               ("gemm", r"gemm|xmma|nvjet|cutlass|sm90_"), ("casts", r"bfloat16_copy_kernel|direct_copy_kernel"))
+
+
+def noise_data(cfg) -> tuple:
+    """build_datasets' tuple for `cfg` with each train image and label
+    drawn from (SEED, index): normal noise, a label of cfg.num_classes.
+    Fake data's zero images with label 0 drive the loss and the grad norm
+    to 0 after one update; on these every step's loss and norm carry
+    information. The val split stays fake."""
+    from vitax_torch.data.fake import FakeImageNetDataset
+    from vitax_torch.data.loader import ShardedLoader, build_datasets
+
+    class NoiseImageNet(FakeImageNetDataset):
+        def __getitem__(self, idx: int):
+            rng = np.random.default_rng((SEED, idx))
+            s = self.image_size
+            return rng.standard_normal((s, s, 3), dtype=np.float32), int(rng.integers(cfg.num_classes))
+
+        def __repr__(self) -> str:
+            return f"NoiseImageNet(image_size={self.image_size}, length={self.length})"
+
+    fake, loader, val_ds, val_loader = build_datasets(cfg, "cuda")
+    train_ds = NoiseImageNet(cfg.image_size, len(fake))
+    return (train_ds, ShardedLoader(train_ds, loader.sampler, "cuda", cfg.num_workers, cfg.prefetch_batches),
+            val_ds, val_loader)
+
+
+def leaf_group(name: str) -> str:
+    parts = name.split(".")
+    return parts[-2] if len(parts) > 1 else parts[0]
+
+
+def phase_train_fsdp(torch, card, root: str, ref7: dict):
+    """Phase 7f: FSDP2 at world size 1 through the port's kernels and NCCL
+    (see the module docstring). Returns the launches of its train() runs,
+    each read around its run."""
+    import torch.distributed as dist
+    from vitax_torch.checkpoint import io as ckpt_io
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import build_model
+    from vitax_torch.ops import _build
+    from vitax_torch.ops.attention import make_attention_impl
+    from vitax_torch.parallel.mesh import build_mesh
+    from vitax_torch.parallel.sharding import apply_fsdp
+    from vitax_torch.telemetry.flops import model_flops_per_step, peak_tflops
+    from vitax_torch.train.loop import train
+    from vitax_torch.train.state import build_optimizer, local, make_train_state
+    from vitax_torch.train.step import make_train_step
+
+    cfg = Config(seed=SEED, **TRAIN).validate()
+    parity = dataclasses.replace(cfg, max_steps=FSDP_PARITY_STEPS)
+    n = cfg.num_blocks
+    batch = {"image": torch.zeros((cfg.batch_size, cfg.image_size, cfg.image_size, 3), device="cuda"),
+             "label": torch.zeros(cfg.batch_size, dtype=torch.int64, device="cuda")}
+    optimizer, _ = build_optimizer(cfg, 100)
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def run(c, label: str, data=None):
+        """train(c) with its launches read around it and checked."""
+        records = []
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state = train(c, "cuda", records=records, data=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        want = train_run_launches(c)
+        if launches != want:
+            fail(f"7f {label}: train() launched {launches}; expected {want}")
+        steps = [r for r in records if "loss" in r]
+        if len(steps) != c.max_steps or not all(np.isfinite([r["loss"] for r in steps])):
+            fail(f"7f {label}: {len(steps)} steps logged, losses {[r['loss'] for r in steps]}")
+        return state, steps, wall, records
+
+    def split(fn, label):
+        return profile_device(torch, fn, label, card, "7f", top=24, kernel_groups=FSDP_GROUPS)
+
+    # the unwrapped reference, made before the group exists
+    with deterministic_cudnn(torch):
+        state, ref_steps, _, _ = run(parity, "unwrapped reference", noise_data(parity))
+    ref_params = {name: local(p).detach().cpu() for name, p in state.model.named_parameters()}
+    if len({r["loss"] for r in ref_steps}) < len(ref_steps) or not all(r["grad_norm"] > 0 for r in ref_steps):
+        fail(f"7f: the parity reference's steps carry no information: "
+             f"{[(r['loss'], r['grad_norm']) for r in ref_steps]}")
+    split(lambda: make_train_step(cfg, optimizer, "cuda")(state, batch), f"one unwrapped step (batch "
+          f"{cfg.batch_size}, depth {n})")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(root, 'fsdp_store')}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        # ZeRO-3 at phase 7's configuration: timing, launches, the profile
+        state, steps, wall, _ = run(cfg, "ZeRO-3")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        times = [r["step_seconds"] for r in steps[2:]]
+        sec = float(np.median(times))
+        peak = peak_tflops(torch.cuda.get_device_name(0))
+        mfu = (model_flops_per_step(cfg) / sec / (peak * 1e12)) if peak else None
+        losses = [r["loss"] for r in steps]
+        d_loss = max(abs(a - b) for a, b in zip(losses, ref7["losses"]))
+        say(f"[7f train] ZeRO-3 (FSDP2, one NCCL rank, bf16 gathers, f32 reduces), 10B width, depth {n}, batch "
+            f"{cfg.batch_size}: {cfg.max_steps} steps + eval in {wall:.1f}s; losses "
+            + " ".join(f"{x:.4f}" for x in losses) + f"; max |d| to phase 7's losses {d_loss:.3g} "
+            f"(phase 7 runs the conv's wgrad nondeterministically)")
+        say(f"[7f train] sec/iter median of steps 3-12 {sec:.4f} s (min {min(times):.4f}, max {max(times):.4f}) / "
+            f"phase 7 {ref7['sec']:.4f} s ({sec / ref7['sec']:.3f}x); images/s {cfg.batch_size / sec:.2f} / "
+            f"{cfg.batch_size / ref7['sec']:.2f}; MFU "
+            + (f"{mfu * 100:.2f}% / {ref7['mfu'] * 100:.2f}%" if mfu and ref7["mfu"] else "not measured")
+            + f"; max_memory_allocated {peak_gb:.2f} / {ref7['peak_gb']:.2f} GB [{card}]")
+        mesh = build_mesh(cfg, torch.device("cuda"))
+        step = make_train_step(cfg, optimizer, "cuda", mesh)
+        _build.reset_launches()
+        split(lambda: step(state, batch), f"one ZeRO-3 step (batch {cfg.batch_size}, depth {n})")
+        per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}
+        if per_step != step_launches(cfg) or any(v % 2 for v in _build.LAUNCHES.values()):
+            fail(f"7f: two steady ZeRO-3 steps launched {dict(_build.LAUNCHES)}; expected "
+                 f"{step_launches(cfg)} a step")
+        say(f"[7f train] launches per steady ZeRO-3 step {per_step}")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ZeRO-3, ZeRO-2 and DP from the same init against the unwrapped reference
+        for name, arm in FSDP_ARMS:
+            acfg = dataclasses.replace(parity, **arm).validate()
+            with deterministic_cudnn(torch):
+                state, steps, _, _ = run(acfg, name, noise_data(acfg))
+            got = [(r["loss"], r["grad_norm"]) for r in steps]
+            want = [(r["loss"], r["grad_norm"]) for r in ref_steps]
+            worst = {}
+            for leaf, p in state.model.named_parameters():
+                d = float((local(p).detach() - ref_params[leaf].to("cuda")).abs().max())
+                worst[leaf_group(leaf)] = max(worst.get(leaf_group(leaf), 0.0), d)
+            same = got == want and not any(worst.values())
+            say(f"[7f parity] {name}: losses and grad norms " + ", ".join(f"{a:.9g}/{b:.9g}" for a, b in got)
+                + f"; the reference's " + ", ".join(f"{a:.9g}/{b:.9g}" for a, b in want) + "; max |d| of the "
+                f"params by leaf group {worst}; bitwise equal: {same}")
+            if not same:
+                fail(f"7f: {name} at world size 1 differs from the unwrapped run")
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        del ref_params
+
+        # a depth-2 sharded save, restored into a new sharded state
+        ccfg = Config(seed=SEED, **TRAIN_FSDP_CKPT, ckpt_dir=os.path.join(root, "fsdp_ckpt")).validate()
+        state, _, _, records = run(ccfg, "sharded save")
+        stall = [r["ckpt_stall_s"] for r in records if "ckpt_stall_s" in r]
+        cmesh = build_mesh(ccfg, torch.device("cuda"))
+        model = apply_fsdp(build_model(ccfg, "meta", attention_impl=make_attention_impl(ccfg, "cuda")), ccfg, cmesh)
+        model.to_empty(device="cuda")
+        target = make_train_state(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_io.restore_state(ccfg.ckpt_dir, 1, target)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        names = [k for k, _ in state.model.named_parameters()]
+        same = (target.step == state.step and int(target.count) == int(state.count) and all(
+            torch.equal(local(a), local(b)) for k in names
+            for a, b in ((dict(state.model.named_parameters())[k], dict(target.model.named_parameters())[k]),
+                         (state.mu[k], target.mu[k]), (state.nu[k], target.nu[k]))))
+        gb = dir_bytes(ckpt_io.epoch_ckpt_path(ccfg.ckpt_dir, 1)) / 1e9
+        say(f"[7f ckpt] depth {ccfg.num_blocks}, ZeRO-3: train() saved epoch 1 ({gb:.2f} GB on disk; the waited "
+            f"save held the loop {stall[0]:.2f} s); restore_state into a new sharded state in "
+            f"{t_restore:.2f} s, {gb / t_restore:.2f} GB/s; params, mu, nu, count and step bitwise equal: {same} "
+            f"[{card}]")
+        if not same:
+            fail("7f: the sharded checkpoint did not restore bitwise")
+        del state, target, model
+    finally:
+        ckpt_io.close()
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7i, 7s and 7c in `data_launches`), its
+    paths of this run (phases 7i, 7s, 7c and 7f in `data_launches`), its
     check's max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
@@ -2881,7 +3118,7 @@ def main() -> int:
     del engine_f32
     gc.collect()                           # free the 40 GB engine before the train path
     torch.cuda.empty_cache()
-    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0, fake = phase_train(torch, card)
+    train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0, fake, ref7 = phase_train(torch, card)
     drop_launches = phase_train_dropout(torch, card, loss0)
     long_launches = phase_train_long(torch, card)
     with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
@@ -2890,7 +3127,9 @@ def main() -> int:
         stream_launches = phase_train_stream(torch, card, root, use_native)
         time_loaders(torch, root, card, use_native)
         ckpt_launches = phase_checkpoint(torch, card, root)
-    data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] for k in tree_launches}
+        fsdp_launches = phase_train_fsdp(torch, card, root, ref7)
+    data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
+                     for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches)
     say(card)

@@ -202,7 +202,7 @@ def test_loader_batches_and_worker_errors():
 
 
 @pytest.mark.parametrize("bad,match", [(dict(att_dropout=1.0), "dropout"), (dict(pos_dropout=-0.1), "dropout"),
-                                       (dict(fsdp_size=2), "mesh"), (dict(dp_size=2), "mesh"),
+                                       (dict(tp_size=2), "mesh"), (dict(sp_size=2), "mesh"),
                                        (dict(keep_checkpoints=-1), "checkpoint"),
                                        (dict(grad_accum_steps=3), "grad_accum"),
                                        (dict(fused_optimizer="maybe"), "fused_optimizer")])

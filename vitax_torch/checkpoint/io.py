@@ -4,8 +4,14 @@ format of torch.distributed.checkpoint (DCP).
 One directory per saved epoch, `<ckpt_dir>/epoch_<N>/`, holds DCP's
 `.metadata` and `.distcp` files for the state: the model's float32
 state_dict under "model", the AdamW moments under "mu" and "nu" (keyed by
-parameter name), `step` (int64) and `count` (int32). DCP is the format
-FSDP2 shards, so a sharded save keeps these files and keys.
+parameter name), `step` (int64) and `count` (int32).
+
+Sharded (a process group, FSDP2's DTensor params, mu and nu): each rank
+snapshots only its own shards, DCP writes them with the shards' global
+offsets over a gloo group of its own (the background write's collectives
+never meet the step's), and rank 0 writes the commit marker once every
+rank has written. A restore reshards to any world size: into DTensors on
+a mesh, or into whole tensors of one process (the export's read_state).
 
 Commit: DCP writes into epoch_<N>/, then `commit_success.txt` (one of
 vitax's COMMIT_MARKERS) is written beside its files. A directory without a
@@ -52,7 +58,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from vitax_torch.train.state import TrainState
+from vitax_torch.distributed import is_distributed, process_count, process_index
+from vitax_torch.train.state import TrainState, local
 from vitax_torch.utils.logging import master_print
 
 _EPOCH_RE = re.compile(r"^epoch_(\d+)$")
@@ -69,45 +76,52 @@ DEFAULT_SAVE_RETRY_BACKOFF_S = 0.5
 WRITE_THREADS = 4
 
 
-def _distributed() -> bool:
-    return dist.is_available() and dist.is_initialized()
-
-
-def process_index() -> int:
-    return dist.get_rank() if _distributed() else 0
-
-
-def process_count() -> int:
-    return dist.get_world_size() if _distributed() else 1
-
-
 class _Writer:
     """The process's background checkpoint writes, one at a time, in order,
-    and the pinned host buffers their snapshots of card tensors go to."""
+    the pinned host buffers their snapshots of card tensors go to, and,
+    sharded, the gloo group their collectives run on."""
 
     def __init__(self):
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pending: List[Future] = []
         self._staging: Dict[str, torch.Tensor] = {}
+        self._group = (None, None)          # (the default group it was made under, the group)
+
+    def group(self):
+        """The checkpoint's own gloo process group over every rank, made on
+        first use under each default group (a collective: every rank calls
+        save_state and restore_state at the same point); None alone."""
+        if not is_distributed():
+            return None
+        if self._group[0] is not dist.group.WORLD:
+            self._group = (dist.group.WORLD, dist.new_group(backend="gloo"))
+        return self._group[1]
 
     def snapshot(self, tree: Dict[str, object], prefix: str = "") -> Dict[str, object]:
-        """A host copy of every tensor of the tree; call only with no write
-        pending (the write reads the buffers this reuses)."""
+        """A host copy of every tensor of the tree, of a DTensor its local
+        shard under the same spec; call only with no write pending (the
+        write reads the buffers this reuses)."""
+        from torch.distributed.tensor import DTensor
         out: Dict[str, object] = {}
         for k, v in tree.items():
             name = f"{prefix}{k}"
             if isinstance(v, dict):
                 out[k] = self.snapshot(v, name + ".")
-            elif v.device.type == "cpu":
-                out[k] = v.detach().clone()
+            elif isinstance(v, DTensor):        # the shard, with its place in the whole
+                out[k] = DTensor(self._stage(name, local(v)), v._spec, requires_grad=False)
             else:
-                buf = self._staging.get(name)
-                if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
-                    buf = self._staging[name] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                out[k] = buf.copy_(v.detach(), non_blocking=True)
+                out[k] = self._stage(name, v)
         if not prefix and self._staging:
             torch.cuda.synchronize()            # the non-blocking copies have landed
         return out
+
+    def _stage(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        if v.device.type == "cpu":
+            return v.detach().clone()
+        buf = self._staging.get(name)
+        if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+            buf = self._staging[name] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        return buf.copy_(v.detach(), non_blocking=True)
 
     def submit(self, fn: Callable, *args) -> None:
         if self._pool is None:
@@ -236,9 +250,10 @@ def _transient(e: BaseException) -> bool:
     return isinstance(e, OSError)
 
 
-def _write(path: str, snapshot: Dict[str, object], retries: int, backoff_s: float) -> None:
-    """DCP-save the snapshot into `path`, retrying transient failures, then
-    write the commit marker."""
+def _write(path: str, snapshot: Dict[str, object], retries: int, backoff_s: float, group) -> None:
+    """DCP-save the snapshot into `path` (over `group` when sharded),
+    retrying transient failures, then, once every rank has written, the
+    commit marker from rank 0."""
     import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint.api import CheckpointException
     attempts = max(retries, 1)
@@ -246,7 +261,7 @@ def _write(path: str, snapshot: Dict[str, object], retries: int, backoff_s: floa
         try:
             os.makedirs(path, exist_ok=True)
             dcp.save(snapshot, storage_writer=dcp.FileSystemWriter(path, thread_count=WRITE_THREADS, overwrite=True),
-                     no_dist=not _distributed())
+                     process_group=group, no_dist=group is None)
             break
         except (OSError, CheckpointException) as e:
             if attempt + 1 >= attempts or not _transient(e):
@@ -257,8 +272,11 @@ def _write(path: str, snapshot: Dict[str, object], retries: int, backoff_s: floa
             print(f"vitax_torch.checkpoint: transient save failure for {path} (attempt {attempt + 1}/"
                   f"{attempts}: {type(e).__name__}: {e}); retrying in {delay:.2f}s", file=sys.stderr, flush=True)
             time.sleep(delay)
-    with open(os.path.join(path, COMMIT_MARKER), "w") as f:
-        f.write(f"Checkpoint commit was successful to {path}\n")
+    if group is not None:
+        dist.barrier(group=group)
+    if process_index() == 0:
+        with open(os.path.join(path, COMMIT_MARKER), "w") as f:
+            f.write(f"Checkpoint commit was successful to {path}\n")
 
 
 def save_state(ckpt_dir: str, epoch: int, state: TrainState, wait: bool = False,
@@ -277,6 +295,7 @@ def save_state(ckpt_dir: str, epoch: int, state: TrainState, wait: bool = False,
     retries = int(os.environ.get("VITAX_SAVE_RETRIES", DEFAULT_SAVE_RETRIES))
     backoff_s = float(os.environ.get("VITAX_SAVE_RETRY_BACKOFF_S", DEFAULT_SAVE_RETRY_BACKOFF_S))
     _WRITER.wait()                              # the previous write commits before this snapshot
+    group = _WRITER.group()
     snapshot = _WRITER.snapshot(train_state_dict(state))
     if process_index() == 0:
         for marker in COMMIT_MARKERS:           # an overwrite is torn until it commits
@@ -284,7 +303,7 @@ def save_state(ckpt_dir: str, epoch: int, state: TrainState, wait: bool = False,
                 os.remove(os.path.join(path, marker))
             except FileNotFoundError:
                 pass
-    _WRITER.submit(_write, path, snapshot, retries, backoff_s)
+    _WRITER.submit(_write, path, snapshot, retries, backoff_s, group)
     if wait:
         _WRITER.wait()
     if process_index() == 0:
@@ -328,14 +347,16 @@ def prune_checkpoints(ckpt_dir: str, keep: int) -> List[int]:
 
 def restore_state(ckpt_dir: str, epoch: int, state: TrainState) -> TrainState:
     """Load the checkpoint of `epoch` into `state` in place (its params, mu,
-    nu and count on their device; step on the host) and return it."""
+    nu and count on their device, a sharded state's own shards; step on
+    the host) and return it."""
     import torch.distributed.checkpoint as dcp
     wait_until_finished()                       # an in-flight save of this epoch commits first
     path = epoch_ckpt_path(ckpt_dir, epoch)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")
     target = train_state_dict(state)
-    dcp.load(target, checkpoint_id=path, no_dist=not _distributed())
+    group = _WRITER.group()
+    dcp.load(target, checkpoint_id=path, process_group=group, no_dist=group is None)
     state.step = int(target["step"])
     master_print(f"resumed from checkpoint {path}")
     return state
@@ -384,7 +405,8 @@ def read_state(ckpt_dir: str, epoch: int,
             tree.setdefault(group, {})[name] = leaf
         else:
             tree[group] = leaf
-    dcp.load(tree, checkpoint_id=path, no_dist=not _distributed())
+    group = _WRITER.group()
+    dcp.load(tree, checkpoint_id=path, process_group=group, no_dist=group is None)
     if "step" in tree:
         tree["step"] = int(tree["step"])
     return tree

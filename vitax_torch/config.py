@@ -4,12 +4,15 @@ build_parser, validate), so one command line means the same run to both
 packages. Settings whose path is a later slice of the port are rejected by
 validate() with a message that names the slice. The zero-stall and peer
 checkpoint flags (zero_stall_ckpt, replicate_steps, peer_dir) are not
-fields yet: the parser rejects them as unknown arguments."""
+fields yet: the parser rejects them as unknown arguments. The mesh takes
+dp and fsdp (FSDP2 over the processes torchrun starts, one card each);
+tp, sp and pp above 1 wait for ROADMAP item 11."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+from typing import Optional
 
 QUANT_DTYPE_CHOICES = ("", "int8", "float8_e4m3")     # --serve_quant_dtype: the __quant__ schema's dtypes
 REMAT_POLICIES = ("none_saveable", "dots_saveable", "dots_attn_saveable")    # --remat_policy (vitax/config.py:748)
@@ -47,6 +50,15 @@ class Config:
     # --- numerics and init ---
     seed: int = 0
     dtype: str = "bfloat16"             # compute dtype; initialized params are float32
+    # Communication precision (vitax/config.py:94-105): param_gather_dtype is
+    #   what the FSDP all-gathers move (None follows --dtype: a bf16 run gathers
+    #   bf16; the cast commutes with the gather); grad_reduce_dtype is what the
+    #   grad reduce-scatter / all-reduce moves (bfloat16 needs the bf16 gather)
+    param_gather_dtype: Optional[str] = None
+    grad_reduce_dtype: str = "float32"
+    gather_overlap: str = "auto"        # auto | off | on: on = explicit prefetch of the next block's
+    #   gather in the forward and the previous block's in the backward (ZeRO-3 only); auto and off
+    #   leave FSDP2's own prefetch
     use_flash_attention: bool = True    # the Hopper flash-attention kernels on the card
     pos_dropout: float = 0.0
     att_dropout: float = 0.0
@@ -60,6 +72,10 @@ class Config:
     clip_grad_norm: float = 1.0
     warmup_steps: int = 10000
     grad_ckpt: bool = True              # recompute each block in the backward (--no_grad_ckpt clears)
+    reshard_after_forward: bool = True  # --no_reshard_after_forward clears (ZeRO-3 -> ZeRO-2)
+    flatten_parameters: bool = False    # accepted for parity; a no-op (FSDP2 keeps one DTensor per parameter)
+    run_without_fsdp: bool = False      # pure data-parallel baseline (params replicated: HSDP, shard group 1)
+    shard_on_cpu: bool = False          # draw each leaf's init on the host, keep the rank's shard
     remat_policy: str = "none_saveable" # what a recomputed block keeps (only if grad_ckpt): nothing; its
     #   matmul outputs (dots_saveable); those and the attention core's o and lse (dots_attn_saveable)
     grad_accum_steps: int = 1           # K > 1: K strided microbatches of B/K per optimizer step
@@ -68,7 +84,7 @@ class Config:
     max_steps: int = 0                  # stop after N optimizer steps (0 = no limit)
     eval_max_batches: int = 0           # cap val batches per eval (0 = the whole split)
 
-    # --- mesh (one process, one card in this slice) ---
+    # --- mesh: (dp, fsdp) over the processes, one card each; -1 = all remaining ---
     dp_size: int = 1
     fsdp_size: int = -1
     tp_size: int = 1
@@ -94,6 +110,16 @@ class Config:
     serve_brownout_wait_ms: float = 1.0      # batcher deadline while degraded
 
     @property
+    def resolved_param_gather_dtype(self) -> str:
+        """Gather-dtype policy after None -> --dtype resolution."""
+        return self.param_gather_dtype or self.dtype
+
+    @property
+    def comm_cast_active(self) -> bool:
+        """True when params are gathered in bf16 (cast while still sharded)."""
+        return self.dtype == "bfloat16" and self.resolved_param_gather_dtype == "bfloat16"
+
+    @property
     def num_patches(self) -> int:
         return (self.image_size // self.patch_size) ** 2
 
@@ -103,16 +129,10 @@ class Config:
 
     def validate(self) -> "Config":
         """Reject settings the port cannot run; returns self."""
-        later = (
-            (all(n in (1, -1) if name == "fsdp_size" else n == 1 for name, n in (
-                ("dp_size", self.dp_size), ("fsdp_size", self.fsdp_size), ("tp_size", self.tp_size),
-                ("sp_size", self.sp_size), ("pp_size", self.pp_size))),
-             "mesh sizes above 1 (--dp_size/--fsdp_size/--tp_size/--sp_size/--pp_size) wait for "
-             "the FSDP and parallelism slices; this slice trains on one card"),
-        )
-        for ok, msg in later:
-            if not ok:
-                raise ValueError(msg)
+        for name in ("tp_size", "sp_size", "pp_size"):
+            if getattr(self, name) != 1:
+                raise ValueError(f"--{name} {getattr(self, name)}: tensor, sequence and pipeline parallelism "
+                                 f"wait for ROADMAP item 11; the port's mesh takes --dp_size and --fsdp_size")
         checks = (
             (self.prefetch_batches >= 1,
              f"--prefetch_batches must be >= 1, got {self.prefetch_batches}: the loader needs at least one "
@@ -134,6 +154,27 @@ class Config:
              f"{self.grad_accum_steps} (>= 1)"),
             (self.remat_policy in REMAT_POLICIES,
              f"unknown remat_policy {self.remat_policy!r} (expected one of {', '.join(REMAT_POLICIES)})"),
+            (self.gather_overlap in ("auto", "off", "on"),
+             f"unknown gather_overlap {self.gather_overlap!r} (expected 'auto', 'off' or 'on')"),
+            (self.gather_overlap != "on" or (self.reshard_after_forward and not self.run_without_fsdp),
+             "--gather_overlap on needs ZeRO-3 (per-block gathers): under ZeRO-2 (--no_reshard_after_forward) "
+             "the gathered params stay live through the backward and under --run_without_fsdp params are "
+             "replicated — there is no per-block gather to overlap"),
+            (self.gather_overlap != "on" or (self.grad_ckpt and self.remat_policy == "none_saveable"),
+             "--gather_overlap on requires --grad_ckpt with remat_policy=none_saveable: the schedule's "
+             "backward re-gathers each block's shards and recomputes its forward (exactly per-block remat); "
+             "other policies save residuals the overlap path would silently discard"),
+            (self.resolved_param_gather_dtype in ("bfloat16", "float32"),
+             f"unknown param_gather_dtype {self.param_gather_dtype!r}"),
+            (self.grad_reduce_dtype in ("bfloat16", "float32"),
+             f"unknown grad_reduce_dtype {self.grad_reduce_dtype!r}"),
+            (self.dtype != "float32" or self.param_gather_dtype != "bfloat16",
+             "--param_gather_dtype bfloat16 with --dtype float32 would gather a downcast tree into an f32 "
+             "model and silently change compute precision; use --dtype bfloat16 (f32 master params are "
+             "kept either way)"),
+            (self.grad_reduce_dtype != "bfloat16" or self.comm_cast_active,
+             "--grad_reduce_dtype bfloat16 requires the bf16 comm-cast to be active (--dtype bfloat16 and "
+             "param_gather_dtype bfloat16): the bf16 reduction rides the cast boundary"),
             (self.fused_optimizer in ("auto", "on", "off"),
              f"unknown fused_optimizer {self.fused_optimizer!r} (expected 'auto', 'on' or 'off')"),
             (self.log_step_interval >= 1, f"--log_step_interval must be >= 1, got {self.log_step_interval}"),
@@ -196,9 +237,14 @@ class Config:
 _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--host_normalize", "store_false", "device_normalize"),
                ("--no_flash_attention", "store_false", "use_flash_attention"),
-               ("--no_grad_ckpt", "store_false", "grad_ckpt"))
+               ("--no_grad_ckpt", "store_false", "grad_ckpt"),
+               ("--no_reshard_after_forward", "store_false", "reshard_after_forward"),
+               ("--flatten_parameters", "store_true", "flatten_parameters"),
+               ("--run_without_fsdp", "store_true", "run_without_fsdp"),
+               ("--shard_on_cpu", "store_true", "shard_on_cpu"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS),
-            "fused_optimizer": ["auto", "on", "off"],
+            "fused_optimizer": ["auto", "on", "off"], "gather_overlap": ["auto", "off", "on"],
+            "param_gather_dtype": ["bfloat16", "float32"], "grad_reduce_dtype": ["float32", "bfloat16"],
             "remat_policy": list(REMAT_POLICIES),
             "serve_quant_dtype": list(QUANT_DTYPE_CHOICES), "serve_act_quant": ["off", "int8"],
             "fused_dequant": ["auto", "on", "off"]}
@@ -220,7 +266,7 @@ def build_parser() -> argparse.ArgumentParser:
         if f.name in bools:
             continue
         default = getattr(d, f.name)
-        parser.add_argument(f"--{f.name}", type=type(default), default=default,
+        parser.add_argument(f"--{f.name}", type=str if default is None else type(default), default=default,
                             choices=_CHOICES.get(f.name), help=_HELP.get(f.name))
     for flag, action, dest in _BOOL_FLAGS:
         parser.add_argument(flag, action=action, dest=dest)

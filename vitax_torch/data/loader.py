@@ -3,7 +3,7 @@
 - `ShardedSampler`: the epoch-seeded, drop-last index order of the JAX
   package (DistributedSampler parity, rank-interleaved), so both packages
   visit the same samples in the same order for a seed.
-- `ShardedLoader`: one process, one device. A producer thread builds each
+- `ShardedLoader`: one device of one process. A producer thread builds each
   batch on the host, `prefetch` batches ahead: one GIL-free native call a
   batch where the dataset decodes natively (`load_batch`), else
   `__getitem__` on a pool of `num_workers` threads. It pins the batch when
@@ -12,7 +12,9 @@
   time it waited on the queue to `consume_wait_s`. A producer failure is
   re-raised on the consumer with the worker's traceback.
 
-`build_datasets` builds the fake, ImageFolder or streaming splits. Under
+`build_datasets` builds the fake, ImageFolder or streaming splits, each
+process reading its interleaved slice of every global batch (a process
+of a torchrun launch: its rank and the world size). Under
 `device_normalize` the batches stay uint8 and the train step normalizes
 them on the card (train/step.py prepare_images).
 """
@@ -30,6 +32,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vitax_torch import distributed
 from vitax_torch.config import Config
 from vitax_torch.data.fake import TRAIN_SPLIT_LEN, VAL_SPLIT_LEN, FakeImageNetDataset
 
@@ -182,11 +185,14 @@ def build_datasets(cfg: Config, device: torch.device, use_native: Optional[bool]
     (vitax/data/loader.py build_datasets): the fake ImageNet splits, an
     ImageFolder tree under cfg.data_dir/{train,val}, or, under
     `--data_format stream`, its packed shards. `use_native` picks the
-    decode path of a real tree (None: native where it builds)."""
+    decode path of a real tree (None: native where it builds). The loaders
+    read this process's rows of each global batch: the rank's of the world
+    size (0 of 1 alone)."""
     device = torch.device(device)
+    rank, world = distributed.process_index(), distributed.process_count()
     if cfg.data_format == "stream":
         from vitax_torch.data.stream import build_stream_datasets
-        return build_stream_datasets(cfg, device, use_native)
+        return build_stream_datasets(cfg, device, use_native, rank, world)
     if cfg.fake_data:
         train_ds = FakeImageNetDataset(cfg.image_size, TRAIN_SPLIT_LEN)
         val_ds = FakeImageNetDataset(cfg.image_size, VAL_SPLIT_LEN)
@@ -198,7 +204,9 @@ def build_datasets(cfg: Config, device: torch.device, use_native: Optional[bool]
                                       TrainTransform(cfg.image_size, cfg.seed, normalize=norm_on_host), use_native)
         val_ds = ImageFolderDataset(os.path.join(cfg.data_dir, "val"),
                                     ValTransform(cfg.image_size, normalize=norm_on_host), use_native)
-    train_sampler = ShardedSampler(len(train_ds), cfg.batch_size, shuffle=True, seed=cfg.seed)
-    val_sampler = ShardedSampler(len(val_ds), cfg.batch_size, shuffle=False, seed=cfg.seed)
+    train_sampler = ShardedSampler(len(train_ds), cfg.batch_size, shuffle=True, seed=cfg.seed,
+                                   process_index=rank, process_count=world)
+    val_sampler = ShardedSampler(len(val_ds), cfg.batch_size, shuffle=False, seed=cfg.seed,
+                                 process_index=rank, process_count=world)
     return (train_ds, ShardedLoader(train_ds, train_sampler, device, cfg.num_workers, cfg.prefetch_batches),
             val_ds, ShardedLoader(val_ds, val_sampler, device, cfg.num_workers, cfg.prefetch_batches))

@@ -46,7 +46,7 @@ then the unchanged Dense in the site's dtype.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,24 +133,27 @@ class QuantConv2d(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout, device=device))
 
 
+class Linear(nn.Linear):
+    """flax nn.Dense(dtype=dtype) over stored params: all operands in dtype.
+    Every Dense site and LayerNorm is called as a module, so FSDP2 gathers
+    its params in the module's forward hook (parallel/sharding.py)."""
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax nn.LayerNorm(dtype=dtype): f32 statistics, output in dtype."""
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(dtype)
+
+
 def _linear(in_features: int, out_features: int, quant: Optional[Quant], act: bool, device) -> nn.Module:
     if quant is None:
-        return nn.Linear(in_features, out_features, device=device)
+        return Linear(in_features, out_features, device=device)
     return QuantLinear(in_features, out_features, quant, act, device=device)
-
-
-def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax nn.Dense(dtype=dtype) over stored params: all operands in dtype;
-    a quantized site computes as QuantLinear says."""
-    if isinstance(layer, QuantLinear):
-        return layer(x, dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
-
-
-def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax nn.LayerNorm(dtype=dtype): f32 statistics, output in dtype."""
-    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight.float(),
-                        layer.bias.float(), layer.eps).to(dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -198,7 +201,7 @@ class Attention(nn.Module):
         """q, k, v (B, N, H, Dh): strided views of the qkv output; the
         backward stacks dq, dk, dv in one copy."""
         b, n, d = x.shape
-        return _dense(self.qkv, x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads).unbind(2)
+        return self.qkv(x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads).unbind(2)
 
     def core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         if seed is None or self.att_dropout == 0.0:
@@ -208,7 +211,7 @@ class Attention(nn.Module):
 
     def output(self, out: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n = out.shape[:2]
-        return _dropout(_dense(self.proj, out.reshape(b, n, -1), self.dtype), self.proj_dropout, gen)
+        return _dropout(self.proj(out.reshape(b, n, -1), self.dtype), self.proj_dropout, gen)
 
 
 class Mlp(nn.Module):
@@ -223,8 +226,8 @@ class Mlp(nn.Module):
         self.fc2 = _linear(hidden_dim, dim, quant, True, device)
 
     def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = _dropout(F.gelu(_dense(self.fc1, x, self.dtype)), self.dropout, gen)
-        return _dropout(_dense(self.fc2, x, self.dtype), self.dropout, gen)
+        x = _dropout(F.gelu(self.fc1(x, self.dtype)), self.dropout, gen)
+        return _dropout(self.fc2(x, self.dtype), self.dropout, gen)
 
 
 class Block(nn.Module):
@@ -236,15 +239,15 @@ class Block(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.mlp_dropout = mlp_dropout
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.norm1 = LayerNorm(dim, eps=1e-5, device=device)
         self.attn = Attention(dim, num_heads, dtype, attention_impl, quant, device=device,
                               att_dropout=att_dropout, proj_dropout=mlp_dropout)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device, dropout=mlp_dropout)
 
     def attention_inputs(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The block up to its attention core: norm1 and the qkv projection."""
-        return self.attn.project(_layer_norm(self.norm1, x, self.dtype))
+        return self.attn.project(self.norm1(x, self.dtype))
 
     def finish(self, x: torch.Tensor, out: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         """The block after its attention core `out`: proj, the residuals,
@@ -253,7 +256,7 @@ class Block(nn.Module):
         again."""
         gen = _generator(seed, x.device) if seed is not None and self.mlp_dropout > 0.0 else None
         x = x + self.attn.output(out, gen)
-        return x + self.mlp(_layer_norm(self.norm2, x, self.dtype), gen)
+        return x + self.mlp(self.norm2(x, self.dtype), gen)
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         """seed: the block's dropout seed, or None (no dropout)."""
@@ -307,7 +310,7 @@ class VisionTransformer(nn.Module):
             Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device,
                   att_dropout=cfg.att_dropout, mlp_dropout=cfg.mlp_dropout)
             for _ in range(cfg.num_blocks))
-        self.norm = nn.LayerNorm(d, eps=1e-6, device=device)
+        self.norm = LayerNorm(d, eps=1e-6, device=device)
         self.head = _linear(d, cfg.num_classes, quant, False, device)
 
     def forward(self, images: torch.Tensor, seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
@@ -323,25 +326,44 @@ class VisionTransformer(nn.Module):
         for i, block in enumerate(self.blocks):
             seed = None if seeds is None else seeds.blocks[i]
             x = remat_block(block, x, seed, self.remat_policy) if remat else block(x, seed)
-        x = _layer_norm(self.norm, x, self.dtype).mean(dim=1)
-        return _dense(self.head, x, torch.float32)
+        x = self.norm(x, self.dtype).mean(dim=1)
+        return self.head(x, torch.float32)
+
+
+def _trunc_normal(t: torch.Tensor, gen: torch.Generator) -> None:
+    nn.init.trunc_normal_(t, std=INIT_STD, a=-INIT_BOUND, b=INIT_BOUND, generator=gen)
+
+
+def _zeros(t: torch.Tensor, gen: torch.Generator) -> None:
+    nn.init.zeros_(t)
+
+
+def _ones(t: torch.Tensor, gen: torch.Generator) -> None:
+    nn.init.ones_(t)
+
+
+def init_leaves(model: nn.Module) -> Iterator[Tuple[nn.Parameter, Callable[[torch.Tensor, torch.Generator], None]]]:
+    """(param, fill) for every parameter in init order, fill(tensor,
+    generator) filling a tensor of the param's shape in place: timm's
+    trunc-normal(0.02, +/-2 sigma) conv/Linear weights and pos_embed (the
+    only draws), zero biases, LayerNorm ones/zeros. init_params and the
+    sharded init (parallel/sharding.py init_sharded) both walk it."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            yield module.weight, _trunc_normal
+            yield module.bias, _zeros
+        elif isinstance(module, nn.LayerNorm):
+            yield module.weight, _ones
+            yield module.bias, _zeros
+    if isinstance(model, VisionTransformer):
+        yield model.pos_embed, _trunc_normal
 
 
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
-    """timm init in place: trunc-normal(0.02, +/-2 sigma) conv/Linear weights
-    and pos_embed, zero biases, LayerNorm ones/zeros."""
-    for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Conv2d)):
-            nn.init.trunc_normal_(module.weight, std=INIT_STD, a=-INIT_BOUND, b=INIT_BOUND,
-                                  generator=generator)
-            nn.init.zeros_(module.bias)
-        elif isinstance(module, nn.LayerNorm):
-            nn.init.ones_(module.weight)
-            nn.init.zeros_(module.bias)
-    if isinstance(model, VisionTransformer):
-        nn.init.trunc_normal_(model.pos_embed, std=INIT_STD, a=-INIT_BOUND, b=INIT_BOUND,
-                              generator=generator)
+    """timm init in place, leaf by leaf in init_leaves' order."""
+    for param, fill in init_leaves(model):
+        fill(param, generator)
 
 
 def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,

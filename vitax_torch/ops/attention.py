@@ -103,6 +103,17 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def fold_shard_seed(index: int, seed: int) -> int:
+    """Fold a shard's linearized index into a uint32 dropout seed (vitax
+    fold_shard_seed): every rank sees the same local (batch, head) block
+    indices, so without the fold two ranks would draw the same masks. The
+    index is the rank's coordinate over the mesh dims that carry the batch
+    (parallel/mesh.py batch_shard), as vitax linearizes its shard_map axes
+    of size > 1; index 0 (one rank) leaves the seed as it is."""
+    bits = _fmix32(_mul32(torch.tensor(int(index) & _MASK32), _GOLD_BH))
+    return (int(seed) ^ int(bits)) & _MASK32
+
+
 def dropout_threshold(rate: float) -> int:
     """T with P(bits < T) = rate, computed in Python as the JAX package does."""
     return min(int(rate * 2 ** 32), 2 ** 32 - 1)

@@ -47,11 +47,21 @@ def fused_optimizer_active(cfg, device) -> bool:
     return on_card
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (optax.global_norm), an
-    f32 scalar on the grads' device; one multi-tensor reduction."""
+    f32 scalar on the grads' device; one multi-tensor reduction. Sharded
+    grads pass their local shards (padding is not in them) and `group`,
+    the process group of the fsdp dim: the squared local norm is summed
+    over it, so a dp replica is not counted twice. Without a group the
+    norm is the local one."""
     norms = torch._foreach_norm(list(grads))
-    return torch.linalg.vector_norm(torch.stack(norms))
+    norm = torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        return norm
+    import torch.distributed as dist
+    sq = norm * norm
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt()
 
 
 def step_scalars(count: torch.Tensor, grad_norm: torch.Tensor, schedule: Callable,

@@ -1,5 +1,15 @@
 """Training orchestration (vitax/train/loop.py train, _run_epochs,
-_run_logging, eval_on_val), on one device.
+_run_logging, eval_on_val), on one device, or one card per process under
+torchrun with FSDP2 (ZeRO-3, ZeRO-2 or the DP baseline,
+parallel/sharding.py).
+
+Under a process group train() builds the ("dp", "fsdp") mesh, the model
+on the meta device, shards it (apply_fsdp), then inits each rank's shards
+(bitwise the unsharded init) or restores them; each rank reads its slice
+of every global batch; eval counts are summed over the ranks, so top-1 is
+over the whole val split; only rank 0 prints. Without one (no WORLD_SIZE
+in the environment, no group made by the caller) it trains unwrapped on
+one device, as before.
 
 The loop dispatches one train step per batch and reads nothing back from
 the device except at a log step: there it fetches the loss once (which
@@ -33,13 +43,16 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from vitax_torch import distributed
 from vitax_torch.checkpoint import io as ckpt_io
 from vitax_torch.config import Config
 from vitax_torch.data.loader import build_datasets
 from vitax_torch.models.vit import build_model, count_params
 from vitax_torch.ops.attention import make_attention_impl
 from vitax_torch.ops.fused_optimizer import fused_optimizer_active
-from vitax_torch.platform import DeviceLike, resolve_device
+from vitax_torch.parallel.mesh import batch_shard, build_mesh
+from vitax_torch.parallel.sharding import apply_fsdp, init_sharded, reshard
+from vitax_torch.platform import DeviceLike
 from vitax_torch.train.control import elastic_resume_plan
 from vitax_torch.train.state import ADAMW_HPARAMS, TrainState, build_optimizer, make_train_state
 from vitax_torch.train.step import _needs_dropout, make_eval_step, make_train_step
@@ -66,17 +79,29 @@ def train(cfg: Config, device: DeviceLike = None,
     build_datasets' (train_ds, train_loader, val_ds, val_loader), default
     build_datasets(cfg, device)."""
     cfg.validate()
-    device = resolve_device(device)
+    device = distributed.maybe_initialize(device)  # joins torchrun's process group; this rank's device
     fused = fused_optimizer_active(cfg, device)     # raises for --fused_optimizer off on the card
     set_float32_precision()
+    mesh = build_mesh(cfg, device) if distributed.is_distributed() else None
+    _, ranks = batch_shard(mesh)
+    if cfg.batch_size % ranks or (cfg.batch_size // ranks) % cfg.grad_accum_steps:
+        raise ValueError(f"--batch_size {cfg.batch_size} must split into {ranks} equal rank batches, each a "
+                         f"multiple of --grad_accum_steps {cfg.grad_accum_steps}")
     auto_resume = cfg.resume_epoch < 0
-    if auto_resume:                     # the latest committed checkpoint, if any
-        found = ckpt_io.latest_epoch(cfg.ckpt_dir) or 0
+    if auto_resume:                     # the latest committed checkpoint, if any, as rank 0 sees it
+        found = distributed.broadcast_from_process0(ckpt_io.latest_epoch(cfg.ckpt_dir) or 0)
         cfg = dataclasses.replace(cfg, resume_epoch=found)
         master_print(f"auto-resume: {'epoch ' + str(found) if found else 'no checkpoint found, fresh start'}")
     master_print(f"\n=== cfg ===\n{pprint.pformat(cfg)}\n")
     master_print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                         if device.type == "cuda" else ""))
+    if mesh is not None:
+        kind = ("DP (HSDP, shard group 1)" if cfg.run_without_fsdp else
+                "ZeRO-3" if cfg.reshard_after_forward else "ZeRO-2")
+        master_print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over {ranks} process(es), one "
+                     f"{device.type} device each; {kind}, params gathered in "
+                     f"{'bfloat16' if cfg.comm_cast_active else 'float32'}, grads reduced in "
+                     f"{cfg.grad_reduce_dtype}")
 
     train_ds, train_loader, _, val_loader = data if data is not None else build_datasets(cfg, device)
     master_print(f"\n=== dataset ===\n{train_ds!r}\n")
@@ -90,7 +115,12 @@ def train(cfg: Config, device: DeviceLike = None,
         where = "in the flash core" if attention_impl else "dense"
         master_print(f"dropout: att {cfg.att_dropout} ({where}), mlp and proj {cfg.mlp_dropout}, "
                      f"pos {cfg.pos_dropout}; seeds per (step, microbatch, block) from seed {cfg.seed}")
-    if cfg.resume_epoch > 0:            # storage without an init: the checkpoint supplies every value
+    if mesh is not None:                # built on meta, sharded, then each rank's shards filled
+        model = apply_fsdp(build_model(cfg, "meta", attention_impl=attention_impl), cfg, mesh)
+        model.to_empty(device=device)
+        if cfg.resume_epoch == 0:
+            init_sharded(model, cfg, device)
+    elif cfg.resume_epoch > 0:          # storage without an init: the checkpoint supplies every value
         model = build_model(cfg, device, attention_impl=attention_impl, init=False).to_empty(device=device)
     else:
         model = build_model(cfg, device, attention_impl=attention_impl)
@@ -118,7 +148,7 @@ def train(cfg: Config, device: DeviceLike = None,
         master_print(f"grad accumulation: {cfg.grad_accum_steps} microbatches of "
                      f"{cfg.batch_size // cfg.grad_accum_steps} (one optimizer step per loader batch)")
 
-    train_step = make_train_step(cfg, optimizer, device)
+    train_step = make_train_step(cfg, optimizer, device, mesh)
     eval_step = make_eval_step(cfg)
     try:
         return _run_epochs(cfg, state, train_step, train_loader, val_loader, eval_step, schedule,
@@ -132,7 +162,7 @@ def _elastic_resume(cfg: Config, epoch: int):
     process count, from the epoch's sidecar (vitax/train/loop.py
     _elastic_resume). epoch_rounded: the mid-epoch progress was dropped, so
     the loop re-enters `epoch` from step 0 rather than skipping its rest."""
-    count = ckpt_io.process_count()
+    count = distributed.process_count()
     plan = elastic_resume_plan(ckpt_io.load_resume_meta(cfg.ckpt_dir, epoch), count)
     if plan.topology_changed:
         master_print(
@@ -148,7 +178,7 @@ def _verify_stream_resume(cfg: Config, train_loader, resume_step: int) -> None:
     """Mid-epoch stream resume: hold the sidecar's cursor against the
     position this run derives from (seed, epoch, step); the loader raises
     when the shard set, seed or topology changed under the checkpoint."""
-    if not resume_step or not hasattr(train_loader, "check_cursor") or ckpt_io.process_index() != 0:
+    if not resume_step or not hasattr(train_loader, "check_cursor") or distributed.process_index() != 0:
         return
     cursor = ckpt_io.load_stream_cursor(cfg.ckpt_dir, cfg.resume_epoch)
     if cursor is not None:
@@ -251,7 +281,9 @@ def _run_logging(cfg: Config, epoch: int, step: int, loss: float, lr: float,
 def eval_on_val(cfg: Config, val_loader, eval_step: Callable, state: TrainState):
     """Top-1 and top-5 accuracy over the val split with drop_last (the
     remainder of the split is ignored, as in the reference), capped at
-    cfg.eval_max_batches. Returns (top1, top5, n_correct, total)."""
+    cfg.eval_max_batches; each rank counts its slice of every batch and
+    the counts are summed over the ranks. Returns (top1, top5, n_correct,
+    total)."""
     correct = None
     total = 0
     for step, batch in enumerate(val_loader.epoch(0)):
@@ -260,8 +292,11 @@ def eval_on_val(cfg: Config, val_loader, eval_step: Callable, state: TrainState)
         c = eval_step(state, batch)
         correct = c if correct is None else {k: correct[k] + c[k] for k in c}
         total += cfg.batch_size
-    n_correct = int(correct["correct"]) if correct is not None else 0
-    n_top5 = int(correct["correct_top5"]) if correct is not None else 0
+    reshard(state.model)                # the params the update and a save read are the shards
+    n_correct = n_top5 = 0
+    if correct is not None:
+        n_correct, n_top5 = distributed.all_reduce_sum(
+            torch.stack([correct["correct"], correct["correct_top5"]])).tolist()
     top1 = n_correct / total if total else 0.0
     top5 = n_top5 / total if total else 0.0
     return top1, top5, n_correct, total

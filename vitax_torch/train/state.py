@@ -7,6 +7,10 @@ taken, a host int the loop reads for free, and `count`, the same number as
 an int32 tensor on the params' device, which the update reads for its bias
 correction and learning rate without a host sync. The schedule is a pure
 function of the step, so there is no scheduler state.
+
+Under FSDP2 (parallel/sharding.py) the params are DTensors, and mu and nu
+DTensors with the params' placements; `leaves()` hands the fused update
+the rank's local shards, which share the DTensors' storage.
 """
 
 from __future__ import annotations
@@ -45,9 +49,23 @@ class TrainState:
     count: torch.Tensor              # int32 0-d on the params' device, == step
 
     def leaves(self) -> Tuple[List[str], List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
-        """(names, params, mu, nu) in named_parameters order."""
+        """(names, params, mu, nu) in named_parameters order, the local
+        shards of sharded ones."""
         names, params = zip(*self.model.named_parameters())
-        return list(names), list(params), [self.mu[n] for n in names], [self.nu[n] for n in names]
+        return (list(names), [local(p) for p in params], [local(self.mu[n]) for n in names],
+                [local(self.nu[n]) for n in names])
+
+    def grads(self) -> List[torch.Tensor]:
+        """The params' grads in named_parameters order, local shards of sharded ones."""
+        return [local(p.grad) for _, p in self.model.named_parameters()]
+
+
+@torch.no_grad()
+def local(t: torch.Tensor) -> torch.Tensor:
+    """The rank's shard of a DTensor (its storage, not a copy); any other
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def build_optimizer(cfg: Config, max_iteration: int) -> Tuple[AdamW, Callable]:
@@ -59,7 +77,8 @@ def build_optimizer(cfg: Config, max_iteration: int) -> Tuple[AdamW, Callable]:
 
 
 def make_train_state(model: nn.Module) -> TrainState:
-    """A fresh state: zero moments beside each parameter, count 0."""
+    """A fresh state: zero moments beside each parameter (DTensors with its
+    placements for a sharded one), count 0."""
     mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in model.named_parameters()}
     nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in model.named_parameters()}
     dev = next(model.parameters()).device

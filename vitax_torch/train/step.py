@@ -15,6 +15,18 @@ DropoutSeeds from `dropout_seeds(cfg, step, k)`, a function on the host of
 the JAX step's fold_in(fold_in(key(seed + 1), step), k) and the model's
 per-block rng split, with seeds of the port's own. The same run, or a
 resume at the same step, draws the same masks.
+
+Under FSDP2 (a `mesh`), each rank's step runs on its slice of the global
+batch: its loss is the local mean, FSDP2's reduce-scatter (or, for DP,
+all-reduce) averages the grads over the ranks, the grad norm sums the
+local shards' squares over the fsdp dim, and the loss metric is
+all-reduced to the global mean. Every dropout seed of a rank is folded
+with its batch shard index (ops/attention.py fold_shard_seed), so the
+attention masks are vitax's for that shard, and the proj, mlp and pos
+masks differ between ranks. grad_accum_steps > 1 reduce-scatters each
+microbatch's grads and accumulates them sharded in float32, as vitax's
+scan keeps its f32 accumulators sharded: grads never stand unsharded
+across microbatches.
 """
 
 from __future__ import annotations
@@ -25,10 +37,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vitax_torch import distributed
 from vitax_torch.config import Config
 from vitax_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from vitax_torch.models.vit import DropoutSeeds
+from vitax_torch.ops.attention import fold_shard_seed
 from vitax_torch.ops.fused_optimizer import fused_clip_adamw, fused_optimizer_active, global_norm
+from vitax_torch.parallel.mesh import batch_shard
+from vitax_torch.parallel.sharding import fsdp_group
 from vitax_torch.train.state import AdamW, TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -58,21 +74,32 @@ def dropout_seeds(cfg: Config, step: int, k: int) -> DropoutSeeds:
     return DropoutSeeds(blocks=tuple(int(w) for w in words[1:]), pos=int(words[0]))
 
 
+def shard_seeds(seeds: DropoutSeeds, index: int) -> DropoutSeeds:
+    """`seeds` with the rank's batch shard index folded into each one
+    (fold_shard_seed; index 0 leaves them as they are)."""
+    if index == 0:
+        return seeds
+    return DropoutSeeds(blocks=tuple(fold_shard_seed(index, s) for s in seeds.blocks),
+                        pos=fold_shard_seed(index, seeds.pos))
+
+
 def _microbatch_split(batch: Batch, k_steps: int) -> List[Batch]:
     """K microbatches with the strided assignment of vitax's split:
     microbatch k holds samples k, k + K, k + 2K, ... (views, no copy)."""
     return [{name: x[k::k_steps] for name, x in batch.items()} for k in range(k_steps)]
 
 
-def _make_update_fn(cfg: Config, optimizer: AdamW, device) -> Callable:
+def _make_update_fn(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callable:
     """update(state, grads) -> grad_norm: one global-norm reduction feeds the
     clip and the metric; clip+AdamW updates the params, mu and nu in place
-    and advances state.count and state.step."""
+    and advances state.count and state.step. Sharded, both run on the
+    rank's local shards."""
     fused_optimizer_active(cfg, device)       # raises for --fused_optimizer off on the card
+    group = fsdp_group(mesh)
 
     def update(state: TrainState, grads: List[torch.Tensor]) -> torch.Tensor:
         _, params, mu, nu = state.leaves()
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, group)
         state.count = fused_clip_adamw(
             params, grads, mu, nu, state.count, grad_norm=grad_norm,
             schedule=optimizer.schedule, clip_norm=optimizer.clip_grad_norm,
@@ -84,16 +111,22 @@ def _make_update_fn(cfg: Config, optimizer: AdamW, device) -> Callable:
     return update
 
 
-def make_train_step(cfg: Config, optimizer: AdamW, device) -> Callable[[TrainState, Batch], tuple]:
+def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callable[[TrainState, Batch], tuple]:
     """train_step(state, batch) -> (state, metrics): metrics `loss` and
     `grad_norm` are device tensors, `lr_step` the post-step count (the
     reference logs lr after lr_scheduler.step()), `images` and `tokens` the
-    step's work counts. The state is updated in place and returned. Under
-    dropout, microbatch k of the step at count `state.step` runs with
-    dropout_seeds(cfg, state.step, k)."""
-    update = _make_update_fn(cfg, optimizer, device)
+    step's work counts (the global batch's). The state is updated in place
+    and returned. Under dropout, microbatch k of the step at count
+    `state.step` runs with dropout_seeds(cfg, state.step, k), folded with
+    the rank's batch shard index under a `mesh` (the batch is then the
+    rank's slice of the global batch)."""
+    update = _make_update_fn(cfg, optimizer, device, mesh)
     k_steps = cfg.grad_accum_steps
     dropout = _needs_dropout(cfg)
+    shard, ranks = batch_shard(mesh)
+
+    def seeds_for(step: int, k: int) -> Optional[DropoutSeeds]:
+        return shard_seeds(dropout_seeds(cfg, step, k), shard) if dropout else None
 
     def loss_fn(model, batch: Batch, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
         logits = model(prepare_images(batch["image"]), seeds)
@@ -103,21 +136,22 @@ def make_train_step(cfg: Config, optimizer: AdamW, device) -> Callable[[TrainSta
         model = state.model
         model.zero_grad(set_to_none=True)
         if k_steps == 1:
-            loss = loss_fn(model, batch, dropout_seeds(cfg, state.step, 0) if dropout else None)
+            loss = loss_fn(model, batch, seeds_for(state.step, 0))
             loss.backward()
             loss = loss.detach()
         else:
             # per-microbatch backward, grads summed in float32 in p.grad
             loss = torch.zeros((), dtype=torch.float32, device=device)
             for k, mb in enumerate(_microbatch_split(batch, k_steps)):
-                loss_k = loss_fn(model, mb, dropout_seeds(cfg, state.step, k) if dropout else None)
+                loss_k = loss_fn(model, mb, seeds_for(state.step, k))
                 loss_k.backward()
                 loss = loss + loss_k.detach()
             loss = loss * (1.0 / k_steps)
-            for p in model.parameters():
-                p.grad.mul_(1.0 / k_steps)
-        grads = [p.grad for _, p in model.named_parameters()]
-        grad_norm = update(state, grads)
+            for g in state.grads():
+                g.mul_(1.0 / k_steps)
+        if ranks > 1:                        # the global batch's mean
+            loss = distributed.all_reduce_sum(loss) / ranks
+        grad_norm = update(state, state.grads())
         metrics = {"loss": loss, "grad_norm": grad_norm, "lr_step": state.step,
                    "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
         return state, metrics
