@@ -73,6 +73,17 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      memory; then a profile of one steady step, and the fused optimizer
      on the trained state's own leaf table: one launch held element by
      element against the plain version, then timed;
+  7t. telemetry: phase 7's run twice, with telemetry off and then on
+     (--metrics_dir), its launch counts equal in both and to phase 7's;
+     the JSONL's 12 step records (REQUIRED_STEP_KEYS, steps 1-12, each MFU
+     flops.mfu of its sec/iter, mem_peak_bytes within the run's
+     max_memory_allocated), run_start (the card's name, peak 989, one
+     device) and the eval event; tools/metrics_report.py --json over it
+     (a subprocess: exit 0, no thread crash); sec/iter on and off and their
+     ratio, opt_update_s beside phase 7's time of the fused optimizer;
+     then `torchrun --nproc_per_node 1 -m vitax_torch.train` at depth 2
+     with --metrics_dir, through the named barriers and orderly_shutdown
+     to exit 0 with its JSONL written;
   7d. train main path under dropout: the same run with att_dropout and
      mlp_dropout 0.1, its launch counts (the dropout kernels' forward,
      recompute and backward) checked against the steps, its first loss
@@ -2064,6 +2075,122 @@ def phase_train(torch, card):
     return launches, timing, losses[0], (sec_per_iter, mfu), ref
 
 
+def read_jsonl(path: str):
+    """(step records, events by kind) of a telemetry JSONL."""
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    events = {}
+    for r in records:
+        if "kind" in r:
+            events.setdefault(r["kind"], []).append(r)
+    return [r for r in records if "kind" not in r], events
+
+
+def metrics_report(path: str) -> dict:
+    """tools/metrics_report.py --json over `path`, in a process of its own."""
+    r = subprocess.run([sys.executable, os.path.join(REPO, "tools", "metrics_report.py"), path, "--json"],
+                       capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        fail(f"tools/metrics_report.py {path} exited {r.returncode}: {r.stderr[-2000:]}")
+    return json.loads(r.stdout)
+
+
+def phase_train_telemetry(torch, card, b_ms: float) -> dict:
+    """Phase 7t (see the module docstring): phase 7's run with telemetry off
+    and on, then the CLI under torchrun. `b_ms` is phase 7's CUDA-event time
+    of the fused optimizer. Returns the launches of the two train() runs,
+    each read around its run."""
+    from vitax_torch.config import Config
+    from vitax_torch.ops import _build
+    from vitax_torch.telemetry import REQUIRED_STEP_KEYS
+    from vitax_torch.telemetry.flops import mfu, peak_tflops
+    from vitax_torch.train.loop import train
+
+    total = {}
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="vitax_torch_7t_") as root:
+        for arm in ("off", "on"):
+            cfg = Config(seed=SEED, **TRAIN, metrics_dir=os.path.join(root, "metrics") if arm == "on" else ""
+                         ).validate()
+            records = []
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            state = train(cfg, "cuda", records=records)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            peak_bytes = torch.cuda.max_memory_allocated()
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            if launches != train_run_launches(cfg):
+                fail(f"[7t] telemetry {arm}: train() launched {launches}; expected {train_run_launches(cfg)}")
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            steps = [r for r in records if "loss" in r]
+            runs[arm] = {"sec": float(np.median([r["step_seconds"] for r in steps[2:]])), "peak": peak_bytes,
+                         "losses": [r["loss"] for r in steps]}
+        path = os.path.join(root, "metrics", "metrics.jsonl")
+        steps, events = read_jsonl(path)
+        peak = peak_tflops(torch.cuda.get_device_name(0))
+        bad = [r["step"] for r in steps if not set(REQUIRED_STEP_KEYS) <= set(r)
+               or not np.isclose(r["mfu"], mfu(cfg, r["sec_per_iter"], 1, peak), rtol=1e-12, atol=0)
+               or not 0 < r.get("mem_peak_bytes", 0) <= runs["on"]["peak"]]
+        if [r["step"] for r in steps] != list(range(1, cfg.max_steps + 1)) or bad:
+            fail(f"[7t] the JSONL's step records are steps {[r['step'] for r in steps]}, {bad} of them without "
+                 f"the required keys, with an MFU not flops.mfu's or a memory peak above the run's")
+        start = events.get("run_start", [{}])[0]
+        if (start.get("device_kind"), start.get("peak_tflops"), start.get("n_devices")) != (
+                torch.cuda.get_device_name(0), 989.0, 1) or len(events.get("eval", [])) != 1:
+            fail(f"[7t] run_start {start} and {len(events.get('eval', []))} eval events; expected the card's name, "
+                 f"peak 989, one device and one eval")
+        if runs["on"]["losses"] != [r["loss"] for r in steps]:
+            fail("[7t] the JSONL's losses are not the run's")
+        summary = metrics_report(path)
+        if summary["thread_crashes"] or summary["records"] != cfg.max_steps:
+            fail(f"[7t] metrics_report: {summary['records']} records, {summary['thread_crashes']} thread crashes")
+        opt_s = float(np.median([r["opt_update_s"] for r in steps[2:]]))
+        ratio = runs["on"]["sec"] / runs["off"]["sec"]
+        say(f"[7t telemetry] phase 7's run (12 steps + eval): sec/iter median of steps 3-12 off "
+            f"{runs['off']['sec']:.4f} s, on {runs['on']['sec']:.4f} s, on/off {ratio:.4f}; launches equal in both "
+            f"(16 A1, 8 A2, 1 B a step, all wgmma); losses off {runs['off']['losses'][-1]:.4f} on "
+            f"{runs['on']['losses'][-1]:.4f} at step 12 [{card}]")
+        say(f"[7t telemetry] JSONL: 12 step records (steps 1-12, the required keys, MFU flops.mfu of each "
+            f"sec/iter: median {np.median([r['mfu'] for r in steps[2:]]) * 100:.2f}%), mem_peak_bytes at most "
+            f"{max(r['mem_peak_bytes'] for r in steps) / 1e9:.2f} GB (run peak {runs['on']['peak'] / 1e9:.2f} GB), "
+            f"run_start {start['device_kind']!r} peak {start['peak_tflops']:.0f} n_devices {start['n_devices']}, "
+            f"eval top1 {events['eval'][0]['top1']:.4f}; metrics_report --json: records {summary['records']}, "
+            f"thread_crashes {summary['thread_crashes']}, sec_per_iter_p50 {summary['sec_per_iter_p50']}")
+        say(f"[7t telemetry] opt_update_s median of steps 3-12 {opt_s * 1e3:.3f} ms (global norm + fused_adamw, "
+            f"CUDA events around the log step's update) beside phase 7's fused_adamw alone {b_ms:.3f} ms [{card}]")
+        phase_torchrun(torch, root, card)
+    return total
+
+
+def phase_torchrun(torch, root: str, card: str) -> None:
+    """The CLI under torchrun at the 10B width, depth 2, 3 steps and an eval,
+    with --metrics_dir: through the named barriers, the one-rank NCCL group
+    and orderly_shutdown to exit 0, its JSONL written."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics_dir = os.path.join(root, "metrics_torchrun")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "vitax_torch.train", "--fake_data", "--num_blocks", "2", "--batch_size", "32", "--max_steps", "3",
+           "--warmup_steps", "4", "--log_step_interval", "1", "--eval_max_batches", "1", "--test_epoch_interval",
+           "1", "--metrics_dir", metrics_dir, "--ckpt_dir", os.path.join(root, "ckpt_torchrun")]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or "training begins" not in r.stdout:
+        fail(f"[7t] torchrun exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    steps, events = read_jsonl(os.path.join(metrics_dir, "metrics.jsonl"))
+    if [s["step"] for s in steps] != [1, 2, 3] or [e["n_devices"] for e in events.get("run_start", [])] != [1]:
+        fail(f"[7t] torchrun's JSONL holds steps {[s['step'] for s in steps]} and run_start {events.get('run_start')}")
+    say(f"[7t torchrun] torchrun --nproc_per_node 1 -m vitax_torch.train (depth 2, batch 32, 3 steps + eval, "
+        f"--metrics_dir): exit 0 in {wall:.1f} s through the barriers and orderly_shutdown; JSONL steps 1-3, "
+        f"losses " + " ".join(f"{s['loss']:.4f}" for s in steps) + f", mem: {steps[-1].get('mem_peak_bytes', 0) / 1e9:.2f} "
+        f"GB peak [{card}]")
+
+
 def phase_train_dropout(torch, card, first_loss_rate0: float):
     """Phase 7's run with att_dropout and mlp_dropout 0.1 from the same
     init and data: exact launch totals (per step, each block's dropout
@@ -3018,7 +3145,7 @@ def phase_train_fsdp(torch, card, root: str, ref7: dict):
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7i, 7s, 7c and 7f in `data_launches`), its
+    paths of this run (phases 7t, 7i, 7s, 7c and 7f in `data_launches`), its
     check's max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
@@ -3119,6 +3246,7 @@ def main() -> int:
     gc.collect()                           # free the 40 GB engine before the train path
     torch.cuda.empty_cache()
     train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0, fake, ref7 = phase_train(torch, card)
+    tele_launches = phase_train_telemetry(torch, card, timing["fused_adamw"]["ms"])
     drop_launches = phase_train_dropout(torch, card, loss0)
     long_launches = phase_train_long(torch, card)
     with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
@@ -3129,7 +3257,7 @@ def main() -> int:
         ckpt_launches = phase_checkpoint(torch, card, root)
         fsdp_launches = phase_train_fsdp(torch, card, root, ref7)
     data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
-                     for k in tree_launches}
+                     + tele_launches[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches)
     say(card)

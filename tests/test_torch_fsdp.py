@@ -22,7 +22,11 @@ below read what the ranks wrote:
 - grad_reduce_dtype bfloat16 stays within a bf16 tolerance of float32;
 - the two ranks' batches interleave into the one-process global batch;
 - train() under the group: a 2-rank save restores bitwise in one process,
-  and a one-process save restores bitwise into two ranks.
+  and a one-process save restores bitwise into two ranks; with
+  --metrics_dir only rank 0 writes the JSONL, and run_start counts 2
+  devices;
+- the host folds any_across_processes and or_across_processes over the
+  ranks' own inputs, and orderly_shutdown returns on both ranks.
 At the end, FSDP2 in a one-rank group against the unwrapped model, bitwise:
 on the CPU (gloo), and on the card (NCCL; it skips without one).
 """
@@ -153,6 +157,7 @@ def _worker(rank: int, root: str) -> None:
     root/rank<r>.pt."""
     import torch.distributed as dist
     import vitax_torch.train.step as step_module
+    from vitax_torch import distributed
     from vitax_torch.data.loader import ShardedSampler, build_datasets
     from vitax_torch.ops.attention import dropout_keep_mask
     from vitax_torch.parallel.mesh import build_mesh
@@ -203,9 +208,10 @@ def _worker(rank: int, root: str) -> None:
                      "wired": (loader.sampler.process_index, loader.sampler.process_count,
                                val_loader.sampler.process_index, loader.sampler.local_batch)}
 
-    # train() under the group: a save at its last epoch, then the reverse restore
+    # train() under the group: a save at its last epoch and telemetry, then the reverse restore
     records = []
-    state = train(Config(**TINY, **TRAIN_RUN, ckpt_dir=os.path.join(root, "ckpt2")), "cpu", records=records)
+    state = train(Config(**TINY, **TRAIN_RUN, ckpt_dir=os.path.join(root, "ckpt2"),
+                         metrics_dir=os.path.join(root, "metrics")), "cpu", records=records)
     out["train"] = {"records": records, "state": _gathered(state)}
     records = []
     state = train(Config(**TINY, **TRAIN_RUN, run_without_fsdp=True, ckpt_dir=os.path.join(root, "ckpt_dp")), "cpu",
@@ -217,8 +223,13 @@ def _worker(rank: int, root: str) -> None:
     target = ckpt_io.restore_state(os.path.join(root, "ckpt1"), 1, target)
     out["reverse"] = _gathered(target)
     ckpt_io.close()
+    out["folds"] = {"any_rank1": distributed.any_across_processes(rank == 1),
+                    "any_none": distributed.any_across_processes(False),
+                    "or_bits": distributed.or_across_processes(1 << (2 * rank)),
+                    "or_overlap": distributed.or_across_processes(6 if rank else 3)}
+    distributed.orderly_shutdown()
+    out["shut_down"] = not dist.is_initialized()
     torch.save(out, os.path.join(root, f"rank{rank}.pt"))
-    dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
@@ -396,6 +407,34 @@ def test_one_process_save_restores_into_two_ranks(runs):
     want = _whole(runs["single"])
     for r in runs["ranks"]:
         assert _equal(r["reverse"], want)
+
+
+def test_only_rank_0_writes_telemetry(runs):
+    """train() on 2 ranks with the same --metrics_dir: one JSONL, rank 0's
+    alone (one run_start, every record tagged rank 0, n_devices 2), with a
+    record a step and the eval."""
+    import json
+    from vitax_torch.telemetry import REQUIRED_STEP_KEYS
+    d = os.path.join(runs["root"], "metrics")
+    assert os.listdir(d) == ["metrics.jsonl"]
+    records = [json.loads(ln) for ln in open(os.path.join(d, "metrics.jsonl"))]
+    events = [r for r in records if "kind" in r]
+    steps = [r for r in records if "kind" not in r]
+    assert [e["kind"] for e in events] == ["run_start", "eval"] and {e["rank"] for e in events} == {0}
+    assert events[0]["n_devices"] == 2 and events[0]["device_kind"] == "cpu"
+    assert [r["step"] for r in steps] == [1, 2] and all(set(REQUIRED_STEP_KEYS) <= set(r) for r in steps)
+    logged = [x["loss"] for x in runs["ranks"][0]["train"]["records"] if "loss" in x]
+    assert [r["loss"] for r in steps] == logged
+
+
+def test_host_folds_and_orderly_shutdown_on_two_ranks(runs):
+    """any_across_processes is True on both ranks when rank 1 alone says so
+    and False when none does; or_across_processes keeps every rank's bits
+    (1 | 4, 3 | 6); orderly_shutdown returns on both ranks with the group
+    gone (each rank wrote its results after it)."""
+    for r in runs["ranks"]:
+        assert r["folds"] == {"any_rank1": True, "any_none": False, "or_bits": 5, "or_overlap": 7}
+        assert r["shut_down"]
 
 
 def _world_size_one_against_unwrapped(device: str):

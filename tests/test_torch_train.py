@@ -229,7 +229,7 @@ def test_flops_match_jax():
         assert flops.model_flops_per_image(ours) == jax_flops.model_flops_per_image(theirs)
         assert flops.model_flops_per_step(ours) == jax_flops.model_flops_per_step(theirs)
         assert flops.mfu(ours, 0.5, 1, 989.0) == jax_flops.mfu(theirs, 0.5, 1, 989.0)
-    assert flops.peak_tflops("NVIDIA H100 80GB HBM3") == 989.0 and flops.peak_tflops("cpu") is None
+    assert flops.peak_tflops("NVIDIA H100 80GB HBM3") == 989.0 and flops.peak_tflops("cpu") == 1.0
 
 
 def test_smoothed_value_matches_jax():

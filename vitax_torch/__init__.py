@@ -19,16 +19,21 @@ Package map (mirrors vitax/):
                 and val transforms, the native JPEG decoder's wrappers, the
                 samplers and loaders
   _native       the host C++ decoder (decode.cc) and its g++ build
+  distributed   torchrun's process group, named barriers, host folds, orderly shutdown
+  parallel      the ("dp", "fsdp") mesh and FSDP2 sharding
   train         schedule, state, train/eval steps, the loop and its CLI
-  telemetry     model FLOPs and MFU
+  telemetry     model FLOPs and MFU, schema-1 JSONL records and sinks, the
+                thread-crash hook
+  launch        the multi-host launcher (ssh to each host)
   serve         inference engine (float, int8 and fp8 weights), dynamic
                 batcher, HTTP server, quantized-serving helpers and gate
   tools         the shard packer and the kernels' A/B and ladder tools
 
 Ported so far: the serve path, single-card training on fake data, from
 an ImageFolder tree or from streaming shards, quantized serving, dropout,
-long context, and checkpoint, resume and export. FSDP and the rest are
-later slices (ROADMAP.md).
+long context, checkpoint, resume and export, FSDP2, and the loop's
+telemetry, barriers, shutdown and launcher. The rest are later slices
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -27,9 +27,11 @@ One write runs at a time: a save first waits for the previous one, so
 host memory holds one snapshot, and a card's tensors are copied into
 pinned host buffers kept from the previous save of the same shapes (a
 pageable copy runs at a small fraction of the pinned rate); close() frees
-them. The writes of the process are held by one module-level writer, as
-vitax holds one Orbax checkpointer, so wait_until_finished() drains every
-save made through save_state.
+them, after joining the writer thread for at most CLOSE_TIMEOUT_S. The
+writes of the process are held by one module-level writer, as vitax holds
+one Orbax checkpointer, so wait_until_finished() drains every save made
+through save_state. A failed write is reported through the thread-crash
+hook (telemetry/threads.py) as well as raised on the caller.
 Transient OSErrors of a write are retried with capped exponential backoff
 (VITAX_SAVE_RETRIES, VITAX_SAVE_RETRY_BACKOFF_S); a write that fails for
 good raises from wait_until_finished() or from the next save.
@@ -48,17 +50,20 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import re
 import shutil
 import sys
+import threading
 import time
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from vitax_torch.distributed import is_distributed, process_count, process_index
+from vitax_torch.telemetry.threads import join_or_warn, report_thread_exception
 from vitax_torch.train.state import TrainState, local
 from vitax_torch.utils.logging import master_print
 
@@ -74,6 +79,10 @@ DEFAULT_SAVE_RETRIES = 3
 DEFAULT_SAVE_RETRY_BACKOFF_S = 0.5
 # DCP writer threads of a save (one .distcp file each)
 WRITE_THREADS = 4
+# close()'s bound on the writer thread finishing its queued writes: the full
+# 10B state (121 GB) takes about 100 s at the 1.2 GB/s measured on an H100
+# host (PERF.md §5), so a thread still alive after this is wedged
+CLOSE_TIMEOUT_S = 600.0
 
 
 class _Writer:
@@ -82,7 +91,8 @@ class _Writer:
     sharded, the gloo group their collectives run on."""
 
     def __init__(self):
-        self._pool: Optional[ThreadPoolExecutor] = None
+        self._thread: Optional[threading.Thread] = None
+        self._queue: "queue.Queue" = queue.Queue()
         self._pending: List[Future] = []
         self._staging: Dict[str, torch.Tensor] = {}
         self._group = (None, None)          # (the default group it was made under, the group)
@@ -124,9 +134,14 @@ class _Writer:
         return buf.copy_(v.detach(), non_blocking=True)
 
     def submit(self, fn: Callable, *args) -> None:
-        if self._pool is None:
-            self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="vitax-torch-ckpt")
-        self._pending.append(self._pool.submit(fn, *args))
+        if self._thread is None:            # a daemon thread: wait for a save before exit (train() does)
+            self._queue = queue.Queue()
+            self._thread = threading.Thread(target=_run_writes, args=(self._queue,), name="vitax-torch-ckpt",
+                                            daemon=True)
+            self._thread.start()
+        fut: Future = Future()
+        self._pending.append(fut)
+        self._queue.put((fut, fn, args))
 
     def wait(self) -> None:
         pending, self._pending = self._pending, []
@@ -134,8 +149,34 @@ class _Writer:
             fut.result()                        # re-raises a write that failed for good
 
     def close(self) -> None:
-        self.wait()
-        self._staging.clear()
+        """Let the thread finish its queued writes and stop, for at most
+        CLOSE_TIMEOUT_S (then a leaked-thread warning and the writes are
+        given up); raise the error of a write that failed; free the
+        pinned buffers."""
+        thread, self._thread = self._thread, None
+        try:
+            if thread is not None:
+                self._queue.put(None)
+                if not join_or_warn(thread, CLOSE_TIMEOUT_S, what="checkpoint writer", rank=process_index()):
+                    self._pending = []
+            self.wait()
+        finally:
+            self._staging.clear()
+
+
+def _run_writes(jobs: "queue.Queue") -> None:
+    """The writer thread: run each queued (future, fn, args) in order until
+    None; a failure goes to the thread-crash hook and into its future."""
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        fut, fn, args = job
+        try:
+            fut.set_result(fn(*args))
+        except BaseException as e:  # noqa: BLE001 - kept in the future: wait() raises it on the caller
+            report_thread_exception(e)
+            fut.set_exception(e)
 
 
 _WRITER = _Writer()

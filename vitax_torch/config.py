@@ -84,6 +84,16 @@ class Config:
     max_steps: int = 0                  # stop after N optimizer steps (0 = no limit)
     eval_max_batches: int = 0           # cap val batches per eval (0 = the whole split)
 
+    # --- telemetry (telemetry/; host work only: the step launches the same kernels either way) ---
+    metrics_dir: str = ""               # if set, one schema-1 JSONL record a log step (loss, lr, sec/iter,
+    #   images/s, tokens/s, data wait, optimizer update, MFU, memory) under <metrics_dir>/metrics.jsonl
+    tensorboard: bool = False           # mirror step records as TensorBoard scalars under <metrics_dir>/tb
+    peak_tflops: float = 0.0            # per-card peak TFLOP/s for MFU; 0 = from the card's name
+    #   (telemetry/flops.py PEAK_TFLOPS; a card not listed reads MFU 0)
+    debug_nans: bool = False            # autograd anomaly mode with NaN checks, and a loss and grad-norm
+    #   fetch every step (one sync a step) that raises FloatingPointError at the first non-finite value
+    log_memory: bool = True             # device memory in the step log line (--no_log_memory clears)
+
     # --- mesh: (dp, fsdp) over the processes, one card each; -1 = all remaining ---
     dp_size: int = 1
     fsdp_size: int = -1
@@ -175,6 +185,11 @@ class Config:
             (self.grad_reduce_dtype != "bfloat16" or self.comm_cast_active,
              "--grad_reduce_dtype bfloat16 requires the bf16 comm-cast to be active (--dtype bfloat16 and "
              "param_gather_dtype bfloat16): the bf16 reduction rides the cast boundary"),
+            (self.peak_tflops >= 0,
+             f"--peak_tflops must be >= 0 (0 = detect from device kind), got {self.peak_tflops}"),
+            (not self.tensorboard or bool(self.metrics_dir),
+             "--tensorboard needs --metrics_dir: the TB event files live under <metrics_dir>/tb next to the "
+             "JSONL record they mirror"),
             (self.fused_optimizer in ("auto", "on", "off"),
              f"unknown fused_optimizer {self.fused_optimizer!r} (expected 'auto', 'on' or 'off')"),
             (self.log_step_interval >= 1, f"--log_step_interval must be >= 1, got {self.log_step_interval}"),
@@ -241,20 +256,34 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--no_reshard_after_forward", "store_false", "reshard_after_forward"),
                ("--flatten_parameters", "store_true", "flatten_parameters"),
                ("--run_without_fsdp", "store_true", "run_without_fsdp"),
-               ("--shard_on_cpu", "store_true", "shard_on_cpu"))
+               ("--shard_on_cpu", "store_true", "shard_on_cpu"),
+               ("--tensorboard", "store_true", "tensorboard"),
+               ("--debug_nans", "store_true", "debug_nans"),
+               ("--no_log_memory", "store_false", "log_memory"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS),
             "fused_optimizer": ["auto", "on", "off"], "gather_overlap": ["auto", "off", "on"],
             "param_gather_dtype": ["bfloat16", "float32"], "grad_reduce_dtype": ["float32", "bfloat16"],
             "remat_policy": list(REMAT_POLICIES),
             "serve_quant_dtype": list(QUANT_DTYPE_CHOICES), "serve_act_quant": ["off", "int8"],
             "fused_dequant": ["auto", "on", "off"]}
-# vitax/config.py build_parser's help of the checkpoint flags
+# vitax/config.py build_parser's help of the checkpoint and telemetry flags
 _HELP = {"ckpt_dir": "checkpoint root: epoch_<N>/ per saved epoch (default %(default)s)",
          "resume_epoch": "N = resume from the checkpoint of epoch N; -1 = auto-resume the latest "
                          "committed one, or start fresh (default %(default)s)",
          "ckpt_epoch_interval": "save every N epochs and at the last one (default %(default)s)",
          "keep_checkpoints": ">0: checkpoint GC, prune committed epoch dirs beyond the newest K after "
-                             "each save; torn dirs are never touched (0 = keep all; default %(default)s)"}
+                             "each save; torn dirs are never touched (0 = keep all; default %(default)s)",
+         "metrics_dir": "write one JSONL telemetry record per log step (schema 1: loss, lr, sec/iter, "
+                        "tokens/s, data-wait, MFU, memory) under <metrics_dir>/metrics.jsonl; summarize with "
+                        "tools/metrics_report.py",
+         "tensorboard": "mirror telemetry records as TensorBoard scalars under <metrics_dir>/tb (warns and "
+                        "degrades to a no-op when tensorboard is not installed)",
+         "peak_tflops": "per-card peak TFLOP/s for MFU accounting (0 = detect from the card's name via the "
+                        "vitax_torch/telemetry/flops.py table; a card not listed reads MFU 0)",
+         "debug_nans": "autograd anomaly detection with NaN checks for the run, and the loss and grad norm "
+                       "fetched every step (one device sync a step) to raise FloatingPointError at the first "
+                       "non-finite value",
+         "log_memory": "leave device memory out of the step log line"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -269,7 +298,7 @@ def build_parser() -> argparse.ArgumentParser:
         parser.add_argument(f"--{f.name}", type=str if default is None else type(default), default=default,
                             choices=_CHOICES.get(f.name), help=_HELP.get(f.name))
     for flag, action, dest in _BOOL_FLAGS:
-        parser.add_argument(flag, action=action, dest=dest)
+        parser.add_argument(flag, action=action, dest=dest, help=_HELP.get(dest))
     return parser
 
 

@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from vitax_torch.data import native
+from vitax_torch.telemetry.threads import reporting
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif", ".tiff", ".webp")
 
@@ -159,7 +160,7 @@ class ImageFolderDataset:
             self.decoded.add("native", len(native_pos) - len(failed))
         # PIL releases the GIL while it decodes and resamples, so threads help
         with ThreadPoolExecutor(max(1, min(n_threads, len(fallback)))) as pool:
-            for pos, (img, _) in zip(fallback, pool.map(self._pil_item, [indices[p] for p in fallback])):
+            for pos, (img, _) in zip(fallback, pool.map(reporting(self._pil_item), [indices[p] for p in fallback])):
                 images[pos] = img
         return images, labels
 

@@ -10,7 +10,9 @@
   the device is a card and queues it; the consumer copies it to the device
   without blocking, so the copy overlaps the previous step, and adds the
   time it waited on the queue to `consume_wait_s`. A producer failure is
-  re-raised on the consumer with the worker's traceback.
+  re-raised on the consumer with the worker's traceback, and reported
+  through the thread-crash hook (telemetry/threads.py), as is a decode
+  pool worker's.
 
 `build_datasets` builds the fake, ImageFolder or streaming splits, each
 process reading its interleaved slice of every global batch (a process
@@ -35,6 +37,7 @@ import torch
 from vitax_torch import distributed
 from vitax_torch.config import Config
 from vitax_torch.data.fake import TRAIN_SPLIT_LEN, VAL_SPLIT_LEN, FakeImageNetDataset
+from vitax_torch.telemetry.threads import report_thread_exception, reporting
 
 
 class LoaderWorkerError(RuntimeError):
@@ -119,6 +122,7 @@ class PrefetchLoader:
                         return
                     q.put(load(row))
             except BaseException as e:  # noqa: BLE001 - handed to the consumer, which raises it
+                report_thread_exception(e)
                 q.put(_ProducerFailure(e, traceback.format_exc()))
             finally:
                 q.put(None)
@@ -164,7 +168,7 @@ class ShardedLoader(PrefetchLoader):
             # the whole batch in one GIL-free native call, on its own threads
             images, labels = self.dataset.load_batch(indices, self.num_workers)
         else:
-            items = list(pool.map(self.dataset.__getitem__, indices))
+            items = list(pool.map(reporting(self.dataset.__getitem__), indices))
             images, labels = np.stack([it[0] for it in items]), [it[1] for it in items]
         return host_batch(images, labels, self.device)
 

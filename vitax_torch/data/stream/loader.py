@@ -24,6 +24,7 @@ from vitax_torch.data.imagefolder import DecodeCounts, pil_decode, resolve_nativ
 from vitax_torch.data.loader import PrefetchLoader, host_batch
 from vitax_torch.data.stream.format import ShardReader, load_split_meta
 from vitax_torch.data.stream.sampler import StreamSampler
+from vitax_torch.telemetry.threads import reporting
 
 
 class StreamDataset:
@@ -91,7 +92,7 @@ class StreamDataset:
 
         # PIL releases the GIL while it decodes and resamples, so threads help
         with ThreadPoolExecutor(max(1, min(n_threads, len(fallback)))) as pool:
-            for pos, img in zip(fallback, pool.map(pil_item, fallback)):
+            for pos, img in zip(fallback, pool.map(reporting(pil_item), fallback)):
                 images[pos] = img
         return images, np.asarray(labels, np.int32)
 

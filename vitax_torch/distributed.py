@@ -16,7 +16,10 @@ A group that the caller initialized itself is taken as it is.
 from __future__ import annotations
 
 import datetime
+import functools
+import operator
 import os
+import sys
 
 import torch
 import torch.distributed as dist
@@ -108,8 +111,45 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def shutdown() -> None:
-    """Leave the process group, after every process got here."""
-    if is_distributed():
-        barrier("shutdown")
+def or_across_processes(value: int) -> int:
+    """Bitwise OR of a small non-negative host int over every process
+    (vitax or_across_processes): every process's raised bits survive into
+    the one word all of them see. NCCL has no bitwise-OR reduce, so the
+    words are gathered (on the card under NCCL) and folded on the host.
+    Collective: every process calls it at the same point. Free alone."""
+    if process_count() == 1:
+        return int(value)
+    device = (torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl"
+              else torch.device("cpu"))
+    word = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    words = [torch.empty_like(word) for _ in range(process_count())]
+    dist.all_gather(words, word)
+    return functools.reduce(operator.or_, torch.cat(words).tolist(), 0)
+
+
+def any_across_processes(value: bool) -> bool:
+    """True iff any process passes True (vitax any_across_processes), so a
+    signal seen by some processes stops all of them at the same step.
+    Collective, as or_across_processes; free alone."""
+    return bool(or_across_processes(int(bool(value))))
+
+
+def orderly_shutdown() -> None:
+    """The coordinated exit of a finished run (vitax orderly_shutdown): a
+    barrier so every process has finished its teardown, then leave the
+    process group, then flush stdout and stderr. No-op without a group.
+
+    vitax ends with os._exit(0) to skip C++ destructors that race the
+    coordination service; the port returns and lets the interpreter exit,
+    since destroy_process_group has been seen to tear NCCL and gloo down
+    without a hang (chip_smoke.py phase 7t runs it under torchrun)."""
+    if not is_distributed():
+        return
+    barrier("vitax_orderly_shutdown")
+    try:
         dist.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 - a dirty teardown must not fail a finished run
+        print(f"vitax_torch.distributed: destroy_process_group after the barrier failed "
+              f"({type(e).__name__}: {e}); exiting anyway", file=sys.stderr)
+    sys.stdout.flush()
+    sys.stderr.flush()

@@ -91,13 +91,14 @@ def eval_engine(engine, images: np.ndarray, labels: np.ndarray,
     return topk_accuracy(ids, labels)
 
 
-def run_quant_gate(engine_f32, engine_q, images: np.ndarray, labels: np.ndarray) -> dict:
+def run_quant_gate(engine_f32, engine_q, images: np.ndarray, labels: np.ndarray, recorder=None) -> dict:
     """The accuracy gate: quantized vs full-precision top-1/top-5 on one
-    eval set; deltas in points. Returns the record (no telemetry sink is
-    ported yet); the caller decides its threshold."""
+    eval set; deltas in points. Returns the record and, with a Recorder
+    (telemetry/record.py), emits it as one kind "quant_gate" event, which
+    tools/metrics_report.py surfaces; the caller decides its threshold."""
     top1_f, top5_f = eval_engine(engine_f32, images, labels)
     top1_q, top5_q = eval_engine(engine_q, images, labels)
-    return {
+    gate = {
         "top1_f32": top1_f, "top5_f32": top5_f,
         "top1_quant": top1_q, "top5_quant": top5_q,
         "delta_top1": round(100.0 * (top1_q - top1_f), 4),
@@ -108,3 +109,6 @@ def run_quant_gate(engine_f32, engine_q, images: np.ndarray, labels: np.ndarray)
         "act_quant": getattr(engine_q, "act_quant", "off"),
         "fused_dequant": getattr(engine_q, "fused_dequant", False),
     }
+    if recorder is not None:
+        recorder.event("quant_gate", **gate)
+    return gate

@@ -7,18 +7,35 @@ numbers the JAX package reports.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 # Dense bf16 tensor-core peak in TFLOP/s by CUDA device name (NVIDIA's data
-# sheets). A card not listed has no MFU.
+# sheets). "cpu" keeps CPU runs' MFU finite and equal to the JAX package's.
+# A card not listed has no peak: MFU 0 unless --peak_tflops gives one.
 PEAK_TFLOPS = {
     "NVIDIA H100 80GB HBM3": 989.0,     # H100 SXM5
+    "cpu": 1.0,
 }
 
 
 def peak_tflops(device_name: str) -> Optional[float]:
     """Peak bf16 TFLOP/s of a card from torch.cuda.get_device_name, or None."""
     return PEAK_TFLOPS.get(device_name)
+
+
+def detect_peak_tflops(device_kind: str, override: float = 0.0) -> float:
+    """Per-card peak TFLOP/s for `device_kind` (torch.cuda.get_device_name,
+    or "cpu"); `override` > 0 (--peak_tflops) always wins. A card the table
+    has not met gets 0, so its MFU reads 0, and one warning naming the flag."""
+    if override and override > 0:
+        return float(override)
+    peak = PEAK_TFLOPS.get(device_kind)
+    if peak is None:
+        print(f"vitax_torch.telemetry: no peak TFLOP/s known for {device_kind!r}; MFU reads 0 "
+              f"(pass --peak_tflops to set the card's dense bf16 peak)", file=sys.stderr, flush=True)
+        return 0.0
+    return peak
 
 
 def model_flops_per_image(cfg) -> float:

@@ -40,7 +40,7 @@ def main(argv=None) -> int:
 
     from vitax_torch.train.loop import train
     train(cfg, device)
-    distributed.shutdown()
+    distributed.orderly_shutdown()
     return 0
 
 

@@ -31,12 +31,25 @@ built without an init and the checkpoint loaded into it; the restored
 `step` and `count` give the schedule's lr and the dropout seeds. A
 mid-epoch checkpoint (its sidecar's step_in_epoch) re-enters its epoch at
 the next step, and a stream loader's cursor is checked against it. No
-SIGTERM save or telemetry file yet: those are later slices.
+SIGTERM save yet: that is a later slice.
+
+Telemetry (telemetry/, vitax's): with --metrics_dir, rank 0 writes
+<metrics_dir>/metrics.jsonl: a run_start event, a restore event on a
+resume, a control/elastic_resume event when the process count changed, a
+schema-1 step record at every log step from the host values the loop
+fetched there, and an eval event a pass. The update's own seconds
+(opt_update_s) are timed at those log steps only, by CUDA events on the
+card that launch nothing, so the step launches the same kernels in the
+same order with telemetry on or off. Every process meets the others at
+vitax's four named barriers: loaded dataset, loaded model, loaded
+optimizer, training begins. --debug_nans turns on autograd's anomaly
+mode with NaN checks and fetches the loss and grad norm every step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import pprint
 import time
 from typing import Callable, Dict, List, Optional
@@ -52,11 +65,12 @@ from vitax_torch.ops.attention import make_attention_impl
 from vitax_torch.ops.fused_optimizer import fused_optimizer_active
 from vitax_torch.parallel.mesh import batch_shard, build_mesh
 from vitax_torch.parallel.sharding import apply_fsdp, init_sharded, reshard
-from vitax_torch.platform import DeviceLike
+from vitax_torch.platform import DeviceLike, device_kind
+from vitax_torch.telemetry import build_recorder, install_thread_excepthook, restore_thread_excepthook
 from vitax_torch.train.control import elastic_resume_plan
 from vitax_torch.train.state import ADAMW_HPARAMS, TrainState, build_optimizer, make_train_state
 from vitax_torch.train.step import _needs_dropout, make_eval_step, make_train_step
-from vitax_torch.utils.logging import master_print
+from vitax_torch.utils.logging import master_print, memory_summary
 from vitax_torch.utils.metrics import SmoothedValue
 
 
@@ -80,6 +94,8 @@ def train(cfg: Config, device: DeviceLike = None,
     build_datasets(cfg, device)."""
     cfg.validate()
     device = distributed.maybe_initialize(device)  # joins torchrun's process group; this rank's device
+    rank = distributed.process_index()
+    hook = install_thread_excepthook(None, rank)    # background-thread crashes: rank-tagged on stderr
     fused = fused_optimizer_active(cfg, device)     # raises for --fused_optimizer off on the card
     set_float32_precision()
     mesh = build_mesh(cfg, device) if distributed.is_distributed() else None
@@ -104,10 +120,12 @@ def train(cfg: Config, device: DeviceLike = None,
                      f"{cfg.grad_reduce_dtype}")
 
     train_ds, train_loader, _, val_loader = data if data is not None else build_datasets(cfg, device)
+    distributed.barrier("loaded dataset")
     master_print(f"\n=== dataset ===\n{train_ds!r}\n")
 
     # a mid-epoch checkpoint re-enters its epoch at the recorded step
-    resume_step, resume_rounded = _elastic_resume(cfg, cfg.resume_epoch) if cfg.resume_epoch > 0 else (0, False)
+    resume_step, topology_change, resume_rounded = (_elastic_resume(cfg, cfg.resume_epoch)
+                                                    if cfg.resume_epoch > 0 else (0, None, False))
     attention_impl = make_attention_impl(cfg, device)
     master_print(f"attention core: {getattr(attention_impl, 'vitax_name', 'dense')} on {device.type} "
                  f"(N {cfg.num_patches}); grad_ckpt {cfg.grad_ckpt}, remat_policy {cfg.remat_policy}")
@@ -134,34 +152,67 @@ def train(cfg: Config, device: DeviceLike = None,
             state, restored = ckpt_io.restore_state_with_fallback(cfg.ckpt_dir, cfg.resume_epoch, state)
             if restored != cfg.resume_epoch:
                 cfg = dataclasses.replace(cfg, resume_epoch=restored)
-                resume_step, resume_rounded = _elastic_resume(cfg, restored)
+                resume_step, topology_change, resume_rounded = _elastic_resume(cfg, restored)
         else:                           # an explicit --resume_epoch N means N: fail hard
             state = ckpt_io.restore_state(cfg.ckpt_dir, cfg.resume_epoch, state)
         master_print(f"restored epoch {cfg.resume_epoch}: step {state.step}")
+    distributed.barrier("loaded model")
     master_print(f"global parameter num: {count_params(model)}")
     master_print(
         f"\n=== optimizer ===\nAdamW(lr=warmup_cosine(base={cfg.lr}, warmup={cfg.warmup_steps}, "
         f"max_iteration={max_iteration}), betas=({ADAMW_HPARAMS['b1']}, {ADAMW_HPARAMS['b2']}), "
         f"eps={ADAMW_HPARAMS['eps']}, weight_decay={cfg.weight_decay}, "
         f"clip_grad_norm={cfg.clip_grad_norm}, fused={fused})\n")
+    distributed.barrier("loaded optimizer")
     if cfg.grad_accum_steps > 1:
         master_print(f"grad accumulation: {cfg.grad_accum_steps} microbatches of "
                      f"{cfg.batch_size // cfg.grad_accum_steps} (one optimizer step per loader batch)")
 
     train_step = make_train_step(cfg, optimizer, device, mesh)
     eval_step = make_eval_step(cfg)
+
+    # rank 0's telemetry; host work only, the step's launches are the same without it
+    recorder = build_recorder(cfg, distributed.process_count(), device_kind(device), rank=rank, device=device)
+    install_thread_excepthook(recorder, rank)       # ... and now thread_crash events too
+    if recorder is not None:
+        master_print(f"telemetry: JSONL step records -> {cfg.metrics_dir} (MFU vs {recorder.peak_tflops:.0f} "
+                     f"TF/s/card peak" + (", tensorboard mirror on" if cfg.tensorboard else "") + ")")
+        recorder.event("run_start", device_kind=recorder.device_kind, n_devices=recorder.n_devices,
+                       peak_tflops=recorder.peak_tflops, flops_per_step=recorder.flops_per_step,
+                       batch_size=cfg.batch_size)
+        if cfg.resume_epoch > 0:
+            recorder.event("restore", path="dcp", epoch=int(cfg.resume_epoch), resume_step=int(resume_step))
+        if topology_change is not None:
+            recorder.event("control", event="elastic_resume", from_processes=topology_change[0],
+                           to_processes=topology_change[1], epoch=cfg.resume_epoch, resume_step=resume_step,
+                           epoch_rounded=resume_rounded)
+    anomaly = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    if cfg.debug_nans:
+        torch.autograd.set_detect_anomaly(True, check_nan=True)
+        master_print("debug_nans: autograd anomaly mode with NaN checks; the loss and grad norm are fetched "
+                     "every step")
+    distributed.barrier("training begins")
+    master_print("training begins")
     try:
         return _run_epochs(cfg, state, train_step, train_loader, val_loader, eval_step, schedule,
-                           records, train_ds, resume_step=resume_step, resume_rounded=resume_rounded)
+                           records, train_ds, resume_step=resume_step, resume_rounded=resume_rounded,
+                           recorder=recorder)
     finally:
-        ckpt_io.wait_until_finished()   # no exit with a save in flight
+        torch.autograd.set_detect_anomaly(*anomaly)
+        try:
+            ckpt_io.wait_until_finished()   # no exit with a save in flight
+        finally:
+            restore_thread_excepthook(hook)
+            if recorder is not None:
+                recorder.close()
 
 
 def _elastic_resume(cfg: Config, epoch: int):
-    """(resume_step, epoch_rounded) for re-entering `epoch` under this run's
-    process count, from the epoch's sidecar (vitax/train/loop.py
-    _elastic_resume). epoch_rounded: the mid-epoch progress was dropped, so
-    the loop re-enters `epoch` from step 0 rather than skipping its rest."""
+    """(resume_step, (from, to) process counts when they differ else None,
+    epoch_rounded) for re-entering `epoch` under this run's process count,
+    from the epoch's sidecar (vitax/train/loop.py _elastic_resume).
+    epoch_rounded: the mid-epoch progress was dropped, so the loop
+    re-enters `epoch` from step 0 rather than skipping its rest."""
     count = distributed.process_count()
     plan = elastic_resume_plan(ckpt_io.load_resume_meta(cfg.ckpt_dir, epoch), count)
     if plan.topology_changed:
@@ -171,7 +222,7 @@ def _elastic_resume(cfg: Config, epoch: int):
             + (f" — stream cursor invalidated by the topology change; epoch-rounding the resume "
                f"(re-running {plan.skipped_steps} mid-epoch steps)" if plan.epoch_rounded else
                " — rank-interleaved sampling keeps the step-granular resume exact"))
-    return plan.resume_step, plan.epoch_rounded
+    return plan.resume_step, (plan.from_processes, count) if plan.topology_changed else None, plan.epoch_rounded
 
 
 def _verify_stream_resume(cfg: Config, train_loader, resume_step: int) -> None:
@@ -200,7 +251,7 @@ def _decode_line(dataset) -> Optional[str]:
 def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_loader, val_loader,
                 eval_step: Callable, schedule: Callable,
                 records: Optional[List[Dict[str, float]]] = None, train_ds=None,
-                resume_step: int = 0, resume_rounded: bool = False) -> TrainState:
+                resume_step: int = 0, resume_rounded: bool = False, recorder=None) -> TrainState:
     smoothed_loss = SmoothedValue(window_size=5)
     smoothed_time = SmoothedValue(window_size=5)
     total_steps = 0
@@ -224,10 +275,11 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
         for step, batch in enumerate(train_loader.epoch(epoch, start_step=start_step), start=start_step):
             if cfg.steps_per_epoch and step >= cfg.steps_per_epoch:
                 break
-            state, metrics = train_step(state, batch)
+            will_log = total_steps == 0 or (step + 1) % cfg.log_step_interval == 0
+            state, metrics = _checked(cfg, train_step, state, batch, total_steps + 1,
+                                      time_update=will_log and recorder is not None)
             total_steps += 1
             steps_since_record += 1
-            will_log = total_steps == 1 or (step + 1) % cfg.log_step_interval == 0
             host_loss = float(metrics["loss"]) if will_log else None    # the log step's one fetch
             t_new = time.time()
             step_seconds = t_new - time_step_b
@@ -235,13 +287,20 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
             time_step_b = t_new
             if will_log:
                 lr = float(schedule(metrics["lr_step"]))
-                _run_logging(cfg, epoch, step, host_loss, lr, smoothed_loss, smoothed_time)
+                _run_logging(cfg, epoch, step, host_loss, lr, smoothed_loss, smoothed_time,
+                             memory_summary(state.count.device) if cfg.log_memory else None)
                 data_wait_s = train_loader.consume_wait_s() / steps_since_record
                 steps_since_record = 0
+                if records is not None or recorder is not None:
+                    grad_norm = float(metrics["grad_norm"])
+                if recorder is not None:
+                    recorder.record_step(step=total_steps, epoch=epoch, step_in_epoch=step + 1, loss=host_loss,
+                                         lr=lr, sec_per_iter=smoothed_time.avg, data_wait_s=data_wait_s,
+                                         opt_update_s=metrics["opt_update"].seconds(), grad_norm=grad_norm)
                 if records is not None:
                     records.append({"epoch": epoch, "step": total_steps, "loss": host_loss, "lr": lr,
                                     "sec_per_iter": smoothed_time.avg, "step_seconds": step_seconds,
-                                    "grad_norm": float(metrics["grad_norm"]), "data_wait_s": data_wait_s})
+                                    "grad_norm": grad_norm, "data_wait_s": data_wait_s})
             if cfg.max_steps and total_steps >= cfg.max_steps:
                 break
         if metrics is not None:
@@ -260,7 +319,7 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
             if records is not None:
                 records.append({"epoch": epoch, "ckpt_path": path, "ckpt_stall_s": time.perf_counter() - t0})
         if epoch % cfg.test_epoch_interval == 0 or epoch == cfg.num_epochs:
-            top1, top5, _, _ = eval_on_val(cfg, val_loader, eval_step, state)
+            top1, top5, _, _ = eval_on_val(cfg, val_loader, eval_step, state, recorder=recorder, epoch=epoch)
             master_print(f"accuracy on val: {top1:.4f} (top-5 {top5:.4f})")
             if records is not None:
                 records.append({"epoch": epoch, "top1": top1, "top5": top5})
@@ -269,21 +328,39 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
     return state
 
 
+def _checked(cfg: Config, train_step: Callable, state: TrainState, batch, step: int, time_update: bool):
+    """train_step, and under --debug_nans a FloatingPointError naming the
+    global `step` at the first non-finite loss or grad norm (fetched every
+    step) or NaN that anomaly mode finds in the backward."""
+    if not cfg.debug_nans:
+        return train_step(state, batch, time_update=time_update)
+    try:
+        state, metrics = train_step(state, batch, time_update=time_update)
+    except RuntimeError as e:
+        if "returned nan values" not in str(e):         # autograd anomaly mode's NaN check
+            raise
+        raise FloatingPointError(f"--debug_nans: NaN in the backward of step {step}: {e}") from e
+    loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+        raise FloatingPointError(f"--debug_nans: non-finite loss {loss} or grad norm {grad_norm} at step {step}")
+    return state, metrics
+
+
 def _run_logging(cfg: Config, epoch: int, step: int, loss: float, lr: float,
-                 smoothed_loss: SmoothedValue, smoothed_time: SmoothedValue) -> None:
-    """The reference's throttled step log line; the caller already fetched
-    the loss and resolved the lr."""
+                 smoothed_loss: SmoothedValue, smoothed_time: SmoothedValue, mem: Optional[str] = None) -> None:
+    """The reference's throttled step log line, with `mem` (--log_memory)
+    appended; the caller already fetched the loss and resolved the lr."""
     smoothed_loss.update(loss, batch_size=1)
     master_print(f"epoch {epoch} step {step + 1}, lr: {lr:.4f}, "
-                 f"loss: {smoothed_loss.avg:.4f}, sec/iter: {smoothed_time.avg:.4f}")
+                 f"loss: {smoothed_loss.avg:.4f}, sec/iter: {smoothed_time.avg:.4f}" + (f", {mem}" if mem else ""))
 
 
-def eval_on_val(cfg: Config, val_loader, eval_step: Callable, state: TrainState):
+def eval_on_val(cfg: Config, val_loader, eval_step: Callable, state: TrainState, recorder=None, epoch: int = 0):
     """Top-1 and top-5 accuracy over the val split with drop_last (the
     remainder of the split is ignored, as in the reference), capped at
     cfg.eval_max_batches; each rank counts its slice of every batch and
-    the counts are summed over the ranks. Returns (top1, top5, n_correct,
-    total)."""
+    the counts are summed over the ranks. With a Recorder, one kind "eval"
+    event (epoch, top1, top5, n). Returns (top1, top5, n_correct, total)."""
     correct = None
     total = 0
     for step, batch in enumerate(val_loader.epoch(0)):
@@ -299,4 +376,6 @@ def eval_on_val(cfg: Config, val_loader, eval_step: Callable, state: TrainState)
             torch.stack([correct["correct"], correct["correct_top5"]])).tolist()
     top1 = n_correct / total if total else 0.0
     top5 = n_top5 / total if total else 0.0
+    if recorder is not None:
+        recorder.event("eval", epoch=int(epoch), top1=top1, top5=top5, n=total)
     return top1, top5, n_correct, total

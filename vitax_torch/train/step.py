@@ -31,6 +31,7 @@ across microbatches.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -111,15 +112,50 @@ def _make_update_fn(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     return update
 
 
-def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callable[[TrainState, Batch], tuple]:
-    """train_step(state, batch) -> (state, metrics): metrics `loss` and
-    `grad_norm` are device tensors, `lr_step` the post-step count (the
-    reference logs lr after lr_scheduler.step()), `images` and `tokens` the
-    step's work counts (the global batch's). The state is updated in place
-    and returned. Under dropout, microbatch k of the step at count
-    `state.step` runs with dropout_seeds(cfg, state.step, k), folded with
-    the rank's batch shard index under a `mesh` (the batch is then the
-    rank's slice of the global batch)."""
+class UpdateTimer:
+    """The seconds of one update(...) call: CUDA events around it on the
+    card, read only once a later fetch has waited for the step (the events
+    launch nothing), or the host clock on the CPU, where the call returns
+    when done."""
+
+    def __init__(self, device: torch.device):
+        self._events = ((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                        if device.type == "cuda" else None)
+        self._t0 = self._seconds = 0.0
+
+    def __enter__(self) -> "UpdateTimer":
+        if self._events is not None:
+            self._events[0].record()
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._events is not None:
+            self._events[1].record()
+        else:
+            self._seconds = time.perf_counter() - self._t0
+
+    def seconds(self) -> float:
+        if self._events is None:
+            return self._seconds
+        start, end = self._events
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+
+def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callable[..., tuple]:
+    """train_step(state, batch, time_update=False) -> (state, metrics):
+    metrics `loss` and `grad_norm` are device tensors, `lr_step` the
+    post-step count (the reference logs lr after lr_scheduler.step()),
+    `images` and `tokens` the step's work counts (the global batch's), and
+    with time_update `opt_update` an UpdateTimer around the step's update
+    (the global norm and clip+AdamW: the loop's opt_update_s). The state is
+    updated in place and returned. Under dropout, microbatch k of the step
+    at count `state.step` runs with dropout_seeds(cfg, state.step, k),
+    folded with the rank's batch shard index under a `mesh` (the batch is
+    then the rank's slice of the global batch)."""
+    device = torch.device(device)
     update = _make_update_fn(cfg, optimizer, device, mesh)
     k_steps = cfg.grad_accum_steps
     dropout = _needs_dropout(cfg)
@@ -132,7 +168,7 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
         logits = model(prepare_images(batch["image"]), seeds)
         return F.cross_entropy(logits.float(), batch["label"])
 
-    def train_step(state: TrainState, batch: Batch):
+    def train_step(state: TrainState, batch: Batch, time_update: bool = False):
         model = state.model
         model.zero_grad(set_to_none=True)
         if k_steps == 1:
@@ -151,9 +187,13 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
                 g.mul_(1.0 / k_steps)
         if ranks > 1:                        # the global batch's mean
             loss = distributed.all_reduce_sum(loss) / ranks
-        grad_norm = update(state, state.grads())
-        metrics = {"loss": loss, "grad_norm": grad_norm, "lr_step": state.step,
-                   "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
+        metrics = {"loss": loss, "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
+        if time_update:
+            with UpdateTimer(device) as metrics["opt_update"]:
+                metrics["grad_norm"] = update(state, state.grads())
+        else:
+            metrics["grad_norm"] = update(state, state.grads())
+        metrics["lr_step"] = state.step
         return state, metrics
 
     return train_step
