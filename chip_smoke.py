@@ -23,7 +23,8 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      past every bar; the BH entry points with and without dropout; the
      dropout mask recovered from the kernel bit for bit; the fused
      optimizer over leaves of assorted sizes, with the clip triggered and
-     idle; the dequant matmul weight-only with int8 and fp8 weights, and
+     idle, and with per-leaf lr multipliers 0.1 and 1 (the leaves at 1
+     bitwise the unscaled step); the dequant matmul weight-only with int8 and fp8 weights, and
      act mode bitwise: its wgmma kernel at the main-path shapes and, on
      both tiles, at shapes with ragged M, F and K tails, its general
      kernel at ragged-K shapes and at proj, each line naming its kernel);
@@ -134,6 +135,19 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      each of ZeRO-3, ZeRO-2 and DP from the same init, their losses, grad
      norms and params bitwise the reference's; then a depth-2 sharded save
      (train() with a checkpoint) restored into a new sharded state, bitwise;
+  7x. the transfer tasks (before 7f, unwrapped): a seeded depth-8 model
+     exported in bf16 (5.05 GB); the warm start bitwise the export at step
+     0 (the head re-initialized); then phase 7's run under --task finetune
+     (--reinit_head, --backbone_lr_mult 0.1), --task probe and --task
+     distill (the export as the teacher), each with its launch counts
+     checked against its steps (the teacher adds a forward a block a
+     step), sec/iter, images/s, MFU of the student's FLOPs and peak memory
+     beside phase 7's; the probe's backbone bitwise the export after its
+     run, its moments the head's; 12 finite distill events with kl >= 0;
+     then a depth-2 probe run saves its epoch, InferenceEngine.from_checkpoint
+     answers a bucket-8 batch bitwise as from_state on the trained params,
+     and `python -m vitax_torch.serve --ckpt_dir ... --epoch -1` answers a
+     /predict and exits 0 on SIGTERM;
   8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1085,17 +1099,30 @@ def check_fused_adamw(torch) -> float:
         norm = global_norm(g)
         scal = step_scalars(torch.tensor(5, dtype=torch.int32, device="cuda"), norm, sched, clip,
                             hp[0], hp[1])
+        # the same step with --backbone_lr_mult's per-leaf multipliers, 0.1
+        # and 1 in turns: against the plain version with the same, and the
+        # leaves at 1 bitwise the step without multipliers
+        mults = [0.1 if i % 2 == 0 else 1.0 for i in range(len(p))]
+        scaled = [[x.clone() for x in xs] for xs in (p, mu, nu)]
+        scaled_ref = [[x.clone() for x in xs] for xs in (p, mu, nu)]
         fused_adamw_cuda(p, g, mu, nu, scal, hp)
         clip_adamw_(ref[0], g, ref[1], ref[2], scal, hp)
         d, bad = adamw_diff(torch, (p, mu, nu), ref)
-        ok = bad == 0 and all(bool(torch.isfinite(a).all()) for a in p)
+        fused_adamw_cuda(scaled[0], g, scaled[1], scaled[2], scal, hp, mults)
+        clip_adamw_(scaled_ref[0], g, scaled_ref[1], scaled_ref[2], scal, hp, mults)
+        d_m, bad_m = adamw_diff(torch, scaled, scaled_ref)
+        unit_bitwise = all(torch.equal(scaled[0][i], p[i]) for i, m in enumerate(mults) if m == 1.0)
+        moved = all(not torch.equal(scaled[0][i], p[i]) for i, m in enumerate(mults) if m != 1.0)
+        ok = bad == 0 and bad_m == 0 and unit_bitwise and moved and all(bool(torch.isfinite(a).all()) for a in p)
         say(f"[3 check] fused_adamw {len(p)} leaves ({sum(x.numel() for x in p):,} params), clip "
             f"{'triggered' if scal[0].item() < 1 else 'idle'} (scale {scal[0].item():.4g}): max|d| {d:.3e}, "
-            f"{bad} elements outside rtol {ADAMW_RTOL} / atol {ADAMW_ATOL} {'ok' if ok else 'FAIL'}")
+            f"{bad} elements outside rtol {ADAMW_RTOL} / atol {ADAMW_ATOL}; lr multipliers 0.1 and 1 in turns: "
+            f"max|d| {d_m:.3e}, {bad_m} outside, the leaves at 1 bitwise the unscaled step {unit_bitwise}, those "
+            f"at 0.1 moved {moved} {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail("fused_adamw disagrees with its plain version")
-        worst = max(worst, d)
-        del p, g, mu, nu, ref
+            fail("fused_adamw disagrees with its plain version, or its multiplier 1 is not the unscaled step")
+        worst = max(worst, d, d_m)
+        del p, g, mu, nu, ref, scaled, scaled_ref
         torch.cuda.empty_cache()
     return worst
 
@@ -2942,6 +2969,222 @@ def phase_checkpoint(torch, card, root: str):
     return {k: train_launches[k] + serve_launches[k] for k in serve_launches}
 
 
+# Phase 7x: the transfer tasks at phase 7's configuration from a seeded
+# bf16 export of the same model (another seed), and serving a checkpoint
+# directory at depth 2.
+TRANSFER_EXPORT_SEED = SEED + 1
+TRANSFER_RUNS = (("finetune", dict(task="finetune", reinit_head=True, backbone_lr_mult=0.1)),
+                 ("probe", dict(task="probe")), ("distill", dict(task="distill")))
+SERVE_CKPT = dict(num_blocks=2, batch_size=32, fake_data=True, warmup_steps=4, log_step_interval=1,
+                  eval_max_batches=1, num_epochs=1, steps_per_epoch=3, task="probe")
+
+
+def write_transfer_export(torch, cfg, path: str) -> dict:
+    """The seeded model of `cfg` exported as consolidate --dtype bfloat16
+    writes it (the JAX layout, scanned blocks, bf16 leaves): returns the
+    export's params in the port's names, bf16 on the host."""
+    from vitax_torch.checkpoint.consolidate import save_npz
+    from vitax_torch.checkpoint.convert import params_from_jax, params_to_jax
+    from vitax_torch.models.vit import build_model
+    model = build_model(cfg, "cuda")
+    tree = params_to_jax({k: v.to(torch.bfloat16) for k, v in model.state_dict().items()})
+    del model
+    torch.cuda.empty_cache()
+    save_npz(path, tree)
+    return params_from_jax(tree)
+
+
+def transfer_launches(cfg, teacher: bool) -> dict:
+    """train_run_launches, plus the distill teacher's forward a block a step."""
+    want = train_run_launches(cfg)
+    if teacher:
+        for key in ("flash_attn_fwd", "flash_attn_fwd_wgmma"):
+            want[key] += cfg.max_steps * cfg.num_blocks
+    return want
+
+
+def serve_checkpoint_cli(ckpt_dir: str, card: str) -> None:
+    """python -m vitax_torch.serve --ckpt_dir D --epoch -1 at depth 2 on the
+    card: one /predict, then exit 0 on SIGTERM."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "vitax_torch.serve", "--ckpt_dir", ckpt_dir, "--epoch", "-1", "--num_blocks",
+           str(SERVE_CKPT["num_blocks"]), "--serve_port", "0", "--serve_max_batch", "8"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        port, deadline = None, time.monotonic() + 300
+        while port is None and time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if "listening on :" in line:
+                port = int(line.split("listening on :")[1].split()[0])
+        if port is None:
+            fail("[7x serve] the serve CLI never bound:\n" + "".join(lines)[-3000:])
+        url = f"http://127.0.0.1:{port}"
+        while not http(url + "/healthz")["ready"]:
+            if time.monotonic() > deadline:
+                fail("[7x serve] the serve CLI never warmed up")
+            time.sleep(0.2)
+        ans = http(url + "/predict", ppm_bytes(np.random.default_rng(SEED + 8)))
+        check_answer(ans, 5, 1000)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        lines += proc.stdout.readlines()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+    if rc != 0 or not any("params from checkpoint" in ln for ln in lines):
+        fail(f"[7x serve] the serve CLI exited {rc}:\n" + "".join(lines)[-3000:])
+    say(f"[7x serve] python -m vitax_torch.serve --ckpt_dir ... --epoch -1: "
+        + next(ln.strip() for ln in lines if "params from checkpoint" in ln)
+        + f"; one /predict answered (top-1 {ans['classes'][0]}), exit 0 on SIGTERM, {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+
+
+def phase_transfer(torch, card, root: str, ref7: dict) -> dict:
+    """Phase 7x: finetune (--reinit_head, --backbone_lr_mult 0.1), probe and
+    distill (the export as the teacher) at phase 7's configuration from a
+    seeded bf16 export of the depth-8 model, each a train() run with its
+    launches checked against its steps (the teacher adds a forward a block
+    a step), sec/iter, MFU (the student's FLOPs) and peak memory beside
+    phase 7's; the warm start bitwise the export at step 0, the probe's
+    backbone bitwise the export after its run and its moments the head's,
+    the distill events finite with kl >= 0. Then a depth-2 probe run saves
+    its epoch, from_checkpoint answers a bucket-8 batch as from_state on
+    the trained params, bitwise, and the serve CLI serves the directory.
+    Returns the launches of the runs and of the served batches."""
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import build_model
+    from vitax_torch.ops import _build
+    from vitax_torch.programs import get_scenario
+    from vitax_torch.programs.workloads import warm_start_from_npz
+    from vitax_torch.serve import InferenceEngine
+    from vitax_torch.telemetry.flops import model_flops_per_step, peak_tflops
+    from vitax_torch.train.loop import train
+    from vitax_torch.train.state import make_train_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    npz = os.path.join(root, "transfer_bf16.npz")
+    base = Config(seed=TRANSFER_EXPORT_SEED, **TRAIN).validate()
+    t0 = time.perf_counter()
+    exported = write_transfer_export(torch, base, npz)
+    say(f"[7x export] seeded depth-{base.num_blocks} model (seed {base.seed}) exported in bf16: "
+        f"{os.path.getsize(npz) / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s")
+
+    # the warm start at step 0, as train() makes it: the backbone is the export, the head the fresh init
+    cfg = Config(seed=SEED, init_npz=npz, **TRAIN, **TRANSFER_RUNS[0][1]).validate()
+    model = build_model(cfg, "cuda").train()
+    fresh_head = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("head.")}
+    optimizer, _ = get_scenario(cfg.task).make_optimizer(cfg, cfg.max_steps)
+    t0 = time.perf_counter()
+    state, info = warm_start_from_npz(cfg, make_train_state(model, optimizer))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    same = sum(int(torch.equal(p, (fresh_head[n] if n.startswith("head.") else exported[n].to(p.device).float())))
+               for n, p in state.model.state_dict().items())
+    n_leaves = len(state.model.state_dict())
+    say(f"[7x warm start] {info['loaded']} export leaves loaded in {t_warm:.2f} s, head re-initialized "
+        f"({info['reinit']}); {same} of {n_leaves} leaves bitwise the export (backbone) or the fresh init (head)")
+    if same != n_leaves:
+        fail("[7x] the warm start did not load the export bitwise")
+    del model, state, optimizer, fresh_head
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    for name, flags in TRANSFER_RUNS:
+        source = dict(teacher_npz=npz) if name == "distill" else dict(init_npz=npz)
+        metrics_dir = os.path.join(root, f"metrics_{name}")
+        cfg = Config(seed=SEED, **TRAIN, **flags, **source, metrics_dir=metrics_dir).validate()
+        records = []
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state = train(cfg, "cuda", records=records)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = [r for r in records if "loss" in r]
+        losses = [r["loss"] for r in steps]
+        want = transfer_launches(cfg, teacher=name == "distill")
+        if got != want:
+            fail(f"[7x {name}] train() launched {got}; expected {want}")
+        if len(steps) != cfg.max_steps or not all(np.isfinite(losses)):
+            fail(f"[7x {name}] {len(steps)} steps logged, losses {losses}")
+        sec = float(np.median([r["step_seconds"] for r in steps[2:]]))
+        mfu = model_flops_per_step(cfg) / sec / (peak * 1e12) if peak else None
+        extra = ""
+        if name == "probe":
+            frozen = sum(int(torch.equal(p, exported[n].to(p.device).float()))
+                         for n, p in state.model.named_parameters() if not n.startswith("head."))
+            n_backbone = sum(1 for n, _ in state.model.named_parameters() if not n.startswith("head."))
+            head_moved = not torch.equal(state.model.head.weight, exported["head.weight"].to("cuda").float())
+            extra = (f"; backbone leaves bitwise the export after the run: {frozen} of {n_backbone}, head moved "
+                     f"{head_moved}, moments for {sorted(state.mu)}")
+            if frozen != n_backbone or not head_moved or sorted(state.mu) != ["head.bias", "head.weight"]:
+                fail(f"[7x probe] the backbone moved or the moments are not the head's{extra}")
+        if name == "distill":
+            _, events = read_jsonl(os.path.join(metrics_dir, "metrics.jsonl"))
+            dist = events.get("distill", [])
+            kls = [e["kl"] for e in dist]
+            extra = (f"; {len(dist)} distill events, kl {kls[0]:.4f} -> {kls[-1]:.4f}, ce {dist[-1]['ce']:.4f}, "
+                     f"teacher_top1 {dist[-1]['teacher_top1']:.3f}, student_top1 {dist[-1]['student_top1']:.3f}"
+                     if dist else "; no distill event")
+            if len(dist) != cfg.max_steps or not all(np.isfinite(k) and k >= 0 for k in kls) or \
+                    not all(np.isfinite(e["ce"]) for e in dist):
+                fail(f"[7x distill] the distill events are missing, not finite or kl < 0{extra}")
+        say(f"[7x {name}] {cfg.max_steps} steps + eval in {wall:.1f} s; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"sec/iter median of steps 3-12 {sec:.4f} s (phase 7 {ref7['sec']:.4f}), {cfg.batch_size / sec:.2f} "
+            f"images/s, MFU " + (f"{mfu * 100:.2f}%" if mfu is not None else "not measured")
+            + f" (student FLOPs); max_memory_allocated {peak_gb:.2f} GB (phase 7 {ref7['peak_gb']:.2f}); "
+            f"launches A1 {got['flash_attn_fwd']} A2 {got['flash_attn_bwd']} B {got['fused_adamw']}{extra} [{card}]")
+        launches = {k: launches[k] + got[k] for k in launches}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    del exported
+
+    # serving a checkpoint directory: a depth-2 probe run saves its epoch
+    ckpt_dir = os.path.join(root, "ckpt_serve")
+    cfg = Config(seed=SEED, **SERVE_CKPT, ckpt_dir=ckpt_dir).validate()
+    _build.reset_launches()
+    state = train(cfg, "cuda")
+    launches = {k: launches[k] + v for k, v in _build.LAUNCHES.items()}
+    t0 = time.perf_counter()
+    from_ckpt = InferenceEngine.from_checkpoint(cfg, device="cuda")
+    t_load = time.perf_counter() - t0
+    in_memory = InferenceEngine.from_state(cfg, dict(state.model.state_dict()), "cuda")
+    from_ckpt.warmup()
+    in_memory.warmup()
+    x = np.random.default_rng(SEED + 9).integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    _build.reset_launches()
+    ids_c, p_c = from_ckpt.predict(x)
+    served = dict(_build.LAUNCHES)
+    ids_m, p_m = in_memory.predict(x)
+    same = bool(np.array_equal(ids_c, ids_m) and np.array_equal(p_c, p_m))
+    say(f"[7x serve] from_checkpoint of the depth-2 probe's epoch 1 in {t_load:.2f} s: bucket-8 top-1 "
+        f"{ids_c[:, 0].tolist()}, top-{cfg.serve_topk} ids and probs bitwise from_state on the trained params "
+        f"{same}; flash_attn_fwd {served['flash_attn_fwd']} launches [{card}]")
+    if not same or served["flash_attn_fwd"] != cfg.num_blocks or not np.isfinite(p_c).all():
+        fail("[7x serve] from_checkpoint answers other than the trained params, or not through A1")
+    launches = {k: launches[k] + served[k] for k in launches}
+    del state, from_ckpt, in_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_checkpoint_cli(ckpt_dir, card)
+    os.remove(npz)
+    return launches
+
+
 # Phase 7f: FSDP2 at world size 1. The parity arms run 3 steps of phase 7's
 # configuration from its init, on noise_data; the sharded save runs the 10B
 # width at depth 2.
@@ -3145,7 +3388,7 @@ def phase_train_fsdp(torch, card, root: str, ref7: dict):
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7t, 7i, 7s, 7c and 7f in `data_launches`), its
+    paths of this run (phases 7t, 7i, 7s, 7c, 7x and 7f in `data_launches`), its
     check's max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
@@ -3255,9 +3498,10 @@ def main() -> int:
         stream_launches = phase_train_stream(torch, card, root, use_native)
         time_loaders(torch, root, card, use_native)
         ckpt_launches = phase_checkpoint(torch, card, root)
+        transfer = phase_transfer(torch, card, root, ref7)
         fsdp_launches = phase_train_fsdp(torch, card, root, ref7)
     data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
-                     + tele_launches[k] for k in tree_launches}
+                     + tele_launches[k] + transfer[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches)
     say(card)

@@ -26,7 +26,10 @@ below read what the ranks wrote:
   --metrics_dir only rank 0 writes the JSONL, and run_start counts 2
   devices;
 - the host folds any_across_processes and or_across_processes over the
-  ranks' own inputs, and orderly_shutdown returns on both ranks.
+  ranks' own inputs, and orderly_shutdown returns on both ranks;
+- train() under --task probe (warm-started from vitax's init exported as
+  npz) and --task distill (that export as the teacher, sharded with the
+  student's policy) on 2 ranks against the same runs in one process.
 At the end, FSDP2 in a one-rank group against the unwrapped model, bitwise:
 on the CPU (gloo), and on the card (NCCL; it skips without one).
 """
@@ -54,6 +57,12 @@ EXTRA_ARMS = {"overlap": dict(gather_overlap="on"), "dots_attn": dict(remat_poli
               "accum2": dict(grad_accum_steps=2)}
 TRAIN_RUN = dict(fake_data=True, num_epochs=1, steps_per_epoch=2, eval_max_batches=1, test_epoch_interval=1,
                  log_step_interval=1, num_workers=1)
+
+
+def _scenario_runs(root: str) -> dict:
+    """The probe and distill configs of train(), from root/init.npz."""
+    npz = os.path.join(root, "init.npz")
+    return {"probe": dict(task="probe", init_npz=npz), "distill": dict(task="distill", teacher_npz=npz)}
 
 
 def _batch():
@@ -129,9 +138,8 @@ def _gathered(state: TrainState) -> dict:
 
     def whole(t):
         return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
-    names = [n for n, _ in state.model.named_parameters()]
     return {"params": {n: whole(p) for n, p in state.model.named_parameters()},
-            "mu": {n: whole(state.mu[n]) for n in names}, "nu": {n: whole(state.nu[n]) for n in names},
+            "mu": {n: whole(v) for n, v in state.mu.items()}, "nu": {n: whole(v) for n, v in state.nu.items()},
             "count": int(state.count), "step": state.step}
 
 
@@ -219,6 +227,11 @@ def _worker(rank: int, root: str) -> None:
     from torch.distributed.tensor import DTensor
     out["train_dp"] = {"records": records,
                        "sharded": all(isinstance(p, DTensor) for p in state.model.parameters())}
+    for task, flags in _scenario_runs(root).items():
+        records = []
+        state = train(Config(**TINY, **TRAIN_RUN, **flags, ckpt_dir=os.path.join(root, f"ckpt_{task}")), "cpu",
+                      records=records)
+        out[task] = {"records": records, "state": _gathered(state)}
     target = _sharded_state(cfg, mesh)
     target = ckpt_io.restore_state(os.path.join(root, "ckpt1"), 1, target)
     out["reverse"] = _gathered(target)
@@ -258,11 +271,21 @@ def runs(tmp_path_factory, devices8):
         single, {"image": torch.from_numpy(images), "label": torch.from_numpy(labels)})
     ckpt_io.save_state(os.path.join(root, "ckpt1"), 1, single, wait=True)
     ckpt_io.close()
+    # the scenarios in one process, from vitax's init exported
+    from vitax_torch.checkpoint.consolidate import save_npz
+    from vitax_torch.train.loop import train
+    save_npz(os.path.join(root, "init.npz"), init0)
+    scenarios = {}
+    for task, flags in _scenario_runs(root).items():
+        records = []
+        state = train(Config(**TINY, **TRAIN_RUN, **flags, ckpt_dir=os.path.join(root, f"one_{task}")), "cpu",
+                      records=records)
+        scenarios[task] = {"records": records, "state": _whole(state)}
 
     mp.spawn(_worker, args=(root,), nprocs=2, join=True)
     ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(2)]
     return dict(jax=jax_losses, jax_norms=jax_norms, ranks=ranks, root=root, single=single, images=images,
-                labels=labels)
+                labels=labels, scenarios=scenarios, init=params_from_jax(init0))
 
 
 def _whole(state: TrainState) -> dict:
@@ -435,6 +458,33 @@ def test_host_folds_and_orderly_shutdown_on_two_ranks(runs):
     for r in runs["ranks"]:
         assert r["folds"] == {"any_rank1": True, "any_none": False, "or_bits": 5, "or_overlap": 7}
         assert r["shut_down"]
+
+
+@pytest.mark.parametrize("task", ["probe", "distill"])
+def test_scenarios_under_the_group_match_one_process(runs, task):
+    """--task probe and distill on 2 ranks against one process: the same
+    losses on both ranks, within rtol 2e-4 of the one-process run's, and
+    the params within tests/test_torch_train.py's bars (rtol 2e-3, atol
+    2e-5); the probe's backbone bitwise its export and its moments the
+    head's on both sides; the distill kl finite and >= 0."""
+    one = runs["scenarios"][task]
+    want = [x["loss"] for x in one["records"] if "loss" in x]
+    assert len(want) == 2 and all(np.isfinite(want))
+    for r in runs["ranks"]:
+        got = r[task]
+        np.testing.assert_allclose([x["loss"] for x in got["records"] if "loss" in x], want, rtol=2e-4)
+        for k, v in one["state"]["params"].items():
+            np.testing.assert_allclose(got["state"]["params"][k].numpy(), v.detach().numpy(), rtol=2e-3, atol=2e-5,
+                                       err_msg=k)
+        if task == "probe":
+            assert sorted(got["state"]["mu"]) == sorted(one["state"]["mu"]) == ["head.bias", "head.weight"]
+            for state in (got["state"], one["state"]):
+                assert all(torch.equal(v.detach(), runs["init"][k]) for k, v in state["params"].items()
+                           if not k.startswith("head."))
+        else:
+            assert all(x["kl"] >= 0 and np.isfinite(x["ce"]) for x in got["records"] if "loss" in x)
+    assert [x["loss"] for x in runs["ranks"][0][task]["records"] if "loss" in x] == \
+        [x["loss"] for x in runs["ranks"][1][task]["records"] if "loss" in x]
 
 
 def _world_size_one_against_unwrapped(device: str):

@@ -17,14 +17,19 @@ The other way, params_to_jax writes a float state_dict in the JAX layout,
 scanned (vitax's default: one "blocks" subtree, each leaf stacked on a
 leading L axis) or unscanned, and train_state_to_jax / train_state_from_jax
 carry the whole train state in the keys of a flattened JAX TrainState:
-"step", "params/params/...", "opt_state/1/0/{count,mu/params/...,
-nu/params/...}" and "opt_state/1/2/count" (the schedule's count).
+"step", "params/params/...", "<adam>0/{count,mu/params/...,nu/params/...}"
+and "<adam>2/count" (the schedule's count), where <adam> is where the
+scenario's optax chain keeps its AdamW state: "opt_state/1/" for the
+train chain (clip slot, then AdamW), and "opt_state/2/inner_state/" for
+the probe's (clip slot, the backbone's set_to_zero, then AdamW masked to
+the head, whose moments cover the head's leaves only). A state read back
+may hold its AdamW state under any prefix.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -108,11 +113,13 @@ def opt_state_from_jax(mu_flat: Mapping[str, Leaf], nu_flat: Mapping[str, Leaf],
             torch.tensor(int(np.asarray(count)), dtype=torch.int32))
 
 
-# the keys of the AdamW state in a flattened JAX TrainState (optax chain:
-# clip, then (adam, decay, schedule); the scale_by_adam state is 1/0, the
-# schedule's count 1/2)
-_JAX_ADAM = "opt_state/1/0/"
-_JAX_SCHEDULE_COUNT = "opt_state/1/2/count"
+# where a flattened JAX TrainState keeps its AdamW chain (adamw =
+# (scale_by_adam, add_decayed_weights, scale_by_schedule): the moments at
+# <prefix>0/, the schedule's count at <prefix>2/count), with clip_grad_norm
+# > 0: the train chain's after the clip's identity slot; the probe's behind
+# its masked set_to_zero too, in optax.masked's inner_state
+_JAX_TRAIN_ADAM = "opt_state/1/"
+_JAX_PROBE_ADAM = "opt_state/2/inner_state/"
 
 
 def _to_jax(torch_leaf: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
@@ -136,6 +143,19 @@ def params_to_jax(sd: Mapping[str, torch.Tensor], scanned: bool = True) -> Dict[
     under "params/blocks/..." on a leading L axis (vitax's default
     scan_blocks); False writes "params/blocks_<i>/...". The inverse of
     params_from_jax."""
+    return {k: v.to("cpu").contiguous() for k, v in _jax_layout(sd, scanned).items()}
+
+
+def jax_param_shapes(named: Iterable[Tuple[str, torch.Tensor]], scanned: bool = True) -> Dict[str, Tuple[int, ...]]:
+    """{npz key: shape} of the JAX parameters that params_to_jax would
+    write for these (name, tensor) pairs (a model's named_parameters, global
+    shapes under FSDP2), without touching their data."""
+    meta = {n: torch.empty(tuple(t.shape), device="meta") for n, t in named}
+    return {k: tuple(v.shape) for k, v in _jax_layout(meta, scanned).items()}
+
+
+def _jax_layout(sd: Mapping[str, torch.Tensor], scanned: bool) -> Dict[str, torch.Tensor]:
+    """params_to_jax's tree, each leaf on its tensor's device."""
     out: Dict[str, torch.Tensor] = {}
     stacks: Dict[str, List[Tuple[int, torch.Tensor]]] = {}
     for name, t in sd.items():
@@ -159,36 +179,44 @@ def params_to_jax(sd: Mapping[str, torch.Tensor], scanned: bool = True) -> Dict[
         if [i for i, _ in layers] != list(range(len(layers))):
             raise KeyError(f"{key}: blocks {[i for i, _ in layers]} are not 0..L-1")
         out[key] = torch.stack([v for _, v in layers])
-    return {k: v.to("cpu").contiguous() for k, v in out.items()}
+    return out
 
 
 def train_state_to_jax(sd: Mapping[str, torch.Tensor], mu: Mapping[str, torch.Tensor],
                        nu: Mapping[str, torch.Tensor], step: int, count: Union[int, torch.Tensor],
                        scanned: bool = True) -> Dict[str, torch.Tensor]:
     """The whole train state in the keys of a flattened JAX TrainState
-    (its npz export with --full_state); step and both counts are int32."""
+    (its npz export with --full_state); step and both counts are int32.
+    Moments that cover only some of the params (the probe's head) take the
+    probe chain's keys, the others the train chain's."""
     def i32(x):
         return torch.tensor(int(x), dtype=torch.int32)
+    opt_prefix = _JAX_PROBE_ADAM if set(mu) < set(sd) else _JAX_TRAIN_ADAM
     out = {"step": i32(step)}
     out.update({"params/" + k: v for k, v in params_to_jax(sd, scanned).items()})
-    out[_JAX_ADAM + "count"] = i32(count)
+    out[opt_prefix + "0/count"] = i32(count)
     for name, moments in (("mu", mu), ("nu", nu)):
-        out.update({f"{_JAX_ADAM}{name}/{k}": v for k, v in params_to_jax(moments, scanned).items()})
-    out[_JAX_SCHEDULE_COUNT] = i32(count)
+        out.update({f"{opt_prefix}0/{name}/{k}": v for k, v in params_to_jax(moments, scanned).items()})
+    out[opt_prefix + "2/count"] = i32(count)
     return out
 
 
 def train_state_from_jax(flat: Mapping[str, Leaf]) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor],
                                                             Dict[str, torch.Tensor], int, torch.Tensor]:
     """(state_dict, mu, nu, step, count) from the keys of a flattened JAX
-    TrainState (a --full_state npz export of either package)."""
+    TrainState (a --full_state npz export of either package), its AdamW
+    state wherever the scenario's chain keeps it."""
+    prefixes = {key[:key.index("0/mu/params/")] for key in flat if "0/mu/params/" in key}
+    if len(prefixes) != 1 or "step" not in flat or next(iter(prefixes)) + "0/count" not in flat:
+        raise KeyError(f"not a full train state: no one AdamW state (moments under {sorted(prefixes)}) with its "
+                       f"count, or no step")
+    adam = next(iter(prefixes)) + "0/"
     groups: Dict[str, Dict[str, Leaf]] = {"params": {}, "mu": {}, "nu": {}}
     for key, v in flat.items():
-        for group, prefix in (("params", "params/"), ("mu", _JAX_ADAM + "mu/"), ("nu", _JAX_ADAM + "nu/")):
+        for group, prefix in (("params", "params/"), ("mu", adam + "mu/"), ("nu", adam + "nu/")):
             if key.startswith(prefix):
                 groups[group][key[len(prefix):]] = v
-    missing = {"step", _JAX_ADAM + "count"} - set(flat)
-    if missing or not groups["params"]:
-        raise KeyError(f"not a full train state: missing {sorted(missing) or 'params/params/...'}")
-    mu, nu, count = opt_state_from_jax(groups["mu"], groups["nu"], flat[_JAX_ADAM + "count"])
+    if not groups["params"]:
+        raise KeyError("not a full train state: missing params/params/...")
+    mu, nu, count = opt_state_from_jax(groups["mu"], groups["nu"], flat[adam + "count"])
     return params_from_jax(groups["params"]), mu, nu, int(np.asarray(flat["step"])), count

@@ -6,13 +6,17 @@ validate() with a message that names the slice. The zero-stall and peer
 checkpoint flags (zero_stall_ckpt, replicate_steps, peer_dir) are not
 fields yet: the parser rejects them as unknown arguments. The mesh takes
 dp and fsdp (FSDP2 over the processes torchrun starts, one card each);
-tp, sp and pp above 1 wait for ROADMAP item 11."""
+tp, sp and pp above 1 wait for ROADMAP item 11. --task and its flags
+end validate() in the task's registry validator (programs/registry.py),
+as vitax's do."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
 from typing import Optional
+
+from vitax_torch.programs.registry import TASKS, get_scenario
 
 QUANT_DTYPE_CHOICES = ("", "int8", "float8_e4m3")     # --serve_quant_dtype: the __quant__ schema's dtypes
 REMAT_POLICIES = ("none_saveable", "dots_saveable", "dots_attn_saveable")    # --remat_policy (vitax/config.py:748)
@@ -118,6 +122,17 @@ class Config:
     serve_brownout_exit_frac: float = 0.25   # ... and back at or below this fraction
     serve_brownout_dwell_s: float = 2.0      # for this long, both ways
     serve_brownout_wait_ms: float = 1.0      # batcher deadline while degraded
+
+    # --- scenario registry (programs/registry.py; vitax/config.py:271-284) ---
+    task: str = "train"                 # train | finetune | probe | distill; each scenario's validator
+    #   runs at the end of validate()
+    init_npz: str = ""                  # finetune/probe warm start: a consolidated npz export whose params
+    #   overwrite the fresh init leaf for leaf (the head may re-init)
+    teacher_npz: str = ""               # distill: the consolidated npz export of the frozen teacher
+    reinit_head: bool = False           # finetune: keep the fresh head init even when the export's head fits
+    backbone_lr_mult: float = 1.0       # finetune: multiply the backbone's updates by this after AdamW
+    distill_alpha: float = 0.5          # distill loss: (1-alpha)*CE(labels) + alpha*KL(teacher)
+    distill_temp: float = 2.0           # distill softmax temperature T (the KL term scaled by T^2)
 
     @property
     def resolved_param_gather_dtype(self) -> str:
@@ -241,10 +256,15 @@ class Config:
              f"--serve_brownout_dwell_s must be >= 0, got {self.serve_brownout_dwell_s}"),
             (self.serve_brownout_wait_ms >= 0,
              f"--serve_brownout_wait_ms must be >= 0, got {self.serve_brownout_wait_ms}"),
+            (0.0 <= self.distill_alpha <= 1.0,
+             f"--distill_alpha must be in [0, 1] (the CE/KL mix), got {self.distill_alpha}"),
+            (self.distill_temp > 0, f"--distill_temp must be > 0, got {self.distill_temp}"),
+            (self.backbone_lr_mult >= 0, f"--backbone_lr_mult must be >= 0, got {self.backbone_lr_mult}"),
         )
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+        get_scenario(self.task).validate(self)     # each --task's pairwise checks live with its registry entry
         return self
 
 
@@ -259,13 +279,14 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--shard_on_cpu", "store_true", "shard_on_cpu"),
                ("--tensorboard", "store_true", "tensorboard"),
                ("--debug_nans", "store_true", "debug_nans"),
-               ("--no_log_memory", "store_false", "log_memory"))
+               ("--no_log_memory", "store_false", "log_memory"),
+               ("--reinit_head", "store_true", "reinit_head"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS),
             "fused_optimizer": ["auto", "on", "off"], "gather_overlap": ["auto", "off", "on"],
             "param_gather_dtype": ["bfloat16", "float32"], "grad_reduce_dtype": ["float32", "bfloat16"],
             "remat_policy": list(REMAT_POLICIES),
             "serve_quant_dtype": list(QUANT_DTYPE_CHOICES), "serve_act_quant": ["off", "int8"],
-            "fused_dequant": ["auto", "on", "off"]}
+            "fused_dequant": ["auto", "on", "off"], "task": list(TASKS)}
 # vitax/config.py build_parser's help of the checkpoint and telemetry flags
 _HELP = {"ckpt_dir": "checkpoint root: epoch_<N>/ per saved epoch (default %(default)s)",
          "resume_epoch": "N = resume from the checkpoint of epoch N; -1 = auto-resume the latest "
@@ -283,7 +304,19 @@ _HELP = {"ckpt_dir": "checkpoint root: epoch_<N>/ per saved epoch (default %(def
          "debug_nans": "autograd anomaly detection with NaN checks for the run, and the loss and grad norm "
                        "fetched every step (one device sync a step) to raise FloatingPointError at the first "
                        "non-finite value",
-         "log_memory": "leave device memory out of the step log line"}
+         "log_memory": "leave device memory out of the step log line",
+         "task": "which registered scenario to run: train = reference pretraining (CE over labels); finetune = "
+                 "warm start from --init_npz with the head re-initialized for a new --num_classes (--reinit_head "
+                 "/ shape mismatch) and optional --backbone_lr_mult; probe = linear probe, backbone frozen, "
+                 "optimizer moments for the head only; distill = knowledge distillation, frozen teacher "
+                 "(--teacher_npz) and student in one step, loss (1-alpha)*CE + alpha*KL at --distill_temp",
+         "init_npz": "finetune/probe warm start: consolidated npz export loaded into the fresh state",
+         "teacher_npz": "distillation teacher: consolidated npz export (quantized exports dequantize to f32 "
+                        "for the teacher forward)",
+         "reinit_head": "finetune: keep the fresh head init even when the export's head shapes match",
+         "backbone_lr_mult": "finetune: scale non-head updates by this after AdamW (1.0 = off)",
+         "distill_alpha": "distill loss mix: (1-alpha)*CE + alpha*KL",
+         "distill_temp": "distill softmax temperature (KL scaled by T^2)"}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -8,8 +8,15 @@ phases, as there:
   metric.
 - phase 2, the kernel (vitax_torch/csrc/fused_adamw.cu): clip-multiply,
   the AdamW moments, bias correction, decoupled weight decay and the
-  parameter step in one pass over every element of every leaf, one launch
-  per optimizer step, updating params, mu and nu in place.
+  parameter step in one pass over every element of every leaf it is given,
+  one launch per optimizer step, updating params, mu and nu in place.
+
+The scenarios' masked optimizers (programs/workloads.py), which vitax runs
+on optax, stay on the kernel: the probe hands it the head's leaves only,
+with the clip scale from the norm of every grad, and the finetune's
+--backbone_lr_mult is a per-leaf multiplier in the kernel's leaf table,
+applied as optax's masked scale after AdamW: p + ((-lr) * u) * m. A
+multiplier of 1 changes no bit (x * 1 is exact).
 
 The per-step scalars [clip_scale, lr, 1 - b1^t, 1 - b2^t] are a 4-float
 tensor computed on the params' device from the global norm and the step
@@ -24,7 +31,8 @@ precomputed clip_norm / norm where optax divides, then multiplies.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Sequence, Tuple
+import struct
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -84,21 +92,30 @@ def step_scalars(count: torch.Tensor, grad_norm: torch.Tensor, schedule: Callabl
     return torch.stack([clip_scale, lr, bc1, bc2])
 
 
+def _mults(lr_mults: Optional[Sequence[float]], n: int) -> Sequence[float]:
+    if lr_mults is None:
+        return [1.0] * n
+    if len(lr_mults) != n:
+        raise ValueError(f"{KERNEL}: {len(lr_mults)} lr multipliers for {n} leaves")
+    return [float(m) for m in lr_mults]
+
+
 @torch.no_grad()
 def clip_adamw_(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                 mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
-                scal: torch.Tensor, hparams: Hparams) -> None:
+                scal: torch.Tensor, hparams: Hparams, lr_mults: Optional[Sequence[float]] = None) -> None:
     """Plain version of the kernel, in place on params, mu and nu, in
-    optax's operand order (vitax/ops/fused_optimizer.py :120-127)."""
+    optax's operand order (vitax/ops/fused_optimizer.py :120-127), each
+    leaf's step times its multiplier (default 1) after the lr."""
     b1, b2, eps, wd = hparams
     clip, lr, bc1, bc2 = scal.unbind(0)
     neg_lr = -lr
-    for p, g, m, v in zip(params, grads, mu, nu):
+    for p, g, m, v, mult in zip(params, grads, mu, nu, _mults(lr_mults, len(params))):
         g = g * clip
         m.copy_((1.0 - b1) * g + b1 * m)
         v.copy_((1.0 - b2) * (g * g) + b2 * v)
         upd = (m / bc1) / (torch.sqrt(v / bc2) + eps) + wd * p
-        p.copy_(p + neg_lr * upd)
+        p.copy_(p + (neg_lr * upd) * mult)
 
 
 def _check_leaves(params, grads, mu, nu, scal) -> None:
@@ -123,22 +140,26 @@ def _check_leaves(params, grads, mu, nu, scal) -> None:
 
 def fused_adamw_cuda(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                      mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
-                     scal: torch.Tensor, hparams: Hparams) -> None:
+                     scal: torch.Tensor, hparams: Hparams, lr_mults: Optional[Sequence[float]] = None) -> None:
     """One launch of the Hopper kernel over every leaf, in place on params,
-    mu and nu. The leaf table (pointers, sizes, first block) is built on
-    the host and copied to the card from pinned memory without a sync."""
+    mu and nu. The leaf table (pointers, sizes, first block, lr multiplier)
+    is built on the host and copied to the card from pinned memory without
+    a sync."""
     _check_leaves(params, grads, mu, nu, scal)
+    mults = _mults(lr_mults, len(params))
     b1, b2, eps, wd = hparams
     lib = _build.load(KERNEL)
     lib.vitax_fused_adamw_chunk.argtypes = []
     lib.vitax_fused_adamw_chunk.restype = ctypes.c_int64
     chunk = lib.vitax_fused_adamw_chunk()
     rows, block0 = [], 0
-    for p, g, m, v in zip(params, grads, mu, nu):
+    for p, g, m, v, mult in zip(params, grads, mu, nu, mults):
         n = p.numel()
         if n == 0:
             continue
-        rows.append((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), n, block0))
+        # the multiplier's float32 bits in the low half of the row's last int64
+        mult_bits = int.from_bytes(struct.pack("<f", mult), "little")
+        rows.append((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), n, block0, mult_bits))
         block0 += -(-n // chunk)
     if not rows:
         return
@@ -160,18 +181,20 @@ def fused_clip_adamw(params: Sequence[torch.Tensor], grads: Sequence[torch.Tenso
                      mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
                      count: torch.Tensor, *, grad_norm: torch.Tensor, schedule: Callable,
                      clip_norm: float, weight_decay: float, b1: float, b2: float,
-                     eps: float) -> torch.Tensor:
-    """One clip+AdamW step over every leaf, in place on params, mu and nu;
-    returns the incremented count. `grad_norm` is the phase-1 global norm
-    of `grads`. A CUDA tensor goes to the kernel or raises; a CPU tensor
-    goes to the plain version."""
+                     eps: float, lr_mults: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """One clip+AdamW step over every leaf given, in place on params, mu
+    and nu, each step times its `lr_mults` entry (default 1); returns the
+    incremented count. `grad_norm` is the phase-1 global norm, of these
+    grads or of a superset (the probe's clip reads every grad's norm). A
+    CUDA tensor goes to the kernel or raises; a CPU tensor goes to the
+    plain version."""
     scal = step_scalars(count, grad_norm, schedule, clip_norm, b1, b2)
     hparams = (float(b1), float(b2), float(eps), float(weight_decay))
     dev = params[0].device
     if dev.type == "cuda":
-        fused_adamw_cuda(params, grads, mu, nu, scal, hparams)
+        fused_adamw_cuda(params, grads, mu, nu, scal, hparams, lr_mults)
     elif dev.type == "cpu":
-        clip_adamw_(params, grads, mu, nu, scal, hparams)
+        clip_adamw_(params, grads, mu, nu, scal, hparams, lr_mults)
     else:
         raise ValueError(f"{KERNEL}: no path for device {dev}")
     return count + 1

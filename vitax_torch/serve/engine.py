@@ -5,8 +5,9 @@ Requests are padded to the next bucket (1, 2, 4, ..., serve_max_batch), and
 only buckets that `warmup` ran are served: `compile_count` is the number of
 buckets warmed, and a batch for any other shape raises instead of taking a
 first-call path in the middle of traffic. Params come from a consolidated
-npz export (`from_npz`), a state_dict (`from_state`) or any model the
-caller built (vitax_torch/models/vit.py build_model, seeded init).
+npz export (`from_npz`), a checkpoint epoch (`from_checkpoint`), a
+state_dict (`from_state`) or any model the caller built
+(vitax_torch/models/vit.py build_model, seeded init).
 
 A quantized export (int8 or float8_e4m3, vitax/serve/quant.py) keeps its
 weights quantized on the device. Its model runs the JAX engine's
@@ -123,6 +124,32 @@ class InferenceEngine:
                             quant=model_quant(cfg, quant_dtype, device))
         model.load_state_dict({k: v.to(device) for k, v in state.items()}, strict=True, assign=True)
         return cls(cfg, model, device)
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, ckpt_dir: Optional[str] = None, epoch: Optional[int] = None,
+                        device: DeviceLike = None) -> "InferenceEngine":
+        """Serve the params of a checkpoint epoch (checkpoint/io.py; epoch
+        None = the latest committed one under ckpt_dir, default
+        cfg.ckpt_dir). Only the model's entries are read, so a probe's or
+        a sharded checkpoint serves too. Under --serve_quant_dtype the
+        weights are quantized on `device` as they load (consolidate.py's
+        per-channel quantizer, as an export of that dtype holds them)."""
+        from vitax_torch.checkpoint import io as ckpt_io
+        from vitax_torch.serve.quant import quantize_params_for_serve
+        device = resolve_device(device)
+        ckpt_dir = ckpt_dir or cfg.ckpt_dir
+        if epoch is None:
+            epoch = ckpt_io.latest_epoch(ckpt_dir)
+            if epoch is None:
+                raise ValueError(f"no epoch checkpoint under {ckpt_dir}")
+        state = {k: v.to(device) for k, v in ckpt_io.read_state(ckpt_dir, epoch, groups=("model",))["model"].items()}
+        quant_dtype = cfg.serve_quant_dtype
+        if quant_dtype:
+            state = quantize_params_for_serve(state, quant_dtype)
+        engine = cls.from_state(cfg, state, device, quant_dtype)
+        master_print(f"serve: params from checkpoint {ckpt_dir} epoch {epoch}"
+                     + (f" (quantized on load: {quant_dtype})" if quant_dtype else ""))
+        return engine
 
     @classmethod
     def from_npz(cls, cfg: Config, path: str, device: DeviceLike = None) -> "InferenceEngine":

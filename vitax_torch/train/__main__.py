@@ -4,6 +4,9 @@ or sharded over one card per process under torchrun.
     python -m vitax_torch.train --fake_data [--device cpu] [--num_blocks 8] [--batch_size 32] ...
     torchrun --nproc_per_node N -m vitax_torch.train --fake_data ... [--no_reshard_after_forward]
         [--run_without_fsdp]
+    python -m vitax_torch.train ... --task finetune --init_npz F [--reinit_head] [--backbone_lr_mult M]
+    python -m vitax_torch.train ... --task probe [--init_npz F]
+    python -m vitax_torch.train ... --task distill --teacher_npz F [--distill_alpha A] [--distill_temp T]
 
 The flags are the JAX package's (vitax_torch/config.py). Runs on the CUDA
 card unless --device cpu is given (each rank on cuda:LOCAL_RANK under

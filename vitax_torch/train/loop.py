@@ -33,14 +33,22 @@ mid-epoch checkpoint (its sidecar's step_in_epoch) re-enters its epoch at
 the next step, and a stream loader's cursor is checked against it. No
 SIGTERM save yet: that is a later slice.
 
+The task's scenario (programs/registry.py) builds the optimizer and names
+the step: --task finetune and probe warm-start from --init_npz when not
+resuming (a checkpoint wins), the probe training the head only; --task
+distill steps a frozen teacher from --teacher_npz beside the student. The
+FLOP count stays the student's under every task, so MFU leaves the
+teacher's forward out, as vitax's does.
+
 Telemetry (telemetry/, vitax's): with --metrics_dir, rank 0 writes
-<metrics_dir>/metrics.jsonl: a run_start event, a restore event on a
-resume, a control/elastic_resume event when the process count changed, a
-schema-1 step record at every log step from the host values the loop
-fetched there, and an eval event a pass. The update's own seconds
-(opt_update_s) are timed at those log steps only, by CUDA events on the
-card that launch nothing, so the step launches the same kernels in the
-same order with telemetry on or off. Every process meets the others at
+<metrics_dir>/metrics.jsonl: a run_start event, a finetune event after a
+warm start, a restore event on a resume, a control/elastic_resume event
+when the process count changed, a schema-1 step record at every log step
+from the host values the loop fetched there (and under --task distill a
+distill event beside it), and an eval event a pass. The update's own
+seconds (opt_update_s) are timed at those log steps only, by CUDA events
+on the card that launch nothing, so the step launches the same kernels in
+the same order with telemetry on or off. Every process meets the others at
 vitax's four named barriers: loaded dataset, loaded model, loaded
 optimizer, training begins. --debug_nans turns on autograd's anomaly
 mode with NaN checks and fetches the loss and grad norm every step.
@@ -66,10 +74,13 @@ from vitax_torch.ops.fused_optimizer import fused_optimizer_active
 from vitax_torch.parallel.mesh import batch_shard, build_mesh
 from vitax_torch.parallel.sharding import apply_fsdp, init_sharded, reshard
 from vitax_torch.platform import DeviceLike, device_kind
+from vitax_torch.programs.builder import build_program
+from vitax_torch.programs.registry import get_scenario
+from vitax_torch.programs.workloads import DISTILL_METRICS, frozen_fraction, warm_start_from_npz
 from vitax_torch.telemetry import build_recorder, install_thread_excepthook, restore_thread_excepthook
 from vitax_torch.train.control import elastic_resume_plan
-from vitax_torch.train.state import ADAMW_HPARAMS, TrainState, build_optimizer, make_train_state
-from vitax_torch.train.step import _needs_dropout, make_eval_step, make_train_step
+from vitax_torch.train.state import ADAMW_HPARAMS, TrainState, make_train_state
+from vitax_torch.train.step import _needs_dropout
 from vitax_torch.utils.logging import master_print, memory_summary
 from vitax_torch.utils.metrics import SmoothedValue
 
@@ -87,7 +98,8 @@ def train(cfg: Config, device: DeviceLike = None,
     """Train per cfg on `device` (default cuda; raises without a card) and
     return the final state. If `records` is a list, each log step appends
     {"epoch", "step", "loss", "lr", "sec_per_iter", "step_seconds",
-    "grad_norm", "data_wait_s"} to it, each eval {"epoch", "top1",
+    "grad_norm", "data_wait_s"} to it (under --task distill also "kl",
+    "ce", "teacher_top1" and "student_top1"), each eval {"epoch", "top1",
     "top5"}, and each checkpoint save {"epoch", "ckpt_path",
     "ckpt_stall_s"} (the seconds save_state held the loop). `data` is
     build_datasets' (train_ds, train_loader, val_ds, val_loader), default
@@ -145,8 +157,11 @@ def train(cfg: Config, device: DeviceLike = None,
     model.train()
     steps_per_epoch = cfg.steps_per_epoch or train_loader.steps_per_epoch
     max_iteration = steps_per_epoch * cfg.num_epochs
-    optimizer, schedule = build_optimizer(cfg, max_iteration)
-    state = make_train_state(model)
+    # the scenario builds the optimizer: train and distill AdamW over every
+    # leaf, finetune with the backbone's lr multiplier, probe the head only
+    scenario = get_scenario(cfg.task)
+    optimizer, schedule = scenario.make_optimizer(cfg, max_iteration)
+    state = make_train_state(model, optimizer)
     if cfg.resume_epoch > 0:
         if auto_resume:                 # survive one bad checkpoint: fall back to an earlier one
             state, restored = ckpt_io.restore_state_with_fallback(cfg.ckpt_dir, cfg.resume_epoch, state)
@@ -156,20 +171,27 @@ def train(cfg: Config, device: DeviceLike = None,
         else:                           # an explicit --resume_epoch N means N: fail hard
             state = ckpt_io.restore_state(cfg.ckpt_dir, cfg.resume_epoch, state)
         master_print(f"restored epoch {cfg.resume_epoch}: step {state.step}")
+    finetune_info = None
+    if cfg.init_npz and cfg.resume_epoch <= 0:
+        # the finetune/probe warm start; a checkpoint wins over it on resume
+        state, finetune_info = warm_start_from_npz(cfg, state)
     distributed.barrier("loaded model")
     master_print(f"global parameter num: {count_params(model)}")
     master_print(
         f"\n=== optimizer ===\nAdamW(lr=warmup_cosine(base={cfg.lr}, warmup={cfg.warmup_steps}, "
         f"max_iteration={max_iteration}), betas=({ADAMW_HPARAMS['b1']}, {ADAMW_HPARAMS['b2']}), "
         f"eps={ADAMW_HPARAMS['eps']}, weight_decay={cfg.weight_decay}, "
-        f"clip_grad_norm={cfg.clip_grad_norm}, fused={fused})\n")
+        f"clip_grad_norm={cfg.clip_grad_norm}, fused={fused})\ntask: {cfg.task} ({scenario.description})"
+        + (f"; backbone frozen ({frozen_fraction(model):.4f} of the params), moments for the head only"
+           if cfg.task == "probe" else "")
+        + (f"; backbone updates x {cfg.backbone_lr_mult}" if cfg.backbone_lr_mult != 1.0 else "") + "\n")
     distributed.barrier("loaded optimizer")
     if cfg.grad_accum_steps > 1:
         master_print(f"grad accumulation: {cfg.grad_accum_steps} microbatches of "
                      f"{cfg.batch_size // cfg.grad_accum_steps} (one optimizer step per loader batch)")
 
-    train_step = make_train_step(cfg, optimizer, device, mesh)
-    eval_step = make_eval_step(cfg)
+    train_step = build_program(scenario.step_program, cfg, optimizer, device, mesh)
+    eval_step = build_program("eval", cfg, optimizer, device, mesh)
 
     # rank 0's telemetry; host work only, the step's launches are the same without it
     recorder = build_recorder(cfg, distributed.process_count(), device_kind(device), rank=rank, device=device)
@@ -180,6 +202,8 @@ def train(cfg: Config, device: DeviceLike = None,
         recorder.event("run_start", device_kind=recorder.device_kind, n_devices=recorder.n_devices,
                        peak_tflops=recorder.peak_tflops, flops_per_step=recorder.flops_per_step,
                        batch_size=cfg.batch_size)
+        if finetune_info is not None:
+            recorder.event("finetune", **finetune_info)
         if cfg.resume_epoch > 0:
             recorder.event("restore", path="dcp", epoch=int(cfg.resume_epoch), resume_step=int(resume_step))
         if topology_change is not None:
@@ -291,16 +315,22 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
                              memory_summary(state.count.device) if cfg.log_memory else None)
                 data_wait_s = train_loader.consume_wait_s() / steps_since_record
                 steps_since_record = 0
+                distill = {}
                 if records is not None or recorder is not None:
                     grad_norm = float(metrics["grad_norm"])
+                    # the distill step's metrics ride the same log-step fetch
+                    distill = {k: float(metrics[k]) for k in DISTILL_METRICS if k in metrics}
                 if recorder is not None:
                     recorder.record_step(step=total_steps, epoch=epoch, step_in_epoch=step + 1, loss=host_loss,
                                          lr=lr, sec_per_iter=smoothed_time.avg, data_wait_s=data_wait_s,
                                          opt_update_s=metrics["opt_update"].seconds(), grad_norm=grad_norm)
+                    if distill:
+                        recorder.event("distill", step=total_steps, epoch=epoch, **distill,
+                                       alpha=cfg.distill_alpha, temp=cfg.distill_temp)
                 if records is not None:
                     records.append({"epoch": epoch, "step": total_steps, "loss": host_loss, "lr": lr,
                                     "sec_per_iter": smoothed_time.avg, "step_seconds": step_seconds,
-                                    "grad_norm": grad_norm, "data_wait_s": data_wait_s})
+                                    "grad_norm": grad_norm, "data_wait_s": data_wait_s, **distill})
             if cfg.max_steps and total_steps >= cfg.max_steps:
                 break
         if metrics is not None:

@@ -91,21 +91,26 @@ def _microbatch_split(batch: Batch, k_steps: int) -> List[Batch]:
 
 
 def _make_update_fn(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callable:
-    """update(state, grads) -> grad_norm: one global-norm reduction feeds the
-    clip and the metric; clip+AdamW updates the params, mu and nu in place
+    """update(state, grads) -> grad_norm: one global-norm reduction over
+    every param's grad feeds the clip and the metric; clip+AdamW updates
+    the params with moments (all of them, or the probe's head), their mu
+    and nu in place, each step times the optimizer's lr_mult of its leaf,
     and advances state.count and state.step. Sharded, both run on the
     rank's local shards."""
     fused_optimizer_active(cfg, device)       # raises for --fused_optimizer off on the card
     group = fsdp_group(mesh)
 
     def update(state: TrainState, grads: List[torch.Tensor]) -> torch.Tensor:
-        _, params, mu, nu = state.leaves()
+        names, params, mu, nu = state.leaves()
         grad_norm = global_norm(grads, group)
+        if len(names) != len(grads):          # the probe: the head's grads, clipped by every grad's norm
+            trained = set(names)
+            grads = [g for (n, _), g in zip(state.model.named_parameters(), grads) if n in trained]
         state.count = fused_clip_adamw(
             params, grads, mu, nu, state.count, grad_norm=grad_norm,
             schedule=optimizer.schedule, clip_norm=optimizer.clip_grad_norm,
             weight_decay=optimizer.weight_decay, b1=optimizer.b1, b2=optimizer.b2,
-            eps=optimizer.eps)
+            eps=optimizer.eps, lr_mults=[optimizer.lr_mult(n) for n in names])
         state.step += 1
         return grad_norm
 
