@@ -96,6 +96,16 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      under remat_policy dots_attn_saveable, each with its launch counts
      checked against the steps, sec/iter, images/s, MFU, peak memory and
      a profile of one steady step;
+  7r. sequence parallelism's ring on the one card: the ring body of
+     vitax_torch/parallel/ring_attention.py over S virtual shards (its
+     rotation the loop-back over the S chunks) at the ViT-L/14 shape of
+     the repo's sp configuration (N 256, S 2), phase 7L's ViT-L width at N
+     4096 over S 2 and N 9216 over S 4 (local 2304: the streaming entries),
+     and the 10B width (S 2), rate 0 and 0.1: o and dq, dk, dv against the
+     whole-sequence kernel call (under dropout its dropout kernel at the
+     same seed), S^2 block products a ring run forward and backward, S - 1
+     rotations a shard; Ulysses' head slices against the whole call; the
+     ring's forward and forward + backward ms beside the whole call's;
   7i. phase 7's run from an ImageFolder tree that PIL writes at run time
      (8 classes x 64 JPEGs of 180-640 px, 4 PNGs; val 8 x 8), on the
      native decoder where g++ finds libjpeg's header, else on the PIL
@@ -3385,18 +3395,159 @@ def phase_train_fsdp(torch, card, root: str, ref7: dict):
     return total
 
 
+# --- phase 7r: the ring's block products at global offsets (sequence parallelism) ----------
+
+# (label, whole-sequence (B, N, H, Dh), S): the ViT-L/14 shape of the repo's
+# own sp configuration (tools/aot_topology.py:207-210: D 1024, 16 heads,
+# N 256, batch 32, sp 2; local length 128, the whole-N entry), phase 7L's
+# ViT-L width at N 4096 over S 2 (local 2048, the whole-N entry at its
+# largest) and at N 9216 over S 4 (local 2304, the streaming entries), and
+# the 10B width (N 256, 32 heads of 160, batch 32) over S 2.
+RING_CASES = (("l14_ring_sp", (32, 256, 16, 64), 2), ("ViT-L N 4096", (2, 4096, 16, 64), 2),
+              ("ViT-L N 9216", (2, 9216, 16, 64), 4), ("10B width", (32, 256, 32, 160), 2))
+# The ring (S^2 block products in bf16, merged in f32, their grads summed by
+# autograd in bf16 across the blocks and the rotations) against the
+# whole-sequence kernel call: max |d| / max |ref| of o and of each of dq, dk,
+# dv within phase 3L's bf16 bars (LONG_TOL), at rate 0 and 0.1.
+RING_TOL = LONG_TOL["bfloat16"][:2]
+
+
+def fwd_and_bwd_ms(torch, fn, qkv, do, iters):
+    """(forward ms, forward + backward ms) of fn(q, k, v) -> o on views of
+    a copy of `qkv` by CUDA events, the backward against `do`."""
+    leaf = qkv.clone().requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            fn(*leaf.unbind(2))
+
+    def fwd_bwd():
+        torch.autograd.grad(fn(*leaf.unbind(2)), leaf, do)
+    return time_ms(torch, fwd, iters, warmup=2), time_ms(torch, fwd_bwd, iters, warmup=2)
+
+
+def phase_ring(torch, card):
+    """Phase 7r: the ring body of vitax_torch/parallel/ring_attention.py
+    (the sp path's local products and merges) over S virtual shards on the
+    one card, its rotation the loop-back over the S chunks (`loop_back_ring`,
+    the same body, block products and offsets an sp group runs), at
+    RING_CASES, rate 0 and 0.1, bf16: o and dq, dk, dv against the
+    whole-sequence kernel call on the full tensors (RING_TOL; under dropout
+    the whole-sequence dropout kernel at the same seed, every (q, k) pair
+    decided once at global coordinates); the launches of each ring run (S^2
+    block products forward and backward, under the whole-N or streaming keys
+    by the local length N/S, every one on the wgmma kernels) and S - 1
+    rotations a shard; Ulysses' head slices (S calls of the whole-sequence
+    core on H/S heads, concatenated) against the whole call at rate 0; the
+    ring's forward and forward + backward ms beside the whole call's. The
+    launches count the ring runs only. Returns them."""
+    from vitax_torch.ops import _build
+    from vitax_torch.ops.attention import flash4_dropout, flash_attention, launch_key
+    from vitax_torch.ops.flash_blocked import blocked_dropout_attention, blocked_flash_attention
+    from vitax_torch.parallel import ring_attention as ra
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = {k: 0 for k in _build.LAUNCHES}
+    bad = []
+    for label, shape, count in RING_CASES:
+        b, n, h, dh = shape
+        n_loc = n // count
+        q0, k0, v0, do, _ = attention_operands(torch, shape, "bfloat16", SEED + 30)
+        qkv0 = torch.stack((q0, k0, v0), dim=2)
+        long = n > ra.MAX_SEQ_IN_VMEM
+        for rate in (0.0, DROP_RATE):
+            if rate:
+                block = ra.kernel_block_drop(n_loc)
+
+                def whole(q, k, v):
+                    return (blocked_dropout_attention(q, k, v, DROP_SEED, rate) if long
+                            else flash4_dropout(q, k, v, DROP_SEED, dh ** -0.5, rate))
+
+                def ring(q, k, v):
+                    return ra.loop_back_ring(q, k, v, count, block, seed=DROP_SEED, rate=rate)[0]
+            else:
+                block = ra.kernel_block(n_loc)
+
+                def whole(q, k, v):
+                    return blocked_flash_attention(q, k, v) if long else flash_attention(q, k, v)
+
+                def ring(q, k, v):
+                    return ra.loop_back_ring(q, k, v, count, block)[0]
+            outs = {}
+            for name, fn in (("whole", whole), ("ring", ring)):
+                leaf = qkv0.clone().requires_grad_(True)
+                _build.reset_launches()
+                ra.reset_rotations()
+                o = fn(*leaf.unbind(2))
+                o.backward(do)
+                torch.cuda.synchronize()
+                outs[name] = (o.detach(), leaf.grad.unbind(2), dict(_build.LAUNCHES), dict(ra.ROTATIONS))
+            o_w, g_w, _, _ = outs["whole"]
+            o_r, g_r, launches, rotations = outs["ring"]
+            total = {k: total[k] + launches[k] for k in total}
+            drop = rate > 0
+            want = {k: 0 for k in _build.LAUNCHES}
+            fkey, bkey = launch_key(n_loc, drop or None, False), launch_key(n_loc, drop or None, True)
+            want[fkey] = want[bkey] = want["flash_attn_fwd_wgmma"] = want["flash_attn_bwd_wgmma"] = count * count
+            e_o = rel_err(torch, o_r, o_w)
+            e_g = [rel_err(torch, a, w) for a, w in zip(g_r, g_w)]
+            finite = bool(torch.isfinite(o_r.float()).all()) and all(bool(torch.isfinite(g.float()).all()) for g in g_r)
+            ok = (finite and e_o <= RING_TOL[0] and all(e <= RING_TOL[1] for e in e_g) and launches == want
+                  and rotations == {"forward": count * (count - 1), "backward": 0})
+            say(f"[7r check] {label} {shape} over S {count} (local {n_loc}, {fkey}) rate {rate}: o max|d|/max|ref| "
+                f"{e_o:.2e} (<= {RING_TOL[0]}), " + ", ".join(f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"), e_g))
+                + f" (<= {RING_TOL[1]}); launches {fkey} {launches[fkey]}, {bkey} {launches[bkey]} (S^2 = "
+                f"{count * count}, wgmma {launches['flash_attn_fwd_wgmma']}/{launches['flash_attn_bwd_wgmma']}); "
+                f"rotations {rotations['forward']} ({count - 1} a shard) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{label} rate {rate}: launches {launches}, rotations {rotations}")
+            del outs, o_w, g_w, o_r, g_r
+            # times: the ring over its S shards against the one whole call
+            iters = 5 if long else 10
+            times = {}
+            for name, fn in (("ring", ring), ("whole", whole), ("whole", whole), ("ring", ring)):
+                times.setdefault(name, []).append(fwd_and_bwd_ms(torch, fn, qkv0, do, iters))
+            best = {k: (min(t[0] for t in v), min(t[1] for t in v)) for k, v in times.items()}
+            say(f"[7r time] {label} rate {rate}: ring forward {best['ring'][0]:.4f} ms, whole {best['whole'][0]:.4f} "
+                f"ms ({best['ring'][0] / best['whole'][0]:.2f}x); forward + backward ring {best['ring'][1]:.4f} ms, "
+                f"whole {best['whole'][1]:.4f} ms ({best['ring'][1] / best['whole'][1]:.2f}x); turns "
+                + ", ".join(f"{k} " + " / ".join(f"{a:.4f}+{c:.4f}" for a, c in v) for k, v in times.items())
+                + f" [{card}]")
+        # Ulysses on the card: S head slices through the whole-sequence core, concatenated
+        hl = h // count
+        core = blocked_flash_attention if long else flash_attention
+        leaf = qkv0.clone().requires_grad_(True)
+        o_u = torch.cat([core(*(x[:, :, j * hl:(j + 1) * hl] for x in leaf.unbind(2))) for j in range(count)], dim=2)
+        o_u.backward(do)
+        leaf_w = qkv0.clone().requires_grad_(True)
+        o_w = core(*leaf_w.unbind(2))
+        o_w.backward(do)
+        torch.cuda.synchronize()
+        e_u = [(a.float() - w.float()).abs().max().item()
+               for a, w in zip((o_u, *leaf.grad.unbind(2)), (o_w, *leaf_w.grad.unbind(2)))]
+        say(f"[7r check] {label}: Ulysses, {count} head slices of {hl} through {core.vitax_name} against the whole "
+            f"call: max|d| o {e_u[0]:.2e}, dq {e_u[1]:.2e}, dk {e_u[2]:.2e}, dv {e_u[3]:.2e}")
+        if not all(e <= RING_TOL[1] * w.float().abs().max().item()
+                   for e, w in zip(e_u, (o_w, *leaf_w.grad.unbind(2)))):
+            bad.append(f"{label} Ulysses head slices")
+        del leaf, leaf_w, o_u, o_w, q0, k0, v0, do, qkv0
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"7r: the ring's block products disagree with the whole-sequence call: {bad}")
+    return total
+
+
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
-                 data_launches):
+                 data_launches, ring_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7t, 7i, 7s, 7c, 7x and 7f in `data_launches`), its
-    check's max |d| and its timing."""
+    paths of this run (phases 7t, 7i, 7s, 7c, 7x and 7f in `data_launches`,
+    7r's ring runs in `ring_launches`), its check's max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda", "source": fwd_src,
          "replaces": "vitax/ops/attention.py:275",
          "launches": (serve_launches["flash_attn_fwd"] + quant_launches["flash_attn_fwd"]
                       + train_launches["flash_attn_fwd"] + drop_launches["flash_attn_fwd"]
-                      + data_launches["flash_attn_fwd"]),
+                      + data_launches["flash_attn_fwd"] + ring_launches["flash_attn_fwd"]),
          "max_abs_err": errs[(SERVE_SHAPE, "bfloat16", "wgmma")], **timing["flash_attn_fwd"]},
         # the forward's general (mma.sync) kernel, for operands TMA does not
         # take; no main-path launch takes it (its count over every main path),
@@ -3404,11 +3555,13 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
         {"name": "flash_attn_fwd_general", "route": "cuda", "source": fwd_src,
          "replaces": "vitax/ops/attention.py:275",
          "launches": sum(ls["flash_attn_fwd_general"] for ls in (serve_launches, quant_launches, train_launches,
-                                                                  drop_launches, long_launches, data_launches)),
+                                                                  drop_launches, long_launches, data_launches,
+                                                                  ring_launches)),
          "max_abs_err": errs[(SERVE_SHAPE, "bfloat16", "general")], **timing["flash_attn_fwd_general"]},
         {"name": "flash_attn_bwd", "route": "cuda", "source": "vitax_torch/csrc/flash_attn_bwd.cu",
          "replaces": "vitax/ops/attention.py:302",
-         "launches": train_launches["flash_attn_bwd"] + data_launches["flash_attn_bwd"],
+         "launches": (train_launches["flash_attn_bwd"] + data_launches["flash_attn_bwd"]
+                      + ring_launches["flash_attn_bwd"]),
          "max_abs_err": errs["flash_attn_bwd"], **timing["flash_attn_bwd"]},
         # the backward's general (mma.sync) kernels, for operands TMA does not
         # take; no main-path call takes them (their count over every main
@@ -3416,7 +3569,8 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
         {"name": "flash_attn_bwd_general", "route": "cuda", "source": bwd_src,
          "replaces": "vitax/ops/attention.py:302",
          "launches": sum(ls["flash_attn_bwd_general"] for ls in (serve_launches, quant_launches, train_launches,
-                                                                  drop_launches, long_launches, data_launches)),
+                                                                  drop_launches, long_launches, data_launches,
+                                                                  ring_launches)),
          "max_abs_err": errs["flash_attn_bwd_general"], **timing["flash_attn_bwd_general"]},
         {"name": "fused_adamw", "route": "cuda", "source": "vitax_torch/csrc/fused_adamw.cu",
          "replaces": "vitax/ops/fused_optimizer.py:112",
@@ -3436,11 +3590,13 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
          "max_abs_err": errs["dequant_matmul_general"], **timing["dequant_matmul_general"]},
         {"name": "flash_attn_fwd_drop", "route": "cuda", "source": fwd_src,
          "replaces": "vitax/ops/attention.py:625",
-         "launches": drop_launches["flash_attn_fwd_drop"] + data_launches["flash_attn_fwd_drop"],
+         "launches": (drop_launches["flash_attn_fwd_drop"] + data_launches["flash_attn_fwd_drop"]
+                      + ring_launches["flash_attn_fwd_drop"]),
          "max_abs_err": errs["flash_attn_fwd_drop"], **timing["flash_attn_fwd_drop"]},
         {"name": "flash_attn_bwd_drop", "route": "cuda", "source": bwd_src,
          "replaces": "vitax/ops/attention.py:659",
-         "launches": drop_launches["flash_attn_bwd_drop"] + data_launches["flash_attn_bwd_drop"],
+         "launches": (drop_launches["flash_attn_bwd_drop"] + data_launches["flash_attn_bwd_drop"]
+                      + ring_launches["flash_attn_bwd_drop"]),
          "max_abs_err": errs["flash_attn_bwd_drop"], **timing["flash_attn_bwd_drop"]},
     ]
     # The BH entry points run the same kernels on (B*H, N, 1, Dh) views; no
@@ -3453,15 +3609,18 @@ def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, d
     # vitax_torch/ops/flash_blocked.py; each backward call (the entry at
     # blocked_bwd_padded, beside SDPA's whole backward) runs both A5
     # counterparts, listed apart with no library call. Launches count both
-    # rates; the times are N 4096, rate 0.
-    fwd_launches = long_launches["flash_attn_fwd_stream"] + long_launches["flash_attn_fwd_stream_drop"]
-    bwd_launches = long_launches["flash_attn_bwd_stream"] + long_launches["flash_attn_bwd_stream_drop"]
+    # rates, phase 7L's and phase 7r's; the times are N 4096, rate 0.
+    fwd_launches = sum(ls["flash_attn_fwd_stream"] + ls["flash_attn_fwd_stream_drop"]
+                       for ls in (long_launches, ring_launches))
+    bwd_launches = sum(ls["flash_attn_bwd_stream"] + ls["flash_attn_bwd_stream_drop"]
+                       for ls in (long_launches, ring_launches))
     for name, src, line, launches in (("flash_attn_fwd_stream", fwd_src, 63, fwd_launches),
                                       ("flash_attn_bwd_stream", bwd_src, 244, bwd_launches),
                                       ("flash_attn_bwd_stream_dkdv", bwd_src, 152, bwd_launches),
                                       ("flash_attn_bwd_stream_dq", bwd_src, 205, bwd_launches),
                                       ("flash_attn_bwd_stream_general", bwd_src, 244,
-                                       long_launches["flash_attn_bwd_general"])):
+                                       long_launches["flash_attn_bwd_general"]
+                                       + ring_launches["flash_attn_bwd_general"])):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"vitax/ops/flash_blocked.py:{line}", "launches": launches,
                         "max_abs_err": errs[name], **timing[name]})
@@ -3492,6 +3651,7 @@ def main() -> int:
     tele_launches = phase_train_telemetry(torch, card, timing["fused_adamw"]["ms"])
     drop_launches = phase_train_dropout(torch, card, loss0)
     long_launches = phase_train_long(torch, card)
+    ring_launches = phase_ring(torch, card)
     with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
         write_tree(os.path.join(root, "tree"))
         tree_launches, use_native = phase_train_tree(torch, card, root, fake)
@@ -3503,7 +3663,7 @@ def main() -> int:
     data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
                      + tele_launches[k] + transfer[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
-                           long_launches, data_launches)
+                           long_launches, data_launches, ring_launches)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

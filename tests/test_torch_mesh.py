@@ -218,8 +218,12 @@ def test_config_accepts_what_jax_accepts(kw):
 
 @pytest.mark.parametrize("name", ["tp_size", "sp_size", "pp_size"])
 def test_other_parallelisms_are_refused_naming_item_11(name):
+    """tp and pp above 1 wait for the rest of item 11; sp runs now, and
+    under the pipelines (vitax's _pp ring and Ulysses bodies) it is
+    refused with them."""
+    kw = {name: 2} if name != "sp_size" else {"sp_size": 2, "pp_size": 2}
     with pytest.raises(ValueError, match="item 11"):
-        Config(**TINY, **{name: 2}).validate()
+        Config(**TINY, **kw).validate()
 
 
 def _free_port() -> int:

@@ -20,7 +20,8 @@ Package map (mirrors vitax/):
                 samplers and loaders
   _native       the host C++ decoder (decode.cc) and its g++ build
   distributed   torchrun's process group, named barriers, host folds, orderly shutdown
-  parallel      the ("dp", "fsdp") mesh and FSDP2 sharding
+  parallel      the ("dp", "fsdp", "sp") mesh, FSDP2 sharding, ring and Ulysses
+                attention over the sp group
   train         schedule, state, train/eval steps, the loop and its CLI
   telemetry     model FLOPs and MFU, schema-1 JSONL records and sinks, the
                 thread-crash hook
@@ -31,9 +32,9 @@ Package map (mirrors vitax/):
 
 Ported so far: the serve path, single-card training on fake data, from
 an ImageFolder tree or from streaming shards, quantized serving, dropout,
-long context, checkpoint, resume and export, FSDP2, and the loop's
-telemetry, barriers, shutdown and launcher. The rest are later slices
-(ROADMAP.md).
+long context, checkpoint, resume and export, FSDP2, the loop's
+telemetry, barriers, shutdown and launcher, the transfer tasks, and
+sequence parallelism. The rest are later slices (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

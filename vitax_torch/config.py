@@ -5,8 +5,9 @@ packages. Settings whose path is a later slice of the port are rejected by
 validate() with a message that names the slice. The zero-stall and peer
 checkpoint flags (zero_stall_ckpt, replicate_steps, peer_dir) are not
 fields yet: the parser rejects them as unknown arguments. The mesh takes
-dp and fsdp (FSDP2 over the processes torchrun starts, one card each);
-tp, sp and pp above 1 wait for ROADMAP item 11. --task and its flags
+dp, fsdp and sp (FSDP2 over the processes torchrun starts, one card each;
+sp shards the token axis, --sp_impl ring or ulysses); tp and pp above 1
+wait for the rest of ROADMAP item 11. --task and its flags
 end validate() in the task's registry validator (programs/registry.py),
 as vitax's do."""
 
@@ -98,11 +99,12 @@ class Config:
     #   fetch every step (one sync a step) that raises FloatingPointError at the first non-finite value
     log_memory: bool = True             # device memory in the step log line (--no_log_memory clears)
 
-    # --- mesh: (dp, fsdp) over the processes, one card each; -1 = all remaining ---
+    # --- mesh: (dp, fsdp, sp) over the processes, one card each; -1 = all remaining ---
     dp_size: int = 1
     fsdp_size: int = -1
     tp_size: int = 1
     sp_size: int = 1
+    sp_impl: str = "ring"               # ring (K/V rotation over the sp group) | ulysses (all-to-all head<->token)
     pp_size: int = 1
 
     # --- serving ---
@@ -154,11 +156,17 @@ class Config:
 
     def validate(self) -> "Config":
         """Reject settings the port cannot run; returns self."""
-        for name in ("tp_size", "sp_size", "pp_size"):
+        for name in ("tp_size", "pp_size"):
             if getattr(self, name) != 1:
-                raise ValueError(f"--{name} {getattr(self, name)}: tensor, sequence and pipeline parallelism "
-                                 f"wait for ROADMAP item 11; the port's mesh takes --dp_size and --fsdp_size")
+                raise ValueError(f"--{name} {getattr(self, name)}: tensor and pipeline parallelism wait for the "
+                                 f"rest of ROADMAP item 11 (TP with MoE/EP, then the GPipe and 1F1B pipelines); "
+                                 f"the port's mesh takes --dp_size, --fsdp_size and --sp_size")
         checks = (
+            (self.sp_impl in ("ring", "ulysses"),
+             f"unknown sp_impl {self.sp_impl!r} (expected 'ring' or 'ulysses')"),
+            (all(getattr(self, name) == -1 or getattr(self, name) >= 1 for name in ("dp_size", "fsdp_size", "sp_size")),
+             f"mesh sizes must be >= 1 or -1 (all remaining processes), got --dp_size {self.dp_size} --fsdp_size "
+             f"{self.fsdp_size} --sp_size {self.sp_size}"),
             (self.prefetch_batches >= 1,
              f"--prefetch_batches must be >= 1, got {self.prefetch_batches}: the loader needs at least one "
              f"queued batch to hand the consumer"),
@@ -281,7 +289,7 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--debug_nans", "store_true", "debug_nans"),
                ("--no_log_memory", "store_false", "log_memory"),
                ("--reinit_head", "store_true", "reinit_head"))
-_CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS),
+_CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS), "sp_impl": ["ring", "ulysses"],
             "fused_optimizer": ["auto", "on", "off"], "gather_overlap": ["auto", "off", "on"],
             "param_gather_dtype": ["bfloat16", "float32"], "grad_reduce_dtype": ["float32", "bfloat16"],
             "remat_policy": list(REMAT_POLICIES),

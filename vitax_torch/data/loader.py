@@ -34,7 +34,6 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vitax_torch import distributed
 from vitax_torch.config import Config
 from vitax_torch.data.fake import TRAIN_SPLIT_LEN, VAL_SPLIT_LEN, FakeImageNetDataset
 from vitax_torch.telemetry.threads import report_thread_exception, reporting
@@ -190,10 +189,12 @@ def build_datasets(cfg: Config, device: torch.device, use_native: Optional[bool]
     ImageFolder tree under cfg.data_dir/{train,val}, or, under
     `--data_format stream`, its packed shards. `use_native` picks the
     decode path of a real tree (None: native where it builds). The loaders
-    read this process's rows of each global batch: the rank's of the world
-    size (0 of 1 alone)."""
+    read this process's rows of each global batch: its batch shard's
+    (parallel/mesh.py data_shard: the rank's of the world size, the ranks
+    of one sp group reading the same rows; 0 of 1 alone)."""
+    from vitax_torch.parallel.mesh import data_shard
     device = torch.device(device)
-    rank, world = distributed.process_index(), distributed.process_count()
+    rank, world = data_shard(cfg)
     if cfg.data_format == "stream":
         from vitax_torch.data.stream import build_stream_datasets
         return build_stream_datasets(cfg, device, use_native, rank, world)

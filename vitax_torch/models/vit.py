@@ -33,6 +33,20 @@ from a torch.Generator seeded from the seed inside the block (or the
 forward, for pos), so a checkpointed block's recompute redraws the same
 masks: torch.utils.checkpoint restores only the default generators' states.
 Those three masks are torch's draws, not the JAX package's threefry bits.
+Their generators take `DropoutSeeds.gens` (and `pos`) where the step gives
+them apart from the attention seeds: under sequence parallelism the sp
+ranks share the attention seed (the ring's masks are decided at global
+coordinates) but fold their sp index into these, so the token shards do
+not draw one pattern.
+
+Sequence parallelism (a `TokenShard`, parallel/mesh.py; vitax's
+token_sharding): each rank embeds its images and keeps its slice [i N/S,
+(i + 1) N/S) of the patch tokens and pos_embed; the blocks run on (B,
+N/S, D) through the ring or Ulysses core; the mean-pool is the local sum,
+an all-reduce over the sp group (torch.distributed.nn.functional, whose
+backward sums the cotangents), then 1/N. The head and its input are the
+same on every sp rank, and the step averages the grads over sp
+(parallel/sharding.py average_over_sp), which gives vitax's grads.
 
 Quantized serving (build_model with a quant dtype): every Dense site (qkv,
 proj, fc1, fc2 with act=True; the head with act=False) is a QuantLinear
@@ -68,10 +82,11 @@ INIT_BOUND = 2 * INIT_STD
 
 class DropoutSeeds(NamedTuple):
     """The seeds of one dropout forward: one uint32 per block (its attention
-    mask's hash seed and its proj/mlp generator's seed) and one for pos
-    dropout."""
+    mask's hash seed, and its proj/mlp generator's seed unless `gens` gives
+    those apart) and one for pos dropout."""
     blocks: Tuple[int, ...]
     pos: int = 0
+    gens: Optional[Tuple[int, ...]] = None
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -258,9 +273,10 @@ class Block(nn.Module):
         x = x + self.attn.output(out, gen)
         return x + self.mlp(self.norm2(x, self.dtype), gen)
 
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
-        """seed: the block's dropout seed, or None (no dropout)."""
-        return self.finish(x, self.attn.core(*self.attention_inputs(x), seed), seed)
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None, gen_seed: Optional[int] = None) -> torch.Tensor:
+        """seed: the block's dropout seed, or None (no dropout); gen_seed:
+        its proj/mlp generator's seed when it differs from seed."""
+        return self.finish(x, self.attn.core(*self.attention_inputs(x), seed), seed if gen_seed is None else gen_seed)
 
 
 # F.linear is CompositeImplicitAutograd: the policy sees the mm/addmm it
@@ -276,28 +292,32 @@ def _dots_saved():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
-def remat_block(block: Block, x: torch.Tensor, seed: Optional[int], policy: str) -> torch.Tensor:
+def remat_block(block: Block, x: torch.Tensor, seed: Optional[int], policy: str,
+                gen_seed: Optional[int] = None) -> torch.Tensor:
     """The block under non-reentrant checkpoint, keeping what `policy`
     (one of REMAT_POLICIES) names: its input only, also its matmul
     outputs, or those and the attention core's (q, k, v, o, lse), the core
-    then running outside the two recomputed regions."""
+    then running outside the two recomputed regions. A recompute re-runs
+    an sp core's collectives in the forward's order."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r} (expected one of {', '.join(REMAT_POLICIES)})")
     if policy == "none_saveable":
-        return checkpoint(block, x, seed, use_reentrant=False)
+        return checkpoint(block, x, seed, gen_seed, use_reentrant=False)
     if policy == "dots_saveable":
-        return checkpoint(block, x, seed, use_reentrant=False, context_fn=_dots_saved)
+        return checkpoint(block, x, seed, gen_seed, use_reentrant=False, context_fn=_dots_saved)
     q, k, v = checkpoint(block.attention_inputs, x, use_reentrant=False, context_fn=_dots_saved)
     out = block.attn.core(q, k, v, seed)
-    return checkpoint(block.finish, x, out, seed, use_reentrant=False, context_fn=_dots_saved)
+    return checkpoint(block.finish, x, out, seed if gen_seed is None else gen_seed, use_reentrant=False,
+                      context_fn=_dots_saved)
 
 
 class VisionTransformer(nn.Module):
     """images (B, H, W, 3) float -> logits (B, num_classes) float32."""
 
     def __init__(self, cfg: Config, attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None,
-                 device=None):
+                 device=None, token_shard=None):
         super().__init__()
+        self.token_shard = token_shard
         self.dtype = _DTYPES[cfg.dtype]
         self.grad_ckpt = cfg.grad_ckpt
         self.remat_policy = cfg.remat_policy
@@ -317,6 +337,10 @@ class VisionTransformer(nn.Module):
         """seeds: DropoutSeeds for a dropout forward (training), None for
         none (eval, serve)."""
         x = self.patch_embed(images) + self.pos_embed.to(self.dtype)
+        shard = self.token_shard
+        if shard is not None:                   # the rank's token slice
+            n = x.shape[1] // shard.count
+            x = x[:, shard.index * n:(shard.index + 1) * n]
         if seeds is not None:
             if len(seeds.blocks) != len(self.blocks):
                 raise ValueError(f"{len(seeds.blocks)} dropout seeds for {len(self.blocks)} blocks")
@@ -324,9 +348,16 @@ class VisionTransformer(nn.Module):
                 x = _dropout(x, self.pos_dropout, _generator(seeds.pos, x.device))
         remat = self.grad_ckpt and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            seed = None if seeds is None else seeds.blocks[i]
-            x = remat_block(block, x, seed, self.remat_policy) if remat else block(x, seed)
-        x = self.norm(x, self.dtype).mean(dim=1)
+            seed = gen = None
+            if seeds is not None:
+                seed, gen = seeds.blocks[i], None if seeds.gens is None else seeds.gens[i]
+            x = remat_block(block, x, seed, self.remat_policy, gen) if remat else block(x, seed, gen)
+        x = self.norm(x, self.dtype)
+        if shard is None:
+            x = x.mean(dim=1)
+        else:                                   # the mean over every rank's tokens, in f32
+            from torch.distributed.nn.functional import all_reduce
+            x = (all_reduce(x.float().sum(dim=1), group=shard.group) / (x.shape[1] * shard.count)).to(self.dtype)
         return self.head(x, torch.float32)
 
 
@@ -367,18 +398,20 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
-                init: bool = True, quant: Optional[Quant] = None) -> VisionTransformer:
+                init: bool = True, quant: Optional[Quant] = None, token_shard=None) -> VisionTransformer:
     """The ViT on `device`, built without a throwaway default init: the
     modules are made on the meta device, then given storage on `device`.
     init=True fills the params from cfg.seed (float32, as vitax initializes
     them); init=False leaves them to a load_state_dict(..., assign=True).
     On the meta device the params stay shapes only (param counts). With
     `quant` every Dense site is a QuantLinear and the conv a QuantConv2d,
-    whose weights come from a quantized state (init must be False)."""
+    whose weights come from a quantized state (init must be False). A
+    `token_shard` (parallel/mesh.py) runs the model on the rank's token
+    slice under sequence parallelism."""
     device = torch.device(device)
     if quant is not None and init:
         raise ValueError("a quantized model takes its weights from a quantized state: pass init=False")
-    model = VisionTransformer(cfg, attention_impl, quant, device="meta")
+    model = VisionTransformer(cfg, attention_impl, quant, device="meta", token_shard=token_shard)
     if device.type == "meta" or not init:
         return model.eval()
     model = model.to_empty(device=device)

@@ -664,36 +664,92 @@ def _named(fn: Callable, name: str) -> Callable:
     return impl
 
 
-def make_attention_impl(cfg, device) -> Optional[Callable]:
-    """The attention core for this config on `device`, mirroring
-    vitax/ops/attention.py make_attention_impl on one device: None (the
-    model's dense path) when the flag is off; else the whole-N flash core
-    up to MAX_SEQ_IN_VMEM tokens and the streaming one past it
-    (`_select_path`, as `_tpu_kernel` chooses), named by `vitax_name` for
-    the startup log. With --att_dropout > 0 the returned core carries
-    `vitax_dropout`, (q, k, v, seed) -> o through the dropout kernels of
-    the same path (`_tpu_dropout_kernel`), which the model runs when it is
-    given seeds. On the card the kernels must have the head dim built; that
-    is checked here, once, instead of at the first step or request."""
-    if not cfg.use_flash_attention:
+def sp_core(cfg, sp: int) -> Optional[str]:
+    """The sequence-parallel core for an sp group of `sp` ranks, with
+    vitax's conditions (make_attention_impl's sp branch): None when sp is 1
+    or does not divide the token count (the tokens stay whole on every
+    rank, vitax/train/loop.py _token_sharding); "ulysses" when asked for
+    and num_heads divides over sp; else "ring"."""
+    if sp <= 1 or cfg.num_patches % sp:
         return None
-    dh = cfg.embed_dim // cfg.num_heads
-    if torch.device(device).type == "cuda" and dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"use_flash_attention: the {KERNEL} kernel has no head dim {dh} "
-                         f"(supported: {SUPPORTED_HEAD_DIMS}); pass --no_flash_attention")
+    if cfg.sp_impl == "ulysses" and cfg.num_heads % sp == 0:
+        return "ulysses"
+    return "ring"
+
+
+def _whole_sequence_impl(cfg, n: int) -> Tuple[Optional[Callable], Optional[Callable]]:
+    """(core, dropout core) over a whole sequence of n tokens: the whole-N
+    flash core up to MAX_SEQ_IN_VMEM tokens and the streaming one past it
+    (`_select_path`, as `_tpu_kernel` chooses); (None, None) when
+    --no_flash_attention leaves the model's dense path."""
+    if not cfg.use_flash_attention:
+        return None, None
     rate = float(cfg.att_dropout)
-    if _select_path(cfg.num_patches) == "streaming":
+    if _select_path(n) == "streaming":
         from vitax_torch.ops.flash_blocked import blocked_dropout_attention, blocked_flash_attention
-        kernel = blocked_flash_attention
 
         def drop(q, k, v, seed):
             return blocked_dropout_attention(q, k, v, seed, rate)
-    else:
-        kernel = flash_attention
+        return blocked_flash_attention, drop
 
-        def drop(q, k, v, seed):
-            return flash4_dropout(q, k, v, seed, q.shape[-1] ** -0.5, rate)
-    if rate <= 0.0:
+    def drop(q, k, v, seed):
+        return flash4_dropout(q, k, v, seed, q.shape[-1] ** -0.5, rate)
+    return flash_attention, drop
+
+
+def _sp_impl(cfg, kind: str, shard) -> Callable:
+    """The ring or Ulysses core over the rank's TokenShard, with
+    `vitax_dropout` under --att_dropout (parallel/ring_attention.py,
+    parallel/ulysses.py)."""
+    rate = float(cfg.att_dropout)
+    if kind == "ulysses":
+        from vitax_torch.parallel.ulysses import make_ulysses_attention, make_ulysses_dropout
+        inner, inner_drop = _whole_sequence_impl(cfg, cfg.num_patches)
+        impl = make_ulysses_attention(shard.group, inner or reference_attention)
+        if rate > 0.0:
+            impl.vitax_dropout = make_ulysses_dropout(shard.group, inner_drop or make_dense_dropout(rate))
+        return impl
+    from vitax_torch.parallel.ring_attention import GroupShift, make_ring_attention, make_ring_dropout
+    rotation = GroupShift(shard.group)
+    impl = make_ring_attention(rotation, use_kernel=cfg.use_flash_attention)
+    if rate > 0.0:
+        impl.vitax_dropout = make_ring_dropout(rotation, rate, use_kernel=cfg.use_flash_attention)
+    return impl
+
+
+def make_attention_impl(cfg, device, mesh=None) -> Optional[Callable]:
+    """The attention core for this config on `device`, mirroring
+    vitax/ops/attention.py make_attention_impl: None (the model's dense
+    path) when the flag is off; else the whole-N flash core up to
+    MAX_SEQ_IN_VMEM tokens and the streaming one past it
+    (`_whole_sequence_impl`), named by `vitax_name` for the startup log.
+    With --att_dropout > 0 the returned core carries `vitax_dropout`, (q,
+    k, v, seed) -> o through the dropout kernels of the same path
+    (`_tpu_dropout_kernel`), which the model runs when it is given seeds.
+
+    Under a `mesh` whose sp dim shards the tokens (`sp_core`), the core is
+    the ring ("ring attention (sp)", the with-lse kernels on the local
+    blocks, or the dense block products under --no_flash_attention) or
+    Ulysses ("ulysses all-to-all (sp)", the whole-sequence core on H/sp
+    heads), on the rank's local tokens; --sp_impl ulysses with num_heads
+    that sp does not divide warns, in vitax's words, and takes the ring.
+    On the card the kernels must have the head dim built; that is checked
+    here, once, instead of at the first step or request."""
+    dh = cfg.embed_dim // cfg.num_heads
+    if cfg.use_flash_attention and torch.device(device).type == "cuda" and dh not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"use_flash_attention: the {KERNEL} kernel has no head dim {dh} "
+                         f"(supported: {SUPPORTED_HEAD_DIMS}); pass --no_flash_attention")
+    from vitax_torch.parallel.mesh import token_shard
+    shard = token_shard(cfg, mesh)
+    if shard is not None:
+        kind = sp_core(cfg, shard.count)
+        if cfg.sp_impl == "ulysses" and kind == "ring":
+            from vitax_torch.utils.logging import master_print
+            master_print(f"WARNING: --sp_impl ulysses needs num_heads divisible by sp*tp ({cfg.num_heads} % "
+                         f"{shard.count} != 0); falling back to ring attention")
+        return _sp_impl(cfg, kind, shard)
+    kernel, drop = _whole_sequence_impl(cfg, cfg.num_patches)
+    if kernel is None or cfg.att_dropout <= 0.0:
         return kernel
     impl = _named(kernel, kernel.vitax_name)
     impl.vitax_dropout = drop

@@ -1,25 +1,33 @@
 """The device mesh (vitax/parallel/mesh.py): one process per card, the
-processes arranged as a `DeviceMesh` with dims ("dp", "fsdp").
+processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "sp").
 
 - "dp":   pure data parallelism (params replicated across it);
 - "fsdp": ZeRO-3: params, grads and AdamW moments sharded across it; it
-          carries the batch too.
+          carries the batch too;
+- "sp":   sequence parallelism: the token axis of the activations is
+          sharded across it (ring or Ulysses attention, parallel/); params
+          are replicated across it and its ranks read the same batch rows
+          (vitax's BATCH_AXES leave "sp" out).
 
-The reference's FSDP is mesh (1, n); its --run_without_fsdp DP baseline
-(n, 1). `resolve_mesh_shape` keeps vitax's six sizes, so its errors are
-vitax's; tp, sp and pp above 1 are refused by Config.validate (item 11).
+The reference's FSDP is mesh (1, n, 1); its --run_without_fsdp DP baseline
+(n, 1, 1). The ranks fill the mesh row-major with "sp" fastest, as vitax
+reshapes its devices over (dp, fsdp, tp, sp, pp, ep) with tp = pp = ep =
+1, so rank r holds the batch rows and the token slice that vitax's device
+r holds. `resolve_mesh_shape` keeps vitax's six sizes, so its errors are
+vitax's; tp and pp above 1 are refused by Config.validate (item 11).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from vitax_torch import distributed
 
-MESH_DIMS = ("dp", "fsdp")          # the port's DeviceMesh; both carry the global batch
+MESH_DIMS = ("dp", "fsdp", "sp")    # the port's DeviceMesh
+BATCH_DIMS = ("dp", "fsdp")         # the dims that carry the global batch (vitax BATCH_AXES)
 
 
 def resolve_mesh_shape(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
@@ -60,23 +68,62 @@ def resolve_mesh_shape(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
 
 
 def build_mesh(cfg, device: torch.device):
-    """The ("dp", "fsdp") DeviceMesh over every process, on `device`'s type;
-    the process group must be up (distributed.maybe_initialize)."""
+    """The ("dp", "fsdp", "sp") DeviceMesh over every process, on
+    `device`'s type; the process group must be up
+    (distributed.maybe_initialize)."""
     from torch.distributed.device_mesh import init_device_mesh
-    dp, fsdp = resolve_mesh_shape(cfg)[:2]
-    return init_device_mesh(torch.device(device).type, (dp, fsdp), mesh_dim_names=MESH_DIMS)
+    dp, fsdp, _, sp = resolve_mesh_shape(cfg)[:4]
+    return init_device_mesh(torch.device(device).type, (dp, fsdp, sp), mesh_dim_names=MESH_DIMS)
 
 
 def batch_shard(mesh) -> Tuple[int, int]:
     """(index, count): this rank's slice of the global batch, the
     counterpart of vitax's batch_pspec P(("dp", "fsdp")). The index is the
-    rank's linearized coordinate over the mesh dims; a loader takes the
+    rank's linearized coordinate over BATCH_DIMS; a loader takes the
     batch's rows index::count, and `fold_shard_seed` folds it into the
-    dropout seeds. Without a mesh: (0, 1)."""
+    dropout seeds. The ranks of one sp group share it. Without a mesh:
+    (0, 1)."""
     if mesh is None:
         return 0, 1
     index, count = 0, 1
-    for i, dim in enumerate(MESH_DIMS):
-        index = index * mesh.size(i) + mesh.get_local_rank(dim)
-        count *= mesh.size(i)
+    for dim in BATCH_DIMS:
+        size = mesh.size(MESH_DIMS.index(dim))
+        index = index * size + mesh.get_local_rank(dim)
+        count *= size
     return index, count
+
+
+def sp_shard(mesh) -> Tuple[int, int]:
+    """(index, count): this rank's place in its sp group, whose token slice
+    is [index * N / count, (index + 1) * N / count). Without a mesh: (0, 1)."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_local_rank("sp"), mesh.size(MESH_DIMS.index("sp"))
+
+
+def data_shard(cfg) -> Tuple[int, int]:
+    """(index, count) of the rows this process reads of each global batch,
+    from the process group alone (the loaders are built before the mesh):
+    the batch shard of `batch_shard`, since "sp" is the fastest dim."""
+    rank, world = distributed.process_index(), distributed.process_count()
+    sp = resolve_mesh_shape(cfg, world)[3] if world > 1 else 1
+    return rank // sp, world // sp
+
+
+class TokenShard(NamedTuple):
+    """The token slice a rank's model runs on: its index in the sp group,
+    the group's size and its process group."""
+    index: int
+    count: int
+    group: object
+
+
+def token_shard(cfg, mesh) -> Optional[TokenShard]:
+    """The rank's TokenShard when sp shards the tokens, else None: sp 1, or
+    a token count sp does not divide, which leaves the tokens whole on
+    every rank (vitax/train/loop.py _token_sharding; its attention core is
+    then the unsharded one)."""
+    index, count = sp_shard(mesh)
+    if count == 1 or cfg.num_patches % count:
+        return None
+    return TokenShard(index, count, mesh.get_group("sp"))

@@ -13,6 +13,18 @@ one unit a Block, then the root.
   group of 1: params replicated (gathered once a step and kept, as they
   are whole anyway), grads all-reduced over dp.
 
+Under sequence parallelism FSDP2 runs on the (dp, fsdp) slice of the mesh
+that holds the rank, so each sp rank keeps the same shards as its peers:
+params are replicated over "sp", as vitax's specs replicate them. The sp
+ranks of one batch shard see different tokens, so their grads differ;
+`average_over_sp` averages the local grad shards over the sp group after
+the backward (the step calls it before the grad norm), which with the
+model's pool (an all-reduce whose backward sums) gives every rank vitax's
+grads. It is one all-reduce a leaf, after FSDP2's reduce-scatter and not
+overlapped with the backward (HSDP with (dp, sp) as the replicate dim
+would overlap it, at the price of a mesh whose layout no longer follows
+the ranks' order).
+
 Placements (`placement`) follow the rule table (parallel/rules.py): each
 leaf shards its rule's dim over "fsdp". A leaf with no divisible dim is
 replicated in vitax; FSDP2 shards every leaf, so it takes Shard(0),
@@ -93,7 +105,7 @@ def apply_fsdp(model: nn.Module, cfg, mesh) -> nn.Module:
         return placement(names[id(p)], tuple(p.shape), mesh.size(1))
 
     compute, f32 = comm_policies(cfg)
-    common = dict(mesh=mesh if hsdp else mesh["fsdp"],
+    common = dict(mesh=mesh["dp", "fsdp"] if hsdp else mesh["fsdp"],
                   reshard_after_forward=cfg.reshard_after_forward and not cfg.run_without_fsdp,
                   shard_placement_fn=placement_fn)
     for module in _f32_modules(model):
@@ -167,3 +179,25 @@ def fsdp_group(mesh) -> Optional[object]:
     if mesh is None or mesh.size(1) == 1:
         return None
     return mesh.get_group("fsdp")
+
+
+def sp_group(mesh) -> Optional[object]:
+    """The process group of the "sp" dim when it has more than one rank."""
+    if mesh is None or mesh.size(2) == 1:
+        return None
+    return mesh.get_group("sp")
+
+
+def average_over_sp(grads, group) -> None:
+    """Average each grad (its local shard) over the sp group, in place: a
+    SUM all-reduce a leaf, all issued before the first wait, then 1/S. The
+    ranks of the group end with equal grads, so the grad norm over the
+    fsdp dim counts each element once. No-op without a group."""
+    if group is None:
+        return
+    import torch.distributed as dist
+    grads = [g for g in grads if g is not None]         # a probe's frozen leaves have none
+    works = [dist.all_reduce(g, group=group, async_op=True) for g in grads]
+    for work in works:
+        work.wait()
+    torch._foreach_mul_(grads, 1.0 / dist.get_world_size(group))

@@ -38,7 +38,7 @@ def build_program(kind: str, cfg: Config, optimizer: AdamW, device, mesh=None) -
         return make_train_step(cfg, optimizer, device, mesh)
     if kind == "eval":
         from vitax_torch.train.step import make_eval_step
-        return make_eval_step(cfg)
+        return make_eval_step(cfg, mesh)
     if not cfg.teacher_npz:
         raise ValueError("--task distill needs --teacher_npz to build a runnable program")
     from vitax_torch.programs.workloads import load_teacher, make_distill_step

@@ -33,11 +33,10 @@ from vitax_torch.checkpoint.convert import jax_param_shapes, params_from_jax
 from vitax_torch.config import Config
 from vitax_torch.models.vit import VisionTransformer, build_model
 from vitax_torch.ops.attention import make_attention_impl
-from vitax_torch.parallel.mesh import batch_shard
-from vitax_torch.parallel.sharding import apply_fsdp, local_shard, reshard
+from vitax_torch.parallel.sharding import apply_fsdp, average_over_sp, local_shard, reshard, sp_group
 from vitax_torch.train.state import AdamW, TrainState, build_optimizer, local
 from vitax_torch.train.step import (UpdateTimer, _make_update_fn, _needs_dropout, dropout_seeds, prepare_images,
-                                    shard_seeds)
+                                    seed_indices, shard_seeds)
 from vitax_torch.utils.logging import master_print
 
 # the classifier head's module name (models/vit.py VisionTransformer.head)
@@ -161,7 +160,9 @@ def load_teacher(cfg: Config, device, mesh=None) -> VisionTransformer:
     config with float32 params from the consolidated npz cfg.teacher_npz
     (quantized exports dequantized), in eval mode with no grad; under
     FSDP2 sharded with the student's policy (bf16 gathers). It is never in
-    the optimizer, the checkpoint or the grad norm."""
+    the optimizer, the checkpoint or the grad norm. Under sp it runs every
+    token on each rank of the group (no token shard, the unsharded core):
+    the same logits on each, at S times the teacher's work."""
     device = torch.device(device)
     flat = load_npz(cfg.teacher_npz)
     teacher = build_model(cfg, "meta", attention_impl=make_attention_impl(cfg, device))
@@ -195,7 +196,8 @@ def make_distill_step(cfg: Config, optimizer: AdamW, device, teacher: nn.Module,
     device = torch.device(device)
     update = _make_update_fn(cfg, optimizer, device, mesh)
     dropout = _needs_dropout(cfg)
-    shard, ranks = batch_shard(mesh)
+    att_index, gen_index = seed_indices(cfg, mesh)
+    sp = sp_group(mesh)
     alpha, temp = cfg.distill_alpha, cfg.distill_temp
 
     def distill_step(state: TrainState, batch: Dict[str, torch.Tensor], time_update: bool = False):
@@ -207,18 +209,19 @@ def make_distill_step(cfg: Config, optimizer: AdamW, device, teacher: nn.Module,
             t_logits = teacher(images).float()
         reshard(teacher)                        # a forward without a backward leaves ZeRO-2's and DP's gathers
         t_soft = torch.softmax(t_logits / temp, dim=-1)
-        seeds = shard_seeds(dropout_seeds(cfg, state.step, 0), shard) if dropout else None
+        seeds = shard_seeds(dropout_seeds(cfg, state.step, 0), att_index, gen_index) if dropout else None
         logits = model(images, seeds).float()
         ce = F.cross_entropy(logits, labels)
         s_log_soft = torch.log_softmax(logits / temp, dim=-1)
         kl = (temp * temp) * torch.mean(torch.sum(t_soft * (torch.log(t_soft + 1e-20) - s_log_soft), dim=-1))
         loss = (1.0 - alpha) * ce + alpha * kl
         loss.backward()
+        average_over_sp(state.grads(), sp)
         stats = torch.stack([loss.detach(), ce.detach(), kl.detach(),
                              (t_logits.argmax(dim=-1) == labels).float().mean(),
                              (logits.detach().argmax(dim=-1) == labels).float().mean()])
-        if ranks > 1:                           # the global batch's means
-            stats = distributed.all_reduce_sum(stats) / ranks
+        if mesh is not None:                    # the global batch's means (an sp group's ranks hold one)
+            stats = distributed.all_reduce_sum(stats) / distributed.process_count()
         metrics = {"loss": stats[0], **dict(zip(("ce", "kl", "teacher_top1", "student_top1"), stats[1:])),
                    "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
         if time_update:

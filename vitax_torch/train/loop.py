@@ -3,11 +3,16 @@ _run_logging, eval_on_val), on one device, or one card per process under
 torchrun with FSDP2 (ZeRO-3, ZeRO-2 or the DP baseline,
 parallel/sharding.py).
 
-Under a process group train() builds the ("dp", "fsdp") mesh, the model
-on the meta device, shards it (apply_fsdp), then inits each rank's shards
-(bitwise the unsharded init) or restores them; each rank reads its slice
-of every global batch; eval counts are summed over the ranks, so top-1 is
-over the whole val split; only rank 0 prints. Without one (no WORLD_SIZE
+Under a process group train() builds the ("dp", "fsdp", "sp") mesh, the
+model on the meta device, shards it (apply_fsdp), then inits each rank's
+shards (bitwise the unsharded init) or restores them; each rank reads its
+batch shard's slice of every global batch; eval counts are summed over the
+ranks (sp index 0 of each batch shard), so top-1 is over the whole val
+split; only rank 0 prints. Under sp (vitax's _token_sharding and
+_select_attention) the model runs on the rank's token slice through the
+ring or Ulysses core that make_attention_impl builds on the mesh, and the
+log names it as vitax does ("attention core: ring attention (sp)").
+Without one (no WORLD_SIZE
 in the environment, no group made by the caller) it trains unwrapped on
 one device, as before.
 
@@ -71,7 +76,7 @@ from vitax_torch.data.loader import build_datasets
 from vitax_torch.models.vit import build_model, count_params
 from vitax_torch.ops.attention import make_attention_impl
 from vitax_torch.ops.fused_optimizer import fused_optimizer_active
-from vitax_torch.parallel.mesh import batch_shard, build_mesh
+from vitax_torch.parallel.mesh import batch_shard, build_mesh, token_shard
 from vitax_torch.parallel.sharding import apply_fsdp, init_sharded, reshard
 from vitax_torch.platform import DeviceLike, device_kind
 from vitax_torch.programs.builder import build_program
@@ -111,6 +116,9 @@ def train(cfg: Config, device: DeviceLike = None,
     fused = fused_optimizer_active(cfg, device)     # raises for --fused_optimizer off on the card
     set_float32_precision()
     mesh = build_mesh(cfg, device) if distributed.is_distributed() else None
+    if mesh is None and cfg.sp_size > 1:   # a lone process would run the whole sequence
+        raise ValueError(f"--sp_size {cfg.sp_size} shards the tokens over {cfg.sp_size} processes: launch them "
+                         f"with torchrun (--nproc_per_node a multiple of {cfg.sp_size})")
     _, ranks = batch_shard(mesh)
     if cfg.batch_size % ranks or (cfg.batch_size // ranks) % cfg.grad_accum_steps:
         raise ValueError(f"--batch_size {cfg.batch_size} must split into {ranks} equal rank batches, each a "
@@ -126,8 +134,8 @@ def train(cfg: Config, device: DeviceLike = None,
     if mesh is not None:
         kind = ("DP (HSDP, shard group 1)" if cfg.run_without_fsdp else
                 "ZeRO-3" if cfg.reshard_after_forward else "ZeRO-2")
-        master_print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over {ranks} process(es), one "
-                     f"{device.type} device each; {kind}, params gathered in "
+        master_print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over {mesh.size()} process(es), one "
+                     f"{device.type} device each, {ranks} batch shard(s); {kind}, params gathered in "
                      f"{'bfloat16' if cfg.comm_cast_active else 'float32'}, grads reduced in "
                      f"{cfg.grad_reduce_dtype}")
 
@@ -138,15 +146,18 @@ def train(cfg: Config, device: DeviceLike = None,
     # a mid-epoch checkpoint re-enters its epoch at the recorded step
     resume_step, topology_change, resume_rounded = (_elastic_resume(cfg, cfg.resume_epoch)
                                                     if cfg.resume_epoch > 0 else (0, None, False))
-    attention_impl = make_attention_impl(cfg, device)
+    attention_impl = make_attention_impl(cfg, device, mesh)
+    tokens = token_shard(cfg, mesh)
     master_print(f"attention core: {getattr(attention_impl, 'vitax_name', 'dense')} on {device.type} "
-                 f"(N {cfg.num_patches}); grad_ckpt {cfg.grad_ckpt}, remat_policy {cfg.remat_policy}")
+                 f"(N {cfg.num_patches}" + (f", {cfg.num_patches // tokens.count} a rank over sp {tokens.count}"
+                                           if tokens else "")
+                 + f"); grad_ckpt {cfg.grad_ckpt}, remat_policy {cfg.remat_policy}")
     if _needs_dropout(cfg):
         where = "in the flash core" if attention_impl else "dense"
         master_print(f"dropout: att {cfg.att_dropout} ({where}), mlp and proj {cfg.mlp_dropout}, "
                      f"pos {cfg.pos_dropout}; seeds per (step, microbatch, block) from seed {cfg.seed}")
     if mesh is not None:                # built on meta, sharded, then each rank's shards filled
-        model = apply_fsdp(build_model(cfg, "meta", attention_impl=attention_impl), cfg, mesh)
+        model = apply_fsdp(build_model(cfg, "meta", attention_impl=attention_impl, token_shard=tokens), cfg, mesh)
         model.to_empty(device=device)
         if cfg.resume_epoch == 0:
             init_sharded(model, cfg, device)

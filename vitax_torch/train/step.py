@@ -27,6 +27,19 @@ masks differ between ranks. grad_accum_steps > 1 reduce-scatters each
 microbatch's grads and accumulates them sharded in float32, as vitax's
 scan keeps its f32 accumulators sharded: grads never stand unsharded
 across microbatches.
+
+Under sequence parallelism (the mesh's "sp" dim) the S ranks of an sp
+group run the same batch rows on different token slices (models/vit.py).
+After the backward (and the microbatches) the step averages their grad
+shards over the group (parallel/sharding.py average_over_sp), so each
+ends the step with vitax's grads and the grad norm over the fsdp dim
+counts every element once. The loss is the same on every rank of a group,
+so the global mean sums it over every process and divides by their count.
+The seeds (`seed_indices`): the ring's attention seed folds the batch
+shard only, as vitax's ring folds (dp, fsdp) and not sp (its masks are
+decided at global token coordinates); Ulysses' folds the linearized
+(batch, sp) index, as vitax's does; the proj, mlp and pos generators fold
+(batch, sp) under either, so the token shards draw different masks.
 """
 
 from __future__ import annotations
@@ -42,10 +55,10 @@ from vitax_torch import distributed
 from vitax_torch.config import Config
 from vitax_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from vitax_torch.models.vit import DropoutSeeds
-from vitax_torch.ops.attention import fold_shard_seed
+from vitax_torch.ops.attention import fold_shard_seed, sp_core
 from vitax_torch.ops.fused_optimizer import fused_clip_adamw, fused_optimizer_active, global_norm
-from vitax_torch.parallel.mesh import batch_shard
-from vitax_torch.parallel.sharding import fsdp_group
+from vitax_torch.parallel.mesh import batch_shard, sp_shard
+from vitax_torch.parallel.sharding import average_over_sp, fsdp_group, sp_group
 from vitax_torch.train.state import AdamW, TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -75,13 +88,31 @@ def dropout_seeds(cfg: Config, step: int, k: int) -> DropoutSeeds:
     return DropoutSeeds(blocks=tuple(int(w) for w in words[1:]), pos=int(words[0]))
 
 
-def shard_seeds(seeds: DropoutSeeds, index: int) -> DropoutSeeds:
-    """`seeds` with the rank's batch shard index folded into each one
-    (fold_shard_seed; index 0 leaves them as they are)."""
-    if index == 0:
+def shard_seeds(seeds: DropoutSeeds, index: int, gen_index: Optional[int] = None) -> DropoutSeeds:
+    """`seeds` with the rank's shard index folded into each one
+    (fold_shard_seed; index 0 leaves them as they are): `index` into the
+    attention seeds, `gen_index` (default `index`) into the pos seed and
+    the proj/mlp generators' seeds, given apart as `gens` when the two
+    differ."""
+    gen_index = index if gen_index is None else gen_index
+    if index == gen_index == 0:
         return seeds
-    return DropoutSeeds(blocks=tuple(fold_shard_seed(index, s) for s in seeds.blocks),
-                        pos=fold_shard_seed(index, seeds.pos))
+    blocks = tuple(fold_shard_seed(index, s) for s in seeds.blocks)
+    gens = None if gen_index == index else tuple(fold_shard_seed(gen_index, s) for s in seeds.blocks)
+    return DropoutSeeds(blocks=blocks, pos=fold_shard_seed(gen_index, seeds.pos), gens=gens)
+
+
+def seed_indices(cfg: Config, mesh) -> tuple:
+    """(attention index, generator index) that shard_seeds folds: the batch
+    shard's, but under an sp core the generators fold (batch, sp)
+    linearized, and so does Ulysses' attention seed."""
+    index, _ = batch_shard(mesh)
+    s, count = sp_shard(mesh)
+    kind = sp_core(cfg, count)
+    if kind is None:
+        return index, index
+    linear = index * count + s
+    return (linear if kind == "ulysses" else index), linear
 
 
 def _microbatch_split(batch: Batch, k_steps: int) -> List[Batch]:
@@ -159,15 +190,16 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     updated in place and returned. Under dropout, microbatch k of the step
     at count `state.step` runs with dropout_seeds(cfg, state.step, k),
     folded with the rank's batch shard index under a `mesh` (the batch is
-    then the rank's slice of the global batch)."""
+    then the rank's slice of the global batch; `seed_indices` under sp)."""
     device = torch.device(device)
     update = _make_update_fn(cfg, optimizer, device, mesh)
     k_steps = cfg.grad_accum_steps
     dropout = _needs_dropout(cfg)
-    shard, ranks = batch_shard(mesh)
+    att_index, gen_index = seed_indices(cfg, mesh)
+    sp = sp_group(mesh)
 
     def seeds_for(step: int, k: int) -> Optional[DropoutSeeds]:
-        return shard_seeds(dropout_seeds(cfg, step, k), shard) if dropout else None
+        return shard_seeds(dropout_seeds(cfg, step, k), att_index, gen_index) if dropout else None
 
     def loss_fn(model, batch: Batch, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
         logits = model(prepare_images(batch["image"]), seeds)
@@ -190,8 +222,9 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
             loss = loss * (1.0 / k_steps)
             for g in state.grads():
                 g.mul_(1.0 / k_steps)
-        if ranks > 1:                        # the global batch's mean
-            loss = distributed.all_reduce_sum(loss) / ranks
+        average_over_sp(state.grads(), sp)
+        if mesh is not None:                 # the global batch's mean (an sp group's ranks hold one loss)
+            loss = distributed.all_reduce_sum(loss) / distributed.process_count()
         metrics = {"loss": loss, "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
         if time_update:
             with UpdateTimer(device) as metrics["opt_update"]:
@@ -204,10 +237,13 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     return train_step
 
 
-def make_eval_step(cfg: Config) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
+def make_eval_step(cfg: Config, mesh=None) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """eval_step(state, batch) -> {"correct", "correct_top5"}: prediction
-    counts over the batch, device tensors (top-5 clamps to the class count)."""
+    counts over the batch, device tensors (top-5 clamps to the class count).
+    Under sp the ranks of a group hold the same logits: only sp index 0
+    counts, so a sum over every process counts each row once."""
     k5 = min(5, cfg.num_classes)
+    counts = sp_shard(mesh)[0] == 0
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
@@ -215,7 +251,7 @@ def make_eval_step(cfg: Config) -> Callable[[TrainState, Batch], Dict[str, torch
         label = batch["label"]
         pred = logits.argmax(dim=-1)
         top5 = logits.topk(k5, dim=-1).indices
-        return {"correct": (pred == label).sum(),
-                "correct_top5": (top5 == label[:, None]).any(dim=-1).sum()}
+        return {"correct": (pred == label).sum() * counts,
+                "correct_top5": (top5 == label[:, None]).any(dim=-1).sum() * counts}
 
     return eval_step
