@@ -158,6 +158,22 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      answers a bucket-8 batch bitwise as from_state on the trained params,
      and `python -m vitax_torch.serve --ckpt_dir ... --epoch -1` answers a
      /predict and exits 0 on SIGTERM;
+  7m. mixture of experts (before 7f, unwrapped): train() at bench.py's
+     b16 and b16_moe presets (ViT-B/16, batch 64; b16_moe's 8 experts,
+     top-1, capacity factor 1.25, einsum dispatch), 12 steps each, fake
+     data, grad_ckpt, the fused optimizer: each run's launch counts (A1
+     and A2 per block and step, all wgmma, B once a step), sec/iter,
+     images/s, MFU (b16_moe's FLOPs the MoE count: top-k experts and the
+     router) and peak memory side by side, and a profile of one steady
+     step of each; then 3 steps each of the gather dispatch and of top-2,
+     finite, gather's first loss equal to einsum's within rtol 2e-4; the
+     b16_moe model's logits with the kernels and on the plain bf16
+     attention path, each against the float32 plain model on the same
+     weights (the kernels' error at most 1.5x the plain path's), with the
+     tokens whose first choice flips; the trained b16_moe exported (float32 and
+     int8) and served, each export's engine answering a bucket-8 batch as
+     from_state on the same float weights, bitwise, the int8 one
+     dequantized at load (no kernel C launch);
   8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -335,6 +351,21 @@ TRAIN_LONG = dict(patch_size=14, embed_dim=1024, num_heads=16, num_blocks=4, bat
 TRAIN_CKPT = dict(num_blocks=2, batch_size=32, fake_data=True, warmup_steps=4, log_step_interval=1,
                   eval_max_batches=1, att_dropout=DROP_RATE, steps_per_epoch=3, num_epochs=2,
                   ckpt_epoch_interval=1)
+# Phase 7m: bench.py's b16 and b16_moe presets (bench.py:288-297) at one
+# card's batch, timed 12 steps each, then 3-step check arms of b16_moe
+B16 = dict(image_size=224, patch_size=16, embed_dim=768, num_heads=12, num_blocks=12, batch_size=64,
+           num_classes=1000, fake_data=True, max_steps=12, warmup_steps=4, log_step_interval=1,
+           eval_max_batches=1, test_epoch_interval=1)
+B16_MOE = dict(B16, moe_experts=8)
+MOE_ARMS = (("gather", dict(moe_impl="gather")), ("top-2", dict(moe_top_k=2)))
+MOE_ARM_STEPS = 3
+MOE_LOSS_RTOL = 2e-4                     # gather's first loss against einsum's: the CPU tests' bar
+# The MoE model with the kernels may be at most this many times further from
+# the float32 plain model than the bf16 plain attention path is (max |d| of
+# the logits over max |logits|): at b16_moe's depth 12 both paths carry bf16
+# rounding through twelve blocks and their routers, where phase 5's fixed
+# 6e-3 bar was set at depth 2.
+MOE_MODEL_RATIO = 1.5
 LONG_RUNS = (("N 4096", dict(image_size=896)), ("N 9216", dict(image_size=1344)),
              (f"N 4096, att_dropout {DROP_RATE}", dict(image_size=896, att_dropout=DROP_RATE)),
              ("N 9216, remat_policy dots_attn_saveable", dict(image_size=1344, remat_policy="dots_attn_saveable")))
@@ -3244,6 +3275,223 @@ def leaf_group(name: str) -> str:
     return parts[-2] if len(parts) > 1 else parts[0]
 
 
+def launch_delta(before: dict) -> dict:
+    """The launches counted since the snapshot `before` of _build.LAUNCHES."""
+    from vitax_torch.ops import _build
+    return {k: _build.LAUNCHES[k] - before.get(k, 0) for k in _build.LAUNCHES}
+
+
+def moe_train_run(torch, cfg, label: str, card: str):
+    """train() of cfg at b16 scale on the card: its launches checked against
+    its steps (A1 and A2 per block and step on wgmma, B once a step);
+    returns (state, records, launches, sec/iter, peak GB)."""
+    from vitax_torch.ops import _build
+    from vitax_torch.telemetry.flops import model_flops_per_step, peak_tflops
+    from vitax_torch.train.loop import train
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(_build.LAUNCHES)
+    state = train(cfg, "cuda", records=records)
+    torch.cuda.synchronize()
+    launches = launch_delta(before)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = [r for r in records if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    if len(steps) != cfg.max_steps or not all(np.isfinite(losses)):
+        fail(f"7m {label}: {len(steps)} logged steps of {cfg.max_steps}, losses {losses}")
+    want = train_run_launches(cfg)
+    if launches != want:
+        fail(f"7m {label}: train() launched {launches}; expected {want}")
+    times = [r["step_seconds"] for r in steps[2:]]
+    sec = float(np.median(times)) if times else float(steps[-1]["step_seconds"])
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    flops = model_flops_per_step(cfg)
+    mfu = f"{flops / sec / (peak * 1e12) * 100:.2f}%" if peak else "not measured (no peak for this card)"
+    say(f"[7m train] {label}: {cfg.max_steps} steps, losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; sec/iter {sec:.4f} (median of steps 3-{cfg.max_steps}; min {min(times or [sec]):.4f}, max "
+        f"{max(times or [sec]):.4f}), {cfg.batch_size / sec:.2f} images/s, MFU {mfu} ({flops / 1e12:.3f} TFLOP a "
+        f"step), max_memory_allocated {peak_gb:.2f} GB; launches A1 {launches['flash_attn_fwd_wgmma']} A2 "
+        f"{launches['flash_attn_bwd_wgmma']} B {launches['fused_adamw']} [{card}]")
+    return state, records, launches, sec, peak_gb
+
+
+def router_choices(torch, model, x) -> list:
+    """Each MoE block's first-choice expert per token, (B, N) a block, for
+    one inference forward of `model` on x."""
+    out, hooks = [], []
+    for block in model.blocks:
+        hooks.append(block.moe.router.register_forward_hook(
+            lambda m, args, y: out.append(y.argmax(dim=-1))))
+    try:
+        with torch.inference_mode():
+            logits = model(x).float()
+    finally:
+        for h in hooks:
+            h.remove()
+    return logits, out
+
+
+def moe_model_check(torch, card) -> None:
+    """b16_moe (seeded init, bf16) with the attention kernels against the
+    same weights on the plain attention path, both against the float32
+    plain model: the kernels' error may be at most MOE_MODEL_RATIO times
+    the plain bf16 path's. Prints the tokens whose first-choice expert
+    differs from the float32 model's in each."""
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import build_model
+    from vitax_torch.ops.attention import make_attention_impl
+    from vitax_torch.train.step import prepare_images
+    cfg = Config(seed=SEED, **B16_MOE).validate()
+    model = build_model(cfg, "cuda", attention_impl=make_attention_impl(cfg, "cuda"))
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)).cuda()
+    x = prepare_images(images)
+    got, routes = router_choices(torch, model, x)
+    results = {}
+    for label, kw in (("plain bf16", dict(use_flash_attention=False)),
+                      ("plain f32", dict(use_flash_attention=False, dtype="float32"))):
+        other_cfg = Config(seed=SEED, **B16_MOE, **kw).validate()
+        other = build_model(other_cfg, "cuda", attention_impl=make_attention_impl(other_cfg, "cuda"), init=False)
+        other.load_state_dict(model.state_dict(), assign=True)
+        results[label] = router_choices(torch, other, x)
+        del other
+    want, want_routes = results["plain f32"]
+    plain, plain_routes = results["plain bf16"]
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def flips(r):
+        return sum(int((a != b).sum()) for a, b in zip(r, want_routes))
+    e_k, e_p, e_kp = rel(got, want), rel(plain, want), rel(got, plain)
+    tokens = len(routes) * routes[0].numel()
+    ok = bool(torch.isfinite(got).all()) and e_k <= MOE_MODEL_RATIO * e_p
+    say(f"[7m model] b16_moe, batch 8, max|dlogits|/max|logits| against the float32 plain model: bf16 with the "
+        f"kernels {e_k:.3e}, bf16 plain attention {e_p:.3e} (kernels <= {MOE_MODEL_RATIO} x plain) "
+        f"{'ok' if ok else 'FAIL'}; kernels against plain bf16 {e_kp:.3e}; first choices off the float32 "
+        f"model's: kernels {flips(routes)}, plain {flips(plain_routes)} of {tokens} [{card}]")
+    if not ok:
+        fail("7m: the MoE model with the kernels is further from the float32 model than the plain bf16 path")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_serve(torch, card, root: str, sd: dict) -> dict:
+    """A b16_moe state dict (CPU tensors) exported in float32 and int8 and
+    served: each export's engine answers a bucket-8 batch bitwise as
+    from_state on the same float weights, the int8 one dequantized at load
+    with no kernel C launch. Returns the engines' launches."""
+    from vitax_torch.checkpoint.consolidate import load_npz, save_npz
+    from vitax_torch.checkpoint.convert import params_from_jax, params_to_jax
+    from vitax_torch.config import Config
+    from vitax_torch.ops import _build
+    from vitax_torch.serve.engine import InferenceEngine
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    rng = np.random.default_rng(SEED + 1)
+    scfg = Config(seed=SEED, **B16_MOE, serve_max_batch=8).validate()
+    batch8 = rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+    for dtype in ("float32", "int8"):
+        path = os.path.join(root, f"b16_moe_{dtype}.npz")
+        t0 = time.perf_counter()
+        save_npz(path, params_to_jax(sd), dtype=dtype)
+        export_s = time.perf_counter() - t0
+        qcfg = dataclasses.replace(scfg, serve_quant_dtype="int8") if dtype == "int8" else scfg
+        engine = InferenceEngine.from_npz(qcfg, path, "cuda")
+        ref = InferenceEngine.from_state(scfg, sd if dtype == "float32" else params_from_jax(load_npz(path)), "cuda")
+        engine.warmup()
+        ref.warmup()
+        before = dict(_build.LAUNCHES)
+        ids, probs = engine.predict(batch8)
+        launches = launch_delta(before)
+        for k, v in launches.items():
+            total[k] += v
+        ids_r, probs_r = ref.predict(batch8)
+        same = np.array_equal(ids, ids_r) and np.array_equal(probs, probs_r)
+        c_launches = launches["dequant_matmul"]
+        ok = same and c_launches == 0 and launches["flash_attn_fwd_wgmma"] == scfg.num_blocks
+        say(f"[7m serve] b16_moe {dtype} export ({os.path.getsize(path) / 1e9:.2f} GB, written in {export_s:.1f}s): "
+            f"bucket-8 top-{scfg.serve_topk} {'bitwise' if same else 'NOT equal to'} from_state's; top-1 "
+            f"{ids[:, 0].tolist()}; kernel C launches {c_launches}; A1 {launches['flash_attn_fwd_wgmma']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"7m: the served b16_moe {dtype} export does not answer as from_state, or ran kernel C")
+        del engine, ref
+        os.remove(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_moe(torch, card, root: str) -> dict:
+    """Phase 7m: b16 and b16_moe timed side by side, the gather and top-2
+    arms, the MoE model against the plain attention path, and a b16_moe
+    export served in float32 and int8. Returns the launches of its train
+    runs and served batches."""
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import count_params, expected_param_count
+    from vitax_torch.ops import _build
+    from vitax_torch.train.state import build_optimizer
+    from vitax_torch.train.step import make_train_step
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # the timed pair
+    timed = {}
+    for name, kw in (("b16", B16), ("b16_moe", B16_MOE)):
+        cfg = Config(seed=SEED, **kw).validate()
+        state, records, launches, sec, peak_gb = moe_train_run(torch, cfg, f"{name} "
+                                                               f"({expected_param_count(cfg):,} params)", card)
+        if count_params(state.model) != expected_param_count(cfg):
+            fail(f"7m {name}: the trained model does not have the expected parameter count")
+        add(launches)
+        optimizer, _ = build_optimizer(cfg, 100)
+        train_step = make_train_step(cfg, optimizer, "cuda")
+        batch = {"image": torch.zeros((cfg.batch_size, cfg.image_size, cfg.image_size, 3), device="cuda"),
+                 "label": torch.zeros(cfg.batch_size, dtype=torch.int64, device="cuda")}
+        profile_device(torch, lambda: train_step(state, batch), f"one {name} train step (batch {cfg.batch_size})",
+                       card, "7m", top=10)
+        del train_step, batch
+        timed[name] = (sec, peak_gb, records)
+        if name == "b16_moe":               # the trained params, for the served export
+            sd = {k: v.detach().to("cpu") for k, v in state.model.state_dict().items()}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    (sec_d, mem_d, _), (sec_m, mem_m, rec_m) = timed["b16"], timed["b16_moe"]
+    say(f"[7m train] b16_moe / b16: sec/iter {sec_m / sec_d:.3f}x ({sec_m:.4f} / {sec_d:.4f} s), images/s "
+        f"{B16['batch_size'] / sec_m:.2f} / {B16['batch_size'] / sec_d:.2f}, memory {mem_m:.2f} / {mem_d:.2f} GB "
+        f"[{card}]")
+
+    # the check arms: gather's first loss is einsum's
+    first = rec_m[0]["loss"]
+    for label, kw in MOE_ARMS:
+        cfg = Config(seed=SEED, **{**B16_MOE, **kw, "max_steps": MOE_ARM_STEPS}).validate()
+        arm_state, records, launches, _, _ = moe_train_run(torch, cfg, f"b16_moe {label}", card)
+        add(launches)
+        del arm_state
+        loss0 = records[0]["loss"]
+        if label == "gather":
+            rel = abs(loss0 - first) / abs(first)
+            ok = rel <= MOE_LOSS_RTOL
+            say(f"[7m train] gather's first loss {loss0:.6f} against einsum's {first:.6f}: rel {rel:.2e} "
+                f"(<= {MOE_LOSS_RTOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("7m: the gather dispatch's first loss is not the einsum dispatch's")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_model_check(torch, card)
+
+    add(moe_serve(torch, card, root, sd))
+    say(f"[7m] phase 7m took {time.perf_counter() - t_phase:.1f}s [{card}]")
+    return total
+
+
 def phase_train_fsdp(torch, card, root: str, ref7: dict):
     """Phase 7f: FSDP2 at world size 1 through the port's kernels and NCCL
     (see the module docstring). Returns the launches of its train() runs,
@@ -3539,7 +3787,7 @@ def phase_ring(torch, card):
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches, ring_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7t, 7i, 7s, 7c, 7x and 7f in `data_launches`,
+    paths of this run (phases 7t, 7i, 7s, 7c, 7x, 7m and 7f in `data_launches`,
     7r's ring runs in `ring_launches`), its check's max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
@@ -3659,9 +3907,10 @@ def main() -> int:
         time_loaders(torch, root, card, use_native)
         ckpt_launches = phase_checkpoint(torch, card, root)
         transfer = phase_transfer(torch, card, root, ref7)
+        moe_launches = phase_train_moe(torch, card, root)
         fsdp_launches = phase_train_fsdp(torch, card, root, ref7)
     data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
-                     + tele_launches[k] + transfer[k] for k in tree_launches}
+                     + tele_launches[k] + transfer[k] + moe_launches[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches, ring_launches)
     say(card)

@@ -254,3 +254,80 @@ def test_world_size_without_a_group_raises(monkeypatch):
     assert distributed.process_index() == 0 and distributed.process_count() == 1
     assert distributed.broadcast_from_process0(7) == 7
     assert os.environ.get("WORLD_SIZE") is None
+
+
+# --- expert parallelism: the "ep" dim and the expert rule ---------------------
+
+MOE = dict(TINY, moe_experts=4)
+
+
+@pytest.mark.parametrize("dp,fsdp,ep,n", [(1, -1, 2, 8), (2, -1, 2, 8), (-1, 1, 4, 8), (1, 2, 2, 4), (1, 1, 4, 4),
+                                          (1, 3, 2, 8), (-1, -1, 2, 8)])
+def test_resolve_mesh_shape_with_ep_matches_jax(dp, fsdp, ep, n):
+    """ep is the sixth of vitax's sizes: resolved, and refused, as vitax
+    resolves and refuses it."""
+    from vitax.parallel.mesh import resolve_mesh_shape as jax_resolve
+    kw = dict(dp_size=dp, fsdp_size=fsdp, ep_size=ep)
+    try:
+        want = jax_resolve(_jax_cfg(**kw, moe_experts=4), n)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            resolve_mesh_shape(Config(**MOE, **kw), n)
+        assert str(got.value) == str(e)
+        return
+    assert resolve_mesh_shape(Config(**MOE, **kw), n) == want
+
+
+def _grid_sets(t: torch.Tensor, spec, sizes: dict) -> dict:
+    """{(ep index, fsdp index): the element values of that shard} of `t`
+    under `spec` (a mesh axis name or None per dim)."""
+    cells = {(): t}
+    for axis in ("ep", "fsdp"):
+        dim = list(spec).index(axis) if axis in tuple(spec) else None
+        n = sizes[axis]
+        cells = {key + (i,): (c if dim is None else torch.chunk(c, n, dim=dim)[i])
+                 for key, c in cells.items() for i in range(n)}
+    return {k: frozenset(c.reshape(-1).tolist()) for k, c in cells.items()}
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2, 1, 1, 1, 2), (1, 1, 1, 1, 1, 4), (2, 2, 1, 1, 1, 2),
+                                        (1, 4, 1, 1, 1, 2)],
+                         ids=["fsdp2_ep2", "ep4", "dp2_fsdp2_ep2", "fsdp4_ep2"])
+def test_expert_rule_places_the_elements_vitax_places(devices8, mesh_shape):
+    """Every leaf of a tiny MoE config under vitax's param_specs on a mesh
+    with "ep" against the port's rule_pspec: "ep" only on the expert
+    leaves' experts dim, never on the router or a dense leaf, "fsdp" on the
+    largest remaining divisible dim, and each (ep, fsdp) shard the same
+    elements in both layouts (numbered in the torch layout, carried by
+    params_to_jax)."""
+    import jax
+    from vitax.models import build_model as jax_build_model
+    from vitax.parallel.mesh import build_mesh as jax_build_mesh
+    from vitax.parallel.sharding import param_specs
+    dp, fsdp, _, _, _, ep = mesh_shape
+    jcfg = _jax_cfg(moe_experts=4, scan_blocks=False, dp_size=dp, fsdp_size=fsdp, ep_size=ep)
+    mesh = jax_build_mesh(jcfg, devices=devices8[:dp * fsdp * ep])
+    model = jax_build_model(jcfg)
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    abstract = jax.eval_shape(lambda r: model.init(r, x, True), jax.random.key(0))
+    specs = param_specs(abstract, jcfg, mesh)
+    jax_specs = {"/".join(str(getattr(p, "key", p)) for p in path): spec
+                 for path, spec in jax.tree_util.tree_flatten_with_path(specs)[0]}
+    tmodel = build_model(Config(**MOE), "meta")
+    numbered, offset = {}, 0
+    for name, p in tmodel.named_parameters():
+        numbered[name] = torch.arange(offset, offset + p.numel(), dtype=torch.float64).reshape(p.shape)
+        offset += p.numel()
+    flax = params_to_jax(numbered, scanned=False)
+    assert sorted(jax_specs) == sorted(flax)
+    sizes = {"ep": ep, "fsdp": fsdp}
+    experts = 0
+    for name, t in numbered.items():
+        spec = rule_pspec(name, tuple(t.shape), fsdp, ep)
+        key = next(k for k, v in flax.items() if torch.equal(v.reshape(-1).sort().values, t.reshape(-1)))
+        jspec = tuple(jax_specs[key]) + (None,) * (t.dim() - len(tuple(jax_specs[key])))
+        assert ("ep" in spec) == ("ep" in jspec) == (name.split(".")[-1] in ("w1", "b1", "w2", "b2")), name
+        experts += "ep" in spec
+        assert _grid_sets(t, spec, sizes) == _grid_sets(flax[key], jspec, sizes), (name, spec, jspec)
+    assert experts == 4 * MOE["num_blocks"]
+    assert placement("blocks.0.moe.w1", (4, 64, 256), fsdp, ep).dim == (2 if fsdp > 1 else 1)

@@ -9,6 +9,7 @@ Package map (mirrors vitax/):
   config        flags and Config of the serve and train paths, with the JAX names and defaults
   platform      device selection: the card unless the caller asks for the CPU
   models        the ViT as nn.Modules (forward; per-block recompute when training)
+                and its mixture-of-experts MLP
   ops           flash-attention forward and backward, fused clip+AdamW, the
                 dequant matmul: kernels, plain versions, dispatchers; the nvcc build
   checkpoint    train-state save, resume and pruning (torch.distributed.checkpoint
@@ -20,8 +21,8 @@ Package map (mirrors vitax/):
                 samplers and loaders
   _native       the host C++ decoder (decode.cc) and its g++ build
   distributed   torchrun's process group, named barriers, host folds, orderly shutdown
-  parallel      the ("dp", "fsdp", "sp") mesh, FSDP2 sharding, ring and Ulysses
-                attention over the sp group
+  parallel      the ("dp", "fsdp", "sp", "ep") mesh, FSDP2 sharding, ring and Ulysses
+                attention over the sp group, experts sharded over the ep group
   train         schedule, state, train/eval steps, the loop and its CLI
   telemetry     model FLOPs and MFU, schema-1 JSONL records and sinks, the
                 thread-crash hook
@@ -33,8 +34,8 @@ Package map (mirrors vitax/):
 Ported so far: the serve path, single-card training on fake data, from
 an ImageFolder tree or from streaming shards, quantized serving, dropout,
 long context, checkpoint, resume and export, FSDP2, the loop's
-telemetry, barriers, shutdown and launcher, the transfer tasks, and
-sequence parallelism. The rest are later slices (ROADMAP.md).
+telemetry, barriers, shutdown and launcher, the transfer tasks,
+sequence parallelism, and mixture of experts with expert parallelism. The rest are later slices (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -7,6 +7,11 @@ scanned (one "blocks" subtree with a leading (L, ...) axis) or unscanned
 weights (cout, cin, kh, kw) and LayerNorm weight/bias under
 vitax_torch/models/vit.py's module names.
 
+An MoE block's leaves (vitax/models/moe.py) are `moe/router/{kernel,
+bias}`, a Dense like any other, and the expert leaves `moe/{w1, b1, w2,
+b2}`, (E, D, H), (E, H), (E, H, D), (E, D), which keep their names and
+layouts on both sides.
+
 A quantized export's int8 / fp8 kernels convert the same way: Dense (in,
 out) -> (out, in), so each output channel's row is contiguous in K (the
 column-major B operand of the kernel's mma); the conv stays quantized too.
@@ -36,8 +41,11 @@ import torch
 
 from vitax_torch.checkpoint.consolidate import Leaf, as_tensor, flatten_tree, unflatten_tree
 
-# Flax leaf name -> torch leaf name ("qscale": a quantized kernel's scales)
-_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "qscale": "qscale"}
+# Flax leaf name -> torch leaf name ("qscale": a quantized kernel's scales;
+# the MoE expert leaves keep their names and layouts)
+_EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "qscale": "qscale",
+           **{name: name for name in _EXPERT_LEAVES}}
 _BLOCK_KEY = re.compile(r"^blocks_(\d+)$")
 
 
@@ -125,8 +133,8 @@ _JAX_PROBE_ADAM = "opt_state/2/inner_state/"
 def _to_jax(torch_leaf: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
     """(Flax leaf name, value in the Flax layout) of one state_dict leaf."""
     t = t.detach()
-    if torch_leaf == "bias":
-        return "bias", t
+    if torch_leaf == "bias" or torch_leaf in _EXPERT_LEAVES:
+        return torch_leaf, t
     if torch_leaf != "weight":
         raise KeyError(f"unexpected state_dict leaf {torch_leaf!r}")
     if t.dim() == 4:                          # conv (cout, cin, kh, kw) -> (kh, kw, cin, cout)

@@ -12,6 +12,9 @@ offsets over a gloo group of its own (the background write's collectives
 never meet the step's), and rank 0 writes the commit marker once every
 rank has written. A restore reshards to any world size: into DTensors on
 a mesh, or into whole tensors of one process (the export's read_state).
+An MoE expert leaf sharded over "ep" (and "fsdp") is a DTensor at its
+global (E, ...) shape, so a checkpoint saved at one ep size restores at
+another, as vitax's topology-independent checkpoints do.
 
 Commit: DCP writes into epoch_<N>/, then `commit_success.txt` (one of
 vitax's COMMIT_MARKERS) is written beside its files. A directory without a

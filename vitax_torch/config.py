@@ -5,9 +5,10 @@ packages. Settings whose path is a later slice of the port are rejected by
 validate() with a message that names the slice. The zero-stall and peer
 checkpoint flags (zero_stall_ckpt, replicate_steps, peer_dir) are not
 fields yet: the parser rejects them as unknown arguments. The mesh takes
-dp, fsdp and sp (FSDP2 over the processes torchrun starts, one card each;
-sp shards the token axis, --sp_impl ring or ulysses); tp and pp above 1
-wait for the rest of ROADMAP item 11. --task and its flags
+dp, fsdp, sp and ep (FSDP2 over the processes torchrun starts, one card
+each; sp shards the token axis, --sp_impl ring or ulysses; ep shards the
+experts of --moe_experts, models/moe.py); tp and pp above 1 wait for the
+rest of ROADMAP item 11, and so does MoE under sp. --task and its flags
 end validate() in the task's registry validator (programs/registry.py),
 as vitax's do."""
 
@@ -106,6 +107,14 @@ class Config:
     sp_size: int = 1
     sp_impl: str = "ring"               # ring (K/V rotation over the sp group) | ulysses (all-to-all head<->token)
     pp_size: int = 1
+    ep_size: int = 1                    # expert-parallel dim (also carries batch; experts sharded across it)
+
+    # --- mixture of experts (models/moe.py; vitax/config.py:136-140) ---
+    moe_experts: int = 0                # 0 = dense MLP; >0 = top-k routed MoE MLP in every block
+    moe_capacity_factor: float = 1.25   # static expert capacity C = ceil(cf * tokens / experts)
+    moe_top_k: int = 1                  # 1 = Switch (top-1); 2 = GShard-style top-2 with renormalized gates
+    moe_aux_weight: float = 0.01        # load-balance aux loss weight (Switch Transformer)
+    moe_impl: str = "einsum"            # einsum (GShard one-hot dispatch) | gather (index dispatch)
 
     # --- serving ---
     serve_port: int = 8000              # HTTP port (0 = ephemeral, tests)
@@ -159,14 +168,32 @@ class Config:
         for name in ("tp_size", "pp_size"):
             if getattr(self, name) != 1:
                 raise ValueError(f"--{name} {getattr(self, name)}: tensor and pipeline parallelism wait for the "
-                                 f"rest of ROADMAP item 11 (TP with MoE/EP, then the GPipe and 1F1B pipelines); "
-                                 f"the port's mesh takes --dp_size, --fsdp_size and --sp_size")
+                                 f"rest of ROADMAP item 11 (TP, then the GPipe and 1F1B pipelines); "
+                                 f"the port's mesh takes --dp_size, --fsdp_size, --sp_size and --ep_size")
         checks = (
             (self.sp_impl in ("ring", "ulysses"),
              f"unknown sp_impl {self.sp_impl!r} (expected 'ring' or 'ulysses')"),
-            (all(getattr(self, name) == -1 or getattr(self, name) >= 1 for name in ("dp_size", "fsdp_size", "sp_size")),
+            (all(getattr(self, name) == -1 or getattr(self, name) >= 1
+                 for name in ("dp_size", "fsdp_size", "sp_size", "ep_size")),
              f"mesh sizes must be >= 1 or -1 (all remaining processes), got --dp_size {self.dp_size} --fsdp_size "
-             f"{self.fsdp_size} --sp_size {self.sp_size}"),
+             f"{self.fsdp_size} --sp_size {self.sp_size} --ep_size {self.ep_size}"),
+            # vitax/config.py:428-439, with its messages
+            (self.ep_size <= 1 or self.moe_experts > 0, "--ep_size > 1 needs --moe_experts"),
+            (self.ep_size <= 1 or self.moe_experts % self.ep_size == 0,
+             f"--moe_experts {self.moe_experts} not divisible by --ep_size {self.ep_size}"),
+            (self.moe_experts >= 0, f"--moe_experts must be >= 0, got {self.moe_experts}"),
+            (self.moe_experts == 0 or self.moe_impl in ("gather", "einsum"), f"unknown moe_impl {self.moe_impl!r}"),
+            (self.moe_experts == 0 or self.moe_top_k in (1, 2),
+             f"--moe_top_k must be 1 or 2, got {self.moe_top_k}"),
+            (self.moe_experts == 0 or self.moe_top_k <= self.moe_experts,
+             f"--moe_top_k {self.moe_top_k} > --moe_experts {self.moe_experts}: the second choice would be a "
+             f"dead branch with gate ~0"),
+            (self.moe_experts == 0 or self.moe_capacity_factor > 0,
+             f"--moe_capacity_factor must be > 0, got {self.moe_capacity_factor}"),
+            (self.moe_experts == 0 or self.sp_size == 1,
+             f"--moe_experts with --sp_size {self.sp_size}: an expert's capacity slots rank a sample's tokens "
+             f"over the whole sequence, which sp splits across ranks; MoE under sp waits for the rest of "
+             f"ROADMAP item 11"),
             (self.prefetch_batches >= 1,
              f"--prefetch_batches must be >= 1, got {self.prefetch_batches}: the loader needs at least one "
              f"queued batch to hand the consumer"),
@@ -246,11 +273,17 @@ class Config:
             (self.serve_act_quant == "off" or self.serve_quant_dtype == "int8",
              f"--serve_act_quant {self.serve_act_quant} requires --serve_quant_dtype int8 (int8 x int8 "
              f"matmuls need int8 weights as the other operand), got {self.serve_quant_dtype!r}"),
+            (self.serve_act_quant == "off" or self.moe_experts == 0,
+             f"--serve_act_quant is dense-model only (MoE expert dispatch keeps its float einsum path), got "
+             f"--moe_experts {self.moe_experts}"),
             (self.fused_dequant in ("auto", "on", "off"),
              f"--fused_dequant must be 'auto', 'on' or 'off', got {self.fused_dequant!r}"),
             (self.fused_dequant != "on" or bool(self.serve_quant_dtype),
              "--fused_dequant on requires a quantized --serve_quant_dtype: there is no weight dequant "
              "to fuse into a full-precision serve matmul"),
+            (self.fused_dequant != "on" or self.moe_experts == 0,
+             f"--fused_dequant on is dense-model only (MoE expert matmuls keep their einsum path), got "
+             f"--moe_experts {self.moe_experts}"),
             (self.serve_queue_max >= 0, f"--serve_queue_max must be >= 0, got {self.serve_queue_max}"),
             (self.serve_request_timeout_s > 0,
              f"--serve_request_timeout_s must be > 0, got {self.serve_request_timeout_s}"),
@@ -290,6 +323,7 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--no_log_memory", "store_false", "log_memory"),
                ("--reinit_head", "store_true", "reinit_head"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS), "sp_impl": ["ring", "ulysses"],
+            "moe_top_k": [1, 2], "moe_impl": ["gather", "einsum"],
             "fused_optimizer": ["auto", "on", "off"], "gather_overlap": ["auto", "off", "on"],
             "param_gather_dtype": ["bfloat16", "float32"], "grad_reduce_dtype": ["float32", "bfloat16"],
             "remat_policy": list(REMAT_POLICIES),

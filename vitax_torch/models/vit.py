@@ -14,7 +14,7 @@ under torch.utils.checkpoint (non-reentrant) and the backward recomputes
 it, the counterpart of the JAX model's per-block remat, with what it keeps
 set by cfg.remat_policy (vitax/models/vit.py:317-339; `remat_block`):
 none_saveable keeps only the block's input; dots_saveable also keeps every
-matmul output (selective checkpointing over aten mm/addmm/bmm), so
+matmul output (selective checkpointing over aten mm/addmm/bmm/baddbmm), so
 the recompute redoes the rest, the attention core included, as in JAX,
 where that core is a custom call and no dot; dots_attn_saveable runs the
 core between two such regions, so its autograd Function keeps q, k, v, o
@@ -48,6 +48,14 @@ backward sums the cotangents), then 1/N. The head and its input are the
 same on every sp rank, and the step averages the grads over sp
 (parallel/sharding.py average_over_sp), which gives vitax's grads.
 
+Mixture of experts (cfg.moe_experts > 0, models/moe.py): every block's
+Mlp is a MoeMlp named `moe`, so its leaves mirror vitax's
+`blocks_i/moe/...`. Its load-balance ingredients (frac_tokens, mean_prob)
+are values the block returns beside its output, under remat_block too;
+the forward collects them a block and returns them with the logits when
+asked (with_aux, vitax's with_aux="raw"). With an `expert_shard`
+(parallel/mesh.py) the experts run expert-parallel over the ep group.
+
 Quantized serving (build_model with a quant dtype): every Dense site (qkv,
 proj, fc1, fc2 with act=True; the head with act=False) is a QuantLinear
 holding the int8 or float8_e4m3fn (out, in) weight and its per-channel
@@ -69,6 +77,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from vitax_torch.checkpoint.consolidate import QUANT_TORCH_DTYPES
 from vitax_torch.config import REMAT_POLICIES, Config
+from vitax_torch.models.moe import EXPERT_LEAVES, MoeMlp
 from vitax_torch.ops.attention import make_dense_dropout, reference_attention
 from vitax_torch.ops.dequant_matmul import dequantize_leaf
 
@@ -246,11 +255,13 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block; with `moe` (a dict of MoeMlp's keyword
+    arguments) its MLP is the routed MoeMlp, which has no dropout (vitax's
+    neither), and the block returns (x, frac_tokens, mean_prob)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype,
                  attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None,
-                 att_dropout: float = 0.0, mlp_dropout: float = 0.0):
+                 att_dropout: float = 0.0, mlp_dropout: float = 0.0, moe: Optional[dict] = None):
         super().__init__()
         self.dtype = dtype
         self.mlp_dropout = mlp_dropout
@@ -258,7 +269,12 @@ class Block(nn.Module):
         self.attn = Attention(dim, num_heads, dtype, attention_impl, quant, device=device,
                               att_dropout=att_dropout, proj_dropout=mlp_dropout)
         self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device, dropout=mlp_dropout)
+        if moe is None:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device, dropout=mlp_dropout)
+        else:
+            if quant is not None:
+                raise ValueError("a quantized model has no MoE path: an MoE export is dequantized at load")
+            self.moe = MoeMlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device, **moe)
 
     def attention_inputs(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The block up to its attention core: norm1 and the qkv projection."""
@@ -271,6 +287,9 @@ class Block(nn.Module):
         again."""
         gen = _generator(seed, x.device) if seed is not None and self.mlp_dropout > 0.0 else None
         x = x + self.attn.output(out, gen)
+        if hasattr(self, "moe"):
+            y, frac, prob = self.moe(self.norm2(x, self.dtype))
+            return x + y, frac, prob
         return x + self.mlp(self.norm2(x, self.dtype), gen)
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None, gen_seed: Optional[int] = None) -> torch.Tensor:
@@ -281,7 +300,7 @@ class Block(nn.Module):
 
 # F.linear is CompositeImplicitAutograd: the policy sees the mm/addmm it
 # decomposes to, never aten.linear itself.
-_DOT_OPS = frozenset(getattr(torch.ops.aten, name).default for name in ("mm", "addmm", "bmm"))
+_DOT_OPS = frozenset(getattr(torch.ops.aten, name).default for name in ("mm", "addmm", "bmm", "baddbmm"))
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -315,7 +334,7 @@ class VisionTransformer(nn.Module):
     """images (B, H, W, 3) float -> logits (B, num_classes) float32."""
 
     def __init__(self, cfg: Config, attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None,
-                 device=None, token_shard=None):
+                 device=None, token_shard=None, expert_shard=None):
         super().__init__()
         self.token_shard = token_shard
         self.dtype = _DTYPES[cfg.dtype]
@@ -326,16 +345,19 @@ class VisionTransformer(nn.Module):
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, d, self.dtype, quant, device=device)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, d, device=device))
+        moe = (dict(num_experts=cfg.moe_experts, capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k,
+                    impl=cfg.moe_impl, expert_shard=expert_shard) if cfg.moe_experts > 0 else None)
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device,
-                  att_dropout=cfg.att_dropout, mlp_dropout=cfg.mlp_dropout)
+                  att_dropout=cfg.att_dropout, mlp_dropout=cfg.mlp_dropout, moe=moe)
             for _ in range(cfg.num_blocks))
         self.norm = LayerNorm(d, eps=1e-6, device=device)
         self.head = _linear(d, cfg.num_classes, quant, False, device)
 
-    def forward(self, images: torch.Tensor, seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, seeds: Optional[DropoutSeeds] = None, with_aux: bool = False):
         """seeds: DropoutSeeds for a dropout forward (training), None for
-        none (eval, serve)."""
+        none (eval, serve). with_aux: return (logits, (fracs, probs)), the
+        MoE blocks' load-balance ingredients a block (empty when dense)."""
         x = self.patch_embed(images) + self.pos_embed.to(self.dtype)
         shard = self.token_shard
         if shard is not None:                   # the rank's token slice
@@ -347,18 +369,24 @@ class VisionTransformer(nn.Module):
             if self.pos_dropout > 0.0:
                 x = _dropout(x, self.pos_dropout, _generator(seeds.pos, x.device))
         remat = self.grad_ckpt and torch.is_grad_enabled()
+        fracs, probs = [], []
         for i, block in enumerate(self.blocks):
             seed = gen = None
             if seeds is not None:
                 seed, gen = seeds.blocks[i], None if seeds.gens is None else seeds.gens[i]
             x = remat_block(block, x, seed, self.remat_policy, gen) if remat else block(x, seed, gen)
+            if isinstance(x, tuple):            # an MoE block's (x, frac_tokens, mean_prob)
+                x, frac, prob = x
+                fracs.append(frac)
+                probs.append(prob)
         x = self.norm(x, self.dtype)
         if shard is None:
             x = x.mean(dim=1)
         else:                                   # the mean over every rank's tokens, in f32
             from torch.distributed.nn.functional import all_reduce
             x = (all_reduce(x.float().sum(dim=1), group=shard.group) / (x.shape[1] * shard.count)).to(self.dtype)
-        return self.head(x, torch.float32)
+        logits = self.head(x, torch.float32)
+        return (logits, (fracs, probs)) if with_aux else logits
 
 
 def _trunc_normal(t: torch.Tensor, gen: torch.Generator) -> None:
@@ -376,11 +404,15 @@ def _ones(t: torch.Tensor, gen: torch.Generator) -> None:
 def init_leaves(model: nn.Module) -> Iterator[Tuple[nn.Parameter, Callable[[torch.Tensor, torch.Generator], None]]]:
     """(param, fill) for every parameter in init order, fill(tensor,
     generator) filling a tensor of the param's shape in place: timm's
-    trunc-normal(0.02, +/-2 sigma) conv/Linear weights and pos_embed (the
-    only draws), zero biases, LayerNorm ones/zeros. init_params and the
-    sharded init (parallel/sharding.py init_sharded) both walk it."""
+    trunc-normal(0.02, +/-2 sigma) conv/Linear weights, MoE expert
+    weights w1 and w2 (vitax's default_init) and pos_embed (the only
+    draws), zero biases, LayerNorm ones/zeros. init_params and the sharded
+    init (parallel/sharding.py init_sharded) both walk it."""
     for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Conv2d)):
+        if isinstance(module, MoeMlp):          # before its router, which modules() yields next
+            for name in EXPERT_LEAVES:
+                yield getattr(module, name), _trunc_normal if name.startswith("w") else _zeros
+        elif isinstance(module, (nn.Linear, nn.Conv2d)):
             yield module.weight, _trunc_normal
             yield module.bias, _zeros
         elif isinstance(module, nn.LayerNorm):
@@ -398,7 +430,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
-                init: bool = True, quant: Optional[Quant] = None, token_shard=None) -> VisionTransformer:
+                init: bool = True, quant: Optional[Quant] = None, token_shard=None,
+                expert_shard=None) -> VisionTransformer:
     """The ViT on `device`, built without a throwaway default init: the
     modules are made on the meta device, then given storage on `device`.
     init=True fills the params from cfg.seed (float32, as vitax initializes
@@ -407,11 +440,14 @@ def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
     `quant` every Dense site is a QuantLinear and the conv a QuantConv2d,
     whose weights come from a quantized state (init must be False). A
     `token_shard` (parallel/mesh.py) runs the model on the rank's token
-    slice under sequence parallelism."""
+    slice under sequence parallelism, an `expert_shard` its experts over
+    the ep group (the model must then be sharded by parallel/sharding.py
+    apply_fsdp before it runs)."""
     device = torch.device(device)
     if quant is not None and init:
         raise ValueError("a quantized model takes its weights from a quantized state: pass init=False")
-    model = VisionTransformer(cfg, attention_impl, quant, device="meta", token_shard=token_shard)
+    model = VisionTransformer(cfg, attention_impl, quant, device="meta", token_shard=token_shard,
+                              expert_shard=expert_shard)
     if device.type == "meta" or not init:
         return model.eval()
     model = model.to_empty(device=device)
@@ -427,9 +463,12 @@ def count_params(model: nn.Module) -> int:
 
 def expected_param_count(cfg: Config) -> int:
     """Closed-form parameter count (vitax/models/vit.py expected_param_count):
-    10,077,917,160 at default flags."""
+    10,077,917,160 at default flags; under MoE the MLP is the router and E
+    experts' fc1 and fc2."""
     d = cfg.embed_dim
     h = cfg.mlp_hidden_dim
-    per_block = d * 3 * d + 3 * d + d * d + d + d * h + h + h * d + d + 2 * (2 * d)
+    e = cfg.moe_experts
+    mlp = d * h + h + h * d + d
+    per_block = d * 3 * d + 3 * d + d * d + d + (e * mlp + d * e + e if e else mlp) + 2 * (2 * d)
     patch = 3 * cfg.patch_size * cfg.patch_size * d + d
     return per_block * cfg.num_blocks + patch + cfg.num_patches * d + 2 * d + d * cfg.num_classes + cfg.num_classes

@@ -1,5 +1,5 @@
 """The device mesh (vitax/parallel/mesh.py): one process per card, the
-processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "sp").
+processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "sp", "ep").
 
 - "dp":   pure data parallelism (params replicated across it);
 - "fsdp": ZeRO-3: params, grads and AdamW moments sharded across it; it
@@ -7,14 +7,18 @@ processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "sp").
 - "sp":   sequence parallelism: the token axis of the activations is
           sharded across it (ring or Ulysses attention, parallel/); params
           are replicated across it and its ranks read the same batch rows
-          (vitax's BATCH_AXES leave "sp" out).
+          (vitax's BATCH_AXES leave "sp" out);
+- "ep":   expert parallelism (models/moe.py): it carries the batch like
+          dp, dense params are replicated across it, and each of its ranks
+          holds E/ep experts of every MoE block.
 
-The reference's FSDP is mesh (1, n, 1); its --run_without_fsdp DP baseline
-(n, 1, 1). The ranks fill the mesh row-major with "sp" fastest, as vitax
-reshapes its devices over (dp, fsdp, tp, sp, pp, ep) with tp = pp = ep =
-1, so rank r holds the batch rows and the token slice that vitax's device
-r holds. `resolve_mesh_shape` keeps vitax's six sizes, so its errors are
-vitax's; tp and pp above 1 are refused by Config.validate (item 11).
+The reference's FSDP is mesh (1, n, 1, 1); its --run_without_fsdp DP
+baseline (n, 1, 1, 1). The ranks fill the mesh row-major with "ep"
+fastest, then "sp", as vitax reshapes its devices over (dp, fsdp, tp, sp,
+pp, ep) with tp = pp = 1, so rank r holds the batch rows, the token slice
+and the experts that vitax's device r holds. `resolve_mesh_shape` keeps
+vitax's six sizes, so its errors are vitax's; tp and pp above 1, and MoE
+(so ep) beside sp, are refused by Config.validate (item 11).
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ import torch
 
 from vitax_torch import distributed
 
-MESH_DIMS = ("dp", "fsdp", "sp")    # the port's DeviceMesh
-BATCH_DIMS = ("dp", "fsdp")         # the dims that carry the global batch (vitax BATCH_AXES)
+MESH_DIMS = ("dp", "fsdp", "sp", "ep")    # the port's DeviceMesh
+BATCH_DIMS = ("dp", "fsdp", "ep")         # the dims that carry the global batch (vitax BATCH_AXES)
 
 
 def resolve_mesh_shape(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
@@ -68,17 +72,17 @@ def resolve_mesh_shape(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
 
 
 def build_mesh(cfg, device: torch.device):
-    """The ("dp", "fsdp", "sp") DeviceMesh over every process, on
+    """The ("dp", "fsdp", "sp", "ep") DeviceMesh over every process, on
     `device`'s type; the process group must be up
     (distributed.maybe_initialize)."""
     from torch.distributed.device_mesh import init_device_mesh
-    dp, fsdp, _, sp = resolve_mesh_shape(cfg)[:4]
-    return init_device_mesh(torch.device(device).type, (dp, fsdp, sp), mesh_dim_names=MESH_DIMS)
+    dp, fsdp, _, sp, _, ep = resolve_mesh_shape(cfg)
+    return init_device_mesh(torch.device(device).type, (dp, fsdp, sp, ep), mesh_dim_names=MESH_DIMS)
 
 
 def batch_shard(mesh) -> Tuple[int, int]:
     """(index, count): this rank's slice of the global batch, the
-    counterpart of vitax's batch_pspec P(("dp", "fsdp")). The index is the
+    counterpart of vitax's batch_pspec P(("dp", "fsdp", "ep")). The index is the
     rank's linearized coordinate over BATCH_DIMS; a loader takes the
     batch's rows index::count, and `fold_shard_seed` folds it into the
     dropout seeds. The ranks of one sp group share it. Without a mesh:
@@ -104,7 +108,8 @@ def sp_shard(mesh) -> Tuple[int, int]:
 def data_shard(cfg) -> Tuple[int, int]:
     """(index, count) of the rows this process reads of each global batch,
     from the process group alone (the loaders are built before the mesh):
-    the batch shard of `batch_shard`, since "sp" is the fastest dim."""
+    the batch shard of `batch_shard`, since "sp" is the fastest dim but
+    "ep", and one of the two is 1 (Config.validate)."""
     rank, world = distributed.process_index(), distributed.process_count()
     sp = resolve_mesh_shape(cfg, world)[3] if world > 1 else 1
     return rank // sp, world // sp
@@ -127,3 +132,19 @@ def token_shard(cfg, mesh) -> Optional[TokenShard]:
     if count == 1 or cfg.num_patches % count:
         return None
     return TokenShard(index, count, mesh.get_group("sp"))
+
+
+class ExpertShard(NamedTuple):
+    """The experts a rank's MoE blocks hold: its index in the ep group, the
+    group's size (each rank holds E / count experts, [index E / count,
+    (index + 1) E / count)) and its process group."""
+    index: int
+    count: int
+    group: object
+
+
+def expert_shard(mesh) -> Optional[ExpertShard]:
+    """The rank's ExpertShard when ep shards the experts (size > 1), else None."""
+    if mesh is None or mesh.size(MESH_DIMS.index("ep")) == 1:
+        return None
+    return ExpertShard(mesh.get_local_rank("ep"), mesh.size(MESH_DIMS.index("ep")), mesh.get_group("ep"))

@@ -25,6 +25,20 @@ overlapped with the backward (HSDP with (dp, sp) as the replicate dim
 would overlap it, at the price of a mesh whose layout no longer follows
 the ranks' order).
 
+Expert parallelism (the mesh's "ep" dim, models/moe.py): dense params
+are replicated over "ep" as over "sp", and their grads averaged over the
+ep group after the backward (`average_over_ep`, the same one all-reduce a
+leaf as sp's). Each MoE expert leaf (w1, b1, w2, b2) becomes, before
+FSDP2 wraps it, a DTensor sharded on its experts dim over the ep group
+(`shard_experts`), whose rank keeps E/ep experts for good; each MoeMlp
+is then an FSDP2 unit of its own, which shards those local experts over
+"fsdp" (FSDP2's TP/EP composition: its params are DTensors on the
+(fsdp, ep) or (dp, fsdp, ep) mesh). An expert's grad already sums every
+ep peer's tokens through the all-to-all's backward, so the step scales it
+by 1/ep instead of averaging it, and the grad norm sums expert squares
+over the ep group too (ops/fused_optimizer.py global_norm). At ep 1 the
+expert leaves are plain params of their Block's unit.
+
 Placements (`placement`) follow the rule table (parallel/rules.py): each
 leaf shards its rule's dim over "fsdp". A leaf with no divisible dim is
 replicated in vitax; FSDP2 shards every leaf, so it takes Shard(0),
@@ -57,8 +71,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from vitax_torch.models.moe import EXPERT_LEAVES, MoeMlp
 from vitax_torch.models.vit import _DTYPES, init_leaves
-from vitax_torch.parallel.rules import rule_pspec
+from vitax_torch.parallel.mesh import MESH_DIMS
+from vitax_torch.parallel.rules import is_expert_leaf, rule_pspec
+
+EP_DIM = MESH_DIMS.index("ep")
 
 # Parameters the model consumes in float32 (vitax KEEP_F32_PARAMS): the head
 # computes in f32 and LayerNorm folds its f32 scale in before the cast, so
@@ -77,13 +95,21 @@ def comm_policies(cfg):
             MixedPrecisionPolicy(param_dtype=None, reduce_dtype=torch.float32, cast_forward_inputs=False))
 
 
-def placement(name: str, shape: Tuple[int, ...], fsdp: int):
+def placement(name: str, shape: Tuple[int, ...], fsdp: int, ep: int = 1):
     """The FSDP2 placement of one parameter over an fsdp dim of size `fsdp`
     (vitax param_pspec): Shard(d) on the dim its rule puts "fsdp" on, else
-    Shard(0) (FSDP2 pads where vitax replicates)."""
+    Shard(0) (FSDP2 pads where vitax replicates). An expert leaf at ep > 1
+    has dim 0 over "ep": with no fsdp dim it takes Shard(1) at fsdp 1 and
+    is refused above."""
     from torch.distributed.tensor import Shard
-    spec = rule_pspec(name, tuple(shape), fsdp)
-    return Shard(spec.index("fsdp") if "fsdp" in spec else 0)
+    spec = rule_pspec(name, tuple(shape), fsdp, ep)
+    if "fsdp" in spec:
+        return Shard(spec.index("fsdp"))
+    if "ep" in spec:
+        if fsdp > 1:
+            raise ValueError(f"{name} {tuple(shape)}: no dim past the experts divides over fsdp {fsdp}")
+        return Shard(1)
+    return Shard(0)
 
 
 def _f32_modules(model: nn.Module):
@@ -92,17 +118,38 @@ def _f32_modules(model: nn.Module):
     return [m for _, m in sorted(named, key=lambda nm: -nm[0].count("."))]
 
 
+def shard_experts(model: nn.Module, mesh) -> None:
+    """Each MoeMlp's expert leaves as DTensor params sharded on the experts
+    dim over the mesh's "ep" dim, the rank keeping its E/ep experts (on
+    the meta device, shapes only). No-op at ep 1."""
+    from torch.distributed.tensor import DTensor, Shard
+    ep = mesh.size(EP_DIM)
+    if ep == 1:
+        return
+    ep_mesh, index = mesh["ep"], mesh.get_local_rank("ep")
+    for module in model.modules():
+        if isinstance(module, MoeMlp):
+            for name in EXPERT_LEAVES:
+                p = getattr(module, name)
+                mine = p.detach().chunk(ep, dim=0)[index].contiguous()
+                setattr(module, name, nn.Parameter(DTensor.from_local(
+                    mine, ep_mesh, [Shard(0)], run_check=False, shape=p.shape, stride=p.stride())))
+
+
 def apply_fsdp(model: nn.Module, cfg, mesh) -> nn.Module:
     """Shard `model` (built on the meta device, or on its device) over
-    `mesh` in place: an f32 unit for each KEEP_F32_PARAMS module, a unit a
+    `mesh` in place: an f32 unit for each KEEP_F32_PARAMS module, at ep >
+    1 a unit each MoeMlp (its experts sharded over "ep" first), a unit a
     Block, then the root. FSDP over the "fsdp" dim for ZeRO-3 and ZeRO-2
     when dp is 1, HSDP over both dims otherwise. Returns the model."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
     hsdp = cfg.run_without_fsdp or mesh.size(0) > 1
+    ep = mesh.size(EP_DIM)
+    shard_experts(model, mesh)
     names: Dict[int, str] = {id(p): n for n, p in model.named_parameters()}
 
     def placement_fn(p: nn.Parameter):
-        return placement(names[id(p)], tuple(p.shape), mesh.size(1))
+        return placement(names[id(p)], tuple(p.shape), mesh.size(1), ep)
 
     compute, f32 = comm_policies(cfg)
     common = dict(mesh=mesh["dp", "fsdp"] if hsdp else mesh["fsdp"],
@@ -110,6 +157,9 @@ def apply_fsdp(model: nn.Module, cfg, mesh) -> nn.Module:
                   shard_placement_fn=placement_fn)
     for module in _f32_modules(model):
         fully_shard(module, mp_policy=f32, **common)
+    for module in model.modules() if ep > 1 else ():
+        if isinstance(module, MoeMlp):          # its DTensor experts, apart from the Block's plain params
+            fully_shard(module, mp_policy=compute, **common)
     blocks = list(model.blocks)
     # a recomputed block under dots_attn_saveable runs in two calls around
     # its core, from outside its forward (models/vit.py remat_block): each
@@ -179,6 +229,36 @@ def fsdp_group(mesh) -> Optional[object]:
     if mesh is None or mesh.size(1) == 1:
         return None
     return mesh.get_group("fsdp")
+
+
+def ep_group(mesh) -> Optional[object]:
+    """The process group of the "ep" dim when it has more than one rank."""
+    if mesh is None or mesh.size(EP_DIM) == 1:
+        return None
+    return mesh.get_group("ep")
+
+
+def expert_flags(model: nn.Module) -> list:
+    """For each parameter in named_parameters order, whether it is an MoE
+    expert leaf (the rule table's expert rule)."""
+    return [is_expert_leaf(n) for n, _ in model.named_parameters()]
+
+
+def average_over_ep(grads, expert, group) -> None:
+    """Under expert parallelism, each grad (its local shard) to the mean
+    over every batch rank, in place: a dense grad, which FSDP2 averaged
+    over (dp, fsdp), summed over the ep group (one all-reduce a leaf, all
+    issued before the first wait); an expert grad, which already sums its
+    ep peers' tokens, not reduced; then every grad times 1/ep. No-op
+    without a group."""
+    if group is None:
+        return
+    import torch.distributed as dist
+    pairs = [(g, e) for g, e in zip(grads, expert) if g is not None]
+    works = [dist.all_reduce(g, group=group, async_op=True) for g, e in pairs if not e]
+    for work in works:
+        work.wait()
+    torch._foreach_mul_([g for g, _ in pairs], 1.0 / dist.get_world_size(group))
 
 
 def sp_group(mesh) -> Optional[object]:

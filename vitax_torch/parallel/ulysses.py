@@ -25,7 +25,7 @@ from typing import Callable
 import torch
 
 
-def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
     """all_to_all_single over `group` of a (S, ...) tensor: chunk j goes to
     rank j, chunk i of the result came from rank i. Differentiable."""
     from torch.distributed.nn.functional import all_to_all_single
@@ -42,10 +42,10 @@ def ulysses_local(q, k, v, inner: Callable, group) -> torch.Tensor:
     b, n, h, dh = q.shape
     hl = h // count
     qkv = torch.stack([q, k, v]).view(3, b, n, count, hl, dh).permute(3, 0, 1, 2, 4, 5)
-    qkv = _exchange(qkv, group)                                   # (S, 3, B, n, H/S, Dh), token block i from rank i
+    qkv = exchange(qkv, group)                                   # (S, 3, B, n, H/S, Dh), token block i from rank i
     qkv = qkv.permute(1, 2, 0, 3, 4, 5).reshape(3, b, count * n, hl, dh)
     o = inner(qkv[0], qkv[1], qkv[2])                             # (B, N, H/S, Dh)
-    o = _exchange(o.reshape(b, count, n, hl, dh).permute(1, 0, 2, 3, 4), group)   # head group i from rank i
+    o = exchange(o.reshape(b, count, n, hl, dh).permute(1, 0, 2, 3, 4), group)   # head group i from rank i
     return o.permute(1, 2, 0, 3, 4).reshape(b, n, h, dh)
 
 

@@ -14,7 +14,11 @@ weights quantized on the device. Its model runs the JAX engine's
 QuantDense numerics when act-quant is on or the fused kernel is active
 (always on the card: the dequant_matmul kernel at every Dense site), and
 the dequantize-at-use numerics of the JAX engine's `predict_quant`
-otherwise (the CPU's default).
+otherwise (the CPU's default). An MoE model (cfg.moe_experts > 0) never
+takes the QuantDense path, as vitax's `_quant_model_mode` is False for
+it: a quantized MoE export, or a checkpoint quantized on load, is
+dequantized at load (codes times scales in float32, the numbers vitax's
+`dequantize_tree` computes at use) into the float model.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from vitax_torch.checkpoint.consolidate import load_npz_raw
+from vitax_torch.checkpoint.consolidate import load_npz, load_npz_raw
 from vitax_torch.checkpoint.convert import params_from_jax
 from vitax_torch.config import Config
 from vitax_torch.models.vit import Quant, VisionTransformer, build_model
@@ -62,9 +66,13 @@ def model_quant(cfg: Config, quant_dtype: str, device) -> Optional[Quant]:
     _quant_model_mode): None for float weights; the QuantDense numerics
     through make_quant_matmul when act-quant is on or the fused kernel is
     active; else dequantize at use. On the card the kernel is always
-    active, and --fused_dequant off raises."""
+    active, and --fused_dequant off raises. An MoE model has no quantized
+    form (its exports are dequantized at load): asking for one raises."""
     if not quant_dtype:
         return None
+    if cfg.moe_experts > 0:
+        raise ValueError("an MoE model serves float weights (vitax's _quant_model_mode is False for MoE): "
+                         "dequantize its quantized state at load")
     fused = fused_dequant_active(cfg, device)
     return Quant(quant_dtype, make_quant_matmul(cfg) if fused or cfg.serve_act_quant != "off" else None)
 
@@ -135,7 +143,7 @@ class InferenceEngine:
         weights are quantized on `device` as they load (consolidate.py's
         per-channel quantizer, as an export of that dtype holds them)."""
         from vitax_torch.checkpoint import io as ckpt_io
-        from vitax_torch.serve.quant import quantize_params_for_serve
+        from vitax_torch.serve.quant import dequantized_for_serve, quantize_params_for_serve
         device = resolve_device(device)
         ckpt_dir = ckpt_dir or cfg.ckpt_dir
         if epoch is None:
@@ -144,11 +152,15 @@ class InferenceEngine:
                 raise ValueError(f"no epoch checkpoint under {ckpt_dir}")
         state = {k: v.to(device) for k, v in ckpt_io.read_state(ckpt_dir, epoch, groups=("model",))["model"].items()}
         quant_dtype = cfg.serve_quant_dtype
-        if quant_dtype:
+        if quant_dtype and cfg.moe_experts > 0:     # the weights an export of that dtype dequantizes to
+            state, quant_dtype = dequantized_for_serve(state, quant_dtype), ""
+        elif quant_dtype:
             state = quantize_params_for_serve(state, quant_dtype)
         engine = cls.from_state(cfg, state, device, quant_dtype)
         master_print(f"serve: params from checkpoint {ckpt_dir} epoch {epoch}"
-                     + (f" (quantized on load: {quant_dtype})" if quant_dtype else ""))
+                     + (f" (quantized on load: {quant_dtype})" if quant_dtype else "")
+                     + (f" (MoE: quantized to {cfg.serve_quant_dtype} and dequantized on load)"
+                        if cfg.serve_quant_dtype and not quant_dtype else ""))
         return engine
 
     @classmethod
@@ -166,6 +178,11 @@ class InferenceEngine:
         if len(dtypes) > 1 or (want and dtypes != [want]):
             raise ValueError(f"{path} is quantized to {dtypes}; --serve_quant_dtype asks for {want!r}")
         quant_dtype = dtypes[0] if dtypes else ""
+        if quant_dtype and cfg.moe_experts > 0:
+            engine = cls.from_state(cfg, params_from_jax(load_npz(path)), device)
+            master_print(f"serve: params from consolidated export {path} (quantized: {quant_dtype}, "
+                         f"{len(scales)} scaled leaves, dequantized at load: MoE)")
+            return engine
         engine = cls.from_state(cfg, params_from_jax(flat, scales), device, quant_dtype)
         master_print(f"serve: params from consolidated export {path}"
                      + (f" (quantized: {quant_dtype}, {len(scales)} scaled leaves)" if manifest else ""))

@@ -73,6 +73,27 @@ def quantize_params_for_serve(state: Dict[str, torch.Tensor], dtype: str = "int8
     return out
 
 
+@torch.no_grad()
+def dequantized_for_serve(state: Dict[str, torch.Tensor], dtype: str = "int8") -> Dict[str, torch.Tensor]:
+    """An MoE model's float state_dict with every weight an export of
+    `dtype` quantizes replaced by its dequantized codes (codes times
+    scales in float32): the Linear and conv weights per output channel as
+    quantize_params_for_serve quantizes them, the expert w1 and w2 per
+    (expert, output channel) as consolidate.py's _contraction_axes; the
+    router and the LayerNorms pass as they are, as the export keeps them."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in list(state):
+        leaf = state.pop(name)
+        parts = name.split(".")
+        if "router" in parts or leaf.dim() < 2 or parts[-1] not in ("weight", "w1", "w2"):
+            out[name] = leaf
+            continue
+        q, scale = quantize_tensor(leaf, (1,) if parts[-1] in ("w1", "w2") else range(1, leaf.dim()), dtype)
+        out[name] = dequantize_leaf(q, scale)
+        del leaf
+    return out
+
+
 def topk_accuracy(ids: np.ndarray, labels: np.ndarray) -> Tuple[float, float]:
     """(top1, top5) from predict's ids (n, k) and labels (n,); top5 uses
     min(5, k) columns."""

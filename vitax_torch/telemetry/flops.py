@@ -40,13 +40,20 @@ def detect_peak_tflops(device_kind: str, override: float = 0.0) -> float:
 
 def model_flops_per_image(cfg) -> float:
     """Useful matmul FLOPs per image, forward and backward: qkv, proj, the
-    two attention einsums, fc1, fc2, the patchify conv and the head."""
+    two attention einsums, fc1, fc2, the patchify conv and the head. Under
+    MoE the MLP counts the top-k experts a token runs and the router's
+    logits, not the dispatch and combine products nor dropped slots
+    (vitax/telemetry/flops.py:64-67)."""
     d, layers = cfg.embed_dim, cfg.num_blocks
     n = cfg.num_patches
     h = cfg.mlp_hidden_dim
     attn_per_token = 2 * (3 * d * d + d * d)                   # qkv, proj
     attn_block = 2 * 2 * n * n * d                             # QK^T and AV
-    mlp_per_token = 2 * (d * h + h * d)                        # fc1, fc2
+    if getattr(cfg, "moe_experts", 0) > 0:
+        mlp_per_token = (cfg.moe_top_k * 2 * (d * h + h * d)   # top-k experts
+                         + 2 * d * cfg.moe_experts)            # router logits
+    else:
+        mlp_per_token = 2 * (d * h + h * d)                    # fc1, fc2
     fwd = layers * ((attn_per_token + mlp_per_token) * n + attn_block)
     fwd += 2 * n * (3 * cfg.patch_size ** 2) * d               # patchify conv
     fwd += 2 * d * cfg.num_classes                             # head

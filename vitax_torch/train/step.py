@@ -28,6 +28,22 @@ microbatch's grads and accumulates them sharded in float32, as vitax's
 scan keeps its f32 accumulators sharded: grads never stand unsharded
 across microbatches.
 
+Under MoE (cfg.moe_experts > 0) the loss is CE plus moe_aux_weight times
+the Switch load-balance loss, E * sum over blocks and experts of
+frac_tokens * mean_prob, over the number of blocks (vitax/train/step.py
+aux_from_frac_prob), its ingredients the model's per-block values,
+averaged over the global batch before the product: under a mesh an
+all-reduce over every rank (differentiable, MoE refuses sp, so every rank
+is a batch shard). With grad_accum_steps > 1 they are averaged over the
+microbatches too before the product, as vitax's accum_loss_moe
+differentiates through its microbatch scan: each microbatch's forward
+runs under one non-reentrant checkpoint that returns (CE, fracs, probs)
+and keeps only its inputs, and one backward of the combined objective
+recomputes each microbatch. Under expert parallelism (the mesh's "ep"
+dim) the grads are brought to the global mean after the backward
+(parallel/sharding.py average_over_ep) and the norm sums the expert
+leaves' squares over the ep group too.
+
 Under sequence parallelism (the mesh's "sp" dim) the S ranks of an sp
 group run the same batch rows on different token slices (models/vit.py).
 After the backward (and the microbatches) the step averages their grad
@@ -50,6 +66,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vitax_torch import distributed
 from vitax_torch.config import Config
@@ -58,7 +75,8 @@ from vitax_torch.models.vit import DropoutSeeds
 from vitax_torch.ops.attention import fold_shard_seed, sp_core
 from vitax_torch.ops.fused_optimizer import fused_clip_adamw, fused_optimizer_active, global_norm
 from vitax_torch.parallel.mesh import batch_shard, sp_shard
-from vitax_torch.parallel.sharding import average_over_sp, fsdp_group, sp_group
+from vitax_torch.parallel.sharding import (average_over_ep, average_over_sp, ep_group, expert_flags, fsdp_group,
+                                           sp_group)
 from vitax_torch.train.state import AdamW, TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -115,6 +133,23 @@ def seed_indices(cfg: Config, mesh) -> tuple:
     return (linear if kind == "ulysses" else index), linear
 
 
+def aux_from_frac_prob(fracs: torch.Tensor, probs: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """The Switch load-balance loss from the (L, E) per-block ingredients:
+    the mean over blocks of E * sum_e(frac_e * prob_e)
+    (vitax/train/step.py:54-63)."""
+    return cfg.moe_experts * (fracs * probs).sum() / cfg.num_blocks
+
+
+def batch_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A rank's mean over its batch rows to the global batch's: the mean
+    over every process (equal rows each), differentiable (the all-reduce's
+    backward sums the cotangents). As it is without a mesh."""
+    if mesh is None:
+        return t
+    from torch.distributed.nn.functional import all_reduce
+    return all_reduce(t) / distributed.process_count()
+
+
 def _microbatch_split(batch: Batch, k_steps: int) -> List[Batch]:
     """K microbatches with the strided assignment of vitax's split:
     microbatch k holds samples k, k + K, k + 2K, ... (views, no copy)."""
@@ -129,11 +164,11 @@ def _make_update_fn(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     and advances state.count and state.step. Sharded, both run on the
     rank's local shards."""
     fused_optimizer_active(cfg, device)       # raises for --fused_optimizer off on the card
-    group = fsdp_group(mesh)
+    group, ep = fsdp_group(mesh), ep_group(mesh)
 
     def update(state: TrainState, grads: List[torch.Tensor]) -> torch.Tensor:
         names, params, mu, nu = state.leaves()
-        grad_norm = global_norm(grads, group)
+        grad_norm = global_norm(grads, group, expert_flags(state.model) if ep is not None else None, ep)
         if len(names) != len(grads):          # the probe: the head's grads, clipped by every grad's norm
             trained = set(names)
             grads = [g for (n, _), g in zip(state.model.named_parameters(), grads) if n in trained]
@@ -196,19 +231,39 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     k_steps = cfg.grad_accum_steps
     dropout = _needs_dropout(cfg)
     att_index, gen_index = seed_indices(cfg, mesh)
-    sp = sp_group(mesh)
+    sp, ep = sp_group(mesh), ep_group(mesh)
+    moe = cfg.moe_experts > 0
 
     def seeds_for(step: int, k: int) -> Optional[DropoutSeeds]:
         return shard_seeds(dropout_seeds(cfg, step, k), att_index, gen_index) if dropout else None
 
+    def moe_terms(model, image: torch.Tensor, label: torch.Tensor, seeds: Optional[DropoutSeeds]):
+        """(CE, fracs (L, E), probs (L, E)) of one forward, rank-local means."""
+        logits, (fracs, probs) = model(prepare_images(image), seeds, with_aux=True)
+        return F.cross_entropy(logits.float(), label), torch.stack(fracs), torch.stack(probs)
+
+    def moe_objective(ce, fracs, probs) -> torch.Tensor:
+        return ce + cfg.moe_aux_weight * aux_from_frac_prob(batch_mean(fracs, mesh), batch_mean(probs, mesh), cfg)
+
     def loss_fn(model, batch: Batch, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+        if moe:
+            return moe_objective(*moe_terms(model, batch["image"], batch["label"], seeds))
         logits = model(prepare_images(batch["image"]), seeds)
         return F.cross_entropy(logits.float(), batch["label"])
 
     def train_step(state: TrainState, batch: Batch, time_update: bool = False):
         model = state.model
         model.zero_grad(set_to_none=True)
-        if k_steps == 1:
+        if moe and k_steps > 1:
+            # the aux couples the microbatches: one backward through all of them
+            terms = [checkpoint(moe_terms, model, mb["image"], mb["label"], seeds_for(state.step, k),
+                                use_reentrant=False)
+                     for k, mb in enumerate(_microbatch_split(batch, k_steps))]
+            ces, fracs, probs = (torch.stack(t) for t in zip(*terms))
+            loss = moe_objective(ces.mean(), fracs.mean(dim=0), probs.mean(dim=0))
+            loss.backward()
+            loss = loss.detach()
+        elif k_steps == 1:
             loss = loss_fn(model, batch, seeds_for(state.step, 0))
             loss.backward()
             loss = loss.detach()
@@ -223,6 +278,8 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
             for g in state.grads():
                 g.mul_(1.0 / k_steps)
         average_over_sp(state.grads(), sp)
+        if ep is not None:
+            average_over_ep(state.grads(), expert_flags(model), ep)
         if mesh is not None:                 # the global batch's mean (an sp group's ranks hold one loss)
             loss = distributed.all_reduce_sum(loss) / distributed.process_count()
         metrics = {"loss": loss, "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
