@@ -106,6 +106,17 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      same seed), S^2 block products a ring run forward and backward, S - 1
      rotations a shard; Ulysses' head slices against the whole call; the
      ring's forward and forward + backward ms beside the whole call's;
+  7p. tensor parallelism on the one card: models/vit.py's Block with a
+     TensorShard (the sharded qkv, parallel/tensor_parallel.py's relayout
+     to whole heads, the core on local heads, the row-parallel partials
+     all-reduced) over tp groups of 2 and 4 ranks, one torchrun of 4
+     processes on the card over gloo (NCCL refuses two ranks on one
+     device), at the 10B width and phase 7's shape, rate 0 and 0.1,
+     against the whole Block: output and every grad on every rank, one
+     forward and one backward launch a rank a run on the wgmma kernels,
+     the sharded and the whole Block's ms and one all-reduce's; then the
+     train CLI under torchrun at tp 2 with both ranks on the card over
+     gloo, against one process at tp 1, in float32 and in bf16;
   7i. phase 7's run from an ImageFolder tree that PIL writes at run time
      (8 classes x 64 JPEGs of 180-640 px, 4 PNGs; val 8 x 8), on the
      native decoder where g++ finds libjpeg's header, else on the PIL
@@ -3784,11 +3795,387 @@ def phase_ring(torch, card):
     return total
 
 
+# --- phase 7p: tensor parallelism's Block over tp groups on the one card ----------------
+
+# The 10B width (Config's defaults: D 5120, 32 heads of 160, MLP 20480) at
+# phase 7's train shape, batch 32 and N 256, over tp groups of S ranks (16
+# and 8 local heads); bf16 compute over f32 params, as train() runs it.
+# NCCL refuses two ranks on one device, so the ranks are processes on the
+# one card joined over gloo, which carries every collective of the tp
+# Block on CUDA tensors (through the host): models/vit.py's Block with a
+# TensorShard, parallel/tensor_parallel.py's relayout and conjugate pair
+# as train() runs them.
+TP_WIDTH = dict(embed_dim=5120, num_heads=32, mlp_ratio=4.0)
+TP_INPUT = (32, 256)                     # batch, tokens
+TP_SHARDS = (2, 4)
+TP_RANKS = max(TP_SHARDS)                # one torchrun; a group of 2 is ranks 0 and 1
+# Bars: the sharded Block changes only where the bf16 products are summed
+# (each rank's row-parallel partial is rounded to bf16 and the S partials
+# summed by the all-reduce, the bias added after), so its output and every
+# grad sit within bf16 rounding of the whole Block's: each leaf's grad (a
+# Megatron leaf's against the whole grad's piece) and the input's grad
+# within phase 5's grad bar (MODEL_GRAD_REL_TOL); the output, a bf16
+# residual stream whose two adds may each round a partial sum's last-bit
+# difference to one ulp of its largest value (2^-7 of it), within the
+# ring's bf16 bar for o (RING_TOL, 1.6e-2 > 2 ulps). Phase 5's logits bar
+# (6e-3, for f32 logits) is too tight here: the output read 9.6e-3 at
+# every S and rate on an H100 80GB HBM3 at 700 W, one to two ulps of its
+# largest value.
+TP_TOL = (RING_TOL[0], MODEL_GRAD_REL_TOL)
+
+# The train CLI at tp 2 on the one card: two ranks on cuda:0 (torchrun of
+# TP_CLI_MAIN, which joins a gloo group before the CLI's main), phase 7t's
+# configuration (the 10B width at depth 2) at batch 8 for 3 steps, against
+# one process at tp 1, in float32 and in bf16. float32: each step's loss
+# and grad norm within phase 5's loss bar (MODEL_LOSS_REL_TOL) of the tp-1
+# run's; its roundings are 2^16 times finer than bf16's, so the bar catches
+# a wrong head or feature and not the rounding (the CPU tests hold the same
+# arithmetic to vitax's within 5e-7). bf16 (the default dtype, the wgmma
+# kernels): tp rounds each row-parallel partial to bf16 before the sum and
+# adds the bias after it, so its numbers move off tp 1's by bf16 ulps
+# (3.3e-4 of the step-1 loss on an H100 80GB HBM3 at 700 W, past the f32
+# bar). Its bar is set from bf16 readings: each of the 3 losses and 3 grad
+# norms of tp 2 in bf16 lies within TP_BF16_FACTOR times tp-1-bf16's
+# relative distance from the float32 tp-1 run's same number (that distance
+# floored at MODEL_LOSS_REL_TOL): the two bf16 runs round alike, so each
+# lies about as far from float32 as the other. Each number is held to its
+# own distance: the step-3 loss, near 0 once the fake images (zeros, label
+# 0) are learnt, sits 16% off float32 in both bf16 runs, the step-1 loss
+# 4-8e-4 (same card). A long warmup (100) keeps the float32 steps from
+# driving the loss to 0 (at phase 7t's warmup of 4 it reached 0 within two
+# steps, which broke the relative check).
+TP_CLI = ["--fake_data", "--num_blocks", "2", "--batch_size", "8", "--max_steps", "3", "--warmup_steps", "100",
+          "--log_step_interval", "1", "--num_workers", "2"]
+TP_BF16_FACTOR = 3.0
+# torchrun's ranks on one card: a gloo group made before the CLI's main (which
+# then joins it, distributed.maybe_initialize), each rank's kernel launches
+# written beside the JSONL. argv: the launches dir, then the CLI's flags.
+TP_CLI_MAIN = """import json, os, sys
+import torch.distributed as dist
+from vitax_torch.ops import _build
+from vitax_torch.train.__main__ import main
+if "WORLD_SIZE" in os.environ:
+    dist.init_process_group("gloo", init_method="env://")
+rc = main(sys.argv[2:])
+with open(os.path.join(sys.argv[1], "launches%s.json" % os.environ.get("RANK", "0")), "w") as f:
+    json.dump(_build.LAUNCHES, f)
+sys.exit(rc)
+"""
+
+
+def tp_cores(torch, dh: int, count: int, rate: float):
+    """(the whole Block's core, a shard's core): the whole-N kernel entry,
+    and under dropout the dropout kernel, the whole Block's running each
+    head group at that group's tp-folded seed (train/step.py folds the tp
+    index into the attention seed; the kernel sees local head indices)."""
+    from vitax_torch.ops.attention import flash4_dropout, flash_attention, fold_shard_seed
+    scale = dh ** -0.5
+
+    def shard_core(q, k, v):
+        return flash_attention(q, k, v)
+
+    def whole_core(q, k, v):
+        return flash_attention(q, k, v)
+    shard_core.vitax_dropout = lambda q, k, v, s: flash4_dropout(q, k, v, s, scale, rate)
+
+    def whole_drop(q, k, v, s):
+        hl = q.shape[2] // count
+        return torch.cat([flash4_dropout(*(x[:, :, t * hl:(t + 1) * hl] for x in (q, k, v)),
+                                         fold_shard_seed(t, s), scale, rate) for t in range(count)], dim=2)
+    whole_core.vitax_dropout = whole_drop
+    return whole_core, shard_core
+
+
+def wall_ms(torch, fn, iters: int, warmup: int = 1) -> float:
+    """Host-clock ms a call of fn, the card synchronized around the loop
+    (gloo's collectives block the host, so CUDA events alone would miss
+    nothing but would not say so)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def tp_block_rank(out_dir: str) -> int:
+    """One rank of phase 7p's torchrun (TP_RANKS processes on the one card,
+    joined over gloo): for S in TP_SHARDS and att_dropout 0 and 0.1, ranks
+    below S build the whole Block and its piece for tp rank `rank` of S
+    (models/vit.py Block with a TensorShard over the group of ranks 0..S-1;
+    its Megatron leaves the rank's contiguous pieces of the whole Block's,
+    as parallel/sharding.py shard_tp cuts them), run both on the same bf16
+    input and grad, and write to out_dir/rank<r>.json the output's and
+    every grad's distance from the whole Block's, the kernel launches and
+    tp collectives of the sharded run alone, and the ms of the sharded
+    forward and forward + backward (all S ranks at once), of the whole
+    Block's (rank 0 alone) and of one all-reduce of the block's output."""
+    import torch
+    import torch.distributed as dist
+    from torch import nn
+
+    from vitax_torch.models.vit import Block
+    from vitax_torch.ops import _build
+    from vitax_torch.ops.attention import fold_shard_seed
+    from vitax_torch.parallel import tensor_parallel as tpm
+    from vitax_torch.parallel.mesh import TensorShard
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    groups = {s: dist.group.WORLD if s == world else dist.new_group(list(range(s))) for s in TP_SHARDS}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, h, ratio = TP_WIDTH["embed_dim"], TP_WIDTH["num_heads"], TP_WIDTH["mlp_ratio"]
+    b, n = TP_INPUT
+    rng = np.random.default_rng(SEED + 40)
+    x0 = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32)).to("cuda", torch.bfloat16)
+    dy = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32)).to("cuda", torch.bfloat16)
+    results = []
+    for count in TP_SHARDS:
+        for rate in (0.0, DROP_RATE):
+            mine = rank < count
+            res = {"count": count, "rate": rate}
+            if mine:
+                whole_core, shard_core = tp_cores(torch, d // h, count, rate)
+                torch.manual_seed(SEED + 41)
+                whole = Block(d, h, ratio, torch.bfloat16, whole_core, device="cuda", att_dropout=rate)
+                with torch.no_grad():           # the products' weights and biases drawn; the norms 1 and 0
+                    for name, p in whole.named_parameters():
+                        if not name.startswith("norm"):
+                            p.normal_(0.0, 0.02)
+                part = Block(d, h, ratio, torch.bfloat16, shard_core, device="meta", att_dropout=rate,
+                             tensor_shard=TensorShard(rank, count, groups[count]))
+                whole_params = dict(whole.named_parameters())
+                for name, _ in list(part.named_parameters()):
+                    module, leaf = part.get_submodule(name.rpartition(".")[0]), name.rpartition(".")[2]
+                    piece = tpm.tp_local(name, whole_params[name].detach(), count, rank)
+                    setattr(module, leaf, nn.Parameter(piece.clone()))
+                seed = DROP_SEED if rate else None
+                shard_seed = fold_shard_seed(rank, DROP_SEED) if rate else None
+                x = x0.clone().requires_grad_(True)
+                y = whole(x, seed)
+                names = list(whole_params)
+                ref = dict(zip(["x", *names], torch.autograd.grad(y, [x, *whole.parameters()], dy)))
+                y_ref = y.detach()
+                del y
+                x2 = x0.clone().requires_grad_(True)
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                tpm.reset_calls()
+                y2 = part(x2, shard_seed)
+                got = dict(zip(["x", *names], torch.autograd.grad(y2, [x2, *part.parameters()], dy)))
+                torch.cuda.synchronize()
+                res["launches"], res["calls"] = dict(_build.LAUNCHES), dict(tpm.CALLS)
+                res["finite"] = bool(torch.isfinite(y2.float()).all()) and all(
+                    bool(torch.isfinite(g.float()).all()) for g in got.values())
+                res["out"] = rel_err(torch, y2.detach(), y_ref)
+                res["x"] = rel_err(torch, got["x"], ref["x"])
+                res["leaves"] = {nm: rel_err(torch, got[nm], tpm.tp_local(nm, ref[nm], count, rank))
+                                 for nm in names}
+                del y2, got, ref, y_ref
+            dist.barrier()
+            # the whole Block on rank 0 alone, then the S ranks' sharded Block at once
+            if rank == 0:
+                leaf = x0.clone().requires_grad_(True)
+                with torch.no_grad():
+                    res["whole_fwd_ms"] = wall_ms(torch, lambda: whole(x0, seed), 5)
+                res["whole_ms"] = wall_ms(torch, lambda: whole(leaf, seed).backward(dy), 5)
+            dist.barrier()
+            if mine:
+                group = groups[count]
+                leaf = x0.clone().requires_grad_(True)
+                with torch.no_grad():
+                    res["fwd_ms"] = wall_ms(torch, lambda: part(x0, shard_seed), 3)
+                res["ms"] = wall_ms(torch, lambda: part(leaf, shard_seed).backward(dy), 3)
+                res["all_reduce_ms"] = wall_ms(torch, lambda: dist.all_reduce(x0.clone(), group=group), 3)
+                del whole, part, leaf
+            dist.barrier()
+            gc.collect()
+            torch.cuda.empty_cache()
+            results.append(res)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tp(torch, card, root: str):
+    """Phase 7p: models/vit.py's Block with a TensorShard over real tp groups
+    (the sharded qkv, parallel/tensor_parallel.py's relayout to whole heads,
+    the attention core on the H/S local heads, the row-parallel proj and
+    fc2 partials all-reduced before the replicated biases) at the 10B width
+    and phase 7's shape, S 2 and 4, att_dropout 0 and 0.1: one torchrun of
+    TP_RANKS ranks on the one card over gloo (tp_block_rank). On every rank
+    the output and the grads of the input and of every leaf against the
+    whole Block on the same bf16 input (TP_TOL); one forward and one
+    backward launch a rank a sharded run, on the wgmma kernels (under the
+    dropout keys at 0.1), and one relayout; the ms of the sharded and the
+    whole Block. Returns the launches of the sharded runs, summed over the
+    ranks."""
+    from vitax_torch.ops import _build
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "tp_block")
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                        str(TP_RANKS), os.path.join(REPO, "chip_smoke.py"), "--tp-block-rank", out_dir],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"[7p] the tp Block's torchrun exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    ranks = []
+    for rank in range(TP_RANKS):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    d, h, b, n = TP_WIDTH["embed_dim"], TP_WIDTH["num_heads"], *TP_INPUT
+    total = {k: 0 for k in _build.LAUNCHES}
+    bad = []
+    for i, first in enumerate(ranks[0]):
+        count, rate = first["count"], first["rate"]
+        mine = [rr[i] for rr in ranks[:count]]
+        drop = rate > 0
+        fkey, bkey = ("flash_attn_fwd_drop", "flash_attn_bwd_drop") if drop else ("flash_attn_fwd", "flash_attn_bwd")
+        want_l = {k: 0 for k in _build.LAUNCHES}
+        want_l[fkey] = want_l[bkey] = want_l["flash_attn_fwd_wgmma"] = want_l["flash_attn_bwd_wgmma"] = 1
+        launches = {k: sum(m["launches"][k] for m in mine) for k in total}
+        total = {k: total[k] + launches[k] for k in total}
+        e_out, e_x = max(m["out"] for m in mine), max(m["x"] for m in mine)
+        worst_rank = max(mine, key=lambda m: max(m["leaves"].values()))
+        worst = max(worst_rank["leaves"], key=worst_rank["leaves"].get)
+        e_leaf = worst_rank["leaves"][worst]
+        ok = (all(m["finite"] and m["launches"] == want_l and m["calls"]["relayout"] == 1
+                  and m["calls"]["all_reduce"] == 2 for m in mine)
+              and e_out <= TP_TOL[0] and e_x <= TP_TOL[1] and e_leaf <= TP_TOL[1])
+        say(f"[7p check] 10B width (B {b}, N {n}, D {d}, H {h}) over tp {count} ({h // count} heads, "
+            f"{int(d * TP_WIDTH['mlp_ratio']) // count} MLP features a rank; {count} processes on one card over "
+            f"gloo) rate {rate}: out max|d|/max|ref| {e_out:.2e} (<= {TP_TOL[0]}), dx {e_x:.2e}, worst leaf "
+            f"{worst} {e_leaf:.2e} (<= {TP_TOL[1]}); launches {fkey} {launches[fkey]}, {bkey} {launches[bkey]} "
+            f"(1 a rank, wgmma {launches['flash_attn_fwd_wgmma']}/{launches['flash_attn_bwd_wgmma']}); relayouts "
+            f"{sum(m['calls']['relayout'] for m in mine)}, all-reduces {sum(m['calls']['all_reduce'] for m in mine)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"tp {count} rate {rate}: out {e_out:.2e}, dx {e_x:.2e}, {worst} {e_leaf:.2e}, launches "
+                       f"{[{k: v for k, v in m['launches'].items() if v} for m in mine]}, calls "
+                       f"{[m['calls'] for m in mine]}")
+        say(f"[7p time] 10B width over tp {count} rate {rate}: sharded Block (the {count} ranks at once, gloo "
+            f"through the host) forward {first['fwd_ms']:.3f} ms, forward + backward {first['ms']:.3f} ms; whole "
+            f"Block alone forward {first['whole_fwd_ms']:.3f} ms, forward + backward {first['whole_ms']:.3f} ms "
+            f"({first['ms'] / first['whole_ms']:.2f}x); one gloo all-reduce of the ({b}, {n}, {d}) bf16 output "
+            f"{first['all_reduce_ms']:.3f} ms (2 a forward, 2 a backward) [{card}]")
+    if bad:
+        fail(f"7p: the tp Block disagrees with the whole Block: {bad}")
+    say(f"[7p] the tp Block's torchrun ({TP_RANKS} ranks on one card) exited 0 in {wall:.1f} s")
+    return total
+
+
+def run_cli(cmds, timeout: float):
+    """Start every (name, argv, env) at once and wait for all; kills the
+    rest if one overruns. {name: (CompletedProcess-like, wall s)}."""
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, argv, env in cmds:
+            procs[name] = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True, start_new_session=True)
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            out[name] = (subprocess.CompletedProcess(p.args, p.returncode, stdout, stderr),
+                         time.perf_counter() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    return out
+
+
+def tp_cli(torch, root: str, card: str) -> dict:
+    """Phase 7p's train CLI: torchrun of TP_CLI_MAIN (`--tp_size 2`, both
+    ranks on the one card over gloo) against `python -m vitax_torch.train`
+    alone on the same flags (TP_CLI), in float32 and in bf16, the two tp-1
+    runs at once, then the two tp-2 runs: exit 0, the tp log line, and
+    each step's loss and grad norm (rank 0's JSONL) within its dtype's bar
+    (TP_BF16_FACTOR in bf16). Every rank writes its launches: the bf16 tp-2 run
+    launches every attention call on the wgmma kernels. Returns the bf16
+    tp-2 run's launches, summed over its ranks."""
+    from vitax_torch.ops import _build
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_py = os.path.join(root, "tp_cli_main.py")
+    with open(main_py, "w") as f:
+        f.write(TP_CLI_MAIN)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs = {}
+    for tp in (1, 2):
+        cmds = []
+        for dtype in ("float32", "bfloat16"):
+            d = os.path.join(root, f"tp{tp}_{dtype}")
+            os.makedirs(d)
+            launcher = ([sys.executable] if tp == 1 else
+                        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2"])
+            extra = [] if tp == 1 else ["--device", "cuda:0", "--tp_size", "2"]
+            cmds.append(((tp, dtype), [*launcher, main_py, d, *TP_CLI, "--dtype", dtype, *extra,
+                                       "--metrics_dir", d], env))
+        for (tp_, dtype), (r, wall) in run_cli(cmds, 600).items():
+            name = f"tp {tp_} {dtype}"
+            if r.returncode != 0 or "training begins" not in r.stdout:
+                fail(f"[7p cli] {name} exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+            if tp_ == 2 and "tensor parallel: tp 2, 16 heads" not in r.stdout:
+                fail(f"[7p cli] the {name} run does not say it runs 16 heads a rank:\n{r.stdout[-3000:]}")
+            d = os.path.join(root, f"tp{tp_}_{dtype}")
+            steps, _ = read_jsonl(os.path.join(d, "metrics.jsonl"))
+            launches = {k: 0 for k in _build.LAUNCHES}
+            for rank in range(tp_):
+                with open(os.path.join(d, f"launches{rank}.json")) as f:
+                    for k, v in json.load(f).items():
+                        launches[k] += v
+            runs[(tp_, dtype)] = ([s["loss"] for s in steps] + [s["grad_norm"] for s in steps], wall, launches)
+
+    def rel_dist(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+    def fmt(v):
+        return f"losses {' '.join(f'{x:.6f}' for x in v[:3])}, grad norms {' '.join(f'{x:.6f}' for x in v[3:])}"
+    f32, f32_tp2 = runs[(1, "float32")][0], runs[(2, "float32")][0]
+    b16, b16_tp2 = runs[(1, "bfloat16")][0], runs[(2, "bfloat16")][0]
+    if not all(len(v) == 6 and all(np.isfinite(v)) for v in (f32, f32_tp2, b16, b16_tp2)):
+        fail(f"7p: a CLI run did not log 3 finite steps: {runs}")
+    e32 = rel_dist(f32_tp2, f32)
+    ok32 = e32 <= MODEL_LOSS_REL_TOL
+    # each number's distance from float32 tp 1 over its bar: tp-1-bf16's distance times the factor
+    ratios = [rel_dist([t2], [w]) / (TP_BF16_FACTOR * max(rel_dist([t1], [w]), MODEL_LOSS_REL_TOL))
+              for t2, t1, w in zip(b16_tp2, b16, f32)]
+    e_b1, e_b2 = rel_dist(b16, f32), rel_dist(b16_tp2, f32)
+    lb = runs[(2, "bfloat16")][2]
+    wgmma = (lb["flash_attn_fwd"] > 0 and lb["flash_attn_fwd_wgmma"] == lb["flash_attn_fwd"]
+             and lb["flash_attn_bwd"] > 0 and lb["flash_attn_bwd_wgmma"] == lb["flash_attn_bwd"])
+    ok16 = max(ratios) <= 1.0 and wgmma
+    walls = " / ".join(f"tp {k[0]} {k[1]} {v[1]:.1f}" for k, v in runs.items())
+    say(f"[7p cli] train CLI, 10B width at depth 2, batch 8, 3 steps, tp 2 = torchrun, 2 ranks on one card over "
+        f"gloo. float32: tp 2 {fmt(f32_tp2)}; tp 1 {fmt(f32)}; rel diff max {e32:.2e} (<= {MODEL_LOSS_REL_TOL}) "
+        f"{'ok' if ok32 else 'FAIL'}. bf16: tp 2 {fmt(b16_tp2)}; tp 1 {fmt(b16)}; rel distance from float32 "
+        f"tp 1, max over the six: tp 2 {e_b2:.2e}, tp 1 {e_b1:.2e}; each of tp 2's over {TP_BF16_FACTOR} x "
+        f"max(tp 1's, {MODEL_LOSS_REL_TOL}): {' '.join(f'{r:.2f}' for r in ratios)} (<= 1); tp 2 bf16 launches fwd {lb['flash_attn_fwd']} (wgmma {lb['flash_attn_fwd_wgmma']}), bwd "
+        f"{lb['flash_attn_bwd']} (wgmma {lb['flash_attn_bwd_wgmma']}) {'ok' if ok16 else 'FAIL'}; exit 0, wall s "
+        f"(two runs at once) {walls} [{card}]")
+    if not ok32:
+        fail(f"7p: the float32 train CLI at tp 2 does not train tp 1's losses and grad norms: {f32_tp2} against {f32}")
+    if not ok16:
+        fail(f"7p: the bf16 train CLI at tp 2 lies past its bar from float32 tp 1 ({ratios}) or left the wgmma "
+             f"kernels: {lb}")
+    return lb
+
+
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches, ring_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
     paths of this run (phases 7t, 7i, 7s, 7c, 7x, 7m and 7f in `data_launches`,
-    7r's ring runs in `ring_launches`), its check's max |d| and its timing."""
+    7r's ring runs, 7p's tp Blocks and its bf16 tp-2 CLI run in `ring_launches`), its check's
+    max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda", "source": fwd_src,
@@ -3900,6 +4287,11 @@ def main() -> int:
     drop_launches = phase_train_dropout(torch, card, loss0)
     long_launches = phase_train_long(torch, card)
     ring_launches = phase_ring(torch, card)
+    with tempfile.TemporaryDirectory(prefix="vitax_torch_tp_") as root:
+        tp_launches = phase_tp(torch, card, root)
+        cli_launches = tp_cli(torch, root, card)
+    # 7r's runs, 7p's sharded Blocks and its bf16 tp-2 CLI run
+    ring_launches = {k: ring_launches[k] + tp_launches[k] + cli_launches[k] for k in ring_launches}
     with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
         write_tree(os.path.join(root, "tree"))
         tree_launches, use_native = phase_train_tree(torch, card, root, fake)
@@ -3921,4 +4313,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-block-rank"]:     # phase 7p's ranks, started by phase_tp under torchrun
+        sys.exit(tp_block_rank(sys.argv[2]))
     sys.exit(main())

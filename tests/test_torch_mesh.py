@@ -218,10 +218,12 @@ def test_config_accepts_what_jax_accepts(kw):
 
 @pytest.mark.parametrize("name", ["tp_size", "sp_size", "pp_size"])
 def test_other_parallelisms_are_refused_naming_item_11(name):
-    """tp and pp above 1 wait for the rest of item 11; sp runs now, and
-    under the pipelines (vitax's _pp ring and Ulysses bodies) it is
-    refused with them."""
-    kw = {name: 2} if name != "sp_size" else {"sp_size": 2, "pp_size": 2}
+    """pp above 1 waits for the rest of item 11; sp and tp run now, but sp
+    under the pipelines (vitax's _pp ring and Ulysses bodies) is refused
+    with them, and tp beside MoE (vitax replicates the experts over tp)
+    waits for item 11 too."""
+    kw = {"tp_size": 2, "moe_experts": 4} if name == "tp_size" else {name: 2} if name == "pp_size" else \
+        {"sp_size": 2, "pp_size": 2}
     with pytest.raises(ValueError, match="item 11"):
         Config(**TINY, **kw).validate()
 
@@ -331,3 +333,134 @@ def test_expert_rule_places_the_elements_vitax_places(devices8, mesh_shape):
         assert _grid_sets(t, spec, sizes) == _grid_sets(flax[key], jspec, sizes), (name, spec, jspec)
     assert experts == 4 * MOE["num_blocks"]
     assert placement("blocks.0.moe.w1", (4, 64, 256), fsdp, ep).dim == (2 if fsdp > 1 else 1)
+
+
+# --- tensor parallelism: the "tp" dim and the Megatron rules ------------------
+
+@pytest.mark.parametrize("dp,fsdp,tp,sp,n", [(1, -1, 2, 1, 8), (2, -1, 2, 1, 8), (-1, 1, 4, 1, 8), (1, 2, 2, 1, 4),
+                                             (1, 1, 2, 2, 4), (1, -1, 2, 2, 8), (1, 3, 2, 1, 8), (-1, -1, 2, 1, 8),
+                                             (1, 1, 4, 1, 8)])
+def test_resolve_mesh_shape_with_tp_matches_jax(dp, fsdp, tp, sp, n):
+    """tp is the third of vitax's sizes: resolved, and refused, as vitax
+    resolves and refuses it."""
+    from vitax.parallel.mesh import resolve_mesh_shape as jax_resolve
+    kw = dict(dp_size=dp, fsdp_size=fsdp, tp_size=tp, sp_size=sp)
+    try:
+        want = jax_resolve(_jax_cfg(**kw), n)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            resolve_mesh_shape(Config(**TINY, **kw), n)
+        assert str(got.value) == str(e)
+        return
+    assert resolve_mesh_shape(Config(**TINY, **kw), n) == want
+
+
+def _axis_sets(t: torch.Tensor, spec, sizes: dict) -> dict:
+    """{(index over each axis of `sizes`, in its order): the element values
+    of that shard} of `t` under `spec` (a mesh axis name or None per dim)."""
+    cells = {(): t}
+    for axis, n in sizes.items():
+        dim = list(spec).index(axis) if axis in tuple(spec) else None
+        cells = {key + (i,): (c if dim is None else torch.chunk(c, n, dim=dim)[i])
+                 for key, c in cells.items() for i in range(n)}
+    return {k: frozenset(c.reshape(-1).tolist()) for k, c in cells.items()}
+
+
+@pytest.mark.parametrize("mesh_shape,kw", [((1, 4, 2, 1, 1, 1), {}), ((2, 2, 2, 1, 1, 1), {}),
+                                           ((2, 1, 2, 1, 1, 1), dict(run_without_fsdp=True))],
+                         ids=["fsdp4_tp2", "dp2_fsdp2_tp2", "dp_tp2"])
+def test_tp_rules_place_the_elements_vitax_places(devices8, mesh_shape, kw):
+    """Every leaf of a tiny config under vitax's param_specs on a mesh with
+    "tp" against the port's rule_pspec: "tp" on exactly the Megatron leaves
+    (qkv and fc1 weight and bias, the attention proj's and fc2's weights),
+    "fsdp" on the largest remaining divisible dim, and each (tp, fsdp)
+    shard the same elements in both layouts (numbered in the torch layout,
+    carried by params_to_jax); FSDP2's placement takes the rule's fsdp
+    dim."""
+    import jax
+    from vitax.models import build_model as jax_build_model
+    from vitax.parallel.mesh import build_mesh as jax_build_mesh
+    from vitax.parallel.sharding import param_specs
+    dp, fsdp, tp = mesh_shape[:3]
+    jcfg = _jax_cfg(scan_blocks=False, dp_size=dp, fsdp_size=fsdp, tp_size=tp, **kw)
+    mesh = jax_build_mesh(jcfg, devices=devices8[:dp * fsdp * tp])
+    model = jax_build_model(jcfg)
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    abstract = jax.eval_shape(lambda r: model.init(r, x, True), jax.random.key(0))
+    specs = param_specs(abstract, jcfg, mesh)
+    jax_specs = {"/".join(str(getattr(p, "key", p)) for p in path): spec
+                 for path, spec in jax.tree_util.tree_flatten_with_path(specs)[0]}
+    cfg = Config(**TINY, tp_size=tp, **kw)
+    tmodel = build_model(cfg, "meta")
+    numbered, offset = {}, 0
+    for name, p in tmodel.named_parameters():
+        numbered[name] = torch.arange(offset, offset + p.numel(), dtype=torch.float64).reshape(p.shape)
+        offset += p.numel()
+    flax = params_to_jax(numbered, scanned=False)
+    assert sorted(jax_specs) == sorted(flax)
+    fsdp_size = 1 if kw.get("run_without_fsdp") else fsdp
+    sizes = {"tp": tp, "fsdp": fsdp_size}
+    megatron = 0
+    for name, t in numbered.items():
+        spec = rule_pspec(name, tuple(t.shape), fsdp_size, 1, tp)
+        key = next(k for k, v in flax.items() if torch.equal(v.reshape(-1).sort().values, t.reshape(-1)))
+        jspec = tuple(jax_specs[key]) + (None,) * (t.dim() - len(tuple(jax_specs[key])))
+        assert ("tp" in spec) == ("tp" in jspec), (name, spec, jspec)
+        assert ("fsdp" in spec) == ("fsdp" in jspec), (name, spec, jspec)
+        megatron += "tp" in spec
+        assert _axis_sets(t, spec, sizes) == _axis_sets(flax[key], jspec, sizes), (name, spec, jspec)
+        if "fsdp" in spec:
+            assert placement(name, tuple(t.shape), fsdp_size, 1, tp).dim == spec.index("fsdp")
+    assert megatron == 6 * TINY["num_blocks"]
+
+
+class _RankMesh:
+    """A DeviceMesh's shape and one rank's coordinates over MESH_DIMS, the
+    reads the shard helpers make, without a process group."""
+
+    def __init__(self, sizes, rank):
+        from vitax_torch.parallel.mesh import rank_coordinates
+        self.shape = tuple(sizes)
+        self._coord = rank_coordinates(rank, self.shape)
+
+    def get_coordinate(self):
+        return list(self._coord)
+
+    def get_local_rank(self, dim):
+        from vitax_torch.parallel.mesh import MESH_DIMS
+        return self._coord[MESH_DIMS.index(dim)]
+
+    def size(self, i):
+        return self.shape[i]
+
+
+@pytest.mark.parametrize("sizes", [(2, 1, 2, 1, 2), (1, 2, 4, 1, 1), (2, 2, 2, 1, 1), (1, 1, 8, 1, 1),
+                                   (1, 2, 2, 2, 1)],
+                         ids=["dp2_tp2_ep2", "fsdp2_tp4", "dp2_fsdp2_tp2", "tp8", "fsdp2_tp2_sp2"])
+def test_tp_attention_seed_fold_matches_jax_bitwise(devices8, sizes):
+    """The attention seed a rank folds under tp (train/step.py seed_indices:
+    the batch shard over (dp, fsdp, ep), then tp) against vitax's
+    fold_shard_seed over (*BATCH_AXES, "tp") under shard_map, for every
+    device of 8-device meshes with a tp dim (with sp the ring's fold, which
+    leaves sp out), at seeds across the uint32 range; the generators' index
+    never holds tp."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+    from vitax.ops.attention import fold_shard_seed as jax_fold
+    from vitax.parallel.mesh import MESH_AXES, shard_map
+    from vitax_torch.train.step import seed_indices
+    dp, fsdp, tp, sp, ep = sizes
+    mesh = Mesh(np.asarray(devices8).reshape(dp, fsdp, tp, sp, 1, ep), MESH_AXES)
+    axes = tuple(a for a in ("dp", "fsdp", "ep", "tp") if mesh.shape[a] > 1)
+    fold = jax.jit(shard_map(lambda s: jax_fold(mesh, axes, s)[None], mesh, in_specs=P(),
+                             out_specs=P(MESH_AXES)))
+    seeds = [0, 1, 12345, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 2024]
+    want = np.asarray(fold(jnp.asarray(seeds, jnp.uint32)))            # (devices, seeds)
+    cfg = Config(**TINY, dp_size=dp, fsdp_size=fsdp, tp_size=tp, sp_size=sp)
+    for rank in range(8):
+        m = _RankMesh(sizes, rank)
+        att, gen = seed_indices(cfg, m)
+        assert [fold_shard_seed(att, s) for s in seeds] == [int(x) for x in want[rank]]
+        assert gen == (m.get_local_rank("dp") * fsdp + m.get_local_rank("fsdp")) * ep + m.get_local_rank("ep") \
+            if sp == 1 else gen % sp == m.get_local_rank("sp")

@@ -25,8 +25,8 @@ under sp with a checkpoint. The tests below read what the ranks wrote:
   group.
 Alone, without a group: the loop-back ring (the same body over S virtual
 shards) against whole attention, with and without dropout, on the
-whole-N and the streaming block products; the config's refusals of tp and
-pp, and --sp_impl's choices.
+whole-N and the streaming block products; the config's refusals of pp and
+tp beside MoE, and --sp_impl's choices.
 """
 
 import os
@@ -389,14 +389,14 @@ def test_loop_back_ring_equals_whole_attention(sp, block, rate):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-10)
 
 
-@pytest.mark.parametrize("kw,match", [(dict(tp_size=2), "item 11"), (dict(pp_size=2), "item 11"),
+@pytest.mark.parametrize("kw,match", [(dict(tp_size=2, moe_experts=4), "item 11"), (dict(pp_size=2), "item 11"),
                                       (dict(sp_size=2, pp_size=2), "GPipe and 1F1B"),
                                       (dict(sp_impl="zigzag"), "unknown sp_impl"),
                                       (dict(sp_size=0), "mesh sizes")])
 def test_config_refuses_what_sp_cannot_run(kw, match):
-    """tp and pp above 1 still wait for the rest of item 11 (named in the
-    message, with the mesh the port takes); --sp_impl takes vitax's values
-    and rejects others with vitax's message."""
+    """pp above 1, and tp beside MoE, still wait for the rest of item 11
+    (named in the message, with the mesh the port takes); --sp_impl takes
+    vitax's values and rejects others with vitax's message."""
     with pytest.raises(ValueError, match=match) as ours:
         Config(**TINY, **kw).validate()
     if "sp_impl" in kw:

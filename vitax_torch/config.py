@@ -163,20 +163,38 @@ class Config:
     def mlp_hidden_dim(self) -> int:
         return int(self.embed_dim * self.mlp_ratio)
 
+    def check_tp(self, tp: int) -> None:
+        """Refuse a tp size (given, or resolved from --tp_size -1 by
+        parallel/mesh.py mesh_sizes) that D, the MLP hidden or the heads do
+        not divide: vitax's refusals first, with its messages
+        (parallel/rules.py: the attention proj's input dim D, then fc1's
+        output dim, the MLP hidden)."""
+        from vitax_torch.parallel.rules import rule_pspec
+        d = self.embed_dim
+        rule_pspec("blocks.0.attn.proj.weight", (d, d), 1, 1, tp)
+        rule_pspec("blocks.0.mlp.fc1.weight", (self.mlp_hidden_dim, d), 1, 1, tp)
+        if self.num_heads % tp:
+            raise ValueError(f"--num_heads {self.num_heads} not divisible by --tp_size {tp}: each tp rank runs "
+                             f"whole heads (the attention kernels take (B, N, H/tp, Dh))")
+
     def validate(self) -> "Config":
         """Reject settings the port cannot run; returns self."""
-        for name in ("tp_size", "pp_size"):
-            if getattr(self, name) != 1:
-                raise ValueError(f"--{name} {getattr(self, name)}: tensor and pipeline parallelism wait for the "
-                                 f"rest of ROADMAP item 11 (TP, then the GPipe and 1F1B pipelines); "
-                                 f"the port's mesh takes --dp_size, --fsdp_size, --sp_size and --ep_size")
+        if self.pp_size != 1:
+            raise ValueError(f"--pp_size {self.pp_size}: pipeline parallelism waits for the rest of ROADMAP item "
+                             f"11 (the GPipe and 1F1B pipelines); the port's mesh takes --dp_size, --fsdp_size, "
+                             f"--tp_size, --sp_size and --ep_size")
+        if self.tp_size > 1:
+            self.check_tp(self.tp_size)
         checks = (
             (self.sp_impl in ("ring", "ulysses"),
              f"unknown sp_impl {self.sp_impl!r} (expected 'ring' or 'ulysses')"),
             (all(getattr(self, name) == -1 or getattr(self, name) >= 1
-                 for name in ("dp_size", "fsdp_size", "sp_size", "ep_size")),
+                 for name in ("dp_size", "fsdp_size", "tp_size", "sp_size", "ep_size")),
              f"mesh sizes must be >= 1 or -1 (all remaining processes), got --dp_size {self.dp_size} --fsdp_size "
-             f"{self.fsdp_size} --sp_size {self.sp_size} --ep_size {self.ep_size}"),
+             f"{self.fsdp_size} --tp_size {self.tp_size} --sp_size {self.sp_size} --ep_size {self.ep_size}"),
+            (self.tp_size == 1 or (self.moe_experts == 0 and self.ep_size == 1),
+             f"--tp_size {self.tp_size} with --moe_experts {self.moe_experts} / --ep_size {self.ep_size}: vitax "
+             f"replicates the experts over tp; MoE and ep under tp wait for the rest of ROADMAP item 11"),
             # vitax/config.py:428-439, with its messages
             (self.ep_size <= 1 or self.moe_experts > 0, "--ep_size > 1 needs --moe_experts"),
             (self.ep_size <= 1 or self.moe_experts % self.ep_size == 0,

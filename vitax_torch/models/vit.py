@@ -56,6 +56,22 @@ the forward collects them a block and returns them with the logits when
 asked (with_aux, vitax's with_aux="raw"). With an `expert_shard`
 (parallel/mesh.py) the experts run expert-parallel over the ep group.
 
+Tensor parallelism (a `TensorShard`, parallel/mesh.py; the qkv/fc1 and
+proj/fc2 leaves sharded over the tp group by parallel/sharding.py
+shard_tp): each rank's Attention runs whole heads [i H/T, (i + 1) H/T)
+(parallel/tensor_parallel.py relayout_qkv hands it their qkv rows) and
+its proj the row-parallel partial over them; its Mlp runs 1/T of the
+hidden features. Both partials are summed over the group (the all-reduce
+of reduce_from_tp) before the replicated bias; the inputs of qkv and fc1
+pass copy_to_tp, whose backward sums their grads. Everything outside the
+four products is replicated, and computed alike on every tp rank. The
+attention dropout seed comes folded over the tp index (train/step.py),
+the kernel seeing local head indices as vitax's shard_map body does; the
+proj, mlp and pos generators are not folded over it, so the replicated
+activations draw one mask on every tp rank, and the dropout after GELU
+draws the whole-width mask and keeps the rank's features (the tp-1 run's
+masks).
+
 Quantized serving (build_model with a quant dtype): every Dense site (qkv,
 proj, fc1, fc2 with act=True; the head with act=False) is a QuantLinear
 holding the int8 or float8_e4m3fn (out, in) weight and its per-channel
@@ -80,6 +96,7 @@ from vitax_torch.config import REMAT_POLICIES, Config
 from vitax_torch.models.moe import EXPERT_LEAVES, MoeMlp
 from vitax_torch.ops.attention import make_dense_dropout, reference_attention
 from vitax_torch.ops.dequant_matmul import dequantize_leaf
+from vitax_torch.parallel.tensor_parallel import copy_to_tp, reduce_from_tp, relayout_qkv, tp_piece
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -211,10 +228,11 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None,
-                 att_dropout: float = 0.0, proj_dropout: float = 0.0):
+                 att_dropout: float = 0.0, proj_dropout: float = 0.0, tensor_shard=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.tensor_shard = tensor_shard
         self.attention_impl = attention_impl
         self.att_dropout = att_dropout
         self.proj_dropout = proj_dropout
@@ -225,7 +243,12 @@ class Attention(nn.Module):
         """q, k, v (B, N, H, Dh): strided views of the qkv output; the
         backward stacks dq, dk, dv in one copy."""
         b, n, d = x.shape
-        return self.qkv(x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads).unbind(2)
+        shard = self.tensor_shard
+        if shard is None:
+            return self.qkv(x, self.dtype).view(b, n, 3, self.num_heads, d // self.num_heads).unbind(2)
+        w, bias = relayout_qkv(self, shard, self.dtype)          # the q, k, v rows of the rank's heads
+        qkv = F.linear(copy_to_tp(x, shard).to(self.dtype), w, bias)
+        return qkv.view(b, n, 3, self.num_heads // shard.count, d // self.num_heads).unbind(2)
 
     def core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         if seed is None or self.att_dropout == 0.0:
@@ -235,21 +258,41 @@ class Attention(nn.Module):
 
     def output(self, out: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n = out.shape[:2]
-        return _dropout(self.proj(out.reshape(b, n, -1), self.dtype), self.proj_dropout, gen)
+        if self.tensor_shard is None:
+            y = self.proj(out.reshape(b, n, -1), self.dtype)
+        else:                   # the row-parallel proj over the rank's heads, summed before the bias
+            y = F.linear(out.reshape(b, n, -1).to(self.dtype), tp_piece(self.proj.weight).to(self.dtype))
+            y = reduce_from_tp(y, self.tensor_shard) + self.proj.bias.to(self.dtype)
+        return _dropout(y, self.proj_dropout, gen)
 
 
 class Mlp(nn.Module):
     """Dense(hidden) -> exact GELU -> Dense(dim)."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype, quant: Optional[Quant] = None,
-                 device=None, dropout: float = 0.0):
+                 device=None, dropout: float = 0.0, tensor_shard=None):
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
+        self.tensor_shard = tensor_shard
         self.fc1 = _linear(dim, hidden_dim, quant, True, device)
         self.fc2 = _linear(hidden_dim, dim, quant, True, device)
 
     def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        shard, dtype = self.tensor_shard, self.dtype
+        if shard is not None:
+            # fc1 over the rank's hidden features (column-parallel), GELU, their
+            # slice of the whole-width dropout mask, fc2's row-parallel partial
+            # summed over the group before its bias
+            h = F.gelu(F.linear(copy_to_tp(x, shard).to(dtype), tp_piece(self.fc1.weight).to(dtype),
+                                tp_piece(self.fc1.bias).to(dtype)))
+            if gen is not None and self.dropout > 0.0:
+                width = h.shape[-1]
+                keep = (torch.rand(h.shape[:-1] + (width * shard.count,), generator=gen, device=h.device)
+                        >= self.dropout)[..., shard.index * width:(shard.index + 1) * width]
+                h = torch.where(keep, h / (1.0 - self.dropout), torch.zeros((), dtype=h.dtype, device=h.device))
+            y = reduce_from_tp(F.linear(h, tp_piece(self.fc2.weight).to(dtype)), shard) + self.fc2.bias.to(dtype)
+            return _dropout(y, self.dropout, gen)
         x = _dropout(F.gelu(self.fc1(x, self.dtype)), self.dropout, gen)
         return _dropout(self.fc2(x, self.dtype), self.dropout, gen)
 
@@ -261,16 +304,20 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype,
                  attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None, device=None,
-                 att_dropout: float = 0.0, mlp_dropout: float = 0.0, moe: Optional[dict] = None):
+                 att_dropout: float = 0.0, mlp_dropout: float = 0.0, moe: Optional[dict] = None,
+                 tensor_shard=None):
         super().__init__()
         self.dtype = dtype
         self.mlp_dropout = mlp_dropout
         self.norm1 = LayerNorm(dim, eps=1e-5, device=device)
         self.attn = Attention(dim, num_heads, dtype, attention_impl, quant, device=device,
-                              att_dropout=att_dropout, proj_dropout=mlp_dropout)
+                              att_dropout=att_dropout, proj_dropout=mlp_dropout, tensor_shard=tensor_shard)
         self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
+        if tensor_shard is not None and (quant is not None or moe is not None):
+            raise ValueError("tensor parallelism runs the dense float model: no quantized or MoE block under tp")
         if moe is None:
-            self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device, dropout=mlp_dropout)
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device, dropout=mlp_dropout,
+                           tensor_shard=tensor_shard)
         else:
             if quant is not None:
                 raise ValueError("a quantized model has no MoE path: an MoE export is dequantized at load")
@@ -334,7 +381,7 @@ class VisionTransformer(nn.Module):
     """images (B, H, W, 3) float -> logits (B, num_classes) float32."""
 
     def __init__(self, cfg: Config, attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None,
-                 device=None, token_shard=None, expert_shard=None):
+                 device=None, token_shard=None, expert_shard=None, tensor_shard=None):
         super().__init__()
         self.token_shard = token_shard
         self.dtype = _DTYPES[cfg.dtype]
@@ -349,7 +396,7 @@ class VisionTransformer(nn.Module):
                     impl=cfg.moe_impl, expert_shard=expert_shard) if cfg.moe_experts > 0 else None)
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device,
-                  att_dropout=cfg.att_dropout, mlp_dropout=cfg.mlp_dropout, moe=moe)
+                  att_dropout=cfg.att_dropout, mlp_dropout=cfg.mlp_dropout, moe=moe, tensor_shard=tensor_shard)
             for _ in range(cfg.num_blocks))
         self.norm = LayerNorm(d, eps=1e-6, device=device)
         self.head = _linear(d, cfg.num_classes, quant, False, device)
@@ -431,7 +478,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
                 init: bool = True, quant: Optional[Quant] = None, token_shard=None,
-                expert_shard=None) -> VisionTransformer:
+                expert_shard=None, tensor_shard=None) -> VisionTransformer:
     """The ViT on `device`, built without a throwaway default init: the
     modules are made on the meta device, then given storage on `device`.
     init=True fills the params from cfg.seed (float32, as vitax initializes
@@ -441,13 +488,14 @@ def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
     whose weights come from a quantized state (init must be False). A
     `token_shard` (parallel/mesh.py) runs the model on the rank's token
     slice under sequence parallelism, an `expert_shard` its experts over
-    the ep group (the model must then be sharded by parallel/sharding.py
+    the ep group, a `tensor_shard` its blocks' heads and MLP features over
+    the tp group (the model must then be sharded by parallel/sharding.py
     apply_fsdp before it runs)."""
     device = torch.device(device)
     if quant is not None and init:
         raise ValueError("a quantized model takes its weights from a quantized state: pass init=False")
     model = VisionTransformer(cfg, attention_impl, quant, device="meta", token_shard=token_shard,
-                              expert_shard=expert_shard)
+                              expert_shard=expert_shard, tensor_shard=tensor_shard)
     if device.type == "meta" or not init:
         return model.eval()
     model = model.to_empty(device=device)

@@ -108,8 +108,10 @@ def fold_shard_seed(index: int, seed: int) -> int:
     fold_shard_seed): every rank sees the same local (batch, head) block
     indices, so without the fold two ranks would draw the same masks. The
     index is the rank's coordinate over the mesh dims that carry the batch
-    (parallel/mesh.py batch_shard), as vitax linearizes its shard_map axes
-    of size > 1; index 0 (one rank) leaves the seed as it is."""
+    (parallel/mesh.py batch_shard), and after them sp and tp where the core
+    folds them (train/step.py seed_indices), as vitax linearizes its
+    shard_map axes of size > 1; index 0 (one rank) leaves the seed as it
+    is."""
     bits = _fmix32(_mul32(torch.tensor(int(index) & _MASK32), _GOLD_BH))
     return (int(seed) ^ int(bits)) & _MASK32
 
@@ -664,15 +666,16 @@ def _named(fn: Callable, name: str) -> Callable:
     return impl
 
 
-def sp_core(cfg, sp: int) -> Optional[str]:
-    """The sequence-parallel core for an sp group of `sp` ranks, with
-    vitax's conditions (make_attention_impl's sp branch): None when sp is 1
-    or does not divide the token count (the tokens stay whole on every
-    rank, vitax/train/loop.py _token_sharding); "ulysses" when asked for
-    and num_heads divides over sp; else "ring"."""
+def sp_core(cfg, sp: int, tp: int = 1) -> Optional[str]:
+    """The sequence-parallel core for an sp group of `sp` ranks beside a tp
+    group of `tp`, with vitax's conditions (make_attention_impl's sp
+    branch): None when sp is 1 or does not divide the token count (the
+    tokens stay whole on every rank, vitax/train/loop.py _token_sharding);
+    "ulysses" when asked for and num_heads divides over sp * tp (each
+    rank's H/tp heads over sp); else "ring"."""
     if sp <= 1 or cfg.num_patches % sp:
         return None
-    if cfg.sp_impl == "ulysses" and cfg.num_heads % sp == 0:
+    if cfg.sp_impl == "ulysses" and cfg.num_heads % (sp * tp) == 0:
         return "ulysses"
     return "ring"
 
@@ -732,21 +735,25 @@ def make_attention_impl(cfg, device, mesh=None) -> Optional[Callable]:
     blocks, or the dense block products under --no_flash_attention) or
     Ulysses ("ulysses all-to-all (sp)", the whole-sequence core on H/sp
     heads), on the rank's local tokens; --sp_impl ulysses with num_heads
-    that sp does not divide warns, in vitax's words, and takes the ring.
+    that sp * tp does not divide warns, in vitax's words, and takes the
+    ring. Under tp every core runs on the rank's H/tp heads, as the
+    tensors it is handed hold them (models/vit.py), and its dropout seed
+    comes folded over the tp index too (train/step.py seed_indices).
     On the card the kernels must have the head dim built; that is checked
     here, once, instead of at the first step or request."""
     dh = cfg.embed_dim // cfg.num_heads
     if cfg.use_flash_attention and torch.device(device).type == "cuda" and dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"use_flash_attention: the {KERNEL} kernel has no head dim {dh} "
                          f"(supported: {SUPPORTED_HEAD_DIMS}); pass --no_flash_attention")
-    from vitax_torch.parallel.mesh import token_shard
+    from vitax_torch.parallel.mesh import token_shard, tp_shard
     shard = token_shard(cfg, mesh)
     if shard is not None:
-        kind = sp_core(cfg, shard.count)
+        tp = tp_shard(mesh)[1]
+        kind = sp_core(cfg, shard.count, tp)
         if cfg.sp_impl == "ulysses" and kind == "ring":
             from vitax_torch.utils.logging import master_print
             master_print(f"WARNING: --sp_impl ulysses needs num_heads divisible by sp*tp ({cfg.num_heads} % "
-                         f"{shard.count} != 0); falling back to ring attention")
+                         f"{shard.count * tp} != 0); falling back to ring attention")
         return _sp_impl(cfg, kind, shard)
     kernel, drop = _whole_sequence_impl(cfg, cfg.num_patches)
     if kernel is None or cfg.att_dropout <= 0.0:

@@ -56,24 +56,33 @@ def fused_optimizer_active(cfg, device) -> bool:
 
 
 def global_norm(grads: Sequence[torch.Tensor], group=None, expert: Optional[Sequence[bool]] = None,
-                ep_group=None) -> torch.Tensor:
+                ep_group=None, tp_sharded: Optional[Sequence[bool]] = None, tp_group=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (optax.global_norm), an
     f32 scalar on the grads' device; one multi-tensor reduction. Sharded
     grads pass their local shards (padding is not in them) and `group`,
     the process group of the fsdp dim: the squared local norm is summed
     over it, so a dp replica is not counted twice. Without a group the
     norm is the local one. Under expert parallelism (`ep_group`) the
-    leaves flagged in `expert` hold the rank's experts only: their squares
-    are summed over the ep group first, where the dense leaves, replicated
-    over it, count once."""
+    leaves flagged in `expert` hold the rank's experts only, and under
+    tensor parallelism (`tp_group`) those flagged in `tp_sharded` the
+    rank's 1/tp: their squares are summed over that group first, where the
+    other leaves, replicated over it, count once."""
     norms = torch._foreach_norm(list(grads))
     import torch.distributed as dist
-    if ep_group is not None:
+    split = [(f, g) for f, g in ((expert, ep_group), (tp_sharded, tp_group)) if g is not None]
+    if split:
         sq_all = torch.stack(norms).square()
-        flags = torch.tensor(list(expert), dtype=torch.bool, device=sq_all.device)
-        sq_e = torch.where(flags, sq_all, 0.0).sum()
-        dist.all_reduce(sq_e, group=ep_group)
-        sq = torch.where(flags, 0.0, sq_all).sum() + sq_e
+        rest = torch.ones(len(norms), dtype=torch.bool, device=sq_all.device)
+        parts = []
+        for flags, g in split:
+            flags = torch.tensor(list(flags), dtype=torch.bool, device=sq_all.device)
+            part = torch.where(flags, sq_all, 0.0).sum()
+            dist.all_reduce(part, group=g)
+            parts.append(part)
+            rest &= ~flags
+        sq = torch.where(rest, sq_all, 0.0).sum()
+        for part in parts:
+            sq = sq + part
         if group is not None:
             dist.all_reduce(sq, group=group)
         return sq.sqrt()

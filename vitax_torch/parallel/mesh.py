@@ -1,9 +1,15 @@
 """The device mesh (vitax/parallel/mesh.py): one process per card, the
-processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "sp", "ep").
+processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "tp", "sp",
+"ep").
 
 - "dp":   pure data parallelism (params replicated across it);
 - "fsdp": ZeRO-3: params, grads and AdamW moments sharded across it; it
           carries the batch too;
+- "tp":   tensor parallelism (Megatron column/row placements,
+          parallel/tensor_parallel.py): the qkv/fc1 and proj/fc2 weights are
+          sharded across it, each rank runs H/tp whole heads and 1/tp of the
+          MLP hidden; its ranks read the same batch rows (vitax's
+          BATCH_AXES leave "tp" out);
 - "sp":   sequence parallelism: the token axis of the activations is
           sharded across it (ring or Ulysses attention, parallel/); params
           are replicated across it and its ranks read the same batch rows
@@ -12,13 +18,16 @@ processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "sp", "ep").
           dp, dense params are replicated across it, and each of its ranks
           holds E/ep experts of every MoE block.
 
-The reference's FSDP is mesh (1, n, 1, 1); its --run_without_fsdp DP
-baseline (n, 1, 1, 1). The ranks fill the mesh row-major with "ep"
-fastest, then "sp", as vitax reshapes its devices over (dp, fsdp, tp, sp,
-pp, ep) with tp = pp = 1, so rank r holds the batch rows, the token slice
-and the experts that vitax's device r holds. `resolve_mesh_shape` keeps
-vitax's six sizes, so its errors are vitax's; tp and pp above 1, and MoE
-(so ep) beside sp, are refused by Config.validate (item 11).
+The reference's FSDP is mesh (1, n, 1, 1, 1); its --run_without_fsdp DP
+baseline (n, 1, 1, 1, 1). The ranks fill the mesh row-major with "ep"
+fastest, then "sp", then "tp", as vitax reshapes its devices over (dp,
+fsdp, tp, sp, pp, ep) with pp = 1, so rank r holds the batch rows, the
+token slice, the heads and the experts that vitax's device r holds. The
+ranks of one batch shard are therefore not neighbours in general (those
+of a tp group sit sp * ep apart), so every shard index here is computed
+from the rank's coordinates. `resolve_mesh_shape` keeps vitax's six
+sizes, so its errors are vitax's; pp above 1, MoE (so ep) beside sp or
+tp are refused by Config.validate (item 11).
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 
 from vitax_torch import distributed
 
-MESH_DIMS = ("dp", "fsdp", "sp", "ep")    # the port's DeviceMesh
+MESH_DIMS = ("dp", "fsdp", "tp", "sp", "ep")    # the port's DeviceMesh
 BATCH_DIMS = ("dp", "fsdp", "ep")         # the dims that carry the global batch (vitax BATCH_AXES)
 
 
@@ -71,13 +80,37 @@ def resolve_mesh_shape(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
     return tuple(sizes)
 
 
+def mesh_sizes(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
+    """The sizes of MESH_DIMS: vitax's resolved sizes without pp (1 here).
+    A tp size resolved from -1 is held to what Config.validate holds a
+    given one to."""
+    dp, fsdp, tp, sp, _, ep = resolve_mesh_shape(cfg, n_devices)
+    if tp > 1 and cfg.tp_size == -1:
+        cfg.check_tp(tp)
+    return dp, fsdp, tp, sp, ep
+
+
 def build_mesh(cfg, device: torch.device):
-    """The ("dp", "fsdp", "sp", "ep") DeviceMesh over every process, on
-    `device`'s type; the process group must be up
+    """The ("dp", "fsdp", "tp", "sp", "ep") DeviceMesh over every process,
+    on `device`'s type; the process group must be up
     (distributed.maybe_initialize)."""
     from torch.distributed.device_mesh import init_device_mesh
-    dp, fsdp, _, sp, _, ep = resolve_mesh_shape(cfg)
-    return init_device_mesh(torch.device(device).type, (dp, fsdp, sp, ep), mesh_dim_names=MESH_DIMS)
+    return init_device_mesh(torch.device(device).type, mesh_sizes(cfg), mesh_dim_names=MESH_DIMS)
+
+
+def dim_size(mesh, dim: str) -> int:
+    """The size of mesh dim `dim` (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size(MESH_DIMS.index(dim))
+
+
+def linear_index(coords, sizes, dims) -> int:
+    """The row-major index of the coordinates of `dims` (a subset of
+    MESH_DIMS, in that order), as vitax linearizes shard_map axes."""
+    index = 0
+    for dim in dims:
+        i = MESH_DIMS.index(dim)
+        index = index * sizes[i] + coords[i]
+    return index
 
 
 def batch_shard(mesh) -> Tuple[int, int]:
@@ -89,12 +122,9 @@ def batch_shard(mesh) -> Tuple[int, int]:
     (0, 1)."""
     if mesh is None:
         return 0, 1
-    index, count = 0, 1
-    for dim in BATCH_DIMS:
-        size = mesh.size(MESH_DIMS.index(dim))
-        index = index * size + mesh.get_local_rank(dim)
-        count *= size
-    return index, count
+    sizes = tuple(mesh.shape)
+    return (linear_index(mesh.get_coordinate(), sizes, BATCH_DIMS),
+            math.prod(dim_size(mesh, d) for d in BATCH_DIMS))
 
 
 def sp_shard(mesh) -> Tuple[int, int]:
@@ -102,17 +132,37 @@ def sp_shard(mesh) -> Tuple[int, int]:
     is [index * N / count, (index + 1) * N / count). Without a mesh: (0, 1)."""
     if mesh is None:
         return 0, 1
-    return mesh.get_local_rank("sp"), mesh.size(MESH_DIMS.index("sp"))
+    return mesh.get_local_rank("sp"), dim_size(mesh, "sp")
+
+
+def tp_shard(mesh) -> Tuple[int, int]:
+    """(index, count): this rank's place in its tp group, whose heads are
+    [index * H / count, (index + 1) * H / count). Without a mesh: (0, 1)."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_local_rank("tp"), dim_size(mesh, "tp")
+
+
+def rank_coordinates(rank: int, sizes: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The coordinates over MESH_DIMS of `rank` in a row-major mesh of `sizes`."""
+    coords = []
+    for size in reversed(sizes):
+        coords.append(rank % size)
+        rank //= size
+    return tuple(reversed(coords))
 
 
 def data_shard(cfg) -> Tuple[int, int]:
     """(index, count) of the rows this process reads of each global batch,
     from the process group alone (the loaders are built before the mesh):
-    the batch shard of `batch_shard`, since "sp" is the fastest dim but
-    "ep", and one of the two is 1 (Config.validate)."""
+    the batch shard of `batch_shard`, the rank's linearized (dp, fsdp, ep)
+    coordinate."""
     rank, world = distributed.process_index(), distributed.process_count()
-    sp = resolve_mesh_shape(cfg, world)[3] if world > 1 else 1
-    return rank // sp, world // sp
+    if world == 1:
+        return 0, 1
+    sizes = mesh_sizes(cfg, world)
+    return (linear_index(rank_coordinates(rank, sizes), sizes, BATCH_DIMS),
+            math.prod(sizes[MESH_DIMS.index(d)] for d in BATCH_DIMS))
 
 
 class TokenShard(NamedTuple):
@@ -145,6 +195,23 @@ class ExpertShard(NamedTuple):
 
 def expert_shard(mesh) -> Optional[ExpertShard]:
     """The rank's ExpertShard when ep shards the experts (size > 1), else None."""
-    if mesh is None or mesh.size(MESH_DIMS.index("ep")) == 1:
+    if dim_size(mesh, "ep") == 1:
         return None
-    return ExpertShard(mesh.get_local_rank("ep"), mesh.size(MESH_DIMS.index("ep")), mesh.get_group("ep"))
+    return ExpertShard(mesh.get_local_rank("ep"), dim_size(mesh, "ep"), mesh.get_group("ep"))
+
+
+class TensorShard(NamedTuple):
+    """The heads and MLP features a rank's blocks hold: its index in the tp
+    group, the group's size (each rank runs heads [index H / count, (index
+    + 1) H / count) and the same slice of the MLP hidden) and its process
+    group."""
+    index: int
+    count: int
+    group: object
+
+
+def tensor_shard(mesh) -> Optional[TensorShard]:
+    """The rank's TensorShard when tp shards the blocks (size > 1), else None."""
+    if dim_size(mesh, "tp") == 1:
+        return None
+    return TensorShard(mesh.get_local_rank("tp"), dim_size(mesh, "tp"), mesh.get_group("tp"))

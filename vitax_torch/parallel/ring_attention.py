@@ -30,7 +30,8 @@ exist, and a rank holds O(N/S) activations and two K/V blocks.
   (q0, k0) = (r n, ((r - t) mod S) n), so every (q, k) pair is decided
   once, at its global coordinates, and ring dropout equals whole-sequence
   masked attention at the same seed. The seed is folded over the batch
-  shard only (train/step.py), never over sp.
+  shard (and the tp index under tensor parallelism, whose ranks hold
+  other heads; train/step.py), never over sp.
 
 The rotation and the block function are parameters of the local body
 (`ring_attention_local`), as in vitax: `LoopBack` runs the same body for S

@@ -39,6 +39,20 @@ by 1/ep instead of averaging it, and the grad norm sums expert squares
 over the ep group too (ops/fused_optimizer.py global_norm). At ep 1 the
 expert leaves are plain params of their Block's unit.
 
+Tensor parallelism (the mesh's "tp" dim, parallel/tensor_parallel.py):
+each Megatron leaf (qkv and fc1 weight and bias, the attention proj's and
+fc2's weights) becomes, before FSDP2 wraps it, a DTensor on the "tp"
+sub-mesh with vitax's contiguous placement (`shard_tp`): torch dim 0 of
+a column leaf, dim 1 of a row leaf, the rank keeping its 1/tp for good.
+FSDP2 then shards that local tensor over "fsdp" (its TP composition, as
+for the experts): a weight on its other dim, the rule table's; a 1-D
+column bias on dim 0 again, which FSDP2 states as a _StridedShard of
+its fsdp dim (`local_shard` takes it). The other leaves are replicated
+over "tp": the model computes them alike on every tp rank (it reduces
+the row-parallel partials before they meet a replicated leaf), so their
+grads need no tp reduction, and the grad norm sums the squares of the tp
+leaves over the tp group (ops/fused_optimizer.py global_norm).
+
 Placements (`placement`) follow the rule table (parallel/rules.py): each
 leaf shards its rule's dim over "fsdp". A leaf with no divisible dim is
 replicated in vitax; FSDP2 shards every leaf, so it takes Shard(0),
@@ -73,10 +87,9 @@ from torch import nn
 
 from vitax_torch.models.moe import EXPERT_LEAVES, MoeMlp
 from vitax_torch.models.vit import _DTYPES, init_leaves
-from vitax_torch.parallel.mesh import MESH_DIMS
-from vitax_torch.parallel.rules import is_expert_leaf, rule_pspec
-
-EP_DIM = MESH_DIMS.index("ep")
+from vitax_torch.parallel.mesh import dim_size
+from vitax_torch.parallel.rules import is_expert_leaf, rule_pspec, tp_dim
+from vitax_torch.parallel.tensor_parallel import tp_local
 
 # Parameters the model consumes in float32 (vitax KEEP_F32_PARAMS): the head
 # computes in f32 and LayerNorm folds its f32 scale in before the cast, so
@@ -95,14 +108,14 @@ def comm_policies(cfg):
             MixedPrecisionPolicy(param_dtype=None, reduce_dtype=torch.float32, cast_forward_inputs=False))
 
 
-def placement(name: str, shape: Tuple[int, ...], fsdp: int, ep: int = 1):
+def placement(name: str, shape: Tuple[int, ...], fsdp: int, ep: int = 1, tp: int = 1):
     """The FSDP2 placement of one parameter over an fsdp dim of size `fsdp`
     (vitax param_pspec): Shard(d) on the dim its rule puts "fsdp" on, else
-    Shard(0) (FSDP2 pads where vitax replicates). An expert leaf at ep > 1
-    has dim 0 over "ep": with no fsdp dim it takes Shard(1) at fsdp 1 and
-    is refused above."""
+    Shard(0) (FSDP2 pads where vitax replicates; on a tp leaf that is its
+    tp dim, shared). An expert leaf at ep > 1 has dim 0 over "ep": with no
+    fsdp dim it takes Shard(1) at fsdp 1 and is refused above."""
     from torch.distributed.tensor import Shard
-    spec = rule_pspec(name, tuple(shape), fsdp, ep)
+    spec = rule_pspec(name, tuple(shape), fsdp, ep, tp)
     if "fsdp" in spec:
         return Shard(spec.index("fsdp"))
     if "ep" in spec:
@@ -123,7 +136,7 @@ def shard_experts(model: nn.Module, mesh) -> None:
     dim over the mesh's "ep" dim, the rank keeping its E/ep experts (on
     the meta device, shapes only). No-op at ep 1."""
     from torch.distributed.tensor import DTensor, Shard
-    ep = mesh.size(EP_DIM)
+    ep = dim_size(mesh, "ep")
     if ep == 1:
         return
     ep_mesh, index = mesh["ep"], mesh.get_local_rank("ep")
@@ -136,20 +149,45 @@ def shard_experts(model: nn.Module, mesh) -> None:
                     mine, ep_mesh, [Shard(0)], run_check=False, shape=p.shape, stride=p.stride())))
 
 
+def shard_tp(model: nn.Module, mesh) -> None:
+    """Each Megatron leaf (rules.tp_dim) as a DTensor param sharded
+    contiguously over the mesh's "tp" dim, the rank keeping its 1/tp (on
+    the meta device, shapes only). The blocks must run tensor-parallel
+    (built with a tensor_shard). No-op at tp 1."""
+    from torch.distributed.tensor import DTensor, Shard
+    tp = dim_size(mesh, "tp")
+    if tp == 1:
+        return
+    if any(getattr(b.attn, "tensor_shard", None) is None for b in model.blocks):
+        raise ValueError(f"tp {tp}: the model's blocks were built without a tensor_shard (build_model(..., "
+                         f"tensor_shard=parallel.mesh.tensor_shard(mesh)))")
+    tp_mesh, index = mesh["tp"], mesh.get_local_rank("tp")
+    for name, p in list(model.named_parameters()):
+        dim = tp_dim(name, p.dim())
+        if dim is None:
+            continue
+        module = model.get_submodule(name.rpartition(".")[0])
+        mine = tp_local(name, p.detach(), tp, index).contiguous()
+        setattr(module, name.rpartition(".")[2], nn.Parameter(DTensor.from_local(
+            mine, tp_mesh, [Shard(dim)], run_check=False, shape=p.shape, stride=p.stride())))
+
+
 def apply_fsdp(model: nn.Module, cfg, mesh) -> nn.Module:
     """Shard `model` (built on the meta device, or on its device) over
     `mesh` in place: an f32 unit for each KEEP_F32_PARAMS module, at ep >
     1 a unit each MoeMlp (its experts sharded over "ep" first), a unit a
-    Block, then the root. FSDP over the "fsdp" dim for ZeRO-3 and ZeRO-2
-    when dp is 1, HSDP over both dims otherwise. Returns the model."""
+    Block (its Megatron leaves sharded over "tp" first), then the root.
+    FSDP over the "fsdp" dim for ZeRO-3 and ZeRO-2 when dp is 1, HSDP over
+    both dims otherwise. Returns the model."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
-    hsdp = cfg.run_without_fsdp or mesh.size(0) > 1
-    ep = mesh.size(EP_DIM)
+    hsdp = cfg.run_without_fsdp or dim_size(mesh, "dp") > 1
+    ep, tp = dim_size(mesh, "ep"), dim_size(mesh, "tp")
     shard_experts(model, mesh)
+    shard_tp(model, mesh)
     names: Dict[int, str] = {id(p): n for n, p in model.named_parameters()}
 
     def placement_fn(p: nn.Parameter):
-        return placement(names[id(p)], tuple(p.shape), mesh.size(1), ep)
+        return placement(names[id(p)], tuple(p.shape), dim_size(mesh, "fsdp"), ep, tp)
 
     compute, f32 = comm_policies(cfg)
     common = dict(mesh=mesh["dp", "fsdp"] if hsdp else mesh["fsdp"],
@@ -193,14 +231,19 @@ def reshard(model: nn.Module) -> None:
 
 def local_shard(full: torch.Tensor, dtensor) -> torch.Tensor:
     """This rank's shard of `full` under `dtensor`'s placements, in
-    DTensor's (torch.chunk) split, empty chunks past the last."""
-    from torch.distributed.tensor import Shard
+    DTensor's (torch.chunk) split, empty chunks past the last. A strided
+    shard (FSDP2's fsdp dim over a tp-sharded dim, split_factor > 1) cuts
+    the piece the later mesh dims leave, as FSDP2 cut the tp-local tensor."""
     mesh, coord = dtensor.device_mesh, dtensor.device_mesh.get_coordinate()
+    placements = list(enumerate(dtensor.placements))
+    strided = [(i, p) for i, p in placements if getattr(p, "split_factor", 1) > 1]
     out = full
-    for i, p in enumerate(dtensor.placements):
-        if isinstance(p, Shard):
-            chunks = torch.chunk(out, mesh.size(i), dim=p.dim)
-            out = chunks[coord[i]] if coord[i] < len(chunks) else out.narrow(p.dim, 0, 0)
+    for i, p in [ip for ip in placements if ip not in strided] + strided:
+        dim = getattr(p, "dim", None)
+        if dim is None:                         # Replicate
+            continue
+        chunks = torch.chunk(out, mesh.size(i), dim=dim)
+        out = chunks[coord[i]] if coord[i] < len(chunks) else out.narrow(dim, 0, 0)
     return out
 
 
@@ -226,22 +269,35 @@ def init_sharded(model: nn.Module, cfg, device: torch.device) -> None:
 
 def fsdp_group(mesh) -> Optional[object]:
     """The process group of the "fsdp" dim when it shards (size > 1)."""
-    if mesh is None or mesh.size(1) == 1:
+    if dim_size(mesh, "fsdp") == 1:
         return None
     return mesh.get_group("fsdp")
 
 
 def ep_group(mesh) -> Optional[object]:
     """The process group of the "ep" dim when it has more than one rank."""
-    if mesh is None or mesh.size(EP_DIM) == 1:
+    if dim_size(mesh, "ep") == 1:
         return None
     return mesh.get_group("ep")
+
+
+def tp_group(mesh) -> Optional[object]:
+    """The process group of the "tp" dim when it has more than one rank."""
+    if dim_size(mesh, "tp") == 1:
+        return None
+    return mesh.get_group("tp")
 
 
 def expert_flags(model: nn.Module) -> list:
     """For each parameter in named_parameters order, whether it is an MoE
     expert leaf (the rule table's expert rule)."""
     return [is_expert_leaf(n) for n, _ in model.named_parameters()]
+
+
+def tp_flags(model: nn.Module) -> list:
+    """For each parameter in named_parameters order, whether it is a
+    Megatron leaf (sharded over "tp" at tp > 1)."""
+    return [tp_dim(n, p.dim()) is not None for n, p in model.named_parameters()]
 
 
 def average_over_ep(grads, expert, group) -> None:
@@ -263,7 +319,7 @@ def average_over_ep(grads, expert, group) -> None:
 
 def sp_group(mesh) -> Optional[object]:
     """The process group of the "sp" dim when it has more than one rank."""
-    if mesh is None or mesh.size(2) == 1:
+    if dim_size(mesh, "sp") == 1:
         return None
     return mesh.get_group("sp")
 

@@ -15,7 +15,11 @@ whole sequence's K/V for its heads.
 
 Under dropout the inner core's mask index is the local (b, h) block, which
 every rank shares, so the seed is folded over the batch and sp coordinates
-(train/step.py), as vitax's fold_shard_seed folds (dp, fsdp, sp).
+(train/step.py), as vitax's fold_shard_seed folds (dp, fsdp, sp), and
+under tensor parallelism over tp after them ((dp, fsdp, sp, tp), vitax's
+order). Under tp the heads exchanged are the rank's H/tp (models/vit.py),
+so (H/tp) % S must hold: make_attention_impl takes Ulysses only when sp *
+tp divides num_heads, as vitax does, and the ring otherwise.
 """
 
 from __future__ import annotations

@@ -33,6 +33,7 @@ from vitax_torch.checkpoint.convert import jax_param_shapes, params_from_jax
 from vitax_torch.config import Config
 from vitax_torch.models.vit import VisionTransformer, build_model
 from vitax_torch.ops.attention import make_attention_impl
+from vitax_torch.parallel.mesh import tensor_shard
 from vitax_torch.parallel.sharding import apply_fsdp, average_over_sp, local_shard, reshard, sp_group
 from vitax_torch.train.state import AdamW, TrainState, build_optimizer, local
 from vitax_torch.train.step import (UpdateTimer, _make_update_fn, _needs_dropout, dropout_seeds, prepare_images,
@@ -165,7 +166,8 @@ def load_teacher(cfg: Config, device, mesh=None) -> VisionTransformer:
     the same logits on each, at S times the teacher's work."""
     device = torch.device(device)
     flat = load_npz(cfg.teacher_npz)
-    teacher = build_model(cfg, "meta", attention_impl=make_attention_impl(cfg, device))
+    teacher = build_model(cfg, "meta", attention_impl=make_attention_impl(cfg, device),
+                          tensor_shard=tensor_shard(mesh))
     if mesh is not None:
         apply_fsdp(teacher, cfg, mesh)
     teacher.to_empty(device=device)

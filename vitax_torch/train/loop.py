@@ -3,17 +3,20 @@ _run_logging, eval_on_val), on one device, or one card per process under
 torchrun with FSDP2 (ZeRO-3, ZeRO-2 or the DP baseline,
 parallel/sharding.py).
 
-Under a process group train() builds the ("dp", "fsdp", "sp", "ep") mesh, the
-model on the meta device, shards it (apply_fsdp), then inits each rank's
-shards (bitwise the unsharded init) or restores them; each rank reads its
-batch shard's slice of every global batch; eval counts are summed over the
-ranks (sp index 0 of each batch shard), so top-1 is over the whole val
-split; only rank 0 prints. Under sp (vitax's _token_sharding and
+Under a process group train() builds the ("dp", "fsdp", "tp", "sp", "ep")
+mesh, the model on the meta device, shards it (apply_fsdp), then inits
+each rank's shards (bitwise the unsharded init) or restores them; each
+rank reads its batch shard's slice of every global batch; eval counts are
+summed over the ranks (sp and tp index 0 of each batch shard), so top-1
+is over the whole val split; only rank 0 prints. Under sp (vitax's _token_sharding and
 _select_attention) the model runs on the rank's token slice through the
 ring or Ulysses core that make_attention_impl builds on the mesh, and the
 log names it as vitax does ("attention core: ring attention (sp)").
 Under --moe_experts every block's MLP is the routed MoeMlp (models/moe.py)
 and, at --ep_size > 1, its experts are sharded over the ep group.
+At --tp_size > 1 each block runs H/tp whole heads and 1/tp of the MLP
+features over the tp group (parallel/tensor_parallel.py); telemetry's MFU
+stays the global FLOPs over the world size, as vitax's.
 Without one (no WORLD_SIZE
 in the environment, no group made by the caller) it trains unwrapped on
 one device, as before.
@@ -78,7 +81,7 @@ from vitax_torch.data.loader import build_datasets
 from vitax_torch.models.vit import build_model, count_params
 from vitax_torch.ops.attention import make_attention_impl
 from vitax_torch.ops.fused_optimizer import fused_optimizer_active
-from vitax_torch.parallel.mesh import batch_shard, build_mesh, expert_shard, token_shard
+from vitax_torch.parallel.mesh import batch_shard, build_mesh, expert_shard, tensor_shard, token_shard
 from vitax_torch.parallel.sharding import apply_fsdp, init_sharded, reshard
 from vitax_torch.platform import DeviceLike, device_kind
 from vitax_torch.programs.builder import build_program
@@ -121,6 +124,9 @@ def train(cfg: Config, device: DeviceLike = None,
     if mesh is None and cfg.sp_size > 1:   # a lone process would run the whole sequence
         raise ValueError(f"--sp_size {cfg.sp_size} shards the tokens over {cfg.sp_size} processes: launch them "
                          f"with torchrun (--nproc_per_node a multiple of {cfg.sp_size})")
+    if mesh is None and cfg.tp_size > 1:   # a lone process holds every head
+        raise ValueError(f"--tp_size {cfg.tp_size} shards the blocks over {cfg.tp_size} processes: launch them "
+                         f"with torchrun (--nproc_per_node a multiple of {cfg.tp_size})")
     if mesh is None and cfg.ep_size > 1:   # a lone process holds every expert
         raise ValueError(f"--ep_size {cfg.ep_size} shards the experts over {cfg.ep_size} processes: launch them "
                          f"with torchrun (--nproc_per_node a multiple of {cfg.ep_size})")
@@ -157,6 +163,11 @@ def train(cfg: Config, device: DeviceLike = None,
                  f"(N {cfg.num_patches}" + (f", {cfg.num_patches // tokens.count} a rank over sp {tokens.count}"
                                            if tokens else "")
                  + f"); grad_ckpt {cfg.grad_ckpt}, remat_policy {cfg.remat_policy}")
+    heads = tensor_shard(mesh)
+    if heads is not None:
+        master_print(f"tensor parallel: tp {heads.count}, {cfg.num_heads // heads.count} heads and "
+                     f"{cfg.mlp_hidden_dim // heads.count} MLP features a rank (qkv rows relaid to whole heads "
+                     f"by one all-to-all a block)")
     experts = expert_shard(mesh)
     if cfg.moe_experts > 0:
         master_print(f"moe: {cfg.moe_experts} experts, top-{cfg.moe_top_k}, capacity factor "
@@ -169,7 +180,7 @@ def train(cfg: Config, device: DeviceLike = None,
                      f"pos {cfg.pos_dropout}; seeds per (step, microbatch, block) from seed {cfg.seed}")
     if mesh is not None:                # built on meta, sharded, then each rank's shards filled
         model = apply_fsdp(build_model(cfg, "meta", attention_impl=attention_impl, token_shard=tokens,
-                                       expert_shard=experts), cfg, mesh)
+                                       expert_shard=experts, tensor_shard=heads), cfg, mesh)
         model.to_empty(device=device)
         if cfg.resume_epoch == 0:
             init_sharded(model, cfg, device)

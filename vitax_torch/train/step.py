@@ -56,6 +56,15 @@ shard only, as vitax's ring folds (dp, fsdp) and not sp (its masks are
 decided at global token coordinates); Ulysses' folds the linearized
 (batch, sp) index, as vitax's does; the proj, mlp and pos generators fold
 (batch, sp) under either, so the token shards draw different masks.
+
+Under tensor parallelism (the mesh's "tp" dim, models/vit.py) the T ranks
+of a tp group run the same rows on different heads and MLP features.
+Their grads need no reduction over the group: each holds its own shard of
+the Megatron leaves and identical grads of the replicated ones. The grad
+norm sums the Megatron leaves' squares over the tp group before the
+fsdp sum, the replicated leaves counting once (ops/fused_optimizer.py
+global_norm). The attention seed folds the tp index last, as vitax's
+shard_map folds (*BATCH_AXES, "tp"); the generators do not fold it.
 """
 
 from __future__ import annotations
@@ -74,9 +83,9 @@ from vitax_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from vitax_torch.models.vit import DropoutSeeds
 from vitax_torch.ops.attention import fold_shard_seed, sp_core
 from vitax_torch.ops.fused_optimizer import fused_clip_adamw, fused_optimizer_active, global_norm
-from vitax_torch.parallel.mesh import batch_shard, sp_shard
+from vitax_torch.parallel.mesh import batch_shard, sp_shard, tp_shard
 from vitax_torch.parallel.sharding import (average_over_ep, average_over_sp, ep_group, expert_flags, fsdp_group,
-                                           sp_group)
+                                           sp_group, tp_flags, tp_group)
 from vitax_torch.train.state import AdamW, TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -123,14 +132,16 @@ def shard_seeds(seeds: DropoutSeeds, index: int, gen_index: Optional[int] = None
 def seed_indices(cfg: Config, mesh) -> tuple:
     """(attention index, generator index) that shard_seeds folds: the batch
     shard's, but under an sp core the generators fold (batch, sp)
-    linearized, and so does Ulysses' attention seed."""
+    linearized, and so does Ulysses' attention seed; under tp the
+    attention seed folds the tp index last ((batch, tp) for the ring and
+    the unsharded core, (batch, sp, tp) for Ulysses, vitax's axis orders),
+    the generators never (the activations they mask are replicated over tp)."""
     index, _ = batch_shard(mesh)
     s, count = sp_shard(mesh)
-    kind = sp_core(cfg, count)
-    if kind is None:
-        return index, index
-    linear = index * count + s
-    return (linear if kind == "ulysses" else index), linear
+    t, tp = tp_shard(mesh)
+    kind = sp_core(cfg, count, tp)
+    gen = index if kind is None else index * count + s
+    return (gen if kind == "ulysses" else index) * tp + t, gen
 
 
 def aux_from_frac_prob(fracs: torch.Tensor, probs: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -143,7 +154,9 @@ def aux_from_frac_prob(fracs: torch.Tensor, probs: torch.Tensor, cfg: Config) ->
 def batch_mean(t: torch.Tensor, mesh) -> torch.Tensor:
     """A rank's mean over its batch rows to the global batch's: the mean
     over every process (equal rows each), differentiable (the all-reduce's
-    backward sums the cotangents). As it is without a mesh."""
+    backward sums the cotangents). As it is without a mesh. Only MoE
+    calls it, which Config.validate keeps off sp and tp: every process is
+    then a batch shard of its own."""
     if mesh is None:
         return t
     from torch.distributed.nn.functional import all_reduce
@@ -164,11 +177,12 @@ def _make_update_fn(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     and advances state.count and state.step. Sharded, both run on the
     rank's local shards."""
     fused_optimizer_active(cfg, device)       # raises for --fused_optimizer off on the card
-    group, ep = fsdp_group(mesh), ep_group(mesh)
+    group, ep, tp = fsdp_group(mesh), ep_group(mesh), tp_group(mesh)
 
     def update(state: TrainState, grads: List[torch.Tensor]) -> torch.Tensor:
         names, params, mu, nu = state.leaves()
-        grad_norm = global_norm(grads, group, expert_flags(state.model) if ep is not None else None, ep)
+        grad_norm = global_norm(grads, group, expert_flags(state.model) if ep is not None else None, ep,
+                                tp_flags(state.model) if tp is not None else None, tp)
         if len(names) != len(grads):          # the probe: the head's grads, clipped by every grad's norm
             trained = set(names)
             grads = [g for (n, _), g in zip(state.model.named_parameters(), grads) if n in trained]
@@ -280,7 +294,7 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
         average_over_sp(state.grads(), sp)
         if ep is not None:
             average_over_ep(state.grads(), expert_flags(model), ep)
-        if mesh is not None:                 # the global batch's mean (an sp group's ranks hold one loss)
+        if mesh is not None:                 # the global batch's mean (an sp or tp group's ranks hold one loss)
             loss = distributed.all_reduce_sum(loss) / distributed.process_count()
         metrics = {"loss": loss, "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
         if time_update:
@@ -297,10 +311,10 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
 def make_eval_step(cfg: Config, mesh=None) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """eval_step(state, batch) -> {"correct", "correct_top5"}: prediction
     counts over the batch, device tensors (top-5 clamps to the class count).
-    Under sp the ranks of a group hold the same logits: only sp index 0
-    counts, so a sum over every process counts each row once."""
+    Under sp and tp the ranks of a group hold the same logits: only sp and
+    tp index 0 count, so a sum over every process counts each row once."""
     k5 = min(5, cfg.num_classes)
-    counts = sp_shard(mesh)[0] == 0
+    counts = sp_shard(mesh)[0] == 0 and tp_shard(mesh)[0] == 0
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
