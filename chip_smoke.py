@@ -117,6 +117,15 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      the sharded and the whole Block's ms and one all-reduce's; then the
      train CLI under torchrun at tp 2 with both ranks on the card over
      gloo, against one process at tp 1, in float32 and in bf16;
+  7q. pipeline parallelism on the one card: the train CLI under torchrun
+     at pp 2 (vitax_torch/parallel/pipeline.py), both stages on the card
+     over gloo (the stage hops through host buffers), the 10B width at
+     depth 4, batch 8, fake data, 3 steps: GPipe at M 2 and M 4 and 1F1B
+     at M 4 in float32 against one process at pp 1; GPipe in bf16 on the
+     wgmma kernels against pp 1 in bf16, each number held as 7p holds tp;
+     GPipe in bf16 under att_dropout 0.1 on the dropout kernels; each
+     rank's attention and fused_adamw launches and its hops against the
+     schedule's, and each run's sec/iter;
   7i. phase 7's run from an ImageFolder tree that PIL writes at run time
      (8 classes x 64 JPEGs of 180-640 px, 4 PNGs; val 8 x 8), on the
      native decoder where g++ finds libjpeg's header, else on the PIL
@@ -3853,12 +3862,16 @@ TP_BF16_FACTOR = 3.0
 TP_CLI_MAIN = """import json, os, sys
 import torch.distributed as dist
 from vitax_torch.ops import _build
+from vitax_torch.parallel import pipeline
 from vitax_torch.train.__main__ import main
 if "WORLD_SIZE" in os.environ:
     dist.init_process_group("gloo", init_method="env://")
 rc = main(sys.argv[2:])
-with open(os.path.join(sys.argv[1], "launches%s.json" % os.environ.get("RANK", "0")), "w") as f:
+rank = os.environ.get("RANK", "0")
+with open(os.path.join(sys.argv[1], "launches%s.json" % rank), "w") as f:
     json.dump(_build.LAUNCHES, f)
+with open(os.path.join(sys.argv[1], "hops%s.json" % rank), "w") as f:
+    json.dump(pipeline.HOPS, f)
 sys.exit(rc)
 """
 
@@ -4170,10 +4183,150 @@ def tp_cli(torch, root: str, card: str) -> dict:
     return lb
 
 
+# --- phase 7q: pipeline parallelism through the train CLI on the one card ------
+# The train CLI at pp 2 (TP_CLI_MAIN under torchrun, both stages on cuda:0
+# over gloo, whose stage hops go through host buffers: NCCL refuses two
+# ranks on one device) against one process at pp 1: the 10B width at depth
+# 4 (2 blocks a stage), TP_CLI's batch 8, 3 steps and long warmup. The
+# float32 runs (GPipe M 2 and M 4, 1F1B M 4) train pp 1's losses and grad
+# norms within phase 5's loss bar (the pipeline changes only the order of
+# the microbatches' sums); bf16 GPipe is held as 7p holds tp in bf16 (each
+# number within TP_BF16_FACTOR times pp-1-bf16's distance from float32 pp
+# 1); bf16 GPipe under att_dropout 0.1 draws other masks than pp 1 (seeds
+# per microbatch) and is held to finite numbers and its launches. Waves of
+# runs share the card (PP_WAVES), so their sec/iter time gloo through the
+# host and the other runs beside them, not the pipeline.
+PP_CLI = ["--fake_data", "--num_blocks", "4", "--batch_size", "8", "--max_steps", "3", "--warmup_steps", "100",
+          "--log_step_interval", "1", "--num_workers", "2"]
+PP_STEPS = 3
+PP_RUNS = {"pp 1 float32": (1, "float32", []),
+           "pp 1 bf16": (1, "bfloat16", []),
+           "gpipe M 2 float32": (2, "float32", ["--pp_size", "2"]),
+           "gpipe M 4 float32": (2, "float32", ["--pp_size", "2", "--pp_microbatches", "4"]),
+           "1f1b M 4 float32": (2, "float32", ["--pp_size", "2", "--pp_microbatches", "4", "--pp_schedule", "1f1b"]),
+           "gpipe M 2 bf16": (2, "bfloat16", ["--pp_size", "2"]),
+           "gpipe M 2 bf16 att_dropout": (2, "bfloat16", ["--pp_size", "2", "--att_dropout", str(DROP_RATE)])}
+# at most about 64 GB of the card's 80 at once: a pp-1 run holds about 20 GB
+# (params, grads, AdamW moments of 4 blocks in float32), a pp-2 rank half
+PP_WAVES = (("pp 1 float32", "pp 1 bf16", "gpipe M 2 float32"), ("gpipe M 4 float32", "1f1b M 4 float32"),
+            ("gpipe M 2 bf16", "gpipe M 2 bf16 att_dropout"))
+
+
+def pp_predicted(flags, dtype: str, rank: int, ranks: int) -> tuple:
+    """(launches, hops) a rank of a 7q run must count over its PP_STEPS
+    steps under none_saveable: Lps M 2 attention forwards (each block's
+    forward and its recompute) and Lps M backwards a step, on the wgmma
+    kernels in bf16 (their dropout keys under att_dropout), one fused_adamw
+    a step; a stage sends M activations a step forward, M cotangents
+    back."""
+    blocks = int(PP_CLI[PP_CLI.index("--num_blocks") + 1]) // ranks
+    m = int(flags[flags.index("--pp_microbatches") + 1]) if "--pp_microbatches" in flags else ranks
+    drop = "--att_dropout" in flags
+    fkey, bkey = ("flash_attn_fwd_drop", "flash_attn_bwd_drop") if drop else ("flash_attn_fwd", "flash_attn_bwd")
+    kernel = "wgmma" if dtype == "bfloat16" else "general"
+    want = {fkey: 2 * blocks * m * PP_STEPS, bkey: blocks * m * PP_STEPS, "fused_adamw": PP_STEPS}
+    want.update({f"flash_attn_fwd_{kernel}": want[fkey], f"flash_attn_bwd_{kernel}": want[bkey]})
+    hops = {"forward": m * PP_STEPS * (rank < ranks - 1), "backward": m * PP_STEPS * (rank > 0)}
+    return want, hops
+
+
+def phase_pp(torch, root: str, card: str) -> dict:
+    """Phase 7q: the PP_RUNS through the train CLI in PP_WAVES (the runs of
+    a wave at once): exit 0, the pipeline's log line, each step's loss and
+    grad norm from rank 0's JSONL (the last stage's loss, the global norm)
+    within its bar, each rank's launches and hops as pp_predicted says, and
+    each run's sec/iter. Returns the bf16 pp-2 runs' launches, summed over
+    their ranks."""
+    from vitax_torch.ops import _build
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_py = os.path.join(root, "pp_cli_main.py")
+    with open(main_py, "w") as f:
+        f.write(TP_CLI_MAIN)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs, bad = {}, []
+    t0 = time.perf_counter()
+    for wave in PP_WAVES:
+        cmds = []
+        for name in wave:
+            ranks, dtype, flags = PP_RUNS[name]
+            d = os.path.join(root, "pp_" + name.replace(" ", "_"))
+            os.makedirs(d)
+            launcher = ([sys.executable] if ranks == 1 else
+                        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                         str(ranks)])
+            extra = [] if ranks == 1 else ["--device", "cuda:0"]
+            cmds.append((name, [*launcher, main_py, d, *PP_CLI, "--dtype", dtype, *flags, *extra,
+                                "--metrics_dir", d], env))
+        for name, (r, wall) in run_cli(cmds, 600).items():
+            ranks, dtype, flags = PP_RUNS[name]
+            if r.returncode != 0 or "training begins" not in r.stdout:
+                fail(f"[7q] {name} exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+            if ranks > 1 and f"pipeline: pp {ranks}" not in r.stdout:
+                fail(f"[7q] the {name} run does not log its pipeline:\n{r.stdout[-3000:]}")
+            d = os.path.join(root, "pp_" + name.replace(" ", "_"))
+            steps, _ = read_jsonl(os.path.join(d, "metrics.jsonl"))
+            launches = {k: 0 for k in _build.LAUNCHES}
+            for rank in range(ranks):
+                with open(os.path.join(d, f"launches{rank}.json")) as f:
+                    mine = json.load(f)
+                with open(os.path.join(d, f"hops{rank}.json")) as f:
+                    hops = json.load(f)
+                want, want_hops = pp_predicted(flags, dtype, rank, ranks)
+                got = {k: v for k, v in mine.items() if v}
+                if got != want or (ranks > 1 and hops != want_hops):
+                    bad.append(f"{name} rank {rank}: launches {got} (predicted {want}), hops {hops} (predicted "
+                               f"{want_hops})")
+                for k, v in mine.items():
+                    launches[k] += v
+            # sec/iter as logged (smoothed over every step, the first included) and the last step's
+            # seconds between its record and the one before (each log step waits for its step)
+            runs[name] = ([s["loss"] for s in steps] + [s["grad_norm"] for s in steps], wall,
+                          (steps[-1]["sec_per_iter"], steps[-1]["time"] - steps[-2]["time"]), launches)
+    if bad:
+        fail(f"7q: launches or hops off the schedule's: {bad}")
+
+    def rel_dist(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+    def fmt(v):
+        return f"losses {' '.join(f'{x:.6f}' for x in v[:3])}, grad norms {' '.join(f'{x:.6f}' for x in v[3:])}"
+    if not all(len(v[0]) == 2 * PP_STEPS and all(np.isfinite(v[0])) for v in runs.values()):
+        fail(f"7q: a CLI run did not log {PP_STEPS} finite steps: {runs}")
+    f32, b16 = runs["pp 1 float32"][0], runs["pp 1 bf16"][0]
+    for name in ("gpipe M 2 float32", "gpipe M 4 float32", "1f1b M 4 float32"):
+        e = rel_dist(runs[name][0], f32)
+        say(f"[7q cli] {name} (pp 2, both stages on one card over gloo): {fmt(runs[name][0])}; pp 1: {fmt(f32)}; "
+            f"rel diff max {e:.2e} (<= {MODEL_LOSS_REL_TOL}) {'ok' if e <= MODEL_LOSS_REL_TOL else 'FAIL'} [{card}]")
+        if e > MODEL_LOSS_REL_TOL:
+            bad.append(f"{name}: {runs[name][0]} against pp 1's {f32}")
+    b16_pp2 = runs["gpipe M 2 bf16"][0]
+    ratios = [rel_dist([t2], [w]) / (TP_BF16_FACTOR * max(rel_dist([t1], [w]), MODEL_LOSS_REL_TOL))
+              for t2, t1, w in zip(b16_pp2, b16, f32)]
+    say(f"[7q cli] gpipe M 2 bf16: {fmt(b16_pp2)}; pp 1 bf16 {fmt(b16)}; rel distance from float32 pp 1, max over "
+        f"the six: pp 2 {rel_dist(b16_pp2, f32):.2e}, pp 1 {rel_dist(b16, f32):.2e}; each of pp 2's over "
+        f"{TP_BF16_FACTOR} x max(pp 1's, {MODEL_LOSS_REL_TOL}): {' '.join(f'{r:.2f}' for r in ratios)} (<= 1) "
+        f"{'ok' if max(ratios) <= 1.0 else 'FAIL'}; under att_dropout {DROP_RATE}: "
+        f"{fmt(runs['gpipe M 2 bf16 att_dropout'][0])} [{card}]")
+    if max(ratios) > 1.0:
+        bad.append(f"gpipe M 2 bf16 lies past its bar from float32 pp 1: {ratios}")
+    for name, (_, wall, (sec, last), launches) in runs.items():
+        ranks, dtype, flags = PP_RUNS[name]
+        att = {k: v for k, v in launches.items() if k.startswith("flash_attn") and v}
+        how = "one process" if ranks == 1 else "two ranks on one card, hops and collectives over gloo via the host"
+        say(f"[7q time] {name}: sec/iter {sec:.4f} (as logged: smoothed over the {PP_STEPS} steps, the first "
+            f"included), step {PP_STEPS} {last:.4f} s ({how}; beside the other runs of its wave), wall {wall:.1f} s; "
+            f"launches over its ranks {att}, fused_adamw {launches['fused_adamw']} [{card}]")
+    say(f"[7q] {len(PP_RUNS)} CLI runs in {len(PP_WAVES)} waves took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail(f"7q: {bad}")
+    return {k: runs["gpipe M 2 bf16"][3][k] + runs["gpipe M 2 bf16 att_dropout"][3][k] for k in _build.LAUNCHES}
+
+
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches, ring_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7t, 7i, 7s, 7c, 7x, 7m and 7f in `data_launches`,
+    paths of this run (phases 7t, 7i, 7s, 7c, 7x, 7m, 7f and 7q's bf16 runs in `data_launches`,
     7r's ring runs, 7p's tp Blocks and its bf16 tp-2 CLI run in `ring_launches`), its check's
     max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
@@ -4290,6 +4443,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vitax_torch_tp_") as root:
         tp_launches = phase_tp(torch, card, root)
         cli_launches = tp_cli(torch, root, card)
+        pp_launches = phase_pp(torch, root, card)
     # 7r's runs, 7p's sharded Blocks and its bf16 tp-2 CLI run
     ring_launches = {k: ring_launches[k] + tp_launches[k] + cli_launches[k] for k in ring_launches}
     with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
@@ -4302,7 +4456,7 @@ def main() -> int:
         moe_launches = phase_train_moe(torch, card, root)
         fsdp_launches = phase_train_fsdp(torch, card, root, ref7)
     data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
-                     + tele_launches[k] + transfer[k] + moe_launches[k] for k in tree_launches}
+                     + tele_launches[k] + transfer[k] + moe_launches[k] + pp_launches[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches, ring_launches)
     say(card)

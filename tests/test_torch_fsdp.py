@@ -330,7 +330,7 @@ def test_sharded_init_is_the_unsharded_init(runs):
     shard: bitwise build_model's init, drawn on the device or the host."""
     for r in runs["ranks"]:
         assert r["init_equal_shard_on_cpu=False"] and r["init_equal_shard_on_cpu=True"]
-        assert r["mesh"] == (("dp", "fsdp", "tp", "sp", "ep"), (1, 2, 1, 1, 1))
+        assert r["mesh"] == (("dp", "fsdp", "tp", "sp", "pp", "ep"), (1, 2, 1, 1, 1, 1))
 
 
 def test_placements_follow_the_rules_and_shards_are_contiguous(runs):

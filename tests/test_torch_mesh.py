@@ -183,6 +183,12 @@ def test_fsdp_flags_parse_as_in_jax(argv):
     assert cfg.comm_cast_active == jcfg.comm_cast_active
 
 
+# vitax's refusals under pp (vitax/config.py:345-427)
+PP_BAD = [dict(pp_size=2, gather_overlap="on"), dict(pp_size=2, grad_accum_steps=2),
+          dict(pp_size=2, fsdp_size=2, reshard_after_forward=False), dict(pp_size=4),
+          dict(pp_size=2, moe_experts=4, ep_size=2, moe_impl="gather"), dict(pp_size=2, moe_experts=4, sp_size=2),
+          dict(pp_size=2, pp_schedule="1f1b", att_dropout=0.1), dict(pp_size=2, pp_schedule="1f1b", moe_experts=4),
+          dict(pp_size=2, pp_schedule="1f1b", sp_size=2)]
 BAD = [dict(grad_reduce_dtype="bfloat16", dtype="float32"),
        dict(grad_reduce_dtype="bfloat16", param_gather_dtype="float32"),
        dict(param_gather_dtype="bfloat16", dtype="float32"),
@@ -190,10 +196,13 @@ BAD = [dict(grad_reduce_dtype="bfloat16", dtype="float32"),
        dict(gather_overlap="on", run_without_fsdp=True),
        dict(gather_overlap="on", grad_ckpt=False),
        dict(gather_overlap="on", remat_policy="dots_saveable"),
-       dict(gather_overlap="sometimes"), dict(grad_reduce_dtype="float16")]
+       dict(gather_overlap="sometimes"), dict(grad_reduce_dtype="float16"), *PP_BAD]
 GOOD = [dict(), dict(gather_overlap="on"), dict(grad_reduce_dtype="bfloat16"), dict(reshard_after_forward=False),
         dict(run_without_fsdp=True), dict(dtype="float32"), dict(param_gather_dtype="float32"),
-        dict(dp_size=2, fsdp_size=4)]
+        dict(dp_size=2, fsdp_size=4), dict(pp_size=2), dict(pp_size=2, pp_microbatches=4, pp_schedule="1f1b"),
+        dict(pp_size=2, fsdp_size=2), dict(pp_size=2, fsdp_size=1, reshard_after_forward=False),
+        dict(pp_size=2, sp_size=2, att_dropout=0.1), dict(pp_size=2, moe_experts=4, ep_size=2),
+        dict(pp_size=2, run_without_fsdp=True)]
 
 
 @pytest.mark.parametrize("kw", BAD, ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
@@ -204,7 +213,7 @@ def test_config_refuses_what_jax_refuses(kw):
         _jax_cfg(**kw).validate()
     with pytest.raises(ValueError) as ours:
         Config(**TINY, **kw).validate()
-    if kw.get("gather_overlap") == "on" and ("grad_ckpt" in kw or "remat_policy" in kw):
+    if kw in PP_BAD or (kw.get("gather_overlap") == "on" and ("grad_ckpt" in kw or "remat_policy" in kw)):
         assert str(ours.value) == str(theirs.value)
     else:
         assert str(ours.value).split(":")[0].split(" (")[0] == str(theirs.value).split(":")[0].split(" (")[0]
@@ -218,12 +227,12 @@ def test_config_accepts_what_jax_accepts(kw):
 
 @pytest.mark.parametrize("name", ["tp_size", "sp_size", "pp_size"])
 def test_other_parallelisms_are_refused_naming_item_11(name):
-    """pp above 1 waits for the rest of item 11; sp and tp run now, but sp
-    under the pipelines (vitax's _pp ring and Ulysses bodies) is refused
-    with them, and tp beside MoE (vitax replicates the experts over tp)
-    waits for item 11 too."""
-    kw = {"tp_size": 2, "moe_experts": 4} if name == "tp_size" else {name: 2} if name == "pp_size" else \
-        {"sp_size": 2, "pp_size": 2}
+    """sp, tp and pp run now; what waits for the rest of item 11: tp beside
+    MoE (vitax replicates the experts over tp), MoE beside sp (an expert's
+    capacity ranks a sample's tokens over the whole sequence), and pp
+    beside tp (vitax's pipeline bodies under tp have no green reference)."""
+    kw = {"tp_size": 2, "moe_experts": 4} if name == "tp_size" else {"pp_size": 2, "tp_size": 2} \
+        if name == "pp_size" else {"sp_size": 2, "moe_experts": 4}
     with pytest.raises(ValueError, match="item 11"):
         Config(**TINY, **kw).validate()
 
@@ -459,7 +468,7 @@ def test_tp_attention_seed_fold_matches_jax_bitwise(devices8, sizes):
     want = np.asarray(fold(jnp.asarray(seeds, jnp.uint32)))            # (devices, seeds)
     cfg = Config(**TINY, dp_size=dp, fsdp_size=fsdp, tp_size=tp, sp_size=sp)
     for rank in range(8):
-        m = _RankMesh(sizes, rank)
+        m = _RankMesh((dp, fsdp, tp, sp, 1, ep), rank)
         att, gen = seed_indices(cfg, m)
         assert [fold_shard_seed(att, s) for s in seeds] == [int(x) for x in want[rank]]
         assert gen == (m.get_local_rank("dp") * fsdp + m.get_local_rank("fsdp")) * ep + m.get_local_rank("ep") \

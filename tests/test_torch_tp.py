@@ -368,7 +368,7 @@ def test_each_rank_reads_its_batch_shard_and_counts_its_collectives(runs, arm):
     and its backward; the recompute redoes the relayout and the attention's
     all-reduce but stops before fc2's (torch's non-reentrant checkpoint
     stops once the saved tensors are rebuilt). The eval adds a forward."""
-    dims = ("dp", "fsdp", "tp", "sp", "ep")
+    dims = ("dp", "fsdp", "tp", "sp", "pp", "ep")
     arm_cfg = Config(**{**TINY, **ARMS[arm]})
     from vitax_torch.parallel.mesh import mesh_sizes, rank_coordinates
     sizes = mesh_sizes(arm_cfg, WORLD)
@@ -543,4 +543,4 @@ def test_tp_size_minus_one_is_held_to_the_checks_of_its_resolved_size(world, mat
     from vitax_torch.parallel.mesh import mesh_sizes
     with pytest.raises(ValueError, match=match):
         mesh_sizes(cfg, world)
-    assert mesh_sizes(cfg, 4) == (1, 1, 4, 1, 1)
+    assert mesh_sizes(cfg, 4) == (1, 1, 4, 1, 1, 1)

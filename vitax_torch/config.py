@@ -6,9 +6,12 @@ validate() with a message that names the slice. The zero-stall and peer
 checkpoint flags (zero_stall_ckpt, replicate_steps, peer_dir) are not
 fields yet: the parser rejects them as unknown arguments. The mesh takes
 dp, fsdp, sp and ep (FSDP2 over the processes torchrun starts, one card
-each; sp shards the token axis, --sp_impl ring or ulysses; ep shards the
-experts of --moe_experts, models/moe.py); tp and pp above 1 wait for the
-rest of ROADMAP item 11, and so does MoE under sp. --task and its flags
+each; tp shards the blocks' heads and MLP features; sp shards the token
+axis, --sp_impl ring or ulysses; pp splits the blocks into stages,
+--pp_schedule gpipe or 1f1b over --pp_microbatches; ep shards the experts
+of --moe_experts, models/moe.py). pp beside tp, and MoE beside tp or sp,
+wait for the rest of ROADMAP item 11; vitax's pp refusals are raised with
+its messages. --task and its flags
 end validate() in the task's registry validator (programs/registry.py),
 as vitax's do."""
 
@@ -100,13 +103,15 @@ class Config:
     #   fetch every step (one sync a step) that raises FloatingPointError at the first non-finite value
     log_memory: bool = True             # device memory in the step log line (--no_log_memory clears)
 
-    # --- mesh: (dp, fsdp, sp) over the processes, one card each; -1 = all remaining ---
+    # --- mesh: (dp, fsdp, tp, sp, pp, ep) over the processes, one card each; -1 = all remaining ---
     dp_size: int = 1
     fsdp_size: int = -1
     tp_size: int = 1
     sp_size: int = 1
     sp_impl: str = "ring"               # ring (K/V rotation over the sp group) | ulysses (all-to-all head<->token)
-    pp_size: int = 1
+    pp_size: int = 1                    # pipeline stages: stage s holds blocks [s L/pp, (s + 1) L/pp)
+    pp_microbatches: int = 0            # microbatches of the rank's rows a pipeline step (0 = pp_size)
+    pp_schedule: str = "gpipe"          # gpipe (all forwards, then all backwards) | 1f1b (interleaved)
     ep_size: int = 1                    # expert-parallel dim (also carries batch; experts sharded across it)
 
     # --- mixture of experts (models/moe.py; vitax/config.py:136-140) ---
@@ -177,21 +182,66 @@ class Config:
             raise ValueError(f"--num_heads {self.num_heads} not divisible by --tp_size {tp}: each tp rank runs "
                              f"whole heads (the attention kernels take (B, N, H/tp, Dh))")
 
+    def check_pp(self) -> None:
+        """vitax's refusals under --pp_size > 1 (vitax/config.py:345-427),
+        with its messages, and pp beside tp (no green reference: vitax's pp
+        under tp cases are xfail), which waits for ROADMAP item 11."""
+        checks = (
+            (self.gather_overlap != "on",
+             "--gather_overlap on with --pp_size > 1 is rejected: the pipeline schedules own their gathers "
+             "(just-in-time in-body gathers pinned per stage, vitax/parallel/pipeline.py) and a second prefetch "
+             "schedule would double-gather every block"),
+            (self.grad_accum_steps == 1,
+             "--grad_accum_steps > 1 with --pp_size > 1 is rejected: the pipeline already microbatches the step "
+             "(--pp_microbatches) and nesting a second accumulation scan around it would double-count the "
+             "memory/bubble trade — raise --pp_microbatches instead"),
+            (self.reshard_after_forward or self.fsdp_size == 1,
+             "--no_reshard_after_forward (ZeRO-2) under --pp_size > 1 with fsdp sharding is not supported: the "
+             "pipeline body gathers each block's shards just-in-time (ZeRO-3 semantics) and a step-top full "
+             "gather would defeat that. With --fsdp_size 1 the flag is a no-op and allowed; --fsdp_size -1 is "
+             "treated as sharded here (validate() runs before the device count is known) — pass an explicit "
+             "--fsdp_size 1 if the remaining mesh is a single device"),
+            (self.num_blocks % self.pp_size == 0,
+             f"--num_blocks {self.num_blocks} not divisible by --pp_size {self.pp_size}"),
+            (self.pp_microbatches >= 0, f"--pp_microbatches must be >= 0 (0 = --pp_size), got {self.pp_microbatches}"),
+            (self.pp_schedule in ("gpipe", "1f1b"),
+             f"unknown pp_schedule {self.pp_schedule!r} (expected 'gpipe' or '1f1b')"),
+            (self.moe_experts == 0 or self.ep_size == 1 or self.moe_impl == "einsum",
+             "--moe_experts with --ep_size > 1 under --pp_size > 1 runs the manual all-to-all dispatch inside the "
+             "pipeline body, which only the einsum impl implements (vitax/models/moe.py MoeMlp.ep_axis)"),
+            (self.moe_experts == 0 or (self.tp_size == 1 and self.sp_size == 1),
+             "--moe_experts under --pp_size > 1 composes with dp/fsdp/ep only: the MoE dispatch einsums inside the "
+             "pipeline body are not exercised under auto-tp/sp meshes"),
+            (self.pp_schedule != "1f1b" or (max(self.pos_dropout, self.att_dropout, self.mlp_dropout) == 0.0
+                                            and self.moe_experts == 0),
+             "--pp_schedule 1f1b v1 is dense/deterministic only (dropout and MoE ride the gpipe schedule); the "
+             "interleaved backward always recomputes the stage forward (none_saveable semantics)"),
+            (self.pp_schedule != "1f1b" or (self.tp_size == 1 and self.sp_size == 1),
+             "--pp_schedule 1f1b runs a fully-manual shard_map engine; tp/sp under pp ride the gpipe schedule "
+             "(GSPMD-auto axes in the pipeline body)"),
+            (self.tp_size == 1,
+             f"--pp_size {self.pp_size} with --tp_size {self.tp_size}: vitax's pipeline bodies under tp have no "
+             f"green reference (its pp x tp cases are xfail) and wait for the rest of ROADMAP item 11; the port's "
+             f"mesh takes pp beside dp, fsdp, sp and ep"),
+        )
+        for ok, msg in checks:
+            if not ok:
+                raise ValueError(msg)
+
     def validate(self) -> "Config":
         """Reject settings the port cannot run; returns self."""
-        if self.pp_size != 1:
-            raise ValueError(f"--pp_size {self.pp_size}: pipeline parallelism waits for the rest of ROADMAP item "
-                             f"11 (the GPipe and 1F1B pipelines); the port's mesh takes --dp_size, --fsdp_size, "
-                             f"--tp_size, --sp_size and --ep_size")
+        if self.pp_size > 1:
+            self.check_pp()
         if self.tp_size > 1:
             self.check_tp(self.tp_size)
         checks = (
             (self.sp_impl in ("ring", "ulysses"),
              f"unknown sp_impl {self.sp_impl!r} (expected 'ring' or 'ulysses')"),
             (all(getattr(self, name) == -1 or getattr(self, name) >= 1
-                 for name in ("dp_size", "fsdp_size", "tp_size", "sp_size", "ep_size")),
+                 for name in ("dp_size", "fsdp_size", "tp_size", "sp_size", "pp_size", "ep_size")),
              f"mesh sizes must be >= 1 or -1 (all remaining processes), got --dp_size {self.dp_size} --fsdp_size "
-             f"{self.fsdp_size} --tp_size {self.tp_size} --sp_size {self.sp_size} --ep_size {self.ep_size}"),
+             f"{self.fsdp_size} --tp_size {self.tp_size} --sp_size {self.sp_size} --pp_size {self.pp_size} "
+             f"--ep_size {self.ep_size}"),
             (self.tp_size == 1 or (self.moe_experts == 0 and self.ep_size == 1),
              f"--tp_size {self.tp_size} with --moe_experts {self.moe_experts} / --ep_size {self.ep_size}: vitax "
              f"replicates the experts over tp; MoE and ep under tp wait for the rest of ROADMAP item 11"),
@@ -341,6 +391,7 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--no_log_memory", "store_false", "log_memory"),
                ("--reinit_head", "store_true", "reinit_head"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS), "sp_impl": ["ring", "ulysses"],
+            "pp_schedule": ["gpipe", "1f1b"],
             "moe_top_k": [1, 2], "moe_impl": ["gather", "einsum"],
             "fused_optimizer": ["auto", "on", "off"], "gather_overlap": ["auto", "off", "on"],
             "param_gather_dtype": ["bfloat16", "float32"], "grad_reduce_dtype": ["float32", "bfloat16"],

@@ -377,47 +377,79 @@ def remat_block(block: Block, x: torch.Tensor, seed: Optional[int], policy: str,
                       context_fn=_dots_saved)
 
 
+class StageBlocks(nn.ModuleDict):
+    """A pipeline stage's blocks under their global indices, so that their
+    state-dict keys are the whole model's (blocks.{l}...): iterated and
+    indexed by local position, as a ModuleList."""
+
+    def __init__(self, first: int, blocks):
+        super().__init__({str(first + i): block for i, block in enumerate(blocks)})
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __getitem__(self, i):
+        return list(self._modules.values())[i] if isinstance(i, int) else super().__getitem__(i)
+
+
 class VisionTransformer(nn.Module):
-    """images (B, H, W, 3) float -> logits (B, num_classes) float32."""
+    """images (B, H, W, 3) float -> logits (B, num_classes) float32.
+
+    With a `pipe_shard` (parallel/mesh.py PipeShard) the model is one
+    pipeline stage: it holds only blocks [s L/S, (s + 1) L/S) of the whole
+    model, under their global names, beside the embedding, the final norm
+    and the head (replicated over the stages, as vitax replicates them over
+    "pp"), and the pipeline (parallel/pipeline.py) calls `stage_forward`
+    a microbatch: the embedding on the first stage, the stage's blocks,
+    the tail on the last."""
 
     def __init__(self, cfg: Config, attention_impl: Optional[Callable] = None, quant: Optional[Quant] = None,
-                 device=None, token_shard=None, expert_shard=None, tensor_shard=None):
+                 device=None, token_shard=None, expert_shard=None, tensor_shard=None, pipe_shard=None):
         super().__init__()
         self.token_shard = token_shard
+        self.pipe_shard = pipe_shard
         self.dtype = _DTYPES[cfg.dtype]
         self.grad_ckpt = cfg.grad_ckpt
         self.remat_policy = cfg.remat_policy
         self.quant = quant
         self.pos_dropout = cfg.pos_dropout
+        self.num_blocks = cfg.num_blocks
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, d, self.dtype, quant, device=device)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, d, device=device))
         moe = (dict(num_experts=cfg.moe_experts, capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k,
                     impl=cfg.moe_impl, expert_shard=expert_shard) if cfg.moe_experts > 0 else None)
-        self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device,
-                  att_dropout=cfg.att_dropout, mlp_dropout=cfg.mlp_dropout, moe=moe, tensor_shard=tensor_shard)
-            for _ in range(cfg.num_blocks))
+        layers = range(cfg.num_blocks) if pipe_shard is None else pipe_shard.layers(cfg.num_blocks)
+        self.first_block = layers.start
+        blocks = (Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device,
+                        att_dropout=cfg.att_dropout, mlp_dropout=cfg.mlp_dropout, moe=moe, tensor_shard=tensor_shard)
+                  for _ in layers)
+        self.blocks = nn.ModuleList(blocks) if pipe_shard is None else StageBlocks(layers.start, blocks)
         self.norm = LayerNorm(d, eps=1e-6, device=device)
         self.head = _linear(d, cfg.num_classes, quant, False, device)
 
-    def forward(self, images: torch.Tensor, seeds: Optional[DropoutSeeds] = None, with_aux: bool = False):
-        """seeds: DropoutSeeds for a dropout forward (training), None for
-        none (eval, serve). with_aux: return (logits, (fracs, probs)), the
-        MoE blocks' load-balance ingredients a block (empty when dense)."""
+    def embed(self, images: torch.Tensor, seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+        """Patchify and pos_embed (the rank's token slice under sp), then
+        pos dropout when given seeds."""
         x = self.patch_embed(images) + self.pos_embed.to(self.dtype)
         shard = self.token_shard
         if shard is not None:                   # the rank's token slice
             n = x.shape[1] // shard.count
             x = x[:, shard.index * n:(shard.index + 1) * n]
-        if seeds is not None:
-            if len(seeds.blocks) != len(self.blocks):
-                raise ValueError(f"{len(seeds.blocks)} dropout seeds for {len(self.blocks)} blocks")
-            if self.pos_dropout > 0.0:
-                x = _dropout(x, self.pos_dropout, _generator(seeds.pos, x.device))
+        if seeds is not None and self.pos_dropout > 0.0:
+            x = _dropout(x, self.pos_dropout, _generator(seeds.pos, x.device))
+        return x
+
+    def run_blocks(self, x: torch.Tensor, seeds: Optional[DropoutSeeds] = None):
+        """The blocks this model holds, each under remat_block when
+        grad_ckpt is on and grad enabled; seeds.blocks is indexed by global
+        block. Returns (x, fracs, probs), the MoE blocks' load-balance
+        ingredients a block (empty when dense)."""
+        if seeds is not None and len(seeds.blocks) != self.num_blocks:
+            raise ValueError(f"{len(seeds.blocks)} dropout seeds for {self.num_blocks} blocks")
         remat = self.grad_ckpt and torch.is_grad_enabled()
         fracs, probs = [], []
-        for i, block in enumerate(self.blocks):
+        for i, block in enumerate(self.blocks, start=self.first_block):
             seed = gen = None
             if seeds is not None:
                 seed, gen = seeds.blocks[i], None if seeds.gens is None else seeds.gens[i]
@@ -426,14 +458,40 @@ class VisionTransformer(nn.Module):
                 x, frac, prob = x
                 fracs.append(frac)
                 probs.append(prob)
+        return x, fracs, probs
+
+    def tail(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm, mean-pool (over every sp rank's tokens) and head:
+        float32 logits."""
         x = self.norm(x, self.dtype)
+        shard = self.token_shard
         if shard is None:
             x = x.mean(dim=1)
         else:                                   # the mean over every rank's tokens, in f32
             from torch.distributed.nn.functional import all_reduce
             x = (all_reduce(x.float().sum(dim=1), group=shard.group) / (x.shape[1] * shard.count)).to(self.dtype)
-        logits = self.head(x, torch.float32)
+        return self.head(x, torch.float32)
+
+    def forward(self, images: torch.Tensor, seeds: Optional[DropoutSeeds] = None, with_aux: bool = False):
+        """seeds: DropoutSeeds for a dropout forward (training), None for
+        none (eval, serve). with_aux: return (logits, (fracs, probs)), the
+        MoE blocks' load-balance ingredients a block (empty when dense)."""
+        if self.pipe_shard is not None:
+            raise ValueError("a pipeline stage runs through parallel/pipeline.py (stage_forward), not forward")
+        x, fracs, probs = self.run_blocks(self.embed(images, seeds), seeds)
+        logits = self.tail(x)
         return (logits, (fracs, probs)) if with_aux else logits
+
+    def stage_forward(self, x: torch.Tensor, seeds: Optional[DropoutSeeds] = None):
+        """One microbatch through this pipeline stage: `x` is the images on
+        the first stage (embedded here), the previous stage's activations
+        on the others; returns (the next stage's activations, or the
+        logits on the last, fracs, probs)."""
+        shard = self.pipe_shard
+        if shard.first:
+            x = self.embed(x, seeds)
+        x, fracs, probs = self.run_blocks(x, seeds)
+        return (self.tail(x) if shard.last else x), fracs, probs
 
 
 def _trunc_normal(t: torch.Tensor, gen: torch.Generator) -> None:
@@ -478,7 +536,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
                 init: bool = True, quant: Optional[Quant] = None, token_shard=None,
-                expert_shard=None, tensor_shard=None) -> VisionTransformer:
+                expert_shard=None, tensor_shard=None, pipe_shard=None) -> VisionTransformer:
     """The ViT on `device`, built without a throwaway default init: the
     modules are made on the meta device, then given storage on `device`.
     init=True fills the params from cfg.seed (float32, as vitax initializes
@@ -490,12 +548,16 @@ def build_model(cfg: Config, device, attention_impl: Optional[Callable] = None,
     slice under sequence parallelism, an `expert_shard` its experts over
     the ep group, a `tensor_shard` its blocks' heads and MLP features over
     the tp group (the model must then be sharded by parallel/sharding.py
-    apply_fsdp before it runs)."""
+    apply_fsdp before it runs), a `pipe_shard` only its pipeline stage's
+    blocks (on the meta device: parallel/sharding.py init_sharded fills
+    it)."""
     device = torch.device(device)
     if quant is not None and init:
         raise ValueError("a quantized model takes its weights from a quantized state: pass init=False")
+    if pipe_shard is not None and init and device.type != "meta":
+        raise ValueError("a pipeline stage is filled by parallel/sharding.py init_sharded: build it on meta")
     model = VisionTransformer(cfg, attention_impl, quant, device="meta", token_shard=token_shard,
-                              expert_shard=expert_shard, tensor_shard=tensor_shard)
+                              expert_shard=expert_shard, tensor_shard=tensor_shard, pipe_shard=pipe_shard)
     if device.type == "meta" or not init:
         return model.eval()
     model = model.to_empty(device=device)

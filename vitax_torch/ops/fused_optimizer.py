@@ -56,7 +56,8 @@ def fused_optimizer_active(cfg, device) -> bool:
 
 
 def global_norm(grads: Sequence[torch.Tensor], group=None, expert: Optional[Sequence[bool]] = None,
-                ep_group=None, tp_sharded: Optional[Sequence[bool]] = None, tp_group=None) -> torch.Tensor:
+                ep_group=None, tp_sharded: Optional[Sequence[bool]] = None, tp_group=None,
+                staged: Optional[Sequence[bool]] = None, pp_group=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (optax.global_norm), an
     f32 scalar on the grads' device; one multi-tensor reduction. Sharded
     grads pass their local shards (padding is not in them) and `group`,
@@ -66,7 +67,25 @@ def global_norm(grads: Sequence[torch.Tensor], group=None, expert: Optional[Sequ
     leaves flagged in `expert` hold the rank's experts only, and under
     tensor parallelism (`tp_group`) those flagged in `tp_sharded` the
     rank's 1/tp: their squares are summed over that group first, where the
-    other leaves, replicated over it, count once."""
+    other leaves, replicated over it, count once. Under pipeline
+    parallelism (`pp_group`) the leaves flagged in `staged` (the blocks)
+    are the rank's stage's: their sum of squares, formed as above, is
+    summed over the stages, and the replicated leaves count once."""
+    if pp_group is not None:
+        import torch.distributed as dist
+
+        def pick(xs, want):
+            return None if xs is None else [x for x, s in zip(xs, staged) if s == want]
+        parts = []
+        for want in (True, False):          # the stage's blocks, then the replicated leaves
+            norm = global_norm(pick(grads, want), None, pick(expert, want), ep_group, pick(tp_sharded, want),
+                               tp_group)
+            parts.append(norm * norm)
+        dist.all_reduce(parts[0], group=pp_group)
+        sq = parts[0] + parts[1]
+        if group is not None:
+            dist.all_reduce(sq, group=group)
+        return sq.sqrt()
     norms = torch._foreach_norm(list(grads))
     import torch.distributed as dist
     split = [(f, g) for f, g in ((expert, ep_group), (tp_sharded, tp_group)) if g is not None]

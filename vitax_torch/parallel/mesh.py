@@ -1,6 +1,6 @@
 """The device mesh (vitax/parallel/mesh.py): one process per card, the
 processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "tp", "sp",
-"ep").
+"pp", "ep"), vitax's six in vitax's order.
 
 - "dp":   pure data parallelism (params replicated across it);
 - "fsdp": ZeRO-3: params, grads and AdamW moments sharded across it; it
@@ -14,24 +14,29 @@ processes arranged as a `DeviceMesh` with dims ("dp", "fsdp", "tp", "sp",
           sharded across it (ring or Ulysses attention, parallel/); params
           are replicated across it and its ranks read the same batch rows
           (vitax's BATCH_AXES leave "sp" out);
+- "pp":   pipeline parallelism (parallel/pipeline.py): stage s of S holds
+          blocks [s L/S, (s + 1) L/S); the embedding, the final norm and
+          the head are replicated across it, and its ranks read the same
+          batch rows (vitax replicates the batch over "pp");
 - "ep":   expert parallelism (models/moe.py): it carries the batch like
           dp, dense params are replicated across it, and each of its ranks
           holds E/ep experts of every MoE block.
 
-The reference's FSDP is mesh (1, n, 1, 1, 1); its --run_without_fsdp DP
-baseline (n, 1, 1, 1, 1). The ranks fill the mesh row-major with "ep"
-fastest, then "sp", then "tp", as vitax reshapes its devices over (dp,
-fsdp, tp, sp, pp, ep) with pp = 1, so rank r holds the batch rows, the
-token slice, the heads and the experts that vitax's device r holds. The
-ranks of one batch shard are therefore not neighbours in general (those
-of a tp group sit sp * ep apart), so every shard index here is computed
-from the rank's coordinates. `resolve_mesh_shape` keeps vitax's six
-sizes, so its errors are vitax's; pp above 1, MoE (so ep) beside sp or
-tp are refused by Config.validate (item 11).
+The reference's FSDP is mesh (1, n, 1, 1, 1, 1); its --run_without_fsdp
+DP baseline (n, 1, 1, 1, 1, 1). The ranks fill the mesh row-major with
+"ep" fastest, then "pp", "sp" and "tp", as vitax reshapes its devices over
+(dp, fsdp, tp, sp, pp, ep), so rank r holds the batch rows, the token
+slice, the heads, the stage and the experts that vitax's device r holds.
+The ranks of one batch shard are therefore not neighbours in general
+(those of a tp group sit sp * pp * ep apart), so every shard index here
+is computed from the rank's coordinates. `resolve_mesh_shape` is vitax's,
+so its errors are vitax's; pp beside tp, and MoE (so ep) beside sp or tp,
+are refused by Config.validate (item 11).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -39,7 +44,7 @@ import torch
 
 from vitax_torch import distributed
 
-MESH_DIMS = ("dp", "fsdp", "tp", "sp", "ep")    # the port's DeviceMesh
+MESH_DIMS = ("dp", "fsdp", "tp", "sp", "pp", "ep")    # the port's DeviceMesh (vitax/parallel/mesh.py:37)
 BATCH_DIMS = ("dp", "fsdp", "ep")         # the dims that carry the global batch (vitax BATCH_AXES)
 
 
@@ -81,17 +86,19 @@ def resolve_mesh_shape(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
 
 
 def mesh_sizes(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
-    """The sizes of MESH_DIMS: vitax's resolved sizes without pp (1 here).
-    A tp size resolved from -1 is held to what Config.validate holds a
-    given one to."""
-    dp, fsdp, tp, sp, _, ep = resolve_mesh_shape(cfg, n_devices)
+    """The sizes of MESH_DIMS: vitax's resolved sizes. A tp or pp size
+    resolved from -1 is held to what Config.validate holds a given one to."""
+    sizes = resolve_mesh_shape(cfg, n_devices)
+    tp, pp = sizes[2], sizes[4]
     if tp > 1 and cfg.tp_size == -1:
         cfg.check_tp(tp)
-    return dp, fsdp, tp, sp, ep
+    if pp > 1 and cfg.pp_size == -1:
+        dataclasses.replace(cfg, pp_size=pp).check_pp()
+    return sizes
 
 
 def build_mesh(cfg, device: torch.device):
-    """The ("dp", "fsdp", "tp", "sp", "ep") DeviceMesh over every process,
+    """The ("dp", "fsdp", "tp", "sp", "pp", "ep") DeviceMesh over every process,
     on `device`'s type; the process group must be up
     (distributed.maybe_initialize)."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -105,7 +112,7 @@ def dim_size(mesh, dim: str) -> int:
 
 def linear_index(coords, sizes, dims) -> int:
     """The row-major index of the coordinates of `dims` (a subset of
-    MESH_DIMS, in that order), as vitax linearizes shard_map axes."""
+    MESH_DIMS, in the order given), as vitax linearizes shard_map axes."""
     index = 0
     for dim in dims:
         i = MESH_DIMS.index(dim)
@@ -215,3 +222,49 @@ def tensor_shard(mesh) -> Optional[TensorShard]:
     if dim_size(mesh, "tp") == 1:
         return None
     return TensorShard(mesh.get_local_rank("tp"), dim_size(mesh, "tp"), mesh.get_group("tp"))
+
+
+class PipeShard(NamedTuple):
+    """The rank's pipeline stage: its index, the stage count, the pp
+    process group, and the global ranks of the previous and the next
+    stage's rank at the same other coordinates (None past either end)."""
+    index: int
+    count: int
+    group: object
+    prev: Optional[int]
+    next: Optional[int]
+
+    @property
+    def first(self) -> bool:
+        return self.index == 0
+
+    @property
+    def last(self) -> bool:
+        return self.index == self.count - 1
+
+    def layers(self, num_blocks: int) -> range:
+        """The global block indices this stage holds."""
+        per = num_blocks // self.count
+        return range(self.index * per, (self.index + 1) * per)
+
+
+def pipe_shard(mesh) -> Optional[PipeShard]:
+    """The rank's PipeShard when pp splits the blocks (size > 1), else None."""
+    count = dim_size(mesh, "pp")
+    if count == 1:
+        return None
+    import torch.distributed as dist
+    group, index = mesh.get_group("pp"), mesh.get_local_rank("pp")
+
+    def peer(i: int) -> Optional[int]:
+        return dist.get_global_rank(group, i) if 0 <= i < count else None
+    return PipeShard(index, count, group, peer(index - 1), peer(index + 1))
+
+
+def pp_shard_index(mesh) -> int:
+    """vitax's pipeline shard index: the rank's linearized (dp, fsdp, ep,
+    sp) coordinate (vitax/parallel/pipeline.py:273-283), which its
+    pipeline folds into the step's dropout key. 0 without a mesh."""
+    if mesh is None:
+        return 0
+    return linear_index(mesh.get_coordinate(), tuple(mesh.shape), ("dp", "fsdp", "ep", "sp"))

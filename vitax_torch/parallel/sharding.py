@@ -53,6 +53,20 @@ the row-parallel partials before they meet a replicated leaf), so their
 grads need no tp reduction, and the grad norm sums the squares of the tp
 leaves over the tp group (ops/fused_optimizer.py global_norm).
 
+Pipeline parallelism (the mesh's "pp" dim, parallel/pipeline.py): a
+stage model holds its stage's blocks only, and FSDP2 wraps it as any
+model, on the (dp, fsdp) slice that holds the rank, a unit a block, so
+ZeRO-3 gathers each block just in time inside the stage; the schedule
+calls the root's `stage_forward` (an FSDP2 forward method, so the root's
+lazy init, gathers and backward hooks run as under forward). The
+embedding, the final norm and the head are replicated over "pp": only the
+first stage uses the embedding and only the last the norm and head, so
+after the backward `average_over_pp` sums their grads over the pp group
+(a stage that never used a leaf gives zeros), leaving them equal on every
+stage; the block leaves belong to one stage each, and the grad norm sums
+their squares over the pp group (ops/fused_optimizer.py global_norm,
+`pp_flags`).
+
 Placements (`placement`) follow the rule table (parallel/rules.py): each
 leaf shards its rule's dim over "fsdp". A leaf with no divisible dim is
 replicated in vitax; FSDP2 shards every leaf, so it takes Shard(0),
@@ -75,7 +89,9 @@ meta device: for each leaf in init_params' order, the whole leaf is drawn
 from the same generator on the run's device (the host under
 --shard_on_cpu) and only the rank's shard is kept, so the params are
 bitwise those of the unsharded build_model at every mesh, and one leaf is
-resident at a time.
+resident at a time. A pipeline stage draws the other stages' leaves in
+their turn too, into a scratch tensor it drops, so its own are the whole
+model's leaf for leaf.
 """
 
 from __future__ import annotations
@@ -86,7 +102,7 @@ import torch
 from torch import nn
 
 from vitax_torch.models.moe import EXPERT_LEAVES, MoeMlp
-from vitax_torch.models.vit import _DTYPES, init_leaves
+from vitax_torch.models.vit import _DTYPES, build_model, init_leaves
 from vitax_torch.parallel.mesh import dim_size
 from vitax_torch.parallel.rules import is_expert_leaf, rule_pspec, tp_dim
 from vitax_torch.parallel.tensor_parallel import tp_local
@@ -210,6 +226,8 @@ def apply_fsdp(model: nn.Module, cfg, mesh) -> nn.Module:
         for method in ("attention_inputs", "finish") if split else ():
             register_fsdp_forward_method(block, method)
     fully_shard(model, mp_policy=compute, **common)
+    if getattr(model, "pipe_shard", None) is not None:       # the pipeline's entry: the root's hooks run
+        register_fsdp_forward_method(model, "stage_forward")
     if cfg.gather_overlap == "on":
         # explicit prefetch: block k+1's gather is issued at block k's forward,
         # block k-1's at block k's backward
@@ -252,12 +270,23 @@ def init_sharded(model: nn.Module, cfg, device: torch.device) -> None:
     """Fill a model sharded by apply_fsdp and given storage (to_empty) with
     the unsharded init from cfg.seed: each leaf drawn whole, in
     init_params' order from one generator on `device` (or the host under
-    --shard_on_cpu), and the rank's shard kept."""
+    --shard_on_cpu), and the rank's shard kept. A pipeline stage walks the
+    whole model's leaves (a meta build), drawing those it does not hold
+    into scratch."""
     from torch.distributed.tensor import DTensor
     draw_on = torch.device("cpu") if cfg.shard_on_cpu else torch.device(device)
     gen = torch.Generator(device=draw_on)
     gen.manual_seed(cfg.seed)
-    for param, fill in init_leaves(model):
+    if getattr(model, "pipe_shard", None) is None:
+        leaves = init_leaves(model)
+    else:
+        whole = build_model(cfg, "meta")
+        held, names = dict(model.named_parameters()), {id(p): n for n, p in whole.named_parameters()}
+        leaves = ((held.get(names[id(p)], p), fill) for p, fill in init_leaves(whole))
+    for param, fill in leaves:
+        if param.device.type == "meta":         # another stage's leaf: its draws, then dropped
+            fill(torch.empty(param.shape, dtype=param.dtype, device=draw_on), gen)
+            continue
         if not isinstance(param, DTensor):
             fill(param, gen)
             continue
@@ -315,6 +344,42 @@ def average_over_ep(grads, expert, group) -> None:
     for work in works:
         work.wait()
     torch._foreach_mul_([g for g, _ in pairs], 1.0 / dist.get_world_size(group))
+
+
+def pp_group(mesh) -> Optional[object]:
+    """The process group of the "pp" dim when it has more than one stage."""
+    if dim_size(mesh, "pp") == 1:
+        return None
+    return mesh.get_group("pp")
+
+
+def pp_flags(model: nn.Module) -> list:
+    """For each parameter in named_parameters order, whether it is a block
+    leaf (held by one pipeline stage; the others are replicated over pp)."""
+    return [n.startswith("blocks.") for n, _ in model.named_parameters()]
+
+
+def average_over_pp(model: nn.Module, group) -> None:
+    """Under pipeline parallelism, each replicated leaf's grad (its local
+    shard; zeros where this stage never used the leaf) summed over the pp
+    group in place, one all-reduce a leaf, all issued before the first
+    wait: the stage that used it holds its grad, the others add zeros, and
+    every stage ends with the same bits. The block leaves are left alone.
+    No-op without a group."""
+    if group is None:
+        return
+    import torch.distributed as dist
+    from vitax_torch.train.state import local
+    grads = []
+    for (name, p), block in zip(model.named_parameters(), pp_flags(model)):
+        if block:
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(local(p.grad))
+    works = [dist.all_reduce(g, group=group, async_op=True) for g in grads]
+    for work in works:
+        work.wait()
 
 
 def sp_group(mesh) -> Optional[object]:

@@ -7,7 +7,8 @@ Under a process group train() builds the ("dp", "fsdp", "tp", "sp", "ep")
 mesh, the model on the meta device, shards it (apply_fsdp), then inits
 each rank's shards (bitwise the unsharded init) or restores them; each
 rank reads its batch shard's slice of every global batch; eval counts are
-summed over the ranks (sp and tp index 0 of each batch shard), so top-1
+summed over the ranks (sp and tp index 0 of each batch shard, on the last
+pipeline stage), so top-1
 is over the whole val split; only rank 0 prints. Under sp (vitax's _token_sharding and
 _select_attention) the model runs on the rank's token slice through the
 ring or Ulysses core that make_attention_impl builds on the mesh, and the
@@ -16,7 +17,11 @@ Under --moe_experts every block's MLP is the routed MoeMlp (models/moe.py)
 and, at --ep_size > 1, its experts are sharded over the ep group.
 At --tp_size > 1 each block runs H/tp whole heads and 1/tp of the MLP
 features over the tp group (parallel/tensor_parallel.py); telemetry's MFU
-stays the global FLOPs over the world size, as vitax's.
+stays the global FLOPs over the world size, as vitax's. At --pp_size > 1
+each rank builds its pipeline stage only (its blocks under their global
+names, models/vit.py) and the step runs --pp_schedule over
+--pp_microbatches (parallel/pipeline.py); eval counts come from the last
+stage.
 Without one (no WORLD_SIZE
 in the environment, no group made by the caller) it trains unwrapped on
 one device, as before.
@@ -81,7 +86,7 @@ from vitax_torch.data.loader import build_datasets
 from vitax_torch.models.vit import build_model, count_params
 from vitax_torch.ops.attention import make_attention_impl
 from vitax_torch.ops.fused_optimizer import fused_optimizer_active
-from vitax_torch.parallel.mesh import batch_shard, build_mesh, expert_shard, tensor_shard, token_shard
+from vitax_torch.parallel.mesh import batch_shard, build_mesh, expert_shard, pipe_shard, tensor_shard, token_shard
 from vitax_torch.parallel.sharding import apply_fsdp, init_sharded, reshard
 from vitax_torch.platform import DeviceLike, device_kind
 from vitax_torch.programs.builder import build_program
@@ -127,6 +132,9 @@ def train(cfg: Config, device: DeviceLike = None,
     if mesh is None and cfg.tp_size > 1:   # a lone process holds every head
         raise ValueError(f"--tp_size {cfg.tp_size} shards the blocks over {cfg.tp_size} processes: launch them "
                          f"with torchrun (--nproc_per_node a multiple of {cfg.tp_size})")
+    if mesh is None and cfg.pp_size > 1:   # a lone process holds every stage
+        raise ValueError(f"--pp_size {cfg.pp_size} splits the blocks over {cfg.pp_size} processes: launch them "
+                         f"with torchrun (--nproc_per_node a multiple of {cfg.pp_size})")
     if mesh is None and cfg.ep_size > 1:   # a lone process holds every expert
         raise ValueError(f"--ep_size {cfg.ep_size} shards the experts over {cfg.ep_size} processes: launch them "
                          f"with torchrun (--nproc_per_node a multiple of {cfg.ep_size})")
@@ -134,6 +142,10 @@ def train(cfg: Config, device: DeviceLike = None,
     if cfg.batch_size % ranks or (cfg.batch_size // ranks) % cfg.grad_accum_steps:
         raise ValueError(f"--batch_size {cfg.batch_size} must split into {ranks} equal rank batches, each a "
                          f"multiple of --grad_accum_steps {cfg.grad_accum_steps}")
+    pipe = pipe_shard(mesh)
+    if pipe is not None:
+        from vitax_torch.parallel.pipeline import Hop, check_batch
+        microbatches = check_batch(cfg, mesh, pipe)
     auto_resume = cfg.resume_epoch < 0
     if auto_resume:                     # the latest committed checkpoint, if any, as rank 0 sees it
         found = distributed.broadcast_from_process0(ckpt_io.latest_epoch(cfg.ckpt_dir) or 0)
@@ -168,6 +180,12 @@ def train(cfg: Config, device: DeviceLike = None,
         master_print(f"tensor parallel: tp {heads.count}, {cfg.num_heads // heads.count} heads and "
                      f"{cfg.mlp_hidden_dim // heads.count} MLP features a rank (qkv rows relaid to whole heads "
                      f"by one all-to-all a block)")
+    if pipe is not None:
+        per = cfg.num_blocks // pipe.count
+        master_print(f"pipeline: pp {pipe.count}, {cfg.pp_schedule} schedule, {per} blocks a stage (stages hold "
+                     + ", ".join(f"[{s * per}, {(s + 1) * per})" for s in range(pipe.count))
+                     + f"), {microbatches} microbatches of {cfg.batch_size // ranks // microbatches} rows a rank a "
+                     f"step; stage hops over {Hop(pipe, device).route}")
     experts = expert_shard(mesh)
     if cfg.moe_experts > 0:
         master_print(f"moe: {cfg.moe_experts} experts, top-{cfg.moe_top_k}, capacity factor "
@@ -180,7 +198,7 @@ def train(cfg: Config, device: DeviceLike = None,
                      f"pos {cfg.pos_dropout}; seeds per (step, microbatch, block) from seed {cfg.seed}")
     if mesh is not None:                # built on meta, sharded, then each rank's shards filled
         model = apply_fsdp(build_model(cfg, "meta", attention_impl=attention_impl, token_shard=tokens,
-                                       expert_shard=experts, tensor_shard=heads), cfg, mesh)
+                                       expert_shard=experts, tensor_shard=heads, pipe_shard=pipe), cfg, mesh)
         model.to_empty(device=device)
         if cfg.resume_epoch == 0:
             init_sharded(model, cfg, device)

@@ -65,6 +65,20 @@ norm sums the Megatron leaves' squares over the tp group before the
 fsdp sum, the replicated leaves counting once (ops/fused_optimizer.py
 global_norm). The attention seed folds the tp index last, as vitax's
 shard_map folds (*BATCH_AXES, "tp"); the generators do not fold it.
+
+Under pipeline parallelism (the mesh's "pp" dim, a stage model) the step
+runs the --pp_schedule (parallel/pipeline.py GPipe, pipeline_1f1b.py
+1F1B) over the rank's rows split contiguously into --pp_microbatches,
+each microbatch's backward inside it. After it the replicated leaves'
+grads are summed over the stages (parallel/sharding.py average_over_pp,
+a no-op elsewhere), then averaged over sp and ep as above, and the grad
+norm sums the block leaves' squares over the stages. Microbatch k's dropout seeds are
+`pp_seeds`: dropout_seeds(cfg, step, k) for every global block, folded
+with vitax's pipeline shard index (the rank's linearized (dp, fsdp, ep,
+sp) coordinate, which vitax folds into its pipeline key), attention and
+generators alike. Only the last stage holds a loss: the metric's global
+mean sums it over the processes and divides by those of one stage; under
+MoE the aux the schedule formed (identical on every rank) is added.
 """
 
 from __future__ import annotations
@@ -83,9 +97,9 @@ from vitax_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from vitax_torch.models.vit import DropoutSeeds
 from vitax_torch.ops.attention import fold_shard_seed, sp_core
 from vitax_torch.ops.fused_optimizer import fused_clip_adamw, fused_optimizer_active, global_norm
-from vitax_torch.parallel.mesh import batch_shard, sp_shard, tp_shard
-from vitax_torch.parallel.sharding import (average_over_ep, average_over_sp, ep_group, expert_flags, fsdp_group,
-                                           sp_group, tp_flags, tp_group)
+from vitax_torch.parallel.mesh import batch_shard, dim_size, pipe_shard, pp_shard_index, sp_shard, tp_shard
+from vitax_torch.parallel.sharding import (average_over_ep, average_over_pp, average_over_sp, ep_group, expert_flags,
+                                           fsdp_group, pp_flags, pp_group, sp_group, tp_flags, tp_group)
 from vitax_torch.train.state import AdamW, TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -127,6 +141,14 @@ def shard_seeds(seeds: DropoutSeeds, index: int, gen_index: Optional[int] = None
     blocks = tuple(fold_shard_seed(index, s) for s in seeds.blocks)
     gens = None if gen_index == index else tuple(fold_shard_seed(gen_index, s) for s in seeds.blocks)
     return DropoutSeeds(blocks=blocks, pos=fold_shard_seed(gen_index, seeds.pos), gens=gens)
+
+
+def pp_seeds(cfg: Config, step: int, k: int, index: int) -> DropoutSeeds:
+    """Microbatch k's dropout seeds of the step at count `step` on a
+    pipeline rank whose pipeline shard index is `index`
+    (parallel/mesh.py pp_shard_index): dropout_seeds(cfg, step, k), one
+    a global block, with the index folded into every seed."""
+    return shard_seeds(dropout_seeds(cfg, step, k), index)
 
 
 def seed_indices(cfg: Config, mesh) -> tuple:
@@ -177,12 +199,13 @@ def _make_update_fn(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     and advances state.count and state.step. Sharded, both run on the
     rank's local shards."""
     fused_optimizer_active(cfg, device)       # raises for --fused_optimizer off on the card
-    group, ep, tp = fsdp_group(mesh), ep_group(mesh), tp_group(mesh)
+    group, ep, tp, pp = fsdp_group(mesh), ep_group(mesh), tp_group(mesh), pp_group(mesh)
 
     def update(state: TrainState, grads: List[torch.Tensor]) -> torch.Tensor:
         names, params, mu, nu = state.leaves()
         grad_norm = global_norm(grads, group, expert_flags(state.model) if ep is not None else None, ep,
-                                tp_flags(state.model) if tp is not None else None, tp)
+                                tp_flags(state.model) if tp is not None else None, tp,
+                                pp_flags(state.model) if pp is not None else None, pp)
         if len(names) != len(grads):          # the probe: the head's grads, clipped by every grad's norm
             trained = set(names)
             grads = [g for (n, _), g in zip(state.model.named_parameters(), grads) if n in trained]
@@ -239,13 +262,16 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     updated in place and returned. Under dropout, microbatch k of the step
     at count `state.step` runs with dropout_seeds(cfg, state.step, k),
     folded with the rank's batch shard index under a `mesh` (the batch is
-    then the rank's slice of the global batch; `seed_indices` under sp)."""
+    then the rank's slice of the global batch; `seed_indices` under sp,
+    `pp_seeds` on a pipeline stage)."""
     device = torch.device(device)
     update = _make_update_fn(cfg, optimizer, device, mesh)
+    pipeline = _pipeline_backward(cfg, device, mesh) if pipe_shard(mesh) is not None else None
     k_steps = cfg.grad_accum_steps
     dropout = _needs_dropout(cfg)
     att_index, gen_index = seed_indices(cfg, mesh)
-    sp, ep = sp_group(mesh), ep_group(mesh)
+    sp, ep, pp = sp_group(mesh), ep_group(mesh), pp_group(mesh)
+    stages = dim_size(mesh, "pp")
     moe = cfg.moe_experts > 0
 
     def seeds_for(step: int, k: int) -> Optional[DropoutSeeds]:
@@ -268,7 +294,10 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     def train_step(state: TrainState, batch: Batch, time_update: bool = False):
         model = state.model
         model.zero_grad(set_to_none=True)
-        if moe and k_steps > 1:
+        aux = None
+        if pipeline is not None:
+            loss, aux = pipeline(state, batch)
+        elif moe and k_steps > 1:
             # the aux couples the microbatches: one backward through all of them
             terms = [checkpoint(moe_terms, model, mb["image"], mb["label"], seeds_for(state.step, k),
                                 use_reentrant=False)
@@ -291,11 +320,14 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
             loss = loss * (1.0 / k_steps)
             for g in state.grads():
                 g.mul_(1.0 / k_steps)
+        average_over_pp(model, pp)
         average_over_sp(state.grads(), sp)
         if ep is not None:
             average_over_ep(state.grads(), expert_flags(model), ep)
-        if mesh is not None:                 # the global batch's mean (an sp or tp group's ranks hold one loss)
-            loss = distributed.all_reduce_sum(loss) / distributed.process_count()
+        if mesh is not None:    # the global batch's mean: an sp or tp group's ranks hold one loss, the last stage's
+            loss = distributed.all_reduce_sum(loss) / (distributed.process_count() // stages)
+        if aux is not None:     # the pipeline's MoE aux, the same on every rank
+            loss = loss + cfg.moe_aux_weight * aux
         metrics = {"loss": loss, "images": cfg.batch_size, "tokens": cfg.batch_size * cfg.num_patches}
         if time_update:
             with UpdateTimer(device) as metrics["opt_update"]:
@@ -308,18 +340,55 @@ def make_train_step(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
     return train_step
 
 
+def _pipeline_backward(cfg: Config, device: torch.device, mesh) -> Callable[[TrainState, Batch], tuple]:
+    """backward(state, batch) -> (loss, aux) on a pipeline stage: the
+    --pp_schedule's forwards and backwards over the rank's microbatches;
+    the loss is the rank's mean CE on the last stage and 0 on the others,
+    aux the MoE aux (None when dense)."""
+    from vitax_torch.parallel.pipeline import Hop, Stage, check_batch, gpipe_step, microbatches
+    from vitax_torch.parallel.pipeline_1f1b import one_f_one_b_step
+    pipe = pipe_shard(mesh)
+    m = check_batch(cfg, mesh, pipe)
+    run = one_f_one_b_step if cfg.pp_schedule == "1f1b" else gpipe_step
+    hop, dropout, index = Hop(pipe, device), _needs_dropout(cfg), pp_shard_index(mesh)
+
+    def backward(state: TrainState, batch: Batch) -> tuple:
+        step = state.step
+        stage = Stage(state.model, cfg, pipe, hop, microbatches(prepare_images(batch["image"]), m),
+                      microbatches(batch["label"], m), lambda k: pp_seeds(cfg, step, k, index) if dropout else None)
+        aux = run(stage)
+        return stage.loss, aux
+
+    return backward
+
+
 def make_eval_step(cfg: Config, mesh=None) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """eval_step(state, batch) -> {"correct", "correct_top5"}: prediction
     counts over the batch, device tensors (top-5 clamps to the class count).
     Under sp and tp the ranks of a group hold the same logits: only sp and
-    tp index 0 count, so a sum over every process counts each row once."""
+    tp index 0 count, so a sum over every process counts each row once. On
+    a pipeline stage the batch runs through the stages' forwards
+    (parallel/pipeline.py pipeline_logits) and only the last stage counts."""
     k5 = min(5, cfg.num_classes)
-    counts = sp_shard(mesh)[0] == 0 and tp_shard(mesh)[0] == 0
+    pipe = pipe_shard(mesh)
+    counts = sp_shard(mesh)[0] == 0 and tp_shard(mesh)[0] == 0 and (pipe is None or pipe.last)
+    logits_of = None
+    if pipe is not None:
+        from vitax_torch.parallel.pipeline import Hop, Stage, check_batch, microbatches, pipeline_logits
+        m = check_batch(cfg, mesh, pipe)
+
+        def logits_of(model, images):
+            hop = Hop(pipe, images.device)
+            return pipeline_logits(Stage(model, cfg, pipe, hop, microbatches(images, m), None, lambda k: None))
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
-        logits = state.model(prepare_images(batch["image"]))
+        images = prepare_images(batch["image"])
+        logits = state.model(images) if logits_of is None else logits_of(state.model, images)
         label = batch["label"]
+        if logits is None:                      # a pipeline stage before the last: no logits, no counts
+            zero = torch.zeros((), dtype=torch.int64, device=label.device)
+            return {"correct": zero, "correct_top5": zero}
         pred = logits.argmax(dim=-1)
         top5 = logits.topk(k5, dim=-1).indices
         return {"correct": (pred == label).sum() * counts,
