@@ -3,6 +3,7 @@
 repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --lost-rank    # phase 7e's drill (f) alone, at the 10B width
 
 Phases, each printing one line (or a few), any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -150,6 +151,29 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      and served, one bucket-8 batch through kernel C (9 launches), its
      codes, scales and answers bitwise those of the trained model
      quantized in memory; launch counts of both runs against their steps;
+  7e. the failure-reaction drills, each the train CLI under `python -m
+     vitax_torch.supervise` (DRILL_MAIN: the CLI's main writing every
+     child's launches) at 7c's cell cut to depth 1 (DRILL_CELL: the card
+     machine's 96 GiB of host memory and 45 GiB of disk writes a run do
+     not hold the depth-2 drills), checkpoints in /dev/shm, in waves,
+     against one uninterrupted train() of the cell: (a) a crash (exit 13)
+     at step 5 and the restart from epoch 1's checkpoint, the seconds from
+     the death to the next first step; (b) SIGTERM at step 2: a committed
+     mid-epoch save, exit 0, a resume at step 3; (c) a 15 s hang past
+     --hang_timeout_s 12 under checkpoint_exit: the stack and memory dump,
+     the emergency save, exit 42 within the hard deadline, the restart;
+     (d) --zero_stall_ckpt, each save's stall; (e) --replicate_steps 2 and
+     a crash: the restart restored from the peer store with no
+     checkpoint-directory read, against (a)'s DCP restore seconds; each
+     ends bitwise and launches what its steps launch; (f) two ranks over
+     gloo on the card at b16's width (LOST_RANK_CELL, ZeRO-3;
+     --replicate_steps 2 --peer_heartbeat_s 1): rank 1 killed at step 4,
+     rank 0's exit 42 within the grace plus its deadline, rank 1's store
+     deleted, the relaunched pair restored from rank 0's copy (rank 0
+     serving it from its own store) and bitwise an uninterrupted pair;
+     then at 7c's cell a save's loop-thread stall, save_state's snapshot
+     against the pipeline's stage, in turns. `python3 chip_smoke.py
+     --lost-rank` runs (f) alone at DRILL_CELL, the 10B width;
   7f. FSDP2 at world size 1: a one-rank NCCL group made here, after every
      unwrapped phase, and destroyed at the end of the phase. First the
      unwrapped reference (phase 7's run cut to 3 steps, on noise images
@@ -194,7 +218,8 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      int8) and served, each export's engine answering a bucket-8 batch as
      from_state on the same float weights, bitwise, the int8 one
      dequantized at load (no kernel C launch);
-  8. a `kernels` JSON line, then the last line
+  8. the seconds of each phase, the card's name and power limit, a
+     `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -1545,11 +1570,12 @@ def profiled_ms(torch, fn, patterns, calls: int):
     around back-to-back calls, this is the kernels' own time where the
     wrapper's host time exceeds it."""
     from vitax_torch.tools.attn_fwd_ab import profiled_ms as device_ms
-    out = device_ms(fn, patterns, calls)
-    for piece, ms in out.items():
-        if not ms > 0:
-            fail(f"torch.profiler recorded no device time for the {piece} kernel")
-    return out
+    for _ in range(3):                  # a profiler cycle can come back without a kernel's events: profile again
+        out = device_ms(fn, patterns, calls)
+        missing = [piece for piece, ms in out.items() if not ms > 0]
+        if not missing:
+            return out
+    fail(f"torch.profiler recorded no device time for the {missing[0]} kernel in three tries")
 
 
 def bwd_kernel_ms(torch, bwd, calls: int = 3):
@@ -3030,6 +3056,533 @@ def phase_checkpoint(torch, card, root: str):
     return {k: train_launches[k] + serve_launches[k] for k in serve_launches}
 
 
+# Phase 7e: the failure-reaction drills at phase 7c's cell (TRAIN_CKPT: the
+# 10B width at depth 2, att_dropout 0.1, two epochs of three steps, a save
+# after each). Each drill is the train CLI under `python -m
+# vitax_torch.supervise` (DRILL_MAIN: the CLI's main, which writes the
+# child's kernel launches before an injected fault acts and at its exit);
+# phase 7c's run A, on the same flags in process, is the uninterrupted run
+# each drill must end bitwise. The drills run in waves of a few processes.
+DRILL_MAIN = """import json, os, sys
+import torch.distributed as dist
+from vitax_torch import faults
+from vitax_torch.ops import _build
+from vitax_torch.train.__main__ import main
+def dump():
+    with open(os.path.join(os.environ["VITAX_SMOKE_LAUNCHES"], "launches_%d.json" % os.getpid()), "w") as f:
+        json.dump(_build.LAUNCHES, f)
+act = faults._act
+def act_after_dump(spec, index):
+    dump()
+    act(spec, index)
+faults._act = act_after_dump
+if "WORLD_SIZE" in os.environ:
+    dist.init_process_group("gloo", init_method="env://")
+try:
+    rc = main(sys.argv[1:])
+finally:
+    dump()
+sys.exit(rc)
+"""
+# Drills (a)-(e) run at 7c's cell cut to depth 1 (3.83 GB of state): a card machine holds 96 GiB of host
+# memory, /dev/shm included, and takes 45 GiB of disk writes a run; at depth 2 a drill child pins 7.66 GB
+# (15.3 under the pipeline) and writes 7.66 GB a save, and such runs were killed for memory and for disk
+# writes. In this script (f) runs 7c's knobs at bench.py's b16 width (bench.py:288-291, phase 7m's model):
+# at DRILL_CELL its pairs (ZeRO-3 over gloo, about 30 GiB of host memory a pair) took 7e to 410.7 s on the
+# H100 and the whole script to 1225.6 s, past its 1200 s. `python3 chip_smoke.py --lost-rank` runs (f)
+# alone at DRILL_CELL.
+DRILL_CELL = dict(TRAIN_CKPT, num_blocks=1)
+LOST_RANK_CELL = dict(TRAIN_CKPT, image_size=224, patch_size=16, embed_dim=768, num_heads=12, num_blocks=12)
+HANG_TIMEOUT_S, HANG_S = 12.0, 15.0      # a hang 3 s past the watchdog's window (the drills' saves stay inside it)
+PEER_GRACE_S = 10.0                      # (f): --peer_heartbeat_s 1, the default grace of 10 beats
+DRILL_DEVICE = "cuda:0"                  # every drill's process on the one card
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_flags(cfg: dict) -> list:
+    """A Config dict as train CLI flags (store_true flags by name)."""
+    out = []
+    for k, v in cfg.items():
+        if v is True:
+            out.append(f"--{k}")
+        elif v is not False:
+            out += [f"--{k}", str(v)]
+    return out
+
+
+def drill_launches(cfg, steps: int, evals: int) -> dict:
+    """Kernel launches of `steps` steps and `evals` one-batch evals of
+    phase 7c's cell: the dropout forward, its recompute and the dropout
+    backward a block a step, one fused_adamw a step; rate-0 eval forwards."""
+    want = drop_run_launches(cfg, steps)
+    fwd = evals * cfg.eval_max_batches * cfg.num_blocks
+    want["flash_attn_fwd"] = fwd
+    want["flash_attn_fwd_wgmma"] = fwd + want["flash_attn_fwd_drop"]
+    return want
+
+
+def run_procs(cmds, timeout: float) -> dict:
+    """Start every (name, argv, env, log path) at once and poll them all:
+    {name: (exit code, stdout and stderr, seconds from the start to its
+    exit)}; kills what is left at the timeout."""
+    procs, ends, t0 = {}, {}, time.monotonic()
+    try:
+        for name, argv, env, log in cmds:
+            procs[name] = subprocess.Popen(argv, cwd=REPO, env=env, stdout=open(log, "w"),
+                                           stderr=subprocess.STDOUT, start_new_session=True), log
+        while len(ends) < len(procs) and time.monotonic() - t0 < timeout:
+            for name, (p, _) in procs.items():
+                if name not in ends and p.poll() is not None:
+                    ends[name] = time.monotonic() - t0
+            time.sleep(0.05)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    if len(ends) < len(procs):
+        fail(f"7e: {sorted(set(procs) - set(ends))} still running after {timeout:.0f}s")
+    out = {}
+    for name, (p, log) in procs.items():
+        with open(log) as f:
+            out[name] = (p.returncode, f.read(), ends[name])
+    return out
+
+
+def flat_state(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(flat_state(v, f"{prefix}{k}.") if isinstance(v, dict) else {f"{prefix}{k}": v})
+    return out
+
+
+def same_state(torch, got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        (got[k] == want[k]) if isinstance(want[k], int) else torch.equal(got[k], want[k]) for k in want)
+
+
+def summed_launches(d: str) -> dict:
+    from vitax_torch.ops import _build
+    total = {k: 0 for k in _build.LAUNCHES}
+    for name in os.listdir(d):
+        if name.startswith("launches_"):
+            with open(os.path.join(d, name)) as f:
+                for k, v in json.load(f).items():
+                    total[k] += v
+    return total
+
+
+def stage_stalls(torch, cfg, card: str) -> None:
+    """The loop-thread stall of a save at phase 7c's cell, steady state, in
+    turns: save_state's host snapshot (a synchronous copy into its reused
+    pinned buffers) against the pipeline's stage (copies queued on a side
+    stream into a reused buffer set), and the side stream's copy itself."""
+    from vitax_torch.checkpoint import io as ckpt_io
+    from vitax_torch.checkpoint.snapshot import SnapshotPipeline
+    from vitax_torch.models.vit import build_model
+    from vitax_torch.ops.attention import make_attention_impl
+    from vitax_torch.train.state import make_train_state
+    model = build_model(cfg, "cuda", attention_impl=make_attention_impl(cfg, "cuda"))
+    state = make_train_state(model)
+    pipe = SnapshotPipeline(device="cuda")
+    writer = ckpt_io._Writer()
+    times = {"snapshot": [], "stage": [], "copy": []}
+    try:
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            writer.snapshot(ckpt_io.train_state_dict(state))
+            times["snapshot"].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = pipe.stage(state, epoch=1)
+            times["stage"].append(time.perf_counter() - t0)
+            snap.wait_ready()
+            times["copy"].append(time.perf_counter() - t0)
+            snap.release()
+    finally:
+        pipe.close()
+        writer.close()
+    gb = 12 * sum(p.numel() for p in model.parameters()) / 1e9
+    say(f"[7e stall] a save's stall on the loop thread, {gb:.2f} GB of state, in turns (first call cold: the pinned "
+        f"buffers are allocated; then warm): save_state's snapshot " + " ".join(f"{t:.4f}" for t in times["snapshot"])
+        + " s; the pipeline's stage " + " ".join(f"{t:.4f}" for t in times["stage"]) + " s (its side-stream copy "
+        + " ".join(f"{t:.4f}" for t in times["copy"]) + f" s, overlapping the next step until its update) [{card}]")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class Drills:
+    """Phase 7e's drill runs: each drill's dir (under /dev/shm where there
+    is one: the card machine's disk takes 45 GiB of writes a run), its
+    command (DRILL_MAIN under the supervisor, or a rank as torchrun starts
+    it), the checks of its output, its final state against the
+    uninterrupted run's (kept on the card), its events and its kernel
+    launches."""
+
+    def __init__(self, torch, card: str, root: str, lost_cell=None):
+        from vitax_torch.config import Config
+        from vitax_torch.ops import _build
+        self.torch, self.card, self.root = torch, card, root
+        self.cfg = Config(seed=SEED, **DRILL_CELL).validate()
+        self.lost_cell = lost_cell or LOST_RANK_CELL          # (f)'s
+        self.lost_cfg = Config(seed=SEED, **self.lost_cell).validate()
+        self.work = tempfile.mkdtemp(prefix="vitax_torch_7e_", dir="/dev/shm" if os.path.isdir("/dev/shm") else root)
+        self.main_py = os.path.join(root, "drill_main.py")
+        with open(self.main_py, "w") as f:
+            f.write(DRILL_MAIN)
+        self.env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.launches = {k: 0 for k in _build.LAUNCHES}
+        self.want = None                 # the uninterrupted run's final state, flat, on the card
+
+    def where(self, name: str) -> str:
+        return os.path.join(self.work, name.split()[0])
+
+    def drill(self, name, extra=(), sync=False, supervised=True, env_extra=None, cell=None):
+        """(name, argv, env, log path) of one drill process for run_procs, on
+        `cell`'s flags (seed 0)."""
+        d = self.where(name)
+        os.makedirs(os.path.join(d, "launches"), exist_ok=True)
+        env = dict(self.env, VITAX_SMOKE_LAUNCHES=os.path.join(d, "launches"), **(env_extra or {}))
+        if sync:
+            env["VITAX_CKPT_SYNC"] = "1"
+        flags = cli_flags({**(cell or DRILL_CELL), "seed": SEED})
+        argv = [sys.executable, self.main_py, *flags, "--device", DRILL_DEVICE, *extra,
+                "--ckpt_dir", os.path.join(d, "ckpt"), "--metrics_dir", os.path.join(d, "m")]
+        if supervised:
+            argv = [sys.executable, "-m", "vitax_torch.supervise", "--backoff_s", "0", "--", *argv]
+        tag = name.replace(" ", "_")
+        return name, argv, env, os.path.join(d, f"{tag}.{sum(n.startswith(tag + '.') for n in os.listdir(d))}.log")
+
+    @staticmethod
+    def check(name, res, out_want=(), rc_want=0) -> None:
+        rc, out, _ = res
+        missing = [s for s in out_want if s not in out]
+        if rc != rc_want or missing:
+            fail(f"[7e {name}] exit {rc} (want {rc_want}), missing {missing}:\n{out[-4000:]}")
+
+    def state(self, name: str, epoch: int = 2) -> dict:
+        from vitax_torch.checkpoint import io as ckpt_io
+        return flat_state(ckpt_io.read_state(os.path.join(self.where(name), "ckpt"), epoch))
+
+    def final(self, name: str, against=None) -> bool:
+        want = self.want if against is None else against
+        got = {k: v if isinstance(v, int) else v.to(want[k].device) for k, v in self.state(name).items()}
+        if not same_state(self.torch, got, want):
+            fail(f"[7e {name}] the final state differs from the uninterrupted run's")
+        return True
+
+    def jsonl(self, name: str):
+        return read_jsonl(os.path.join(self.where(name), "m", "metrics.jsonl"))
+
+    def count(self, name: str, steps: int, evals: int, exact: bool = True) -> dict:
+        """Add the drill's launches (every child's file) to the phase's, held
+        against `steps` steps and `evals` evals of its cell when `exact`."""
+        got = summed_launches(os.path.join(self.where(name), "launches"))
+        expect = drill_launches(self.lost_cfg if name.startswith("f") else self.cfg, steps, evals)
+        keys = ("flash_attn_fwd", "flash_attn_fwd_drop", "flash_attn_bwd", "flash_attn_bwd_drop", "fused_adamw",
+                "flash_attn_fwd_general", "flash_attn_bwd_general")
+        if exact and any(got[k] != expect[k] for k in keys):
+            fail(f"[7e {name}] launched {({k: got[k] for k in keys})}; expected {({k: expect[k] for k in keys})}")
+        for k in self.launches:
+            self.launches[k] += got[k]
+        return {k: got[k] for k in ("flash_attn_fwd", "flash_attn_fwd_drop", "flash_attn_bwd_drop", "fused_adamw")}
+
+    def done(self, name: str) -> None:
+        shutil.rmtree(self.where(name), ignore_errors=True)
+
+
+CRASH_AT_5 = '{"site": "step", "at": 5, "action": "crash", "exit_code": 13}'
+
+
+def host_in_use_gib() -> float:
+    with open("/proc/meminfo") as f:
+        m = {ln.split(":")[0]: int(ln.split()[1]) for ln in f}
+    return (m["MemTotal"] - m["MemAvailable"]) / 2**20
+
+
+def free_host_memory(torch) -> str:
+    """Return the process's cached pinned host blocks (earlier phases'
+    checkpoint staging) to the OS before the drills' processes pin their
+    own; the host's memory in use before and after."""
+    before = host_in_use_gib()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("_accelerator_emptyHostCache", "_host_emptyCache", "_cuda_emptyHostCache"):
+        if hasattr(torch._C, name) and torch.cuda.is_available():
+            getattr(torch._C, name)()
+            break
+    return (f"host memory in use {before:.1f} GiB, {host_in_use_gib():.1f} GiB after releasing this process's "
+            f"pinned cache")
+
+
+def run_wave(cmds, timeout: float = 900) -> tuple:
+    """run_procs with the host's memory in use sampled: (results, seconds,
+    peak GiB)."""
+    peak, stop = [host_in_use_gib()], threading.Event()
+
+    def sample():
+        while not stop.wait(1.0):
+            peak[0] = max(peak[0], host_in_use_gib())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    try:
+        res = run_procs(cmds, timeout)
+    finally:
+        stop.set()
+        t.join()
+    return res, time.perf_counter() - t0, peak[0]
+
+
+def pair(dr: Drills, name: str, extra=()) -> list:
+    """Drill (f)'s two ranks at dr.lost_cell, as torchrun starts them."""
+    port = free_port()
+    return [dr.drill(f"{name} r{r}", ["--replicate_steps", "2", "--peer_heartbeat_s", "1", "--peer_grace_s",
+                                      str(PEER_GRACE_S), "--resume_epoch", "-1", *extra], sync=True, supervised=False,
+                     env_extra=dict(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                                    MASTER_PORT=str(port)), cell=dr.lost_cell)
+            for r in (0, 1)]
+
+
+def uninterrupted(torch, dr: Drills) -> list:
+    """The drills' uninterrupted run, train() in this process at
+    DRILL_CELL: its final state on the card becomes dr.want; returns its
+    saves' records (each save's stall without the pipeline)."""
+    from vitax_torch.checkpoint import io as ckpt_io
+    from vitax_torch.train.loop import train
+    records = []
+    state = train(dataclasses.replace(dr.cfg, ckpt_dir=os.path.join(dr.work, "base")), DRILL_DEVICE,
+                  records=records)
+    dr.want = flat_state({k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in ckpt_io.train_state_dict(state).items()})
+    dr.want = {k: int(v) if k == "step" else v for k, v in dr.want.items()}
+    ckpt_io.close()
+    del state
+    dr.done("base")
+    return [r for r in records if "ckpt_stall_s" in r]
+
+
+def pair_lines(dr: Drills, name: str, res: dict) -> str:
+    """Each rank's seconds and its step and save lines (the CLI's log) of
+    one (f) pair run, for the drill's line."""
+    out = []
+    for r in (0, 1):
+        rc, log, end = res[f"{name} r{r}"]
+        lines = [ln.split(", mem:")[0] for ln in log.splitlines()
+                 if ln.startswith(("epoch ", "checkpoint save of", "restored from PEER"))]
+        out.append(f"rank {r} exit {rc} after {end:.1f} s" + (": " + "; ".join(lines) if r == 0 and lines else ""))
+    return " | ".join(out)
+
+
+def check_first(dr: Drills, res: dict, base_saves: list) -> dict:
+    """(a), (b)'s first child, (c) and (d): their checks and lines; returns
+    what later lines cite."""
+    from vitax_torch.checkpoint import io as ckpt_io
+    from vitax_torch.telemetry.watchdog import EXIT_HANG
+    card = dr.card
+    dr.check("a crash", res["a crash"], ["injecting step:crash", "restart 1: child exit 13", "child completed cleanly"])
+    steps_a, ev = dr.jsonl("a crash")
+    restart, restore = ev["restart"][0], ev["restore"][0]
+    first = min(s["time"] for s in steps_a if s["time"] > restart["time"])
+    if not (restart["exit_code"] == 13 and restore["path"] == "dcp" and restore["dcp_reads"] == 1
+            and dr.final("a crash")):
+        fail(f"[7e a crash] restart {restart}, restore {restore}")
+    say(f"[7e a crash] crash (exit 13) at step 5, one restart, restored epoch 1 from DCP in {restore['seconds']:.2f} s "
+        f"({restore['dcp_reads']} read), epoch 2 bitwise the uninterrupted run; the child's death to the restarted "
+        f"child's first step {first - restart['time']:.2f} s; launches {dr.count('a crash', 8, 1)} [{card}]")
+    dr.check("d zero-stall", res["d zero-stall"], ["(zero-stall pipeline;", "child completed cleanly"])
+    held = [ln for ln in res["d zero-stall"][1].splitlines() if ln.startswith("checkpoint save of epoch")]
+    dr.final("d zero-stall")
+    steps_d, _ = dr.jsonl("d zero-stall")
+    say(f"[7e d zero-stall] --zero_stall_ckpt: " + "; ".join(held) + "; ckpt_stall_s of its step records "
+        + " ".join(f"{s['ckpt_stall_s']:.4f}" for s in steps_d) + "; without it (the uninterrupted run) the saves "
+        "held the loop " + " ".join(f"{r['ckpt_stall_s']:.4f}" for r in base_saves) + " s. A save that finds the "
+        "other buffer set still in its DCP write pins a second one (cold, like save_state's first snapshot, and "
+        "slower beside the wave's other processes); the pipeline's epoch-2 checkpoint restores bitwise the "
+        f"uninterrupted run; launches {dr.count('d zero-stall', 6, 1)} [{card}]")
+    dr.check("b sigterm", res["b sigterm"], ["SIGTERM received: saving preemption checkpoint at epoch 1 (step 2)",
+                                             "child completed cleanly"])
+    sidecar = ckpt_io.load_resume_meta(os.path.join(dr.where("b"), "ckpt"), 1)
+    if sidecar != {"step_in_epoch": 2, "process_count": 1}:
+        fail(f"[7e b sigterm] sidecar {sidecar}")
+    dr.check("c hang", res["c hang"], ["dumping all-thread stacks", "saving emergency checkpoint at epoch 2 (step 2)",
+                                       "restart 1: child exit 42", "re-entering epoch 2 at step 3"])
+    _, ev = dr.jsonl("c hang")
+    esc, restart = ev["hang_escalation"][0], ev["restart"][0]
+    cuda_stats = ev["hang"][0].get("cuda_memory_stats")
+    if (DRILL_DEVICE.startswith("cuda") and not cuda_stats) or restart["exit_code"] != EXIT_HANG:
+        fail(f"[7e c hang] hang event {sorted(ev['hang'][0])}, restart {restart}")
+    exit_after = restart["time"] - esc["time"]
+    if exit_after > 2 * HANG_TIMEOUT_S:
+        fail(f"[7e c hang] exit 42 came {exit_after:.2f} s after the escalation, past the hard deadline")
+    dr.final("c hang")
+    allocated = (cuda_stats or {}).get("allocated_bytes.all.current", 0) / 1e9
+    say(f"[7e c hang] a {HANG_S:g} s hang at step 5 past --hang_timeout_s {HANG_TIMEOUT_S:g}: the stack and "
+        f"torch.cuda.memory_stats dump (allocated {allocated:.2f} GB), the emergency save at epoch 2 step 2 and exit "
+        f"42 {exit_after:.2f} s after the escalation (hard deadline {2 * HANG_TIMEOUT_S:g} s), one restart, bitwise; "
+        f"launches {dr.count('c hang', 6, 1)} [{card}]")
+    for name in ("a crash", "c hang", "d zero-stall"):
+        dr.done(name)
+    return {"dcp_restore_s": restore["seconds"],
+            "preempt_save": [ln for ln in res["b sigterm"][1].splitlines()
+                             if ln.startswith("checkpoint save of epoch 1")]}
+
+
+def check_base_pair(dr: Drills, res: dict) -> dict:
+    """(f)'s uninterrupted pair: its final state (on the card) and launches."""
+    for r in (0, 1):
+        dr.check(f"fbase r{r}", res[f"fbase r{r}"])
+    out = {"fbase_launches": dr.count("fbase", 12, 2),
+           "fbase": {k: v if isinstance(v, int) else v.to(DRILL_DEVICE) for k, v in dr.state("fbase").items()}}
+    say(f"[7e f lost rank] the uninterrupted pair: {pair_lines(dr, 'fbase', res)}; launches "
+        f"{out['fbase_launches']} [{dr.card}]")
+    dr.done("fbase")
+    return out
+
+
+def check_lost_pair(dr: Drills, res: dict) -> dict:
+    """(f)'s pair that loses rank 1 at step 4: rank 0's exit 42 within the
+    grace plus its deadline; then rank 1's store deleted."""
+    from vitax_torch.telemetry.watchdog import EXIT_HANG
+    (rc0, out0, end0), (rc1, _, end1) = res["flost r0"], res["flost r1"]
+    if rc0 != EXIT_HANG or rc1 != -9 or "peer 1 lost" not in out0:
+        fail(f"[7e f lost] rank 0 exit {rc0}, rank 1 exit {rc1}:\n{out0[-4000:]}")
+    latency = end0 - end1
+    if latency > 2 * PEER_GRACE_S:
+        fail(f"[7e f lost] rank 0 exited {latency:.2f} s after rank 1's death, past peer_grace_s plus its deadline")
+    stores = os.path.join(dr.where("flost"), "ckpt", "peerstore")
+    held = sorted(os.listdir(os.path.join(stores, "p0")))
+    shutil.rmtree(os.path.join(stores, "p1"))          # rank 1's host is gone with its disk
+    say(f"[7e f lost rank] the lost pair: {pair_lines(dr, 'flost', res)}; rank 0 exited {EXIT_HANG} {latency:.2f} s "
+        f"after rank 1's death (bound {2 * PEER_GRACE_S:g} s) [{dr.card}]")
+    return {"lost_latency": latency, "held": held}
+
+
+def check_second(dr: Drills, res: dict, w1: dict) -> None:
+    """(b)'s resume and (e)."""
+    card = dr.card
+    dr.check("b sigterm", res["b sigterm"], ["step-granular resume: re-entering epoch 1 at step 3"])
+    dr.final("b sigterm")
+    say(f"[7e b sigterm] SIGTERM at step 2: a committed mid-epoch save ({'; '.join(w1['preempt_save'])}), exit 0 "
+        f"through the supervisor; the resumed run re-entered at step 3 and ended bitwise the uninterrupted run; "
+        f"launches {dr.count('b sigterm', 6, 1)} [{card}]")
+    dr.check("e peer", res["e peer"], ["restart 1: child exit 13", "restored from PEER shards"])
+    _, ev = dr.jsonl("e peer")
+    restore = ev["restore"][0]
+    if not (restore["path"] == "peer" and restore["dcp_reads"] == 0 and dr.final("e peer")):
+        fail(f"[7e e peer] restore {restore}")
+    repl = ev.get("peer_replication", [])
+    windows = " ".join(f"{r['seconds']:.2f}" for r in repl)
+    say(f"[7e e peer] --replicate_steps 2, a crash at step 5: the restart restored epoch 1 from the peer store in "
+        f"{restore['seconds']:.2f} s with {restore['dcp_reads']} checkpoint-directory reads (drill a's DCP restore "
+        f"{w1['dcp_restore_s']:.2f} s); {len(repl)} replication windows of "
+        f"{repl[0]['bytes'] / 1e9 if repl else 0:.2f} GB ({windows} s each on the worker); bitwise; launches "
+        f"{dr.count('e peer', 8, 1)} [{card}]")
+    for name in ("b sigterm", "e peer"):
+        dr.done(name)
+
+
+def check_relaunch(dr: Drills, res: dict, base: dict, lost: dict) -> None:
+    """(f)'s relaunched pair: restored from rank 0's store with no read of
+    the checkpoint directory, bitwise the uninterrupted pair."""
+    from vitax_torch.telemetry.watchdog import EXIT_HANG
+    for r in (0, 1):
+        dr.check(f"flost r{r} relaunched", res[f"flost r{r}"])
+    _, ev = dr.jsonl("flost")
+    restore = ev["restore"][-1]
+    if not (restore["path"] == "peer" and restore["dcp_reads"] == 0):
+        peer_lines = [ln for r in (0, 1) for ln in res[f"flost r{r}"][1].splitlines() if "peer" in ln.lower()]
+        fail(f"[7e f lost] the relaunched pair restored {restore}; rank 0's store held {lost['held']}:\n"
+             + "\n".join(peer_lines[-40:]))
+    dr.final("flost", against=base["fbase"])
+    dr.count("flost", 0, 0, exact=False)
+    repl = ev.get("peer_replication", [])
+    c = dr.lost_cfg
+    say(f"[7e f lost rank] 7c's knobs at D {c.embed_dim}, {c.num_heads} heads, {c.num_blocks} block(s), batch "
+        f"{c.batch_size}, ZeRO-3, two ranks over gloo on the card (--replicate_steps 2 --peer_heartbeat_s 1, grace "
+        f"{PEER_GRACE_S:g} s): rank 1 killed at step 4, rank 0 exited {EXIT_HANG} {lost['lost_latency']:.2f} s "
+        f"later; rank 0's store held {lost['held']}; with rank 1's store deleted the relaunched pair restored epoch "
+        f"1 from rank 0's copies in {restore['seconds']:.2f} s (rank 0 serving rank 1's shard from its own store), "
+        f"{restore['dcp_reads']} checkpoint-directory reads, and ended bitwise the uninterrupted pair; rank 0's "
+        f"replication windows of {repl[0]['bytes'] / 1e9 if repl else 0:.2f} GB took "
+        + " ".join(f"{r['seconds']:.2f}" for r in repl) + f" s on its worker; the relaunch: "
+        f"{pair_lines(dr, 'flost', res)} [{dr.card}]")
+    dr.done("flost")
+
+
+FLOST_PLAN = '{"site": "step", "at": 4, "action": "peer_loss", "process": 1}'
+
+
+def phase_faults(torch, card: str, root: str) -> dict:
+    """Phase 7e: the six drills of vitax_torch's failure reaction: (a) a
+    crash and its restart, (b) SIGTERM's mid-epoch save and the resume, (c)
+    a hang, the watchdog's dump, the emergency save and exit 42, (d)
+    --zero_stall_ckpt, (e) a crash restored from the peer store, each the
+    train CLI under `python -m vitax_torch.supervise` at DRILL_CELL against
+    one uninterrupted train() of it; (f) a lost rank of two over gloo on
+    the card at LOST_RANK_CELL against an uninterrupted pair; then, at
+    7c's cell, the loop-thread stall of a save with and without the
+    pipeline in turns. Returns the drills' kernel launches."""
+    t0 = time.perf_counter()
+    say(f"[7e host] {free_host_memory(torch)}")
+    dr = Drills(torch, card, root)
+    base_saves = uninterrupted(torch, dr)
+    say(f"[7e host] drill dirs under {dr.work}; the uninterrupted run took {time.perf_counter() - t0:.1f}s; "
+        f"{free_host_memory(torch)}")
+    res, took, peak = run_wave([
+        dr.drill("a crash", ["--fault_plan", CRASH_AT_5], sync=True),
+        dr.drill("b sigterm", ["--fault_plan", '{"site": "step", "at": 2, "action": "sigterm"}']),
+        dr.drill("c hang", ["--fault_plan", json.dumps({"site": "step", "at": 5, "action": "hang", "seconds": HANG_S}),
+                            "--hang_timeout_s", str(HANG_TIMEOUT_S), "--hang_action", "checkpoint_exit"]),
+        dr.drill("d zero-stall", ["--zero_stall_ckpt"]), *pair(dr, "fbase"),
+        *pair(dr, "flost", ["--fault_plan", FLOST_PLAN])])
+    w1 = check_first(dr, res, base_saves)
+    base, lost = check_base_pair(dr, res), check_lost_pair(dr, res)
+    say(f"[7e] wave 1 (a, b's first child, c, d, (f)'s uninterrupted and lost pairs) took {took:.1f}s, host memory "
+        f"in use at most {peak:.1f} GiB")
+    res, took, peak = run_wave([
+        dr.drill("b sigterm"), dr.drill("e peer", ["--fault_plan", CRASH_AT_5, "--replicate_steps", "2"], sync=True),
+        *pair(dr, "flost")])
+    check_second(dr, res, w1)
+    check_relaunch(dr, res, base, lost)
+    say(f"[7e] wave 2 (b's resume, e, (f)'s relaunched pair) took {took:.1f}s, host memory in use at most "
+        f"{peak:.1f} GiB")
+    dr.want = None
+    shutil.rmtree(dr.work, ignore_errors=True)
+    gc.collect()
+    from vitax_torch.config import Config
+    stage_stalls(torch, Config(seed=SEED, **TRAIN_CKPT).validate(), card)
+    say(f"[7e] took {time.perf_counter() - t0:.1f}s")
+    return dr.launches
+
+
+def lost_rank_only(torch, card: str, root: str) -> None:
+    """`python3 chip_smoke.py --lost-rank`: drill (f) alone at DRILL_CELL
+    (the 10B width at depth 1, ZeRO-3 over two gloo ranks on the card):
+    the uninterrupted and the lost pair in one wave, then the relaunched
+    pair restored from rank 0's store, bitwise the uninterrupted pair."""
+    t0 = time.perf_counter()
+    dr = Drills(torch, card, root, lost_cell=DRILL_CELL)
+    res, took, peak = run_wave([*pair(dr, "fbase"), *pair(dr, "flost", ["--fault_plan", FLOST_PLAN])])
+    base, lost = check_base_pair(dr, res), check_lost_pair(dr, res)
+    say(f"[7e] the uninterrupted and lost pairs took {took:.1f}s, host memory in use at most {peak:.1f} GiB")
+    res, took, peak = run_wave(pair(dr, "flost"))
+    check_relaunch(dr, res, base, lost)
+    say(f"[7e] the relaunched pair took {took:.1f}s, host memory in use at most {peak:.1f} GiB")
+    shutil.rmtree(dr.work, ignore_errors=True)
+    launches = {k: v for k, v in dr.launches.items() if v}
+    say(f"[7e] (f) at DRILL_CELL took {time.perf_counter() - t0:.1f}s; kernel launches of its pairs {launches}")
+
+
 # Phase 7x: the transfer tasks at phase 7's configuration from a seeded
 # bf16 export of the same model (another seed), and serving a checkpoint
 # directory at depth 2.
@@ -4326,7 +4879,7 @@ def phase_pp(torch, root: str, card: str) -> dict:
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches, ring_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7t, 7i, 7s, 7c, 7x, 7m, 7f and 7q's bf16 runs in `data_launches`,
+    paths of this run (phases 7t, 7i, 7s, 7c, 7e's drills, 7x, 7m, 7f and 7q's bf16 runs in `data_launches`,
     7r's ring runs, 7p's tp Blocks and its bf16 tp-2 CLI run in `ring_launches`), its check's
     max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
@@ -4423,27 +4976,45 @@ def main() -> int:
         import vitax_torch  # noqa: F401
     except ImportError as e:
         fail(f"the vitax_torch package is not beside chip_smoke.py ({e})")
+    marks = [("start", time.perf_counter())]
+
+    def mark(name: str) -> None:          # the seconds of each phase, printed at the end
+        marks.append((name, time.perf_counter()))
+
     card = phase_env(torch)
     phase_build()
+    mark("1-2")
     errs = phase_kernel_check(torch)
     errs.update(check_streaming(torch))
+    mark("3, 3L")
     timing = phase_kernel_timing(torch, card)
     timing.update(time_streaming(torch, card))
+    mark("4, 4L")
     phase_model_check(torch)
+    mark("5")
     serve_launches, engine_f32 = phase_main_path(torch, card)
+    mark("6")
     quant_launches = phase_quant_serve(torch, card, engine_f32)
     del engine_f32
     gc.collect()                           # free the 40 GB engine before the train path
     torch.cuda.empty_cache()
+    mark("6q")
     train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0, fake, ref7 = phase_train(torch, card)
+    mark("7")
     tele_launches = phase_train_telemetry(torch, card, timing["fused_adamw"]["ms"])
+    mark("7t")
     drop_launches = phase_train_dropout(torch, card, loss0)
+    mark("7d")
     long_launches = phase_train_long(torch, card)
+    mark("7L")
     ring_launches = phase_ring(torch, card)
+    mark("7r")
     with tempfile.TemporaryDirectory(prefix="vitax_torch_tp_") as root:
         tp_launches = phase_tp(torch, card, root)
         cli_launches = tp_cli(torch, root, card)
+        mark("7p")
         pp_launches = phase_pp(torch, root, card)
+        mark("7q")
     # 7r's runs, 7p's sharded Blocks and its bf16 tp-2 CLI run
     ring_launches = {k: ring_launches[k] + tp_launches[k] + cli_launches[k] for k in ring_launches}
     with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
@@ -4451,16 +5022,41 @@ def main() -> int:
         tree_launches, use_native = phase_train_tree(torch, card, root, fake)
         stream_launches = phase_train_stream(torch, card, root, use_native)
         time_loaders(torch, root, card, use_native)
+        mark("7i, 7s")
         ckpt_launches = phase_checkpoint(torch, card, root)
+        mark("7c")
+        fault_launches = phase_faults(torch, card, root)
+        mark("7e")
         transfer = phase_transfer(torch, card, root, ref7)
+        mark("7x")
         moe_launches = phase_train_moe(torch, card, root)
+        mark("7m")
         fsdp_launches = phase_train_fsdp(torch, card, root, ref7)
+        mark("7f")
     data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
-                     + tele_launches[k] + transfer[k] + moe_launches[k] + pp_launches[k] for k in tree_launches}
+                     + tele_launches[k] + transfer[k] + moe_launches[k] + pp_launches[k] + fault_launches[k]
+                     for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches, ring_launches)
+    say("[time] " + ", ".join(f"{name} {t1 - t0:.1f}s" for (_, t0), (name, t1) in zip(marks, marks[1:]))
+        + f"; all {marks[-1][1] - marks[0][1]:.1f}s")
     say(card)
     say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_lost_rank() -> int:
+    """`--lost-rank`: the kernels built, then drill (f) alone at DRILL_CELL."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    card = phase_env(torch)
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="vitax_torch_lost_") as root:
+        lost_rank_only(torch, card, root)
+    say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
@@ -4469,4 +5065,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-block-rank"]:     # phase 7p's ranks, started by phase_tp under torchrun
         sys.exit(tp_block_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--lost-rank"]:          # drill (f) alone at the 10B width (depth 1)
+        sys.exit(main_lost_rank())
     sys.exit(main())

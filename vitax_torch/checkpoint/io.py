@@ -37,7 +37,12 @@ through save_state. A failed write is reported through the thread-crash
 hook (telemetry/threads.py) as well as raised on the caller.
 Transient OSErrors of a write are retried with capped exponential backoff
 (VITAX_SAVE_RETRIES, VITAX_SAVE_RETRY_BACKOFF_S); a write that fails for
-good raises from wait_until_finished() or from the next save.
+good raises from wait_until_finished() or from the next save. The
+`ckpt_write` fault site (faults.py) fires once a write attempt, inside
+that retry loop. write_host_state writes a tree already on the host (the
+zero-stall pipeline's persist job, checkpoint/snapshot.py) on the calling
+thread. restore_read_count() counts the restores read from the checkpoint
+directory: a resume from the peer stores (checkpoint/peer.py) leaves it.
 
 A mid-epoch save records `step_in_epoch`, `process_count` and the stream
 cursor in the sidecar `epoch_<N>.resume.json` beside the directory,
@@ -65,6 +70,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from vitax_torch import faults
 from vitax_torch.distributed import is_distributed, process_count, process_index
 from vitax_torch.telemetry.threads import join_or_warn, report_thread_exception
 from vitax_torch.train.state import TrainState, local
@@ -82,6 +88,10 @@ DEFAULT_SAVE_RETRIES = 3
 DEFAULT_SAVE_RETRY_BACKOFF_S = 0.5
 # DCP writer threads of a save (one .distcp file each)
 WRITE_THREADS = 4
+# restores read from the checkpoint directory (restore_state calls) in this
+# process: a resume from peer stores leaves it where it was
+_RESTORE_READS = 0
+_LAST_SNAPSHOT_S = 0.0
 # close()'s bound on the writer thread finishing its queued writes: the full
 # 10B state (121 GB) takes about 100 s at the 1.2 GB/s measured on an H100
 # host (PERF.md §5), so a thread still alive after this is wedged
@@ -183,6 +193,25 @@ def _run_writes(jobs: "queue.Queue") -> None:
 
 
 _WRITER = _Writer()
+
+
+def last_snapshot_seconds() -> float:
+    """The seconds save_state's last host copy held its caller (the
+    snapshot, without any wait for the commit)."""
+    return _LAST_SNAPSHOT_S
+
+
+def restore_read_count() -> int:
+    """How many checkpoint restores (restore_state calls) this process
+    read from the checkpoint directory."""
+    return _RESTORE_READS
+
+
+def checkpoint_group():
+    """The checkpoint's own gloo group (None alone). Made on first use, a
+    collective: call it on the loop thread, at the same point on every
+    rank, before a background write needs it."""
+    return _WRITER.group()
 
 
 def wait_until_finished() -> None:
@@ -303,6 +332,7 @@ def _write(path: str, snapshot: Dict[str, object], retries: int, backoff_s: floa
     attempts = max(retries, 1)
     for attempt in range(attempts):
         try:
+            faults.fire("ckpt_write")           # drill point: one a write attempt, so `times` > 1 drills the retry
             os.makedirs(path, exist_ok=True)
             dcp.save(snapshot, storage_writer=dcp.FileSystemWriter(path, thread_count=WRITE_THREADS, overwrite=True),
                      process_group=group, no_dist=group is None)
@@ -323,47 +353,88 @@ def _write(path: str, snapshot: Dict[str, object], retries: int, backoff_s: floa
             f.write(f"Checkpoint commit was successful to {path}\n")
 
 
+def _remove_markers(path: str) -> None:
+    """An overwrite is torn until it commits (process 0)."""
+    if process_index() == 0:
+        for marker in COMMIT_MARKERS:
+            try:
+                os.remove(os.path.join(path, marker))
+            except FileNotFoundError:
+                pass
+
+
+def _write_sidecar(ckpt_dir: str, epoch: int, step_in_epoch: Optional[int], stream_cursor: Optional[dict],
+                   extra_meta: Optional[dict]) -> None:
+    """Process 0 records a mid-epoch save's step, process count, stream
+    cursor and `extra_meta` in the sidecar (atomically), or deletes a
+    stale one for an epoch-boundary save."""
+    if process_index() != 0:
+        return
+    meta = _resume_meta_path(ckpt_dir, epoch)
+    if step_in_epoch:
+        payload = {"step_in_epoch": int(step_in_epoch), "process_count": process_count()}
+        if stream_cursor is not None:
+            payload["stream_cursor"] = stream_cursor
+        if extra_meta:
+            payload.update(extra_meta)
+        os.makedirs(os.path.dirname(meta), exist_ok=True)
+        tmp = meta + f".tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(json.dumps(payload))
+        os.replace(tmp, meta)               # atomic: never a half-written sidecar
+    elif os.path.exists(meta):
+        os.remove(meta)
+
+
+def _retry_policy() -> Tuple[int, float]:
+    return (int(os.environ.get("VITAX_SAVE_RETRIES", DEFAULT_SAVE_RETRIES)),
+            float(os.environ.get("VITAX_SAVE_RETRY_BACKOFF_S", DEFAULT_SAVE_RETRY_BACKOFF_S)))
+
+
 def save_state(ckpt_dir: str, epoch: int, state: TrainState, wait: bool = False,
                step_in_epoch: Optional[int] = None, stream_cursor: Optional[dict] = None,
-               keep: int = 0) -> str:
+               keep: int = 0, extra_meta: Optional[dict] = None) -> str:
     """Save the train state for `epoch`; returns its directory once the
     host snapshot is taken (the write commits in the background; wait=True
     or VITAX_CKPT_SYNC=1 blocks until it has).
 
     step_in_epoch > 0 marks a mid-epoch save: process 0 records it, the
-    process count and `stream_cursor` in the sidecar; an
+    process count, `stream_cursor` and `extra_meta` in the sidecar; an
     epoch-boundary save deletes a stale sidecar of the epoch. keep > 0
     prunes committed epochs beyond the newest `keep` (prune_checkpoints)."""
+    global _LAST_SNAPSHOT_S
     path = epoch_ckpt_path(ckpt_dir, epoch)
     wait = wait or os.environ.get("VITAX_CKPT_SYNC", "") == "1"
-    retries = int(os.environ.get("VITAX_SAVE_RETRIES", DEFAULT_SAVE_RETRIES))
-    backoff_s = float(os.environ.get("VITAX_SAVE_RETRY_BACKOFF_S", DEFAULT_SAVE_RETRY_BACKOFF_S))
     _WRITER.wait()                              # the previous write commits before this snapshot
     group = _WRITER.group()
+    t0 = time.perf_counter()
     snapshot = _WRITER.snapshot(train_state_dict(state))
-    if process_index() == 0:
-        for marker in COMMIT_MARKERS:           # an overwrite is torn until it commits
-            try:
-                os.remove(os.path.join(path, marker))
-            except FileNotFoundError:
-                pass
-    _WRITER.submit(_write, path, snapshot, retries, backoff_s, group)
+    _LAST_SNAPSHOT_S = time.perf_counter() - t0
+    _remove_markers(path)
+    _WRITER.submit(_write, path, snapshot, *_retry_policy(), group)
     if wait:
         _WRITER.wait()
-    if process_index() == 0:
-        meta = _resume_meta_path(ckpt_dir, epoch)
-        if step_in_epoch:
-            payload = {"step_in_epoch": int(step_in_epoch), "process_count": process_count()}
-            if stream_cursor is not None:
-                payload["stream_cursor"] = stream_cursor
-            os.makedirs(os.path.dirname(meta), exist_ok=True)
-            tmp = meta + f".tmp{os.getpid()}"
-            with open(tmp, "w") as f:
-                f.write(json.dumps(payload))
-            os.replace(tmp, meta)               # atomic: never a half-written sidecar
-        elif os.path.exists(meta):
-            os.remove(meta)
+    _write_sidecar(ckpt_dir, epoch, step_in_epoch, stream_cursor, extra_meta)
     master_print(f"checkpoint save {'committed' if wait else 'started'}: {path}"
+                 + (f" (mid-epoch, {step_in_epoch} steps done)" if step_in_epoch else ""))
+    if keep > 0 and process_index() == 0:
+        prune_checkpoints(ckpt_dir, keep)
+    return path
+
+
+def write_host_state(ckpt_dir: str, epoch: int, tree: Dict[str, object], group,
+                     step_in_epoch: Optional[int] = None, stream_cursor: Optional[dict] = None,
+                     keep: int = 0, extra_meta: Optional[dict] = None) -> str:
+    """Write and commit a train state that is already on the host (the
+    train_state_dict tree of a staged snapshot, checkpoint/snapshot.py),
+    on the calling thread: the zero-stall pipeline's persist job. `group`
+    is checkpoint_group(), made beforehand on the loop thread. Retries,
+    commit marker, sidecar and pruning as save_state's."""
+    path = epoch_ckpt_path(ckpt_dir, epoch)
+    _remove_markers(path)
+    _write(path, tree, *_retry_policy(), group)
+    _write_sidecar(ckpt_dir, epoch, step_in_epoch, stream_cursor, extra_meta)
+    master_print(f"checkpoint save committed: {path}"
                  + (f" (mid-epoch, {step_in_epoch} steps done)" if step_in_epoch else ""))
     if keep > 0 and process_index() == 0:
         prune_checkpoints(ckpt_dir, keep)
@@ -394,10 +465,12 @@ def restore_state(ckpt_dir: str, epoch: int, state: TrainState) -> TrainState:
     nu and count on their device, a sharded state's own shards; step on
     the host) and return it."""
     import torch.distributed.checkpoint as dcp
+    global _RESTORE_READS
     wait_until_finished()                       # an in-flight save of this epoch commits first
     path = epoch_ckpt_path(ckpt_dir, epoch)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")
+    _RESTORE_READS += 1                         # a peer restore leaves it alone
     target = train_state_dict(state)
     group = _WRITER.group()
     dcp.load(target, checkpoint_id=path, process_group=group, no_dist=group is None)

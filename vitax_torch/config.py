@@ -2,9 +2,12 @@
 read, with the names, defaults and CLI flags of vitax/config.py (Config,
 build_parser, validate), so one command line means the same run to both
 packages. Settings whose path is a later slice of the port are rejected by
-validate() with a message that names the slice. The zero-stall and peer
-checkpoint flags (zero_stall_ckpt, replicate_steps, peer_dir) are not
-fields yet: the parser rejects them as unknown arguments. The mesh takes
+validate() with a message that names the slice. The failure-reaction flags
+are vitax's (checkpoint: zero_stall_ckpt, replicate_steps, peer_dir;
+failures: hang_timeout_s, hang_action, fault_plan, control_sync_steps,
+peer_heartbeat_s, peer_grace_s), with its defaults and refusals;
+arbiter_url (the chip arbiter) is not a field yet, so the parser rejects
+it as an unknown argument. The mesh takes
 dp, fsdp, sp and ep (FSDP2 over the processes torchrun starts, one card
 each; tp shards the blocks' heads and MLP features; sp shards the token
 axis, --sp_impl ring or ulysses; pp splits the blocks into stages,
@@ -42,6 +45,12 @@ class Config:
     ckpt_dir: str = "/tmp/vit_fsdp"
     resume_epoch: int = 0               # N = resume from epoch N; -1 = auto-resume latest checkpoint
     ckpt_epoch_interval: int = 10
+    zero_stall_ckpt: bool = False       # saves through the zero-stall snapshot pipeline (checkpoint/snapshot.py):
+    #   the device-to-host copy queued on a side stream, the DCP write on a background worker
+    replicate_steps: int = 0            # >0: every N steps, mirror this process's staged state shard to its ring
+    #   buddy through the c10d store and a local peer store (checkpoint/peer.py); 0 = off
+    peer_dir: str = ""                  # local peer-store root (default <ckpt_dir>/peerstore; VITAX_PEER_DIR
+    #   overrides): per-host scratch, not shared storage
     keep_checkpoints: int = 0           # >0: checkpoint GC, prune committed epoch dirs beyond the
     #   newest K after each save (torn dirs never touched); 0 = keep all
     test_epoch_interval: int = 10
@@ -102,6 +111,21 @@ class Config:
     debug_nans: bool = False            # autograd anomaly mode with NaN checks, and a loss and grad-norm
     #   fetch every step (one sync a step) that raises FloatingPointError at the first non-finite value
     log_memory: bool = True             # device memory in the step log line (--no_log_memory clears)
+
+    # --- failure reaction (faults.py, telemetry/watchdog.py, train/control.py; host work only) ---
+    hang_timeout_s: float = 0.0         # >0: watchdog dumps every thread's stack and the card's memory stats after
+    #   this many seconds without a step (the job left running)
+    hang_action: str = "dump"           # dump | checkpoint_exit: after the dump, an emergency mid-epoch
+    #   checkpoint at the next step boundary and exit 42 for the supervisor (supervise.py); a loop that
+    #   never reaches a boundary is hard-exited with 42 after a deadline
+    fault_plan: str = ""                # JSON fault plan (faults.py; or VITAX_FAULT_PLAN): deterministic crash,
+    #   hang, write-error, loader-stall, SIGTERM and peer-loss drills at a chosen site and call
+    control_sync_steps: int = 10        # agreement cadence of the control word across processes, in steps
+    #   (plus every epoch boundary); every process must use the same value
+    peer_heartbeat_s: float = 0.0       # >0: heartbeats through the c10d store every N s; a peer silent for
+    #   peer_grace_s is declared lost and the survivors exit 42 within the deadline
+    peer_grace_s: float = 0.0           # silence before a peer is declared lost, and the survivor's exit deadline
+    #   after it; 0 = 10 x peer_heartbeat_s
 
     # --- mesh: (dp, fsdp, tp, sp, pp, ep) over the processes, one card each; -1 = all remaining ---
     dp_size: int = 1
@@ -316,6 +340,24 @@ class Config:
              f"saved every N epochs and at the last one"),
             (self.keep_checkpoints >= 0,
              f"--keep_checkpoints must be >= 0 (0 = keep all), got {self.keep_checkpoints}"),
+            (self.hang_timeout_s >= 0, f"--hang_timeout_s must be >= 0 (0 = watchdog off), got {self.hang_timeout_s}"),
+            (self.hang_action in ("dump", "checkpoint_exit"),
+             f"unknown hang_action {self.hang_action!r} (expected 'dump' or 'checkpoint_exit')"),
+            (self.control_sync_steps >= 1,
+             f"--control_sync_steps must be >= 1 (it is a collective cadence every host shares), got "
+             f"{self.control_sync_steps}"),
+            (self.peer_heartbeat_s >= 0,
+             f"--peer_heartbeat_s must be >= 0 (0 = liveness off), got {self.peer_heartbeat_s}"),
+            (self.peer_grace_s >= 0,
+             f"--peer_grace_s must be >= 0 (0 = 10 x peer_heartbeat_s), got {self.peer_grace_s}"),
+            (not (self.peer_grace_s > 0 and self.peer_heartbeat_s == 0),
+             "--peer_grace_s without --peer_heartbeat_s does nothing: the grace window bounds heartbeat silence, "
+             "and no heartbeats are being sent"),
+            (self.replicate_steps >= 0,
+             f"--replicate_steps must be >= 0 (0 = peer replication off), got {self.replicate_steps}"),
+            (not (self.peer_dir and self.replicate_steps == 0),
+             "--peer_dir without --replicate_steps does nothing: the peer store is only written by the "
+             "replication window"),
             (self.test_epoch_interval >= 1,
              f"--test_epoch_interval must be >= 1, got {self.test_epoch_interval}"),
             (min(self.steps_per_epoch, self.max_steps, self.eval_max_batches, self.warmup_steps) >= 0,
@@ -373,6 +415,12 @@ class Config:
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+        if self.fault_plan:
+            from vitax_torch import faults
+            try:                            # at startup, not at the step the plan names
+                faults.parse_plan(self.fault_plan)
+            except ValueError as e:
+                raise ValueError(f"--fault_plan invalid: {e}") from e
         get_scenario(self.task).validate(self)     # each --task's pairwise checks live with its registry entry
         return self
 
@@ -389,7 +437,8 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--tensorboard", "store_true", "tensorboard"),
                ("--debug_nans", "store_true", "debug_nans"),
                ("--no_log_memory", "store_false", "log_memory"),
-               ("--reinit_head", "store_true", "reinit_head"))
+               ("--reinit_head", "store_true", "reinit_head"),
+               ("--zero_stall_ckpt", "store_true", "zero_stall_ckpt"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS), "sp_impl": ["ring", "ulysses"],
             "pp_schedule": ["gpipe", "1f1b"],
             "moe_top_k": [1, 2], "moe_impl": ["gather", "einsum"],
@@ -397,12 +446,37 @@ _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS),
             "param_gather_dtype": ["bfloat16", "float32"], "grad_reduce_dtype": ["float32", "bfloat16"],
             "remat_policy": list(REMAT_POLICIES),
             "serve_quant_dtype": list(QUANT_DTYPE_CHOICES), "serve_act_quant": ["off", "int8"],
-            "fused_dequant": ["auto", "on", "off"], "task": list(TASKS)}
+            "fused_dequant": ["auto", "on", "off"], "task": list(TASKS), "hang_action": ["dump", "checkpoint_exit"]}
 # vitax/config.py build_parser's help of the checkpoint and telemetry flags
 _HELP = {"ckpt_dir": "checkpoint root: epoch_<N>/ per saved epoch (default %(default)s)",
          "resume_epoch": "N = resume from the checkpoint of epoch N; -1 = auto-resume the latest "
                          "committed one, or start fresh (default %(default)s)",
          "ckpt_epoch_interval": "save every N epochs and at the last one (default %(default)s)",
+         "zero_stall_ckpt": "route checkpoint saves through the zero-stall snapshot pipeline "
+                            "(vitax_torch/checkpoint/snapshot.py): the device-to-host copy queued on a side stream, "
+                            "the DCP write on a background worker — step N+1 never waits for a non-final save",
+         "replicate_steps": ">0: every N steps, mirror this process's staged state shard to its ring buddy "
+                            "through the c10d store (vitax_torch/checkpoint/peer.py) so a lost rank restores from "
+                            "the surviving buddy without the checkpoint directory (0 = off)",
+         "peer_dir": "local peer-store root (default <ckpt_dir>/peerstore; VITAX_PEER_DIR env overrides) — "
+                     "per-host scratch, not shared storage",
+         "hang_timeout_s": ">0: watchdog dumps all-thread Python stacks + device memory stats (rank-tagged, "
+                           "without killing the job) after this many seconds with no completed step",
+         "hang_action": "what the watchdog does after its dump: dump = leave the job running (default); "
+                        "checkpoint_exit = emergency-save a committed checkpoint at the next step boundary and "
+                        "exit 42 for a supervisor (python -m vitax_torch.supervise) to restart",
+         "control_sync_steps": "multi-process failure-signal agreement cadence in steps "
+                               "(vitax_torch/train/control.py; one tiny collective per cadence, plus every epoch "
+                               "boundary) — processes must share the same value",
+         "peer_heartbeat_s": ">0: heartbeat peers through the c10d store every N seconds; a peer silent for "
+                             "--peer_grace_s is declared dead and survivors escalate to checkpoint_exit (exit "
+                             "42) instead of blocking in collectives (0 = off)",
+         "peer_grace_s": "heartbeat-silence window before a peer is declared lost, and the survivor's own exit "
+                         "deadline after the verdict (0 = 10 x --peer_heartbeat_s)",
+         "fault_plan": "JSON fault-injection plan (vitax_torch/faults.py), e.g. '{\"site\": \"step\", "
+                       "\"at\": 6, \"action\": \"crash\"}' — deterministic crash/hang/write-error/loader-stall/"
+                       "SIGTERM drills for the failure-reaction machinery (VITAX_FAULT_PLAN env var is the "
+                       "flagless equivalent)",
          "keep_checkpoints": ">0: checkpoint GC, prune committed epoch dirs beyond the newest K after "
                              "each save; torn dirs are never touched (0 = keep all; default %(default)s)",
          "metrics_dir": "write one JSONL telemetry record per log step (schema 1: loss, lr, sec/iter, "

@@ -34,6 +34,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vitax_torch import faults
 from vitax_torch.config import Config
 from vitax_torch.data.fake import TRAIN_SPLIT_LEN, VAL_SPLIT_LEN, FakeImageNetDataset
 from vitax_torch.telemetry.threads import report_thread_exception, reporting
@@ -119,6 +120,7 @@ class PrefetchLoader:
                 for row in plan:
                     if stop.is_set():
                         return
+                    faults.fire("loader")   # drill point: a `stall` starves the consumer, an `oserror` fails it
                     q.put(load(row))
             except BaseException as e:  # noqa: BLE001 - handed to the consumer, which raises it
                 report_thread_exception(e)

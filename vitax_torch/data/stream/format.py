@@ -20,6 +20,8 @@ import os
 import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
+from vitax_torch import faults
+
 MAGIC = b"VTXSHARD1\n"
 FORMAT_VERSION = 1
 META_NAME = "stream_meta.json"
@@ -169,10 +171,16 @@ class ShardReader:
             return self._f
         self.close()
         path = os.path.join(self.split_dir, self.shards[shard_id]["name"])
-        try:
-            f = open(path, "rb")
-        except OSError:
-            f = open(path, "rb")              # one retry: a shared store's open can fail once
+        last_err: Optional[OSError] = None
+        for _ in (0, 1):                      # one retry: a shared store's open can fail once
+            try:
+                faults.fire("stream_read")    # drill point: `oserror` drills the retry, `stall` a slow store
+                f = open(path, "rb")
+                break
+            except OSError as e:
+                last_err = e
+        else:
+            raise last_err
         magic = f.read(len(MAGIC))
         if magic != MAGIC:
             f.close()

@@ -5,6 +5,7 @@
   sinks    JSONL run log (always on) and an optional TensorBoard mirror
   record   Recorder: schema-1 step records and events fanned out to sinks
   threads  the thread-crash hook (kind "thread_crash") and bounded joins
+  watchdog the hang watchdog: stack and memory dump, escalation, exit 42
 
 Wired through train/loop.py (the Recorder's life, a record a log step),
 data/loader.py and checkpoint/io.py (their threads report crashes) and

@@ -9,8 +9,24 @@ record with the JAX package's keys:
     opt_update_s, mfu, mem_used_bytes[, mem_peak_bytes, mem_limit_bytes]
 
 MFU comes from the analytic FLOP count (telemetry/flops.py) over the
-measured sec/iter. `event()` appends non-step records (run metadata,
-restore, eval, thread crashes) to the same stream, tagged with `kind`.
+measured sec/iter; ckpt_stall_s is the zero-stall pipeline's staging
+stall over the record's window (checkpoint/snapshot.py consume_stall_s),
+0.0 without the pipeline. `event()` appends non-step records to the same
+stream, tagged with `kind`, as vitax's loop writes them:
+
+    run_start, finetune, distill, eval, thread_crash
+    restore          path "peer" | "dcp", epoch, resume_step, dcp_reads
+                     (checkpoint-directory reads of the restore), seconds
+    fault            site, action, index of a fired fault (faults.py)
+    hang, hang_escalation, hang_hard_exit
+                     the watchdog's dump (stacks, memory), its escalation
+                     and its last words (telemetry/watchdog.py)
+    control          event: agreed_preempt | agreed_escalation |
+                     fault_flagged | peer_loss | elastic_resume |
+                     peer_restore_negotiated | peer_restore_failed
+                     (train/control.py, checkpoint/peer.py); the supervisor
+                     appends topology_change and `restart` records itself
+    peer_replication bytes, version, src, buddy, seconds of a window
 Everything here is host work: the loop launches the same kernels in the
 same order with a Recorder or without one.
 """

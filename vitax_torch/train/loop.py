@@ -45,8 +45,26 @@ to restore, and starts fresh on an empty dir. On resume the model is
 built without an init and the checkpoint loaded into it; the restored
 `step` and `count` give the schedule's lr and the dropout seeds. A
 mid-epoch checkpoint (its sidecar's step_in_epoch) re-enters its epoch at
-the next step, and a stream loader's cursor is checked against it. No
-SIGTERM save yet: that is a later slice.
+the next step, and a stream loader's cursor is checked against it.
+
+Failures (vitax's reaction layer): --fault_plan (faults.py) arms the
+drill sites, the `step` site after each dispatch with the run's step
+count. A SIGTERM (train/preempt.py), the watchdog's escalation
+(telemetry/watchdog.py, --hang_timeout_s, started once the first step's
+loss is back, so the kernels' first-use build is outside its window), a
+fault and a lost peer fold into the control plane's word
+(train/control.py, agreed every --control_sync_steps steps and at each
+epoch boundary): a preemption commits a mid-epoch save and returns (exit
+0); the others commit an emergency save and exit 42 for the supervisor
+(supervise.py). Under --peer_heartbeat_s the survivors of a lost rank
+exit 42 within the grace window, and an error a dead peer raised in a
+collective is classified so. --zero_stall_ckpt routes every save through
+the snapshot pipeline (checkpoint/snapshot.py); --replicate_steps mirrors
+the staged state to the ring buddy every N steps and at each save
+(checkpoint/peer.py), and an auto-resume restores from the peer stores
+when their newest complete version is at least as fresh as the DCP
+frontier (the restore event says which path won, its seconds and its
+checkpoint-directory reads).
 
 The task's scenario (programs/registry.py) builds the optimizer and names
 the step: --task finetune and probe warm-start from --init_npz when not
@@ -60,7 +78,9 @@ Telemetry (telemetry/, vitax's): with --metrics_dir, rank 0 writes
 warm start, a restore event on a resume, a control/elastic_resume event
 when the process count changed, a schema-1 step record at every log step
 from the host values the loop fetched there (and under --task distill a
-distill event beside it), and an eval event a pass. The update's own
+distill event beside it), an eval event a pass, and the failure layer's
+fault, hang, hang_escalation, hang_hard_exit, control and peer_replication
+events; ckpt_stall_s is the pipeline's staging stall (0.0 without it). The update's own
 seconds (opt_update_s) are timed at those log steps only, by CUDA events
 on the card that launch nothing, so the step launches the same kernels in
 the same order with telemetry on or off. Every process meets the others at
@@ -74,13 +94,16 @@ from __future__ import annotations
 import dataclasses
 import math
 import pprint
+import sys
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from vitax_torch import distributed
+from vitax_torch import distributed, faults
 from vitax_torch.checkpoint import io as ckpt_io
+from vitax_torch.checkpoint import peer
+from vitax_torch.checkpoint.snapshot import SnapshotPipeline
 from vitax_torch.config import Config
 from vitax_torch.data.loader import build_datasets
 from vitax_torch.models.vit import build_model, count_params
@@ -93,7 +116,9 @@ from vitax_torch.programs.builder import build_program
 from vitax_torch.programs.registry import get_scenario
 from vitax_torch.programs.workloads import DISTILL_METRICS, frozen_fraction, warm_start_from_npz
 from vitax_torch.telemetry import build_recorder, install_thread_excepthook, restore_thread_excepthook
-from vitax_torch.train.control import elastic_resume_plan
+from vitax_torch.telemetry.watchdog import EXIT_HANG, Watchdog
+from vitax_torch.train import preempt
+from vitax_torch.train.control import ControlPlane, elastic_resume_plan, store_client
 from vitax_torch.train.state import ADAMW_HPARAMS, TrainState, make_train_state
 from vitax_torch.train.step import _needs_dropout
 from vitax_torch.utils.logging import master_print, memory_summary
@@ -146,14 +171,45 @@ def train(cfg: Config, device: DeviceLike = None,
     if pipe is not None:
         from vitax_torch.parallel.pipeline import Hop, check_batch
         microbatches = check_batch(cfg, mesh, pipe)
+    fault_plan = faults.install_from_config(cfg, rank)   # armed before any hook can fire, on every restart
     auto_resume = cfg.resume_epoch < 0
+    dcp_found = 0
     if auto_resume:                     # the latest committed checkpoint, if any, as rank 0 sees it
         found = distributed.broadcast_from_process0(ckpt_io.latest_epoch(cfg.ckpt_dir) or 0)
         cfg = dataclasses.replace(cfg, resume_epoch=found)
         master_print(f"auto-resume: {'epoch ' + str(found) if found else 'no checkpoint found, fresh start'}")
+        dcp_found = found
     master_print(f"\n=== cfg ===\n{pprint.pformat(cfg)}\n")
     master_print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                         if device.type == "cuda" else ""))
+    if fault_plan is not None:
+        master_print(f"fault injection ARMED (drill): {fault_plan.describe()}")
+    # the zero-stall pipeline and the peer replicator, built before the
+    # resume so the peer stores can be its source
+    snap_pipe = replicator = peer_plan = None
+    deferred_events: list = []          # (kind, payload) raised before the recorder exists
+    if cfg.zero_stall_ckpt or cfg.replicate_steps > 0:
+        snap_pipe = SnapshotPipeline(device=device)
+        master_print("zero-stall checkpointing: the device-to-host copy queued on a side stream, the DCP write "
+                     "on a background worker")
+    if cfg.replicate_steps > 0:
+        replicator = peer.PeerReplicator(peer.PeerStore(peer.resolve_peer_dir(cfg, rank)), process_index=rank,
+                                         process_count=distributed.process_count(), client=store_client())
+        replicator.start_receiver()
+        master_print(f"peer replication: every {cfg.replicate_steps} steps -> buddy rank {replicator.buddy} (local "
+                     f"store {replicator.store.root}, guarding rank {replicator.guard})")
+        if auto_resume:                 # the newest complete peer version at least as fresh as the DCP frontier
+            frontier = ((0, 0) if not dcp_found else
+                        peer.progress_key(dcp_found, ckpt_io.load_resume_step(cfg.ckpt_dir, dcp_found) or 0))
+            peer_plan = peer.negotiate_restore(
+                replicator.store, process_index=rank, process_count=distributed.process_count(),
+                client=store_client(), stores=replicator.store_of, dcp_frontier=frontier,
+                on_event=lambda kind, payload: deferred_events.append((kind, payload)))
+            if peer_plan is not None:
+                cfg = dataclasses.replace(cfg, resume_epoch=peer_plan.epoch)
+                master_print(f"peer restore agreed: version {list(peer_plan.version)} is at least as fresh as the "
+                             f"DCP frontier {list(frontier)} — restoring from peer shards, not the checkpoint "
+                             f"directory")
     if mesh is not None:
         kind = ("DP (HSDP, shard group 1)" if cfg.run_without_fsdp else
                 "ZeRO-3" if cfg.reshard_after_forward else "ZeRO-2")
@@ -166,9 +222,15 @@ def train(cfg: Config, device: DeviceLike = None,
     distributed.barrier("loaded dataset")
     master_print(f"\n=== dataset ===\n{train_ds!r}\n")
 
-    # a mid-epoch checkpoint re-enters its epoch at the recorded step
-    resume_step, topology_change, resume_rounded = (_elastic_resume(cfg, cfg.resume_epoch)
-                                                    if cfg.resume_epoch > 0 else (0, None, False))
+    # a mid-epoch checkpoint re-enters its epoch at the recorded step (a
+    # peer version's meta is sidecar-shaped: the same planner reads it)
+    if peer_plan is not None:
+        plan = elastic_resume_plan(peer_plan.meta, distributed.process_count())
+        resume_step, resume_rounded = plan.resume_step, plan.epoch_rounded
+        topology_change = (plan.from_processes, distributed.process_count()) if plan.topology_changed else None
+    else:
+        resume_step, topology_change, resume_rounded = (_elastic_resume(cfg, cfg.resume_epoch)
+                                                        if cfg.resume_epoch > 0 else (0, None, False))
     attention_impl = make_attention_impl(cfg, device, mesh)
     tokens = token_shard(cfg, mesh)
     master_print(f"attention core: {getattr(attention_impl, 'vitax_name', 'dense')} on {device.type} "
@@ -214,15 +276,30 @@ def train(cfg: Config, device: DeviceLike = None,
     scenario = get_scenario(cfg.task)
     optimizer, schedule = scenario.make_optimizer(cfg, max_iteration)
     state = make_train_state(model, optimizer)
+    restore_info = None                 # {"path": "peer" | "dcp", "epoch": N}: the restore event
+    reads_before, t_restore = ckpt_io.restore_read_count(), time.perf_counter()
     if cfg.resume_epoch > 0:
-        if auto_resume:                 # survive one bad checkpoint: fall back to an earlier one
+        if peer_plan is not None:       # peer shards first; a failure falls back loudly to the DCP epoch
+            state, restore_info = peer.restore_state_preferring_peers(
+                replicator.store, peer_plan, cfg.ckpt_dir, dcp_found, state,
+                on_event=lambda kind, payload: deferred_events.append((kind, payload)))
+            if restore_info["path"] == "dcp":
+                cfg = dataclasses.replace(cfg, resume_epoch=restore_info["epoch"])
+                resume_step, topology_change, resume_rounded = _elastic_resume(cfg, cfg.resume_epoch)
+        elif auto_resume:               # survive one bad checkpoint: fall back to an earlier one
             state, restored = ckpt_io.restore_state_with_fallback(cfg.ckpt_dir, cfg.resume_epoch, state)
             if restored != cfg.resume_epoch:
                 cfg = dataclasses.replace(cfg, resume_epoch=restored)
                 resume_step, topology_change, resume_rounded = _elastic_resume(cfg, restored)
         else:                           # an explicit --resume_epoch N means N: fail hard
             state = ckpt_io.restore_state(cfg.ckpt_dir, cfg.resume_epoch, state)
-        master_print(f"restored epoch {cfg.resume_epoch}: step {state.step}")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        restore_info = restore_info or {"path": "dcp", "epoch": cfg.resume_epoch}
+        restore_info.update(seconds=time.perf_counter() - t_restore,
+                            dcp_reads=ckpt_io.restore_read_count() - reads_before)
+        master_print(f"restored epoch {cfg.resume_epoch}: step {state.step} (from {restore_info['path']} in "
+                     f"{restore_info['seconds']:.2f} s, {restore_info['dcp_reads']} checkpoint-directory read(s))")
     finetune_info = None
     if cfg.init_npz and cfg.resume_epoch <= 0:
         # the finetune/probe warm start; a checkpoint wins over it on resume
@@ -248,39 +325,103 @@ def train(cfg: Config, device: DeviceLike = None,
     # rank 0's telemetry; host work only, the step's launches are the same without it
     recorder = build_recorder(cfg, distributed.process_count(), device_kind(device), rank=rank, device=device)
     install_thread_excepthook(recorder, rank)       # ... and now thread_crash events too
+
+    def sink(kind: str):
+        """A writer of `kind` events for a callback, or None without telemetry."""
+        return (lambda payload: recorder.event(kind, **payload)) if recorder is not None else None
+
     if recorder is not None:
         master_print(f"telemetry: JSONL step records -> {cfg.metrics_dir} (MFU vs {recorder.peak_tflops:.0f} "
                      f"TF/s/card peak" + (", tensorboard mirror on" if cfg.tensorboard else "") + ")")
         recorder.event("run_start", device_kind=recorder.device_kind, n_devices=recorder.n_devices,
                        peak_tflops=recorder.peak_tflops, flops_per_step=recorder.flops_per_step,
                        batch_size=cfg.batch_size)
+        if fault_plan is not None:  # fired faults become kind "fault" events
+            faults.set_reporter(sink("fault"))
+        for kind, payload in deferred_events:
+            recorder.event(kind, **payload)
         if finetune_info is not None:
             recorder.event("finetune", **finetune_info)
-        if cfg.resume_epoch > 0:
-            recorder.event("restore", path="dcp", epoch=int(cfg.resume_epoch), resume_step=int(resume_step))
+        if restore_info is not None:    # which path won, its seconds and its checkpoint-directory reads
+            recorder.event("restore", path=restore_info["path"], epoch=int(restore_info["epoch"]),
+                           resume_step=int(resume_step), dcp_reads=int(restore_info["dcp_reads"]),
+                           seconds=restore_info["seconds"])
         if topology_change is not None:
             recorder.event("control", event="elastic_resume", from_processes=topology_change[0],
                            to_processes=topology_change[1], epoch=cfg.resume_epoch, resume_step=resume_step,
                            epoch_rounded=resume_rounded)
+    if replicator is not None and recorder is not None:
+        replicator.on_event = lambda kind, payload: recorder.event(kind, **payload)
+    preempt.install()                   # SIGTERM -> a committed save -> exit 0
+    watchdog = None
+    if cfg.hang_timeout_s > 0:
+        # built here, started when the first step's loss is back: the kernels'
+        # first-use build and the first step are not a hang
+        watchdog = Watchdog(cfg.hang_timeout_s, on_fire=sink("hang"), rank=rank, action=cfg.hang_action,
+                            on_escalate=sink("hang_escalation"), device=device)
+        master_print(f"watchdog: stack+memory dump after {cfg.hang_timeout_s:.0f}s without a completed step (armed "
+                     f"after the first step)" + (f", then emergency checkpoint + exit {EXIT_HANG}"
+                                                 if cfg.hang_action == "checkpoint_exit" else ""))
+    # the control plane: preemption, escalation, fault and peer loss folded
+    # into one word the processes agree on, so all act at the same step
+    control = ControlPlane(sync_steps=cfg.control_sync_steps, watchdog=watchdog,
+                           on_event=sink("control"))
+    if watchdog is not None:
+        def last_words(payload):        # a flushed event and the cause published, before the hard exit
+            if recorder is not None:
+                recorder.event("hang_hard_exit", **payload)
+            control.publish_fault("hang_hard_exit")
+        watchdog.on_hard_exit = last_words
+    if cfg.peer_heartbeat_s > 0:
+        grace_s = cfg.peer_grace_s or 10.0 * cfg.peer_heartbeat_s
+        if control.start_liveness(cfg.peer_heartbeat_s, grace_s):
+            master_print(f"peer liveness: heartbeats every {cfg.peer_heartbeat_s:g}s through the c10d store; a peer "
+                         f"silent for {grace_s:g}s is declared lost and survivors exit {EXIT_HANG} within the "
+                         f"deadline instead of blocking in collectives")
     anomaly = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True, check_nan=True)
         master_print("debug_nans: autograd anomaly mode with NaN checks; the loss and grad norm are fetched "
                      "every step")
+    control.warmup()                    # the agreement's first collective outside any hang deadline
     distributed.barrier("training begins")
     master_print("training begins")
+    lost = None
     try:
-        return _run_epochs(cfg, state, train_step, train_loader, val_loader, eval_step, schedule,
+        return _run_epochs(cfg, state, train_step, train_loader, val_loader, eval_step, schedule, control,
                            records, train_ds, resume_step=resume_step, resume_rounded=resume_rounded,
-                           recorder=recorder)
+                           recorder=recorder, watchdog=watchdog, snap_pipe=snap_pipe, replicator=replicator)
+    except Exception as e:  # noqa: BLE001 - classified: a lost peer exits 42, anything else is re-raised
+        # gloo raises where NCCL blocks on a dead peer, and a lost rank 0
+        # takes the store with it: ask the liveness monitor which this is
+        lost = control.peer_loss_suspected()
+        if lost is None:
+            raise
+        print(f"vitax_torch.control: runtime error after losing peer {lost} ({type(e).__name__}: {e}); exiting "
+              f"{EXIT_HANG} for the supervisor to restart from the last committed checkpoint",
+              file=sys.stderr, flush=True)
+        raise SystemExit(EXIT_HANG) from e
     finally:
+        # vitax's teardown order; after a lost peer the plane's exit timer
+        # stays armed through it (a drain over the dead peer must not hang)
         torch.autograd.set_detect_anomaly(*anomaly)
+        if lost is None:
+            control.stop()
+        if watchdog is not None:
+            watchdog.stop()
         try:
+            if replicator is not None:
+                replicator.stop()       # the receiver, and one last pull of the guard's shard
+            if snap_pipe is not None:
+                snap_pipe.close()       # the queued persist and replicate jobs
             ckpt_io.wait_until_finished()   # no exit with a save in flight
         finally:
             restore_thread_excepthook(hook)
             if recorder is not None:
                 recorder.close()
+            faults.uninstall()          # a plan is the run's, as the recorder
+            preempt.uninstall()
+            control.stop()
 
 
 def _elastic_resume(cfg: Config, epoch: int):
@@ -324,10 +465,45 @@ def _decode_line(dataset) -> Optional[str]:
             f"JPEG); decode path {'native' if dataset.use_native else 'PIL'}")
 
 
+def _stream_cursor(loader, epoch: int, next_step: int):
+    """The stream loader's resume cursor after `next_step` batches, or None
+    for loaders without one; it rides a mid-epoch save's sidecar."""
+    fn = getattr(loader, "cursor_for_step", None)
+    return fn(epoch, next_step) if fn is not None else None
+
+
+def _save_ckpt(cfg: Config, state: TrainState, epoch: int, *, wait: bool, step_in_epoch: Optional[int] = None,
+               stream_cursor: Optional[dict] = None, snap_pipe=None, replicator=None) -> Tuple[str, float, float]:
+    """Save through the zero-stall pipeline when it runs (every save must:
+    two writers would interleave the checkpoint group's collectives), else
+    save_state. Under --replicate_steps the sidecar records the window and
+    the save refreshes the peer store too. Returns (path, the seconds the
+    copy held the loop, the seconds a waited save then held it for the
+    commit), and logs both."""
+    extra = {"replicate_steps": cfg.replicate_steps} if cfg.replicate_steps > 0 else None
+    t0 = time.perf_counter()
+    if snap_pipe is not None:
+        snap_pipe.submit(state, epoch=epoch, step_in_epoch=step_in_epoch or 0, stream_cursor=stream_cursor,
+                         persist_to=cfg.ckpt_dir, keep=cfg.keep_checkpoints, extra_meta=extra, replicator=replicator,
+                         wait=wait)
+        stall, pinned = snap_pipe.last_stall_s, snap_pipe.last_alloc_s
+    else:
+        ckpt_io.save_state(cfg.ckpt_dir, epoch, state, wait=wait, step_in_epoch=step_in_epoch,
+                           stream_cursor=stream_cursor, keep=cfg.keep_checkpoints, extra_meta=extra)
+        stall = ckpt_io.last_snapshot_seconds()
+    held = time.perf_counter() - t0 - stall
+    master_print(f"checkpoint save of epoch {epoch}" + (f" (step {step_in_epoch})" if step_in_epoch else "")
+                 + f": the loop held {stall:.4f} s for the copy and {held:.3f} s more"
+                 + (f" (zero-stall pipeline; {pinned:.4f} s of the copy's pinning a new buffer set)"
+                    if snap_pipe is not None else ""))
+    return ckpt_io.epoch_ckpt_path(cfg.ckpt_dir, epoch), stall, held
+
+
 def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_loader, val_loader,
-                eval_step: Callable, schedule: Callable,
+                eval_step: Callable, schedule: Callable, control: ControlPlane,
                 records: Optional[List[Dict[str, float]]] = None, train_ds=None,
-                resume_step: int = 0, resume_rounded: bool = False, recorder=None) -> TrainState:
+                resume_step: int = 0, resume_rounded: bool = False, recorder=None, watchdog=None,
+                snap_pipe=None, replicator=None) -> TrainState:
     smoothed_loss = SmoothedValue(window_size=5)
     smoothed_time = SmoothedValue(window_size=5)
     total_steps = 0
@@ -343,6 +519,26 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
     elif resume_rounded:
         master_print(f"epoch-rounded resume: re-running epoch {start_epoch} from step 1 (mid-epoch stream "
                      f"cursor invalidated by the topology change)")
+
+    def coordinated_exit(epoch: int, step_in_epoch: Optional[int], sig) -> None:
+        """The agreed reaction at a boundary: a jointly committed save (mid-
+        epoch with its step, or the epoch's), then, bounded by a deadline,
+        the exit barrier; exit 42 for an emergency, return for a preemption."""
+        what = "emergency" if sig.emergency else "preemption"
+        if sig.emergency and watchdog is not None:
+            watchdog.acknowledge_escalation()   # the save runs under the hard deadline too
+        where = f"at epoch {epoch} (step {step_in_epoch})" if step_in_epoch else f"after epoch {epoch}"
+        master_print(f"{'watchdog escalation' if sig.emergency else 'SIGTERM received'}: saving {what} checkpoint "
+                     f"{where} and exiting" + (f" with code {EXIT_HANG}" if sig.emergency else "")
+                     + f" (agreed signals: {sig.describe()})")
+        _save_ckpt(cfg, state, epoch, wait=True, step_in_epoch=step_in_epoch,
+                   stream_cursor=_stream_cursor(train_loader, epoch, step_in_epoch) if step_in_epoch else None,
+                   snap_pipe=snap_pipe, replicator=replicator)
+        control.arm_exit_deadline()     # a peer dead mid-drain must not wedge the barrier
+        distributed.barrier(f"coordinated {what} exit")
+        if sig.emergency:
+            raise SystemExit(EXIT_HANG)
+
     for epoch in range(max(start_epoch, 1), cfg.num_epochs + 1):
         master_print(f"starting epoch {epoch}")
         time_epoch_b = time_step_b = time.time()
@@ -355,7 +551,16 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
             state, metrics = _checked(cfg, train_step, state, batch, total_steps + 1,
                                       time_update=will_log and recorder is not None)
             total_steps += 1
+            # drill point, before the pet: an injected hang starves the
+            # watchdog as a wedged step does; the index counts this run's steps
+            faults.fire("step", index=total_steps)
             steps_since_record += 1
+            if watchdog is not None:
+                if watchdog.running:
+                    watchdog.pet()
+                else:                   # started once the first step is done: its build and warm-up are no hang
+                    float(metrics["loss"])
+                    watchdog.start()
             host_loss = float(metrics["loss"]) if will_log else None    # the log step's one fetch
             t_new = time.time()
             step_seconds = t_new - time_step_b
@@ -366,6 +571,7 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
                 _run_logging(cfg, epoch, step, host_loss, lr, smoothed_loss, smoothed_time,
                              memory_summary(state.count.device) if cfg.log_memory else None)
                 data_wait_s = train_loader.consume_wait_s() / steps_since_record
+                ckpt_stall_s = snap_pipe.consume_stall_s() / steps_since_record if snap_pipe is not None else 0.0
                 steps_since_record = 0
                 distill = {}
                 if records is not None or recorder is not None:
@@ -375,7 +581,8 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
                 if recorder is not None:
                     recorder.record_step(step=total_steps, epoch=epoch, step_in_epoch=step + 1, loss=host_loss,
                                          lr=lr, sec_per_iter=smoothed_time.avg, data_wait_s=data_wait_s,
-                                         opt_update_s=metrics["opt_update"].seconds(), grad_norm=grad_norm)
+                                         ckpt_stall_s=ckpt_stall_s, opt_update_s=metrics["opt_update"].seconds(),
+                                         grad_norm=grad_norm)
                     if distill:
                         recorder.event("distill", step=total_steps, epoch=epoch, **distill,
                                        alpha=cfg.distill_alpha, temp=cfg.distill_temp)
@@ -383,6 +590,18 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
                     records.append({"epoch": epoch, "step": total_steps, "loss": host_loss, "lr": lr,
                                     "sec_per_iter": smoothed_time.avg, "step_seconds": step_seconds,
                                     "grad_norm": grad_norm, "data_wait_s": data_wait_s, **distill})
+            if replicator is not None and snap_pipe is not None and (step + 1) % cfg.replicate_steps == 0:
+                # a replication window: the staging is the loop's part (its
+                # ckpt_stall_s), the bytes go to the buddy from the worker
+                snap_pipe.submit(state, epoch=epoch, step_in_epoch=step + 1,
+                                 stream_cursor=_stream_cursor(train_loader, epoch, step + 1), replicator=replicator)
+            # the step-boundary poll: the agreed word of the SIGTERM flag, the
+            # watchdog's escalation, fault and peer-loss bits
+            sig = control.poll(step_in_epoch=step, epoch=epoch)
+            if sig.any:
+                float(metrics["loss"])          # the step is done before its state is saved
+                coordinated_exit(epoch, step + 1, sig)
+                return state
             if cfg.max_steps and total_steps >= cfg.max_steps:
                 break
         if metrics is not None:
@@ -391,15 +610,19 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
         decode = _decode_line(train_ds)
         if decode:
             master_print(f"epoch {epoch} {decode}")
+        # the epoch boundary always agrees, whatever the cadence
+        sig = control.poll(step_in_epoch=None, epoch=epoch)
+        if sig.any:
+            coordinated_exit(epoch, None, sig)
+            return state
         if epoch % cfg.ckpt_epoch_interval == 0 or epoch == cfg.num_epochs:
-            # the snapshot is taken before save_state returns; the write
-            # commits in the background while the next epoch trains, and
-            # the last epoch's save waits for its commit
-            t0 = time.perf_counter()
-            path = ckpt_io.save_state(cfg.ckpt_dir, epoch, state, wait=epoch == cfg.num_epochs,
-                                      keep=cfg.keep_checkpoints)
+            # the copy is taken before the save returns (or queued on a side
+            # stream under the pipeline); the write commits in the background
+            # while the next epoch trains, and the last epoch's save waits
+            path, stall, _ = _save_ckpt(cfg, state, epoch, wait=epoch == cfg.num_epochs, snap_pipe=snap_pipe,
+                                        replicator=replicator)
             if records is not None:
-                records.append({"epoch": epoch, "ckpt_path": path, "ckpt_stall_s": time.perf_counter() - t0})
+                records.append({"epoch": epoch, "ckpt_path": path, "ckpt_stall_s": stall})
         if epoch % cfg.test_epoch_interval == 0 or epoch == cfg.num_epochs:
             top1, top5, _, _ = eval_on_val(cfg, val_loader, eval_step, state, recorder=recorder, epoch=epoch)
             master_print(f"accuracy on val: {top1:.4f} (top-5 {top5:.4f})")

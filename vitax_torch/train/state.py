@@ -62,6 +62,9 @@ class TrainState:
     mu: Dict[str, torch.Tensor]      # AdamW first moments, by parameter name
     nu: Dict[str, torch.Tensor]      # AdamW second moments
     count: torch.Tensor              # int32 0-d on the params' device, == step
+    # CUDA events of snapshot copies still reading the state (checkpoint/
+    # snapshot.py stage()): the next in-place update waits for them
+    staged: List[torch.cuda.Event] = dataclasses.field(default_factory=list)
 
     def leaves(self) -> Tuple[List[str], List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
         """(names, params, mu, nu) of the parameters with moments, in

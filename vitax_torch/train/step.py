@@ -209,6 +209,11 @@ def _make_update_fn(cfg: Config, optimizer: AdamW, device, mesh=None) -> Callabl
         if len(names) != len(grads):          # the probe: the head's grads, clipped by every grad's norm
             trained = set(names)
             grads = [g for (n, _), g in zip(state.model.named_parameters(), grads) if n in trained]
+        if state.staged:                      # B writes in place: a staged snapshot's copies land first
+            stream = torch.cuda.current_stream()
+            for ready in state.staged:
+                stream.wait_event(ready)
+            state.staged.clear()
         state.count = fused_clip_adamw(
             params, grads, mu, nu, state.count, grad_norm=grad_norm,
             schedule=optimizer.schedule, clip_norm=optimizer.clip_grad_norm,
