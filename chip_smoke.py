@@ -69,6 +69,22 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      block-site launch on the wgmma kernel, the
      footprint, a profile of one bucket-8 forward, latency, and an accuracy
      gate against the full-precision engine on 64 seeded images;
+  6f. the serving fleet: 6q's int8 weights exported (quantized block by
+     block on the card by consolidate.py save_npz_from_state) to /dev/shm,
+     its codes and scales read back bit for bit 6q's; `python -m
+     vitax_torch.serve.fleet` with two replicas on the card (each `python -m
+     vitax_torch.serve` running A1 and C), admission armed, the cache, a
+     5 ms composing window and /chaos; each replica's seconds to ready; 32
+     /predict from 8 threads and one /predict_batch of 8 through the router,
+     each answer bit for bit 6q's int8 engine on the same image in a bucket
+     it ran in, within 1e-2 of it and its top-k equal but for ties; 8
+     repeats answered by the cache without a replica; composed groups; client
+     latency and images/s beside 6q's single engine; a crash plan POSTed to
+     replica 1's /chaos (and a 3 s hang of replica 0's next batch, so the
+     group after it goes to replica 1) before bursts of 16: no client
+     error, replica 1's exit, restart and re-admission; SIGTERM: the fleet and both replicas exit 0;
+     every serve.jsonl parsed, each replica's serve_request and serve_batch
+     records accounting for every request it answered, bucket by bucket;
   7. train main path: train() on the 10B-width model cut to depth 8, batch
      32, fake data, 12 steps and a 2-batch eval, with the launch counts of
      the run checked against the steps, sec/iter, images/s, MFU and peak
@@ -117,11 +133,13 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      forward and one backward launch a rank a run on the wgmma kernels,
      the sharded and the whole Block's ms and one all-reduce's; then the
      train CLI under torchrun at tp 2 with both ranks on the card over
-     gloo, against one process at tp 1, in float32 and in bf16;
+     gloo, against one process at tp 1, in float32 and in bf16 (the tp
+     Block's torchrun and the four CLI runs at once, one wave);
   7q. pipeline parallelism on the one card: the train CLI under torchrun
      at pp 2 (vitax_torch/parallel/pipeline.py), both stages on the card
      over gloo (the stage hops through host buffers), the 10B width at
-     depth 4, batch 8, fake data, 3 steps: GPipe at M 2 and M 4 and 1F1B
+     depth 2 (7p's tp-1 runs are its pp-1 runs; the pp-2 runs in two more
+     waves, float32 and bf16), batch 8, fake data, 3 steps: GPipe at M 2 and M 4 and 1F1B
      at M 4 in float32 against one process at pp 1; GPipe in bf16 on the
      wgmma kernels against pp 1 in bf16, each number held as 7p holds tp;
      GPipe in bf16 under att_dropout 0.1 on the dropout kernels; each
@@ -189,9 +207,9 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      each of ZeRO-3, ZeRO-2 and DP from the same init, their losses, grad
      norms and params bitwise the reference's; then a depth-2 sharded save
      (train() with a checkpoint) restored into a new sharded state, bitwise;
-  7x. the transfer tasks (before 7f, unwrapped): a seeded depth-8 model
-     exported in bf16 (5.05 GB); the warm start bitwise the export at step
-     0 (the head re-initialized); then phase 7's run under --task finetune
+  7x. the transfer tasks (before 7f, unwrapped): a seeded depth-2 model
+     exported in bf16 (1.3 GB); the warm start bitwise the export at step
+     0 (the head re-initialized); then phase 7's run cut to depth 2 under --task finetune
      (--reinit_head, --backbone_lr_mult 0.1), --task probe and --task
      distill (the export as the teacher), each with its launch counts
      checked against its steps (the teacher adds a forward a block a
@@ -2010,8 +2028,10 @@ def phase_quant_serve(torch, card, engine_f32):
     quantized on the card to int8 and to fp8, three engines (int8
     weight-only, int8 with int8 activations, fp8 weight-only) over HTTP,
     each with its launch counts, footprint, profile, latency and accuracy
-    gate against the full-precision engine. Returns the launches of each
-    kernel summed over the three engines' traffic."""
+    gate against the full-precision engine. Returns (the launches of each
+    kernel summed over the three engines' traffic, {"int8": the int8 state
+    on the card} for phase 6f, the int8 weight-only engine's client
+    latencies and wall seconds)."""
     from vitax_torch.config import Config
     from vitax_torch.serve import InferenceEngine
     from vitax_torch.serve.quant import quantize_params_for_serve, run_quant_gate
@@ -2058,6 +2078,8 @@ def phase_quant_serve(torch, card, engine_f32):
             fail(f"{label}: /metrics reports {metrics['weights_dtype']}, {metrics['act_quant']}, "
                  f"{metrics['fused_dequant']}")
         total = {name: total.get(name, 0) + v for name, v in launches.items()}
+        if (dtype, act) == ("int8", "off"):
+            traffic = (lat, wall)
         say(f"[{label}] {traffic_line(metrics, batches, lat, wall)}; dequant_matmul launches "
             f"{launches['dequant_matmul']} ({per_forward} per batch): wgmma {wgmma}, general {general}; "
             f"flash_attn_fwd {launches['flash_attn_fwd']} (wgmma {launches['flash_attn_fwd_wgmma']}); "
@@ -2072,8 +2094,408 @@ def phase_quant_serve(torch, card, engine_f32):
         if not ok:
             fail(f"{label}: top-1 agreement with the full-precision engine {gate['top1_quant']} below {floor}")
         del engine
-    del states
-    return total
+    states.pop("float8_e4m3")
+    return total, states, traffic
+
+
+# Phase 6f: the serving fleet through its CLI, on an int8 export of phase
+# 6q's weights in /dev/shm (the card machine allows 45 GiB of disk writes a
+# call): `python -m vitax_torch.serve.fleet` with two replicas, each a
+# `python -m vitax_torch.serve` process on the card running A1 and C.
+FLEET_REPLICAS = 2
+FLEET_TOPK = 6                  # the references keep one class past the served top-5: a tie at the 5th
+FLEET_PROB_BAR = 1e-2           # |p - 6q's p| for a request run in another bucket than the reference's
+FLEET_SLO_MS = 30000.0          # admission armed; the predicted wait at this load stays seconds below it
+FLEET_FLAGS = ["--serve_max_batch", "8", "--serve_allow_chaos", "--serve_cache_max", "64",
+               "--serve_batch_window_ms", "5", "--slo_p99_ms", str(FLEET_SLO_MS), "--serve_quant_dtype", "int8"]
+FLEET_BURSTS = 3                # bursts of 16 offered until replica 1 takes a batch and dies
+FLEET_CRASH = '{"site": "engine_predict", "at": 1, "action": "crash", "exit_code": 13}'
+# The composer sends one group at a time to the least-loaded replica, ties to the lower EWMA latency, so
+# one replica can take every group (on an H100 80GB HBM3 at 700 W replica 0 once took 34 of 40 requests
+# and all 48 of the bursts).
+# Replica 0's next batch is held FLEET_SLOW_S (a hang at batcher_flush through its /chaos): its EWMA
+# rises past replica 1's, and the group after it goes to replica 1, which dies on it.
+FLEET_SLOW_S = 3.0
+FLEET_SLOW = json.dumps({"site": "batcher_flush", "at": 1, "action": "hang", "seconds": FLEET_SLOW_S})
+
+
+def http_raw(url: str, body: bytes = None, ctype: str = "image/x-portable-pixmap") -> bytes:
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype} if body is not None else {})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return resp.read()
+
+
+def free_port_pair() -> int:
+    """A port p with p and p + 1 both free (the replicas' --base_port)."""
+    import socket
+    for _ in range(200):
+        p = free_port()
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", p + 1))
+            return p
+        except OSError:
+            continue
+    fail("6f: found no two consecutive free ports")
+
+
+def fleet_references(cfg, device, state, images) -> dict:
+    """{bucket: [(top-6 ids, top-6 probs) an image]}: 6q's int8 engine (its
+    state, shared) on every image in each bucket, full batches in order."""
+    from vitax_torch.serve import InferenceEngine
+    cfg = dataclasses.replace(cfg, serve_quant_dtype="int8", serve_topk=FLEET_TOPK).validate()
+    engine = InferenceEngine.from_state(cfg, state, device, "int8")
+    engine.warmup()
+    refs = {}
+    for b in engine.buckets:
+        rows = []
+        for i in range(0, len(images), b):
+            ids, probs = engine.predict(images[i:i + b])
+            rows += list(zip(ids, probs))
+        refs[b] = rows
+    del engine
+    return refs
+
+
+def topk_within(ids, probs, ref_ids, ref_p, bar) -> bool:
+    """Top-1 equal; each prob within `bar` of the reference's at its rank;
+    another class at a rank only where the reference holds it within `bar`
+    of that rank's prob (a tie the rounding may flip)."""
+    if ids[0] != ref_ids[0]:
+        return False
+    rank = {int(c): j for j, c in enumerate(ref_ids)}
+    for j, (c, p) in enumerate(zip(ids, probs)):
+        if abs(p - float(ref_p[j])) > bar:
+            return False
+        if c != int(ref_ids[j]) and (c not in rank or abs(float(ref_p[rank[c]]) - float(ref_p[j])) > bar):
+            return False
+    return True
+
+
+def judge_answer(ans: dict, refs: dict, i: int, k: int):
+    """(buckets whose reference the answer equals bit for bit, the least prob
+    gap to a reference, whether some bucket's reference holds it within the
+    bar)."""
+    exact, gaps, ok = [], [], False
+    for b, rows in refs.items():
+        ref_ids, ref_p = rows[i]
+        if ans["classes"] == ref_ids[:k].tolist() and ans["probs"] == [float(p) for p in ref_p[:k]]:
+            exact.append(b)
+        gaps.append(max(abs(p - float(q)) for p, q in zip(ans["probs"], ref_p[:k])))
+        ok = ok or topk_within(ans["classes"], ans["probs"], ref_ids, ref_p, FLEET_PROB_BAR)
+    return exact, min(gaps), ok
+
+
+def jsonl_events(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def replica_accounting(name: str, events: list) -> dict:
+    """One replica's serve.jsonl: each serve_batch's bucket the power of two
+    its size fills, and its serve_request records those batches' rows, bucket
+    by bucket. Returns {bucket: requests}."""
+    from vitax_torch.serve.engine import next_bucket
+    batches = [e for e in events if e["kind"] == "serve_batch"]
+    by_req, by_batch = {}, {}
+    for e in events:
+        if e["kind"] == "serve_request":
+            by_req[e["bucket"]] = by_req.get(e["bucket"], 0) + 1
+    for e in batches:
+        if e["bucket"] != next_bucket(e["batch_size"], (1, 2, 4, 8)):
+            fail(f"[6f] {name}: a batch of {e['batch_size']} ran in bucket {e['bucket']}")
+        by_batch[e["bucket"]] = by_batch.get(e["bucket"], 0) + e["batch_size"]
+    if by_req != by_batch:
+        fail(f"[6f] {name}: serve_request records by bucket {by_req} against its batches' rows {by_batch}")
+    return by_req
+
+
+def phase_fleet(torch, card, engine_f32, states: dict, q8_traffic) -> None:
+    """Phase 6f: the int8 export of 6q's weights (block by block on the
+    card, consolidate.py save_npz_from_state, into /dev/shm), its codes and
+    scales read back bit for bit 6q's; the fleet CLI with two replicas on
+    it; 40 requests (32 /predict from 8 threads, one /predict_batch of 8)
+    through the router, each answer against 6q's int8 engine on the same
+    image (bit for bit the bucket it ran in, else top-k and probs within
+    FLEET_PROB_BAR); 8 repeats answered by the cache without a replica;
+    composed groups; replica 1 crashed through its /chaos mid-burst with no
+    client error, its restart and re-admission; SIGTERM: the fleet and both
+    replicas exit 0; every serve.jsonl parsed and each replica's records
+    accounting for every request it answered. `states["int8"]` is popped
+    and freed."""
+    from vitax_torch.checkpoint.consolidate import load_npz_raw, save_npz_from_state
+    from vitax_torch.data.transforms import ValTransform
+    from vitax_torch.serve.engine import npz_state
+    from vitax_torch.serve.server import decode_image_bytes
+
+    state = states.pop("int8")
+    work = tempfile.mkdtemp(prefix="vitax_torch_6f_", dir="/dev/shm" if os.path.isdir("/dev/shm") else None)
+    path = os.path.join(work, "int8.npz")
+    try:
+        t0 = time.perf_counter()
+        save_npz_from_state(path, engine_f32.model.state_dict(), "int8")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flat, scales, manifest = load_npz_raw(path, mapped=True)
+        back = npz_state(flat, scales, engine_f32.device)       # as a replica loads it, onto the card
+        t_read = time.perf_counter() - t0
+        differ = sorted(k for k in state if k not in back or not torch.equal(back[k], state[k]))
+        say(f"[6f export] int8 export of 6q's weights, quantized block by block on the card: "
+            f"{os.path.getsize(path) / 1e9:.2f} GB in {t_write:.1f} s to {work}; {len(manifest)} quantized "
+            f"leaves; read back onto the card as a replica reads it in {t_read:.1f} s, "
+            f"{len(state) - len(differ)} of {len(state)} leaves (codes, scales, float leaves) bit for bit 6q's "
+            f"in-memory state")
+        if differ or set(back) != set(state):
+            fail(f"[6f] the export differs from 6q's quantized state: {differ[:8]} "
+                 f"{sorted(set(back) ^ set(state))[:8]}")
+        del back
+
+        rng = np.random.default_rng(SEED + 20)
+        bodies = [ppm_bytes(rng) for _ in range(40 + 16 * FLEET_BURSTS)]
+        tf = ValTransform(engine_f32.cfg.image_size)
+        images = np.stack([decode_image_bytes(b, tf) for b in bodies])
+        t0 = time.perf_counter()
+        refs = fleet_references(engine_f32.cfg, engine_f32.device, state, images)
+        say(f"[6f refs] 6q's int8 engine on the {len(bodies)} images in buckets {sorted(refs)}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_fleet(torch, card, engine_f32.cfg, path, work, bodies, refs, q8_traffic)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_fleet(torch, card, cfg, path, work, bodies, refs, q8_traffic) -> None:
+    """The fleet CLI on the export: phase 6f's traffic, crash and shutdown."""
+    import signal
+    k = cfg.serve_topk
+    mdir = os.path.join(work, "m")
+    port, base = free_port(), free_port_pair()
+    url = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "vitax_torch.serve.fleet", "--replicas", str(FLEET_REPLICAS), "--npz", path,
+           *FLEET_FLAGS, "--serve_port", str(port), "--base_port", str(base), "--metrics_dir", mdir]
+    log_path = os.path.join(work, "fleet.log")
+    log = open(log_path, "w")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def log_tail() -> str:
+        log.flush()
+        with open(log_path) as f:
+            return f.read()[-4000:]
+
+    def router_events() -> list:
+        return jsonl_events(os.path.join(mdir, "serve.jsonl"))
+
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                fail(f"[6f] the fleet exited {proc.returncode} before both replicas were ready:\n{log_tail()}")
+            try:
+                health = json.loads(http_raw(url + "/healthz"))
+                if list(health["replicas"].values()) == ["ready"] * FLEET_REPLICAS:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail(f"[6f] the replicas were not ready within 300 s:\n{log_tail()}")
+            time.sleep(0.5)
+        ev = router_events()
+        spawned = {e["replica"]: e["time"] for e in ev if e["kind"] == "replica_spawn"}
+        ready_s = {e["replica"]: e["time"] - spawned[e["replica"]] for e in ev if e["kind"] == "replica_admit"}
+        metrics = json.loads(http_raw(url + "/metrics"))
+        fleet = metrics["fleet"]
+        free, total = torch.cuda.mem_get_info()
+        say(f"[6f start] python -m vitax_torch.serve.fleet --replicas {FLEET_REPLICAS} --npz <int8 export> "
+            f"{' '.join(FLEET_FLAGS)}: router on :{port}; seconds from spawn to ready "
+            + ", ".join(f"{n} {s:.1f}" for n, s in sorted(ready_s.items()))
+            + f" ({time.perf_counter() - t_start:.1f} s to both); weights {fleet.get('weights_dtypes')}, fused "
+            f"dequant {fleet.get('fused_dequants')}, param_bytes {fleet.get('param_bytes', 0) / 1e9:.2f} GB over "
+            f"the replicas; card memory in use {(total - free) / 1e9:.1f} of {total / 1e9:.1f} GB (this process "
+            f"{torch.cuda.memory_allocated() / 1e9:.1f} GB: the f32 engine) [{card}]")
+        if fleet.get("weights_dtypes") != ["int8"] or fleet.get("fused_dequants") != ["True"]:
+            fail(f"[6f] the replicas do not serve int8 weights through kernel C: {fleet}")
+
+        # traffic: 32 /predict from 8 threads, one /predict_batch of 8
+        answers, lat, errors = [None] * 40, [0.0] * 32, []
+
+        def client(worker: int) -> None:
+            for i in range(worker, 32, 8):
+                t = time.perf_counter()
+                try:
+                    answers[i] = http_raw(url + "/predict", bodies[i])
+                except Exception as e:  # noqa: BLE001 - reported below, the run fails
+                    errors.append(f"request {i}: {e!r}")
+                lat[i] = time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wire = {"items": [base64.b64encode(b).decode() for b in bodies[32:40]],
+                "content_types": ["image/x-portable-pixmap"] * 8}
+        items = json.loads(http_raw(url + "/predict_batch", json.dumps(wire).encode(), "application/json"))["results"]
+        wall = time.perf_counter() - t0
+        if errors or any(it["status"] != 200 for it in items):
+            fail(f"[6f] requests failed: {errors[:4]} {[it for it in items if it['status'] != 200][:2]}")
+        answers[32:40] = [it["body"].encode() for it in items]
+        judged = [judge_answer(json.loads(a), refs, i, k) for i, a in enumerate(answers)]
+        for i, (exact, gap, ok) in enumerate(judged):
+            check_answer(json.loads(answers[i]), k, cfg.num_classes)
+            if not ok or not exact:
+                fail(f"[6f] answer {i} {json.loads(answers[i])} is not 6q's in any bucket bit for bit (buckets "
+                     f"{exact}) or not within {FLEET_PROB_BAR} (gap {gap:.3g}, top-k within: {ok})")
+        m1 = json.loads(http_raw(url + "/metrics"))
+        served = {n: r["server"]["requests_total"] for n, r in m1["replicas"].items()}
+
+        # the cache: 8 repeated bodies answered with the first answers' bytes, no replica reached
+        repeats = [http_raw(url + "/predict", bodies[i]) for i in range(8)]
+        m2 = json.loads(http_raw(url + "/metrics"))
+        served2 = {n: r["server"]["requests_total"] for n, r in m2["replicas"].items()}
+        cb = m2["continuous_batching"]
+        if repeats != answers[:8] or m2["cache_hits_total"] - m1["cache_hits_total"] != 8 or served2 != served:
+            fail(f"[6f] repeats not answered by the cache: hits {m1['cache_hits_total']} -> "
+                 f"{m2['cache_hits_total']}, replica requests {served} -> {served2}")
+        if cb["items_total"] <= cb["batches_total"] or min(served.values()) == 0:
+            fail(f"[6f] no composed group above 1, or a replica took no request: {cb}, {served}")
+        lat_s = np.sort(np.asarray(lat))
+        q8_lat, q8_wall = q8_traffic
+        by_bucket = {}          # answers bit for bit one bucket's reference only: they ran in that bucket
+        for exact, _, _ in judged:
+            if len(exact) == 1:
+                by_bucket[exact[0]] = by_bucket.get(exact[0], 0) + 1
+        say(f"[6f traffic] 40 requests through the router (32 /predict from 8 threads, one /predict_batch of 8) in "
+            f"{wall:.3f}s = {40 / wall:.2f} images/s; client p50 {np.percentile(lat_s, 50) * 1e3:.1f} ms p95 "
+            f"{np.percentile(lat_s, 95) * 1e3:.1f} ms; 6q's int8 engine alone over HTTP {40 / q8_wall:.2f} images/s, "
+            f"p50 {np.percentile(q8_lat, 50) * 1e3:.1f} ms p95 {np.percentile(q8_lat, 95) * 1e3:.1f} ms [{card}]")
+        say(f"[6f answers] every answer bit for bit 6q's int8 engine on the same image in some bucket (answers "
+            f"matching one bucket only: {dict(sorted(by_bucket.items()))}); largest prob gap to the nearest "
+            f"bucket's reference {max(g for _, g, _ in judged):.3g} (bar {FLEET_PROB_BAR}); replicas answered "
+            f"{served}; composed groups {cb['batches_total']} of {cb['items_total']} items (fill p50 "
+            f"{cb['batch_fill_p50']}, p95 {cb['batch_fill_p95']}); 8 repeats: cache hits "
+            f"{m2['cache_hits_total'] - m1['cache_hits_total']}, the answers' bytes, replica requests unchanged; "
+            f"admission shed {m2['admission']['shed_total']} of {m2['admission']['admitted_total']} admitted")
+        if m2["admission"]["shed_total"] or m2["shed_total"] or m2["errors_total"]:
+            fail(f"[6f] sheds or errors at this load: {m2['admission']}, errors {m2['errors_total']}")
+
+        # replica 1 crashed through its own /chaos mid-burst, replica 0's next batch held
+        victim = m2["replicas"]["replica_1"]["url"]
+        installed = [json.loads(http_raw(m2["replicas"][n]["url"] + "/chaos", plan.encode(), "application/json"))
+                     for n, plan in (("replica_0", FLEET_SLOW), ("replica_1", FLEET_CRASH))]
+        if installed != [{"installed": f"batcher_flush:hang(at=1, seconds={FLEET_SLOW_S:g})"},
+                         {"installed": "engine_predict:crash(at=1, exit_code=13)"}]:
+            fail(f"[6f] /chaos answered {installed}")
+        burst_answers, errors, n_burst = {}, [], 0
+        for b in range(FLEET_BURSTS):
+            idx = list(range(40 + 16 * b, 56 + 16 * b))
+            n_burst += 16
+
+            def burst(part, idx=idx):
+                for i in idx[part::8]:
+                    try:
+                        burst_answers[i] = json.loads(http_raw(url + "/predict", bodies[i]))
+                    except Exception as e:  # noqa: BLE001 - reported below, the run fails
+                        errors.append(f"request {i}: {e!r}")
+            ts = [threading.Thread(target=burst, args=(w,)) for w in range(8)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=600)
+            time.sleep(1.5)             # a health sweep or two: the death is an event by then
+            if any(e["kind"] == "replica_exit" and e["replica"] == "replica_1" for e in router_events()):
+                break
+        if errors:
+            fail(f"[6f] clients saw errors across the crash: {errors[:4]}")
+        for i, ans in burst_answers.items():
+            exact, gap, ok = judge_answer(ans, refs, i, k)
+            if not exact or not ok:
+                fail(f"[6f] burst answer {i} is not 6q's (buckets {exact}, gap {gap:.3g})")
+            if len(exact) == 1:
+                by_bucket[exact[0]] = by_bucket.get(exact[0], 0) + 1
+        deadline = time.monotonic() + 300
+        while True:
+            ev = router_events()
+            exit_t = [e["time"] for e in ev if e["kind"] == "replica_exit" and e["replica"] == "replica_1"]
+            admit_t = [e["time"] for e in ev if e["kind"] == "replica_admit" and e["replica"] == "replica_1"
+                       and exit_t and e["time"] > exit_t[0]]
+            if admit_t:
+                break
+            if not exit_t and time.monotonic() > deadline - 240:
+                fail(f"[6f] replica 1 took no batch in {n_burst} requests: no replica_exit")
+            if time.monotonic() > deadline:
+                fail(f"[6f] replica 1 was not re-admitted within 300 s:\n{log_tail()}")
+            time.sleep(0.5)
+        exits = [e for e in ev if e["kind"] == "replica_exit"]
+        restarts = [e for e in ev if e["kind"] == "replica_restart"]
+        if exits[0]["exit_code"] != 13 or [e["replica"] for e in restarts] != ["replica_1"]:
+            fail(f"[6f] exits {exits}, restarts {restarts}")
+        m3 = json.loads(http_raw(url + "/metrics"))
+        say(f"[6f chaos] a crash plan at engine_predict POSTed to replica_1's /chaos (and to replica_0's a "
+            f"{FLEET_SLOW_S:g} s hang of its next batch, so the next group goes to replica_1); {n_burst} requests in "
+            f"bursts of 16 from 8 threads: 0 client errors ({len(burst_answers)} answers, each 6q's in some bucket "
+            f"bit for bit), router retries {m3['retries_total']}, breaker opens {m3['breaker_opens']}; replica_1 "
+            f"exit 13, restarted, re-admitted {admit_t[0] - exit_t[0]:.1f} s after its exit [{card}]")
+    except BaseException:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+        log.close()
+        raise
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=180)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        fail(f"[6f] the fleet did not exit within 180 s of SIGTERM:\n{log_tail()}")
+    log.close()
+    ev = router_events()
+    drained = {e["replica"]: e["exit_code"] for e in ev if e["kind"] == "replica_exit" and e.get("drained")}
+    if rc != 0 or drained != {f"replica_{i}": 0 for i in range(FLEET_REPLICAS)}:
+        fail(f"[6f] SIGTERM: the fleet exited {rc}, its replicas' drains {drained}:\n{log_tail()}")
+
+    # every serve.jsonl: the kinds the traffic, the crash and the drain imply; the replicas' accounting
+    kinds = {e["kind"] for e in ev}
+    want = {"replica_spawn", "replica_admit", "cache", "replica_exit", "replica_restart", "dispatch_retry"}
+    if not want <= kinds:
+        fail(f"[6f] the router's serve.jsonl lacks {sorted(want - kinds)}")
+    answered, lines, ran = 0, [], {}
+    for i in range(FLEET_REPLICAS):
+        name = f"replica_{i}"
+        rev = jsonl_events(os.path.join(mdir, name, "serve.jsonl"))
+        rkinds = [e["kind"] for e in rev]
+        need = {"serve_start", "serve_request", "serve_batch", "serve_drain"}
+        if i == 1:
+            need |= {"chaos_install", "serve_fault"}
+            fault = [e for e in rev if e["kind"] == "serve_fault"]
+            if fault[0]["site"] != "engine_predict" or fault[0]["action"] != "crash" or rkinds.count("serve_start") != 2:
+                fail(f"[6f] replica_1's serve.jsonl: {fault}, serve_start x{rkinds.count('serve_start')}")
+        if not need <= set(rkinds) or not all(e["clean"] for e in rev if e["kind"] == "serve_drain"):
+            fail(f"[6f] {name}'s serve.jsonl lacks {sorted(need - set(rkinds))} or drained unclean")
+        mine = replica_accounting(name, rev)
+        answered += sum(mine.values())
+        for b, n in mine.items():
+            ran[b] = ran.get(b, 0) + n
+        lines.append(f"{name} {sum(mine.values())} requests in {rkinds.count('serve_batch')} batches, by "
+                     f"bucket {dict(sorted(mine.items()))}")
+    if answered != 40 + len(burst_answers):
+        fail(f"[6f] the replicas' serve_request records count {answered} requests; the router answered "
+             f"{40 + len(burst_answers)} without its cache")
+    if any(n > ran.get(b, 0) for b, n in by_bucket.items()):
+        fail(f"[6f] answers that match one bucket's reference only {by_bucket} exceed the requests the replicas "
+             f"ran in that bucket {ran}")
+    say(f"[6f shutdown] SIGTERM: the fleet exit 0, replicas drained to exit {drained}; serve.jsonl parsed: the "
+        f"router's {len(ev)} events ({', '.join(sorted(kinds))}); " + "; ".join(lines)
+        + f"; requests by bucket over both {dict(sorted(ran.items()))}, answers matching one bucket only "
+        f"{dict(sorted(by_bucket.items()))} (each batch one forward through A1 in {cfg.num_blocks} blocks and C at "
+        f"{4 * cfg.num_blocks + 1} sites by the engine's construction: the replicas' launches are not counted in "
+        f"this process) [{card}]")
 
 
 def train_run_launches(cfg) -> dict:
@@ -3535,20 +3957,39 @@ def phase_faults(torch, card: str, root: str) -> dict:
     t0 = time.perf_counter()
     say(f"[7e host] {free_host_memory(torch)}")
     dr = Drills(torch, card, root)
-    base_saves = uninterrupted(torch, dr)
-    say(f"[7e host] drill dirs under {dr.work}; the uninterrupted run took {time.perf_counter() - t0:.1f}s; "
-        f"{free_host_memory(torch)}")
-    res, took, peak = run_wave([
+    first = [
         dr.drill("a crash", ["--fault_plan", CRASH_AT_5], sync=True),
         dr.drill("b sigterm", ["--fault_plan", '{"site": "step", "at": 2, "action": "sigterm"}']),
         dr.drill("c hang", ["--fault_plan", json.dumps({"site": "step", "at": 5, "action": "hang", "seconds": HANG_S}),
                             "--hang_timeout_s", str(HANG_TIMEOUT_S), "--hang_action", "checkpoint_exit"]),
         dr.drill("d zero-stall", ["--zero_stall_ckpt"]), *pair(dr, "fbase"),
-        *pair(dr, "flost", ["--fault_plan", FLOST_PLAN])])
+        *pair(dr, "flost", ["--fault_plan", FLOST_PLAN])]
+    # wave 1 runs beside the uninterrupted run (train() keeps the main
+    # thread: it installs signal handlers), which its checks need after it
+    wave = {}
+
+    def run_first() -> None:
+        try:
+            wave["out"] = run_wave(first)
+        except BaseException as e:  # noqa: BLE001 - raised again on the main thread
+            wave["error"] = e
+    runner = threading.Thread(target=run_first, name="7e-wave-1")
+    runner.start()
+    try:
+        t_base = time.perf_counter()
+        base_saves = uninterrupted(torch, dr)
+        t_base = time.perf_counter() - t_base
+    finally:
+        runner.join()
+    if "error" in wave:
+        raise wave["error"]
+    res, took, peak = wave["out"]
+    say(f"[7e host] drill dirs under {dr.work}; the uninterrupted run took {t_base:.1f}s beside wave 1; "
+        f"{free_host_memory(torch)}")
     w1 = check_first(dr, res, base_saves)
     base, lost = check_base_pair(dr, res), check_lost_pair(dr, res)
-    say(f"[7e] wave 1 (a, b's first child, c, d, (f)'s uninterrupted and lost pairs) took {took:.1f}s, host memory "
-        f"in use at most {peak:.1f} GiB")
+    say(f"[7e] wave 1 (a, b's first child, c, d, (f)'s uninterrupted and lost pairs, beside the uninterrupted run) "
+        f"took {took:.1f}s, host memory in use at most {peak:.1f} GiB")
     res, took, peak = run_wave([
         dr.drill("b sigterm"), dr.drill("e peer", ["--fault_plan", CRASH_AT_5, "--replicate_steps", "2"], sync=True),
         *pair(dr, "flost")])
@@ -3583,10 +4024,11 @@ def lost_rank_only(torch, card: str, root: str) -> None:
     say(f"[7e] (f) at DRILL_CELL took {time.perf_counter() - t0:.1f}s; kernel launches of its pairs {launches}")
 
 
-# Phase 7x: the transfer tasks at phase 7's configuration from a seeded
+# Phase 7x: the transfer tasks at phase 7's configuration cut to depth 2 from a seeded
 # bf16 export of the same model (another seed), and serving a checkpoint
 # directory at depth 2.
 TRANSFER_EXPORT_SEED = SEED + 1
+TRANSFER = dict(TRAIN, num_blocks=2)     # phase 7's cell cut to depth 2: the export and each run a quarter
 TRANSFER_RUNS = (("finetune", dict(task="finetune", reinit_head=True, backbone_lr_mult=0.1)),
                  ("probe", dict(task="probe")), ("distill", dict(task="distill")))
 SERVE_CKPT = dict(num_blocks=2, batch_size=32, fake_data=True, warmup_steps=4, log_step_interval=1,
@@ -3663,8 +4105,8 @@ def serve_checkpoint_cli(ckpt_dir: str, card: str) -> None:
 
 def phase_transfer(torch, card, root: str, ref7: dict) -> dict:
     """Phase 7x: finetune (--reinit_head, --backbone_lr_mult 0.1), probe and
-    distill (the export as the teacher) at phase 7's configuration from a
-    seeded bf16 export of the depth-8 model, each a train() run with its
+    distill (the export as the teacher) at phase 7's configuration cut to
+    depth 2 (TRANSFER) from a seeded bf16 export of that model, each a train() run with its
     launches checked against its steps (the teacher adds a forward a block
     a step), sec/iter, MFU (the student's FLOPs) and peak memory beside
     phase 7's; the warm start bitwise the export at step 0, the probe's
@@ -3686,14 +4128,14 @@ def phase_transfer(torch, card, root: str, ref7: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     npz = os.path.join(root, "transfer_bf16.npz")
-    base = Config(seed=TRANSFER_EXPORT_SEED, **TRAIN).validate()
+    base = Config(seed=TRANSFER_EXPORT_SEED, **TRANSFER).validate()
     t0 = time.perf_counter()
     exported = write_transfer_export(torch, base, npz)
     say(f"[7x export] seeded depth-{base.num_blocks} model (seed {base.seed}) exported in bf16: "
         f"{os.path.getsize(npz) / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s")
 
     # the warm start at step 0, as train() makes it: the backbone is the export, the head the fresh init
-    cfg = Config(seed=SEED, init_npz=npz, **TRAIN, **TRANSFER_RUNS[0][1]).validate()
+    cfg = Config(seed=SEED, init_npz=npz, **TRANSFER, **TRANSFER_RUNS[0][1]).validate()
     model = build_model(cfg, "cuda").train()
     fresh_head = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("head.")}
     optimizer, _ = get_scenario(cfg.task).make_optimizer(cfg, cfg.max_steps)
@@ -3717,7 +4159,7 @@ def phase_transfer(torch, card, root: str, ref7: dict) -> dict:
     for name, flags in TRANSFER_RUNS:
         source = dict(teacher_npz=npz) if name == "distill" else dict(init_npz=npz)
         metrics_dir = os.path.join(root, f"metrics_{name}")
-        cfg = Config(seed=SEED, **TRAIN, **flags, **source, metrics_dir=metrics_dir).validate()
+        cfg = Config(seed=SEED, **TRANSFER, **flags, **source, metrics_dir=metrics_dir).validate()
         records = []
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
@@ -3757,9 +4199,11 @@ def phase_transfer(torch, card, root: str, ref7: dict) -> dict:
                     not all(np.isfinite(e["ce"]) for e in dist):
                 fail(f"[7x distill] the distill events are missing, not finite or kl < 0{extra}")
         say(f"[7x {name}] {cfg.max_steps} steps + eval in {wall:.1f} s; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
-            f"sec/iter median of steps 3-12 {sec:.4f} s (phase 7 {ref7['sec']:.4f}), {cfg.batch_size / sec:.2f} "
+            f"sec/iter median of steps 3-12 {sec:.4f} s at depth {cfg.num_blocks} (phase 7 at depth "
+            f"{TRAIN['num_blocks']}: {ref7['sec']:.4f}), {cfg.batch_size / sec:.2f} "
             f"images/s, MFU " + (f"{mfu * 100:.2f}%" if mfu is not None else "not measured")
-            + f" (student FLOPs); max_memory_allocated {peak_gb:.2f} GB (phase 7 {ref7['peak_gb']:.2f}); "
+            + f" (student FLOPs); max_memory_allocated {peak_gb:.2f} GB (phase 7 at depth {TRAIN['num_blocks']}: "
+            f"{ref7['peak_gb']:.2f}); "
             f"launches A1 {got['flash_attn_fwd']} A2 {got['flash_attn_bwd']} B {got['fused_adamw']}{extra} [{card}]")
         launches = {k: launches[k] + got[k] for k in launches}
         del state
@@ -4567,32 +5011,33 @@ def tp_block_rank(out_dir: str) -> int:
     return 0
 
 
-def phase_tp(torch, card, root: str):
-    """Phase 7p: models/vit.py's Block with a TensorShard over real tp groups
-    (the sharded qkv, parallel/tensor_parallel.py's relayout to whole heads,
-    the attention core on the H/S local heads, the row-parallel proj and
-    fc2 partials all-reduced before the replicated biases) at the 10B width
-    and phase 7's shape, S 2 and 4, att_dropout 0 and 0.1: one torchrun of
-    TP_RANKS ranks on the one card over gloo (tp_block_rank). On every rank
-    the output and the grads of the input and of every leaf against the
-    whole Block on the same bf16 input (TP_TOL); one forward and one
-    backward launch a rank a sharded run, on the wgmma kernels (under the
-    dropout keys at 0.1), and one relayout; the ms of the sharded and the
-    whole Block. Returns the launches of the sharded runs, summed over the
-    ranks."""
-    from vitax_torch.ops import _build
-    gc.collect()
-    torch.cuda.empty_cache()
+def tp_block_cmd(root: str, env: dict):
+    """Phase 7p's tp Block torchrun (TP_RANKS ranks of tp_block_rank on the
+    card over gloo), as a (name, argv, env) of run_cli."""
     out_dir = os.path.join(root, "tp_block")
     os.makedirs(out_dir)
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-                        str(TP_RANKS), os.path.join(REPO, "chip_smoke.py"), "--tp-block-rank", out_dir],
-                       cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
+    return ("tp block", [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                         str(TP_RANKS), os.path.join(REPO, "chip_smoke.py"), "--tp-block-rank", out_dir], env)
+
+
+def phase_tp(card, root: str, result):
+    """Phase 7p's tp Block: models/vit.py's Block with a TensorShard over real
+    tp groups (the sharded qkv, parallel/tensor_parallel.py's relayout to
+    whole heads, the attention core on the H/S local heads, the row-parallel
+    proj and fc2 partials all-reduced before the replicated biases) at the
+    10B width and phase 7's shape, S 2 and 4, att_dropout 0 and 0.1, from
+    the torchrun of tp_block_cmd (`result`: run_cli's). On every rank the
+    output and the grads of the input and of every leaf against the whole
+    Block on the same bf16 input (TP_TOL); one forward and one backward
+    launch a rank a sharded run, on the wgmma kernels (under the dropout
+    keys at 0.1), and one relayout; the ms of the sharded and the whole
+    Block. Returns the launches of the sharded runs, summed over the
+    ranks."""
+    from vitax_torch.ops import _build
+    out_dir = os.path.join(root, "tp_block")
+    r, wall = result
     if r.returncode != 0:
-        fail(f"[7p] the tp Block's torchrun exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        fail(f"[7p] the tp Block's torchrun exited {r.returncode}:\n{proc_tail(r)}")
     ranks = []
     for rank in range(TP_RANKS):
         with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
@@ -4628,7 +5073,7 @@ def phase_tp(torch, card, root: str):
                        f"{[{k: v for k, v in m['launches'].items() if v} for m in mine]}, calls "
                        f"{[m['calls'] for m in mine]}")
         say(f"[7p time] 10B width over tp {count} rate {rate}: sharded Block (the {count} ranks at once, gloo "
-            f"through the host) forward {first['fwd_ms']:.3f} ms, forward + backward {first['ms']:.3f} ms; whole "
+            f"through the host, beside the CLI runs of its wave) forward {first['fwd_ms']:.3f} ms, forward + backward {first['ms']:.3f} ms; whole "
             f"Block alone forward {first['whole_fwd_ms']:.3f} ms, forward + backward {first['whole_ms']:.3f} ms "
             f"({first['ms'] / first['whole_ms']:.2f}x); one gloo all-reduce of the ({b}, {n}, {d}) bf16 output "
             f"{first['all_reduce_ms']:.3f} ms (2 a forward, 2 a backward) [{card}]")
@@ -4636,6 +5081,14 @@ def phase_tp(torch, card, root: str):
         fail(f"7p: the tp Block disagrees with the whole Block: {bad}")
     say(f"[7p] the tp Block's torchrun ({TP_RANKS} ranks on one card) exited 0 in {wall:.1f} s")
     return total
+
+
+def proc_tail(r) -> str:
+    """A failed run's last output and every line its rank 0 wrote to stderr
+    (torchrun tags them; a peer's error that follows rank 0's death would
+    push rank 0's own out of a plain tail)."""
+    rank0 = [ln for ln in r.stderr.splitlines() if ln.startswith("[rank0]")]
+    return f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}" + ("\nrank 0:\n" + "\n".join(rank0[-60:]) if rank0 else "")
 
 
 def run_cli(cmds, timeout: float):
@@ -4659,25 +5112,13 @@ def run_cli(cmds, timeout: float):
     return out
 
 
-def tp_cli(torch, root: str, card: str) -> dict:
-    """Phase 7p's train CLI: torchrun of TP_CLI_MAIN (`--tp_size 2`, both
-    ranks on the one card over gloo) against `python -m vitax_torch.train`
-    alone on the same flags (TP_CLI), in float32 and in bf16, the two tp-1
-    runs at once, then the two tp-2 runs: exit 0, the tp log line, and
-    each step's loss and grad norm (rank 0's JSONL) within its dtype's bar
-    (TP_BF16_FACTOR in bf16). Every rank writes its launches: the bf16 tp-2 run
-    launches every attention call on the wgmma kernels. Returns the bf16
-    tp-2 run's launches, summed over its ranks."""
-    from vitax_torch.ops import _build
-    gc.collect()
-    torch.cuda.empty_cache()
-    main_py = os.path.join(root, "tp_cli_main.py")
-    with open(main_py, "w") as f:
-        f.write(TP_CLI_MAIN)
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    runs = {}
+def tp_cli_cmds(root: str, main_py: str, env: dict) -> list:
+    """Phase 7p's four train CLI runs as run_cli commands: torchrun of
+    TP_CLI_MAIN at `--tp_size 2` (both ranks on the one card over gloo) and
+    one process at tp 1 on the same flags (TP_CLI), in float32 and bf16.
+    The tp-1 runs are phase 7q's pp-1 runs too (PP_CLI is TP_CLI)."""
+    cmds = []
     for tp in (1, 2):
-        cmds = []
         for dtype in ("float32", "bfloat16"):
             d = os.path.join(root, f"tp{tp}_{dtype}")
             os.makedirs(d)
@@ -4686,20 +5127,32 @@ def tp_cli(torch, root: str, card: str) -> dict:
             extra = [] if tp == 1 else ["--device", "cuda:0", "--tp_size", "2"]
             cmds.append(((tp, dtype), [*launcher, main_py, d, *TP_CLI, "--dtype", dtype, *extra,
                                        "--metrics_dir", d], env))
-        for (tp_, dtype), (r, wall) in run_cli(cmds, 600).items():
-            name = f"tp {tp_} {dtype}"
-            if r.returncode != 0 or "training begins" not in r.stdout:
-                fail(f"[7p cli] {name} exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-            if tp_ == 2 and "tensor parallel: tp 2, 16 heads" not in r.stdout:
-                fail(f"[7p cli] the {name} run does not say it runs 16 heads a rank:\n{r.stdout[-3000:]}")
-            d = os.path.join(root, f"tp{tp_}_{dtype}")
-            steps, _ = read_jsonl(os.path.join(d, "metrics.jsonl"))
-            launches = {k: 0 for k in _build.LAUNCHES}
-            for rank in range(tp_):
-                with open(os.path.join(d, f"launches{rank}.json")) as f:
-                    for k, v in json.load(f).items():
-                        launches[k] += v
-            runs[(tp_, dtype)] = ([s["loss"] for s in steps] + [s["grad_norm"] for s in steps], wall, launches)
+    return cmds
+
+
+def tp_cli(root: str, card: str, results: dict) -> dict:
+    """Phase 7p's train CLI runs (tp_cli_cmds, `results` run_cli's): exit
+    0, the tp log line, and each step's loss and grad norm (rank 0's JSONL)
+    of tp 2 against tp 1 within its dtype's bar (TP_BF16_FACTOR in bf16).
+    Every rank writes its launches: the bf16 tp-2 run launches every
+    attention call on the wgmma kernels. Returns the bf16 tp-2 run's
+    launches, summed over its ranks."""
+    from vitax_torch.ops import _build
+    runs = {}
+    for (tp_, dtype), (r, wall) in ((k, v) for k, v in results.items() if isinstance(k, tuple)):
+        name = f"tp {tp_} {dtype}"
+        if r.returncode != 0 or "training begins" not in r.stdout:
+            fail(f"[7p cli] {name} exited {r.returncode}:\n{proc_tail(r)}")
+        if tp_ == 2 and "tensor parallel: tp 2, 16 heads" not in r.stdout:
+            fail(f"[7p cli] the {name} run does not say it runs 16 heads a rank:\n{r.stdout[-3000:]}")
+        d = os.path.join(root, f"tp{tp_}_{dtype}")
+        steps, _ = read_jsonl(os.path.join(d, "metrics.jsonl"))
+        launches = {k: 0 for k in _build.LAUNCHES}
+        for rank in range(tp_):
+            with open(os.path.join(d, f"launches{rank}.json")) as f:
+                for k, v in json.load(f).items():
+                    launches[k] += v
+        runs[(tp_, dtype)] = ([s["loss"] for s in steps] + [s["grad_norm"] for s in steps], wall, launches)
 
     def rel_dist(a, b):
         return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
@@ -4720,14 +5173,14 @@ def tp_cli(torch, root: str, card: str) -> dict:
     wgmma = (lb["flash_attn_fwd"] > 0 and lb["flash_attn_fwd_wgmma"] == lb["flash_attn_fwd"]
              and lb["flash_attn_bwd"] > 0 and lb["flash_attn_bwd_wgmma"] == lb["flash_attn_bwd"])
     ok16 = max(ratios) <= 1.0 and wgmma
-    walls = " / ".join(f"tp {k[0]} {k[1]} {v[1]:.1f}" for k, v in runs.items())
+    walls = " / ".join(f"tp {k[0]} {k[1]} {v[1]:.1f}" for k, v in sorted(runs.items()))
     say(f"[7p cli] train CLI, 10B width at depth 2, batch 8, 3 steps, tp 2 = torchrun, 2 ranks on one card over "
         f"gloo. float32: tp 2 {fmt(f32_tp2)}; tp 1 {fmt(f32)}; rel diff max {e32:.2e} (<= {MODEL_LOSS_REL_TOL}) "
         f"{'ok' if ok32 else 'FAIL'}. bf16: tp 2 {fmt(b16_tp2)}; tp 1 {fmt(b16)}; rel distance from float32 "
         f"tp 1, max over the six: tp 2 {e_b2:.2e}, tp 1 {e_b1:.2e}; each of tp 2's over {TP_BF16_FACTOR} x "
         f"max(tp 1's, {MODEL_LOSS_REL_TOL}): {' '.join(f'{r:.2f}' for r in ratios)} (<= 1); tp 2 bf16 launches fwd {lb['flash_attn_fwd']} (wgmma {lb['flash_attn_fwd_wgmma']}), bwd "
         f"{lb['flash_attn_bwd']} (wgmma {lb['flash_attn_bwd_wgmma']}) {'ok' if ok16 else 'FAIL'}; exit 0, wall s "
-        f"(two runs at once) {walls} [{card}]")
+        f"(the runs of its wave at once) {walls} [{card}]")
     if not ok32:
         fail(f"7p: the float32 train CLI at tp 2 does not train tp 1's losses and grad norms: {f32_tp2} against {f32}")
     if not ok16:
@@ -4740,17 +5193,17 @@ def tp_cli(torch, root: str, card: str) -> dict:
 # The train CLI at pp 2 (TP_CLI_MAIN under torchrun, both stages on cuda:0
 # over gloo, whose stage hops go through host buffers: NCCL refuses two
 # ranks on one device) against one process at pp 1: the 10B width at depth
-# 4 (2 blocks a stage), TP_CLI's batch 8, 3 steps and long warmup. The
+# 2 (a block a stage; TP_CLI's runs, so 7p's tp-1 runs are the pp-1 ones),
+# batch 8, 3 steps and long warmup. The
 # float32 runs (GPipe M 2 and M 4, 1F1B M 4) train pp 1's losses and grad
 # norms within phase 5's loss bar (the pipeline changes only the order of
 # the microbatches' sums); bf16 GPipe is held as 7p holds tp in bf16 (each
 # number within TP_BF16_FACTOR times pp-1-bf16's distance from float32 pp
 # 1); bf16 GPipe under att_dropout 0.1 draws other masks than pp 1 (seeds
-# per microbatch) and is held to finite numbers and its launches. Waves of
-# runs share the card (PP_WAVES), so their sec/iter time gloo through the
-# host and the other runs beside them, not the pipeline.
-PP_CLI = ["--fake_data", "--num_blocks", "4", "--batch_size", "8", "--max_steps", "3", "--warmup_steps", "100",
-          "--log_step_interval", "1", "--num_workers", "2"]
+# per microbatch) and is held to finite numbers and its launches. The runs
+# share the card with the rest of their wave (GROUP_WAVES), so their
+# sec/iter time gloo through the host and the other runs, not the pipeline.
+PP_CLI = TP_CLI
 PP_STEPS = 3
 PP_RUNS = {"pp 1 float32": (1, "float32", []),
            "pp 1 bf16": (1, "bfloat16", []),
@@ -4759,9 +5212,11 @@ PP_RUNS = {"pp 1 float32": (1, "float32", []),
            "1f1b M 4 float32": (2, "float32", ["--pp_size", "2", "--pp_microbatches", "4", "--pp_schedule", "1f1b"]),
            "gpipe M 2 bf16": (2, "bfloat16", ["--pp_size", "2"]),
            "gpipe M 2 bf16 att_dropout": (2, "bfloat16", ["--pp_size", "2", "--att_dropout", str(DROP_RATE)])}
-# at most about 64 GB of the card's 80 at once: a pp-1 run holds about 20 GB
-# (params, grads, AdamW moments of 4 blocks in float32), a pp-2 rank half
-PP_WAVES = (("pp 1 float32", "pp 1 bf16", "gpipe M 2 float32"), ("gpipe M 4 float32", "1f1b M 4 float32"),
+# the pp-1 runs are 7p's tp-1 runs (their dirs); the pp-2 runs follow in two
+# waves of 6 and 4 ranks: a pp-2 rank at depth 2 holds about 7 GB of the card,
+# and all ten at once ran out of its 80 (an H100 80GB HBM3)
+PP_SHARED = {"pp 1 float32": "tp1_float32", "pp 1 bf16": "tp1_bfloat16"}
+PP_WAVES = (("gpipe M 2 float32", "gpipe M 4 float32", "1f1b M 4 float32"),
             ("gpipe M 2 bf16", "gpipe M 2 bf16 att_dropout"))
 
 
@@ -4783,59 +5238,59 @@ def pp_predicted(flags, dtype: str, rank: int, ranks: int) -> tuple:
     return want, hops
 
 
-def phase_pp(torch, root: str, card: str) -> dict:
-    """Phase 7q: the PP_RUNS through the train CLI in PP_WAVES (the runs of
-    a wave at once): exit 0, the pipeline's log line, each step's loss and
-    grad norm from rank 0's JSONL (the last stage's loss, the global norm)
-    within its bar, each rank's launches and hops as pp_predicted says, and
-    each run's sec/iter. Returns the bf16 pp-2 runs' launches, summed over
-    their ranks."""
+def pp_dir(root: str, name: str) -> str:
+    return os.path.join(root, PP_SHARED.get(name, "pp_" + name.replace(" ", "_")))
+
+
+def pp_cmds(root: str, main_py: str, env: dict, names) -> list:
+    """Phase 7q's pp-2 runs `names` (of PP_RUNS; the pp-1 ones are 7p's tp-1
+    runs) as run_cli commands."""
+    cmds = []
+    for name in names:
+        ranks, dtype, flags = PP_RUNS[name]
+        d = pp_dir(root, name)
+        os.makedirs(d)
+        cmds.append((name, [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                            str(ranks), main_py, d, *PP_CLI, "--dtype", dtype, *flags, "--device", "cuda:0",
+                            "--metrics_dir", d], env))
+    return cmds
+
+
+def phase_pp(root: str, card: str, results: dict) -> dict:
+    """Phase 7q: the PP_RUNS through the train CLI (`results`: run_cli's of
+    both waves; the pp-1 runs are 7p's tp-1 ones): exit 0, the pipeline's
+    log line, each step's loss and grad norm from rank 0's JSONL (the last
+    stage's loss, the global norm) within its bar, each rank's launches and
+    hops as pp_predicted says, and each run's sec/iter. Returns the bf16
+    pp-2 runs' launches, summed over their ranks."""
     from vitax_torch.ops import _build
-    gc.collect()
-    torch.cuda.empty_cache()
-    main_py = os.path.join(root, "pp_cli_main.py")
-    with open(main_py, "w") as f:
-        f.write(TP_CLI_MAIN)
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     runs, bad = {}, []
-    t0 = time.perf_counter()
-    for wave in PP_WAVES:
-        cmds = []
-        for name in wave:
-            ranks, dtype, flags = PP_RUNS[name]
-            d = os.path.join(root, "pp_" + name.replace(" ", "_"))
-            os.makedirs(d)
-            launcher = ([sys.executable] if ranks == 1 else
-                        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-                         str(ranks)])
-            extra = [] if ranks == 1 else ["--device", "cuda:0"]
-            cmds.append((name, [*launcher, main_py, d, *PP_CLI, "--dtype", dtype, *flags, *extra,
-                                "--metrics_dir", d], env))
-        for name, (r, wall) in run_cli(cmds, 600).items():
-            ranks, dtype, flags = PP_RUNS[name]
-            if r.returncode != 0 or "training begins" not in r.stdout:
-                fail(f"[7q] {name} exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-            if ranks > 1 and f"pipeline: pp {ranks}" not in r.stdout:
-                fail(f"[7q] the {name} run does not log its pipeline:\n{r.stdout[-3000:]}")
-            d = os.path.join(root, "pp_" + name.replace(" ", "_"))
-            steps, _ = read_jsonl(os.path.join(d, "metrics.jsonl"))
-            launches = {k: 0 for k in _build.LAUNCHES}
-            for rank in range(ranks):
-                with open(os.path.join(d, f"launches{rank}.json")) as f:
-                    mine = json.load(f)
-                with open(os.path.join(d, f"hops{rank}.json")) as f:
-                    hops = json.load(f)
-                want, want_hops = pp_predicted(flags, dtype, rank, ranks)
-                got = {k: v for k, v in mine.items() if v}
-                if got != want or (ranks > 1 and hops != want_hops):
-                    bad.append(f"{name} rank {rank}: launches {got} (predicted {want}), hops {hops} (predicted "
-                               f"{want_hops})")
-                for k, v in mine.items():
-                    launches[k] += v
-            # sec/iter as logged (smoothed over every step, the first included) and the last step's
-            # seconds between its record and the one before (each log step waits for its step)
-            runs[name] = ([s["loss"] for s in steps] + [s["grad_norm"] for s in steps], wall,
-                          (steps[-1]["sec_per_iter"], steps[-1]["time"] - steps[-2]["time"]), launches)
+    shared = {name: results[(1, dtype)] for name, (_, dtype, _) in PP_RUNS.items() if name in PP_SHARED}
+    for name, (r, wall) in {**shared, **{k: v for k, v in results.items() if k in PP_RUNS}}.items():
+        ranks, dtype, flags = PP_RUNS[name]
+        if r.returncode != 0 or "training begins" not in r.stdout:
+            fail(f"[7q] {name} exited {r.returncode}:\n{proc_tail(r)}")
+        if ranks > 1 and f"pipeline: pp {ranks}" not in r.stdout:
+            fail(f"[7q] the {name} run does not log its pipeline:\n{r.stdout[-3000:]}")
+        d = pp_dir(root, name)
+        steps, _ = read_jsonl(os.path.join(d, "metrics.jsonl"))
+        launches = {k: 0 for k in _build.LAUNCHES}
+        for rank in range(ranks):
+            with open(os.path.join(d, f"launches{rank}.json")) as f:
+                mine = json.load(f)
+            with open(os.path.join(d, f"hops{rank}.json")) as f:
+                hops = json.load(f)
+            want, want_hops = pp_predicted(flags, dtype, rank, ranks)
+            got = {k: v for k, v in mine.items() if v}
+            if got != want or (ranks > 1 and hops != want_hops):
+                bad.append(f"{name} rank {rank}: launches {got} (predicted {want}), hops {hops} (predicted "
+                           f"{want_hops})")
+            for k, v in mine.items():
+                launches[k] += v
+        # sec/iter as logged (smoothed over every step, the first included) and the last step's
+        # seconds between its record and the one before (each log step waits for its step)
+        runs[name] = ([s["loss"] for s in steps] + [s["grad_norm"] for s in steps], wall,
+                      (steps[-1]["sec_per_iter"], steps[-1]["time"] - steps[-2]["time"]), launches)
     if bad:
         fail(f"7q: launches or hops off the schedule's: {bad}")
 
@@ -4870,10 +5325,38 @@ def phase_pp(torch, root: str, card: str) -> dict:
         say(f"[7q time] {name}: sec/iter {sec:.4f} (as logged: smoothed over the {PP_STEPS} steps, the first "
             f"included), step {PP_STEPS} {last:.4f} s ({how}; beside the other runs of its wave), wall {wall:.1f} s; "
             f"launches over its ranks {att}, fused_adamw {launches['fused_adamw']} [{card}]")
-    say(f"[7q] {len(PP_RUNS)} CLI runs in {len(PP_WAVES)} waves took {time.perf_counter() - t0:.1f} s")
     if bad:
         fail(f"7q: {bad}")
     return {k: runs["gpipe M 2 bf16"][3][k] + runs["gpipe M 2 bf16 att_dropout"][3][k] for k in _build.LAUNCHES}
+
+
+def phase_groups(torch, card, root: str) -> tuple:
+    """Phases 7p and 7q in three waves of processes on the card (each
+    wave's runs at once): the tp Block's torchrun and 7p's four CLI runs
+    (whose tp-1 runs are 7q's pp-1 runs), then 7q's pp-2 runs in PP_WAVES.
+    Returns (the tp Blocks' launches, the bf16 tp-2 run's, the bf16 pp-2
+    runs')."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_py = os.path.join(root, "tp_cli_main.py")
+    with open(main_py, "w") as f:
+        f.write(TP_CLI_MAIN)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    first = run_cli([tp_block_cmd(root, env), *tp_cli_cmds(root, main_py, env)], 600)
+    walls = [time.perf_counter() - t0]
+    pp = {}
+    for names in PP_WAVES:
+        t1 = time.perf_counter()
+        pp.update(run_cli(pp_cmds(root, main_py, env, names), 600))
+        walls.append(time.perf_counter() - t1)
+    say(f"[7p, 7q] wave 1 (the tp Block's torchrun of {TP_RANKS} ranks, the tp CLI's 4 runs) {walls[0]:.1f} s; "
+        + "; ".join(f"wave {i + 2} ({', '.join(names)}) {w:.1f} s" for i, (names, w) in enumerate(zip(PP_WAVES,
+                                                                                                     walls[1:]))))
+    tp_launches = phase_tp(card, root, first.pop("tp block"))
+    cli_launches = tp_cli(root, card, first)
+    pp_launches = phase_pp(root, card, {**first, **pp})
+    return tp_launches, cli_launches, pp_launches
 
 
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
@@ -4994,11 +5477,13 @@ def main() -> int:
     mark("5")
     serve_launches, engine_f32 = phase_main_path(torch, card)
     mark("6")
-    quant_launches = phase_quant_serve(torch, card, engine_f32)
+    quant_launches, q8_states, q8_traffic = phase_quant_serve(torch, card, engine_f32)
+    mark("6q")
+    phase_fleet(torch, card, engine_f32, q8_states, q8_traffic)
     del engine_f32
     gc.collect()                           # free the 40 GB engine before the train path
     torch.cuda.empty_cache()
-    mark("6q")
+    mark("6f")
     train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0, fake, ref7 = phase_train(torch, card)
     mark("7")
     tele_launches = phase_train_telemetry(torch, card, timing["fused_adamw"]["ms"])
@@ -5010,11 +5495,8 @@ def main() -> int:
     ring_launches = phase_ring(torch, card)
     mark("7r")
     with tempfile.TemporaryDirectory(prefix="vitax_torch_tp_") as root:
-        tp_launches = phase_tp(torch, card, root)
-        cli_launches = tp_cli(torch, root, card)
-        mark("7p")
-        pp_launches = phase_pp(torch, root, card)
-        mark("7q")
+        tp_launches, cli_launches, pp_launches = phase_groups(torch, card, root)
+        mark("7p, 7q")
     # 7r's runs, 7p's sharded Blocks and its bf16 tp-2 CLI run
     ring_launches = {k: ring_launches[k] + tp_launches[k] + cli_launches[k] for k in ring_launches}
     with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
@@ -5063,7 +5545,7 @@ def main_lost_rank() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--tp-block-rank"]:     # phase 7p's ranks, started by phase_tp under torchrun
+    if sys.argv[1:2] == ["--tp-block-rank"]:     # phase 7p's ranks, started by phase_groups under torchrun
         sys.exit(tp_block_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--lost-rank"]:          # drill (f) alone at the 10B width (depth 1)
         sys.exit(main_lost_rank())

@@ -28,14 +28,21 @@ Package map (mirrors vitax/):
                 thread-crash hook
   launch        the multi-host launcher (ssh to each host)
   serve         inference engine (float, int8 and fp8 weights), dynamic
-                batcher, HTTP server, quantized-serving helpers and gate
+                batcher, HTTP server (serve.jsonl, /chaos), quantized-serving
+                helpers and gate; fleet/: N replicas behind one router
+                (admission, breakers, cache, composed batches, autoscale,
+                placement)
+  faults        deterministic fault plans for the train and serve sites
+  supervise     the restart-with-backoff supervisor of a train command
   tools         the shard packer and the kernels' A/B and ladder tools
 
 Ported so far: the serve path, single-card training on fake data, from
 an ImageFolder tree or from streaming shards, quantized serving, dropout,
 long context, checkpoint, resume and export, FSDP2, the loop's
 telemetry, barriers, shutdown and launcher, the transfer tasks,
-sequence parallelism, and mixture of experts with expert parallelism. The rest are later slices (ROADMAP.md).
+sequence, tensor and pipeline parallelism, mixture of experts with
+expert parallelism, the failure reaction and the serving fleet. The rest
+are later slices (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

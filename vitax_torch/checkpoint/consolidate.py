@@ -192,37 +192,80 @@ def parse_quant_manifest(doc: str) -> Dict[str, str]:
     return out
 
 
-def load_npz_raw(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, str]]:
+def read_npz(path: str) -> Dict[str, np.ndarray]:
+    """{name: array} of an .npz, as np.load reads it, but each stored
+    (uncompressed) member mapped from the file copy-on-write instead of
+    read through zipfile: a 10 GB export maps at once, and its pages load
+    as they are used. Compressed members and object arrays go through
+    np.load."""
+    import mmap
+    import struct
+    import zipfile
+    out: Dict[str, np.ndarray] = {}
+    with open(path, "rb") as f, zipfile.ZipFile(f) as zf:
+        infos = zf.infolist()
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY) if infos else None
+        rest = []
+        for info in infos:
+            name = info.filename[:-len(".npy")] if info.filename.endswith(".npy") else info.filename
+            if info.compress_type != zipfile.ZIP_STORED:
+                rest.append(name)
+                continue
+            name_len, extra_len = struct.unpack("<HH", mm[info.header_offset + 26:info.header_offset + 30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                           else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read_header(f)
+            if dtype.hasobject:
+                rest.append(name)
+                continue
+            out[name] = np.ndarray(shape, dtype, buffer=mm, offset=f.tell(), order="F" if fortran else "C")
+    if rest:
+        with np.load(path) as data:
+            out.update({name: data[name] for name in rest})
+    return out
+
+
+def load_npz_raw(path: str, mapped: bool = False
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, str]]:
     """Read a save_npz export without dequantizing: (flat, scales, manifest)
     as CPU tensors. `flat` keeps every leaf at its stored type (bf16 from
     its uint16 view, int8 codes, fp8 codes as float8_e4m3fn views of the
     stored bits); `scales` are the float32 per-key scale arrays and
-    `manifest` {key: quantized dtype}, both empty for an unquantized file."""
-    with np.load(path) as data:
-        bf16 = (set(str(k) for k in data[BF16_MANIFEST_KEY])
-                if BF16_MANIFEST_KEY in data.files else set())
-        manifest = (parse_quant_manifest(str(data[QUANT_MANIFEST_KEY]))
-                    if QUANT_MANIFEST_KEY in data.files else {})
-        flat: Dict[str, torch.Tensor] = {}
-        scales: Dict[str, torch.Tensor] = {}
-        for k in data.files:
-            if k in (BF16_MANIFEST_KEY, QUANT_MANIFEST_KEY):
-                continue
-            arr = data[k]
-            if not arr.flags.c_contiguous:      # (ascontiguousarray would make a 0-d leaf 1-d)
-                arr = np.ascontiguousarray(arr)
-            if k.startswith(QUANT_SCALE_PREFIX):
-                scales[k[len(QUANT_SCALE_PREFIX):]] = torch.from_numpy(arr)
-            elif k in bf16:
-                flat[k] = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-            elif manifest.get(k) == "float8_e4m3":
-                flat[k] = torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
-            else:
-                flat[k] = torch.from_numpy(arr)
-        if set(manifest) != set(scales):
-            raise ValueError(f"quant manifest/scale mismatch in {path}: "
-                             f"{sorted(set(manifest) ^ set(scales))} without their pair")
-        return flat, scales, manifest
+    `manifest` {key: quantized dtype}, both empty for an unquantized file.
+    `mapped`: the tensors map the file (read_npz) and alias it until
+    copied, so a caller that copies them at once (the serving engine, to
+    its device) skips reading the file through zipfile."""
+    if mapped:
+        data = read_npz(path)
+    else:
+        with np.load(path) as npz:
+            data = {k: npz[k] for k in npz.files}
+    bf16 = (set(str(k) for k in data[BF16_MANIFEST_KEY])
+            if BF16_MANIFEST_KEY in data else set())
+    manifest = (parse_quant_manifest(str(data[QUANT_MANIFEST_KEY]))
+                if QUANT_MANIFEST_KEY in data else {})
+    flat: Dict[str, torch.Tensor] = {}
+    scales: Dict[str, torch.Tensor] = {}
+    for k in data:
+        if k in (BF16_MANIFEST_KEY, QUANT_MANIFEST_KEY):
+            continue
+        arr = data[k]
+        if not arr.flags.c_contiguous:      # (ascontiguousarray would make a 0-d leaf 1-d)
+            arr = np.ascontiguousarray(arr)
+        if k.startswith(QUANT_SCALE_PREFIX):
+            scales[k[len(QUANT_SCALE_PREFIX):]] = torch.from_numpy(arr)
+        elif k in bf16:
+            flat[k] = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+        elif manifest.get(k) == "float8_e4m3":
+            flat[k] = torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
+        else:
+            flat[k] = torch.from_numpy(arr)
+    if set(manifest) != set(scales):
+        raise ValueError(f"quant manifest/scale mismatch in {path}: "
+                         f"{sorted(set(manifest) ^ set(scales))} without their pair")
+    return flat, scales, manifest
 
 
 def _npz_array(t: torch.Tensor) -> np.ndarray:
@@ -235,7 +278,8 @@ def _npz_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def save_npz(out: str, flat: Mapping[str, Leaf], dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
+def save_npz(out: str, flat: Mapping[str, Leaf], dtype: Optional[str] = None,
+             scales: Optional[Mapping[str, Leaf]] = None) -> Dict[str, torch.Tensor]:
     """Write a flat tree (numpy arrays or CPU tensors) as the JAX package's
     .npz export, optionally casting or quantizing its floating leaves;
     returns the tree as written, as tensors.
@@ -245,16 +289,24 @@ def save_npz(out: str, flat: Mapping[str, Leaf], dtype: Optional[str] = None) ->
     matmul weight per output channel (quantize_flat, fp8 to vitax's max of
     240) and record them under QUANT_MANIFEST_KEY with their float32 scales
     at QUANT_SCALE_PREFIX + key; fp8 codes are stored as uint8 bit-views.
-    Integer and bool leaves pass through every dtype unchanged."""
+    With `scales` ({key: scales}, as quantize_flat returns them) the leaves
+    it names are codes of `dtype` quantized already (on the card, say) and
+    are written as they are. Integer and bool leaves pass through every
+    dtype unchanged."""
     tensors = {k: as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v) for k, v in flat.items()}
-    scales: Dict[str, torch.Tensor] = {}
-    if dtype in QUANT_DTYPES:
+    if scales is not None:
+        if dtype not in QUANT_DTYPES or not set(scales) <= set(tensors):
+            raise ValueError(f"scales need a quantized dtype (got {dtype!r}) and codes for each of their keys")
+        scales = {k: as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v) for k, v in scales.items()}
+    elif dtype in QUANT_DTYPES:
         tensors, scales = quantize_flat(tensors, dtype)
-    elif dtype:
-        if dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"unknown export dtype {dtype!r} (float32, bfloat16, int8 or float8_e4m3)")
-        target = getattr(torch, dtype)
-        tensors = {k: v.to(target) if _is_float(v) else v for k, v in tensors.items()}
+    else:
+        scales = {}
+        if dtype:
+            if dtype not in ("float32", "bfloat16"):
+                raise ValueError(f"unknown export dtype {dtype!r} (float32, bfloat16, int8 or float8_e4m3)")
+            target = getattr(torch, dtype)
+            tensors = {k: v.to(target) if _is_float(v) else v for k, v in tensors.items()}
     payload = {k: _npz_array(v) for k, v in tensors.items()}
     bf16_keys = sorted(k for k, v in tensors.items() if v.dtype == torch.bfloat16)
     if bf16_keys:
@@ -265,6 +317,51 @@ def save_npz(out: str, flat: Mapping[str, Leaf], dtype: Optional[str] = None) ->
             payload[QUANT_SCALE_PREFIX + k] = sc.numpy()
     np.savez(out, **payload)
     return tensors
+
+
+def save_npz_from_state(out: str, sd: Mapping[str, torch.Tensor], dtype: str) -> Dict[str, torch.Tensor]:
+    """save_npz(out, params_to_jax(sd), dtype) for a quantized dtype, from a
+    float state_dict of VisionTransformer that may sit on a card: the
+    leaves are laid out as params_to_jax lays them (scanned blocks) and
+    quantized on the state's device one block at a time (scales per layer
+    and output channel, as over the stacked leaf), and only codes, scales
+    and the other leaves come to the host, so neither the float tree nor a
+    stacked float leaf is ever whole. Returns the tree as written."""
+    from vitax_torch.checkpoint.convert import _jax_layout
+    if dtype not in QUANT_DTYPES:
+        raise ValueError(f"save_npz_from_state writes a quantized export ({QUANT_DTYPES}), not {dtype!r}")
+    blocks: Dict[int, Dict[str, torch.Tensor]] = {}
+    rest: Dict[str, torch.Tensor] = {}
+    for name, t in sd.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            blocks.setdefault(int(parts[1]), {})[name] = t
+        else:
+            rest[name] = t
+    flat: Dict[str, torch.Tensor] = {}
+    scales: Dict[str, torch.Tensor] = {}
+    for key, v in _jax_layout(rest, True).items():
+        if should_quantize(key, v):
+            q, sc = quantize_leaf(key, v, dtype)
+            flat[key], scales[key] = q.contiguous().cpu(), sc.cpu()
+        else:
+            flat[key] = v.contiguous().cpu()
+    layers: Dict[str, list] = {}
+    layer_scales: Dict[str, list] = {}
+    for i in sorted(blocks):
+        for key, v in _jax_layout(blocks[i], False).items():
+            key = key.replace(f"params/blocks_{i}/", "params/blocks/", 1)
+            if should_quantize(key, v.unsqueeze(0)):
+                q, sc = quantize_tensor(v, [a - 1 for a in _contraction_axes(key, v.dim() + 1)], dtype)
+                layers.setdefault(key, []).append(q.contiguous().cpu())
+                layer_scales.setdefault(key, []).append(sc.cpu())
+            else:
+                layers.setdefault(key, []).append(v.contiguous().cpu())
+    for key, vs in layers.items():
+        flat[key] = torch.stack(vs)
+        if key in layer_scales:
+            scales[key] = torch.stack(layer_scales[key])
+    return save_npz(out, flat, dtype, scales=scales)
 
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:

@@ -162,6 +162,11 @@ class Config:
     serve_brownout_exit_frac: float = 0.25   # ... and back at or below this fraction
     serve_brownout_dwell_s: float = 2.0      # for this long, both ways
     serve_brownout_wait_ms: float = 1.0      # batcher deadline while degraded
+    serve_allow_chaos: bool = False     # arm POST /chaos (a fault plan installed into a running replica)
+    serve_cache_max: int = 0            # fleet router's prediction cache entries (0 = off)
+    serve_cache_ttl_s: float = 300.0    # ... and their lifetime
+    serve_batch_window_ms: float = 0.0  # fleet router: compose concurrent /predict bodies this long (0 = off)
+    serve_batch_max: int = 0            # ... into groups of at most this many (0 = --serve_max_batch)
 
     # --- scenario registry (programs/registry.py; vitax/config.py:271-284) ---
     task: str = "train"                 # train | finetune | probe | distill; each scenario's validator
@@ -407,6 +412,16 @@ class Config:
              f"--serve_brownout_dwell_s must be >= 0, got {self.serve_brownout_dwell_s}"),
             (self.serve_brownout_wait_ms >= 0,
              f"--serve_brownout_wait_ms must be >= 0, got {self.serve_brownout_wait_ms}"),
+            (self.serve_cache_max >= 0,
+             f"--serve_cache_max must be >= 0 (0 = prediction cache off), got {self.serve_cache_max}"),
+            (self.serve_cache_ttl_s > 0,
+             f"--serve_cache_ttl_s must be > 0, got {self.serve_cache_ttl_s}: a cache that never expires would "
+             f"replay answers across model redeploys; disable the cache with --serve_cache_max 0 instead"),
+            (self.serve_batch_window_ms >= 0,
+             f"--serve_batch_window_ms must be >= 0 (0 = cross-replica continuous batching off), got "
+             f"{self.serve_batch_window_ms}"),
+            (self.serve_batch_max >= 0,
+             f"--serve_batch_max must be >= 0 (0 = use --serve_max_batch), got {self.serve_batch_max}"),
             (0.0 <= self.distill_alpha <= 1.0,
              f"--distill_alpha must be in [0, 1] (the CE/KL mix), got {self.distill_alpha}"),
             (self.distill_temp > 0, f"--distill_temp must be > 0, got {self.distill_temp}"),
@@ -438,7 +453,8 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--debug_nans", "store_true", "debug_nans"),
                ("--no_log_memory", "store_false", "log_memory"),
                ("--reinit_head", "store_true", "reinit_head"),
-               ("--zero_stall_ckpt", "store_true", "zero_stall_ckpt"))
+               ("--zero_stall_ckpt", "store_true", "zero_stall_ckpt"),
+               ("--serve_allow_chaos", "store_true", "serve_allow_chaos"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS), "sp_impl": ["ring", "ulysses"],
             "pp_schedule": ["gpipe", "1f1b"],
             "moe_top_k": [1, 2], "moe_impl": ["gather", "einsum"],

@@ -25,9 +25,17 @@ Training sites (each one host-side hook point):
               once per peer-shard load of a peer restore, index = the
               shard's source process (checkpoint/peer.py PeerStore.load)
 
-The serve sites (engine_predict, batcher_flush, replica_health,
-router_dispatch) parse as in vitax; no hook of this package fires them
-yet (the serving fleet is a later slice).
+Serve sites (vitax's chaos layer for its serving fleet):
+  engine_predict  once per engine batch, before any work
+                  (serve/engine.py InferenceEngine.predict)
+  batcher_flush   once per flushed batch, on the batcher's worker: a
+                  failure fails that batch's futures, the worker lives on
+                  (serve/batcher.py)
+  replica_health  once per replica probe, in the manager's sweep order, so
+                  with N replicas index k*N + i targets replica i
+                  (serve/fleet/replica.py)
+  router_dispatch once per dispatch attempt, single or composed
+                  (serve/fleet/router.py)
 
 Actions:
   crash     os._exit(exit_code): no atexit, no drains (default code 13)

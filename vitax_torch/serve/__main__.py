@@ -22,6 +22,7 @@ kernel, and --fused_dequant off exits non-zero.
 from __future__ import annotations
 
 import sys
+import time
 
 from vitax_torch.config import Config, build_parser, config_fields_from_namespace
 
@@ -41,10 +42,12 @@ def main(argv=None) -> int:
     try:
         cfg = Config(**config_fields_from_namespace(ns)).validate()
         device = resolve_device(ns.device)
+        t0 = time.perf_counter()
         engine = build_engine(cfg, npz=ns.npz, epoch=None if ns.epoch < 0 else ns.epoch, device=device)
     except (FileNotFoundError, RuntimeError, ValueError) as e:
         print(f"vitax_torch.serve: {e}", file=sys.stderr, flush=True)
         return 2
+    print(f"serve: params loaded onto {device} in {time.perf_counter() - t0:.1f}s", flush=True)
 
     from vitax_torch.serve.server import serve_forever
     serve_forever(cfg, engine)

@@ -5,7 +5,9 @@ Requests enqueue with a Future and one worker thread flushes them as one
 engine batch when the largest bucket fills (`max_batch`) or the oldest
 queued request has waited `max_batch_wait_ms`, whichever comes first.
 HTTP handler threads only append under the condition lock and block on
-their Future; all engine work happens on the one worker thread.
+their Future; all engine work happens on the one worker thread. The
+`batcher_flush` fault site fires once a flush on that thread: a failure
+there fails that batch's futures and the worker lives on.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from concurrent.futures import Future
 from typing import Callable, Optional
 
 import numpy as np
+
+from vitax_torch import faults
 
 
 class QueueFull(RuntimeError):
@@ -40,10 +44,12 @@ class BatchResult:
 
 class DynamicBatcher:
     """Queue + worker thread around `predict_fn(images) -> (ids, probs)`,
-    where images is a stacked (n, H, W, 3) array with n <= max_batch."""
+    where images is a stacked (n, H, W, 3) array with n <= max_batch.
+    `on_batch(stats)` is called once a flushed batch (telemetry)."""
 
     def __init__(self, predict_fn: Callable, max_batch: int, max_wait_ms: float,
-                 bucket_of: Optional[Callable[[int], int]] = None, queue_max: int = 0):
+                 bucket_of: Optional[Callable[[int], int]] = None,
+                 on_batch: Optional[Callable[[dict], None]] = None, queue_max: int = 0):
         if max_batch < 1 or queue_max < 0:
             raise ValueError(f"max_batch {max_batch} must be >= 1 and queue_max {queue_max} >= 0")
         self.predict_fn = predict_fn
@@ -51,6 +57,7 @@ class DynamicBatcher:
         self.max_wait_s = max_wait_ms / 1000.0
         self.queue_max = queue_max        # 0 = unbounded
         self.bucket_of = bucket_of or (lambda n: n)
+        self.on_batch = on_batch
         self.batches_flushed = 0
         self._pending: deque = deque()    # (image, Future, t_enqueue)
         self._cond = threading.Condition()
@@ -114,6 +121,7 @@ class DynamicBatcher:
         images = np.stack([img for img, _, _ in batch])
         t_flush = time.time()
         try:
+            faults.fire("batcher_flush")
             ids, probs = self.predict_fn(images)
         except Exception as e:  # noqa: BLE001 - delivered to every request, the worker lives on
             for _, fut, _ in batch:
@@ -129,3 +137,9 @@ class DynamicBatcher:
                 fut.set_result(BatchResult(classes=ids[row], probs=probs[row],
                                            queue_wait_s=t_flush - t_enq, infer_s=infer_s,
                                            batch_size=n, bucket=bucket))
+        if self.on_batch is not None:
+            try:
+                self.on_batch({"batch_size": n, "bucket": bucket, "infer_s": infer_s,
+                               "queue_wait_s_max": t_flush - batch[0][2]})
+            except Exception:  # noqa: BLE001 - telemetry must not kill serving
+                pass

@@ -14,10 +14,21 @@ Endpoints, with the JAX server's JSON keys:
 - GET /healthz: live once bound; ready after warmup and while not draining.
 - GET /metrics: request counters, latency percentiles, queue and batch
   accounting, brownout state and the weight footprint.
+- POST /chaos: with --serve_allow_chaos, installs the JSON fault plan of
+  the body into this running replica (an empty body disarms); 403 without
+  the flag, 400 for a bad plan.
 
 A full batcher queue answers 503 (reason "queue_full"); sustained queue
 pressure enters brownout (topk clamped to 1, shorter batcher deadline);
 SIGTERM drains: stop accepting, answer what is in flight, flush, exit 0.
+
+--fault_plan (or VITAX_FAULT_PLAN) arms the serve fault sites
+(vitax_torch/faults.py: engine_predict, batcher_flush) at start. With
+--metrics_dir, <metrics_dir>/serve.jsonl gets vitax's serve records
+through the telemetry Recorder: serve_start, a serve_request a request
+(latency, queue wait, infer seconds, batch size, bucket, topk), a
+serve_batch a flushed batch, brownout enter and
+exit, chaos_install, serve_fault a fired fault, thread_crash, serve_drain.
 """
 
 from __future__ import annotations
@@ -25,7 +36,9 @@ from __future__ import annotations
 import base64
 import io
 import json
+import os
 import signal
+import sys
 import threading
 import time
 from collections import deque
@@ -33,13 +46,16 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
+from vitax_torch import faults
 from vitax_torch.config import Config
 from vitax_torch.data import native
 from vitax_torch.data.imagefolder import DecodeCounts
 from vitax_torch.data.transforms import ValTransform
 from vitax_torch.serve.batcher import DynamicBatcher, QueueFull
 from vitax_torch.serve.engine import InferenceEngine, next_bucket
+from vitax_torch.telemetry.threads import install_thread_excepthook
 from vitax_torch.utils.logging import master_print
 
 
@@ -169,6 +185,33 @@ class BrownoutController:
             return total
 
 
+def build_serve_recorder(cfg: Config, device=None):
+    """A Recorder writing <metrics_dir>/serve.jsonl, or None without
+    --metrics_dir. It carries the device count and kind of `device` (the
+    engine's; the fleet router passes its --device). Fail-soft: an
+    unwritable directory disables recording, never serving."""
+    metrics_dir = getattr(cfg, "metrics_dir", "") or ""
+    if not metrics_dir:
+        return None
+    from vitax_torch.telemetry.record import Recorder
+    from vitax_torch.telemetry.sinks import JsonlSink
+    try:
+        os.makedirs(metrics_dir, exist_ok=True)
+        sinks = [JsonlSink(os.path.join(metrics_dir, "serve.jsonl"))]
+    except OSError as e:
+        print(f"vitax_torch.serve: --metrics_dir {metrics_dir!r} is not writable ({e}); serve telemetry disabled",
+              file=sys.stderr, flush=True)
+        return None
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        count, kind = 1, dev.type
+    elif torch.cuda.is_available():
+        count, kind = torch.cuda.device_count(), torch.cuda.get_device_name(dev)
+    else:
+        count, kind = 0, "no CUDA card"
+    return Recorder(cfg, sinks, count, kind, rank=0)
+
+
 def decode_ppm(raw: bytes) -> Optional[np.ndarray]:
     """A binary PPM (P6, maxval 255) body as uint8 (H, W, 3), or None for
     any other format. Header: "P6", width, height, maxval as decimal tokens
@@ -230,9 +273,10 @@ def decode_image_bytes(raw: bytes, transform: ValTransform, counts: Optional[Dec
 class ServeContext:
     """Everything a handler thread needs, wired once at startup."""
 
-    def __init__(self, cfg: Config, engine: InferenceEngine):
+    def __init__(self, cfg: Config, engine: InferenceEngine, recorder=None):
         self.cfg = cfg
         self.engine = engine
+        self.recorder = recorder
         self.metrics = ServeMetrics()
         self.request_timeout_s = float(cfg.serve_request_timeout_s)
         self.draining = False
@@ -242,12 +286,27 @@ class ServeContext:
         self.decoded = DecodeCounts()
         self.batcher = DynamicBatcher(
             engine.predict, max_batch=cfg.serve_max_batch, max_wait_ms=cfg.max_batch_wait_ms,
-            bucket_of=lambda n: next_bucket(n, engine.buckets), queue_max=cfg.serve_queue_max)
+            bucket_of=lambda n: next_bucket(n, engine.buckets), on_batch=self._record_batch,
+            queue_max=cfg.serve_queue_max)
         self.brownout = BrownoutController(
             queue_max=cfg.serve_queue_max, enter_frac=cfg.serve_brownout_enter_frac,
             exit_frac=cfg.serve_brownout_exit_frac, dwell_s=cfg.serve_brownout_dwell_s,
-            on_enter=lambda: self.batcher.set_max_wait_ms(cfg.serve_brownout_wait_ms),
-            on_exit=lambda _s: self.batcher.set_max_wait_ms(cfg.max_batch_wait_ms))
+            on_enter=self._brownout_enter, on_exit=self._brownout_exit)
+
+    def event(self, kind: str, **payload) -> None:
+        if self.recorder is not None:
+            self.recorder.event(kind, **payload)
+
+    def _brownout_enter(self) -> None:
+        self.batcher.set_max_wait_ms(self.cfg.serve_brownout_wait_ms)
+        self.event("brownout", event="enter", queue_depth=self.batcher.queue_depth())
+
+    def _brownout_exit(self, degraded_s: float) -> None:
+        self.batcher.set_max_wait_ms(self.cfg.max_batch_wait_ms)
+        self.event("brownout", event="exit", degraded_s=round(degraded_s, 6))
+
+    def _record_batch(self, stats: dict) -> None:
+        self.event("serve_batch", **stats)
 
     def degraded(self) -> bool:
         """Current brownout verdict, refreshed with a live depth sample."""
@@ -301,12 +360,20 @@ class ServeContext:
 
     def close(self) -> None:
         self.batcher.close()
+        if self.recorder is not None:
+            self.recorder.close()
 
 
-def _answer(result, topk: int, t0: float) -> dict:
+def _answer(ctx: ServeContext, result, topk: int, t0: float, **tags) -> dict:
+    """The /predict body of one result; its metrics and serve_request record."""
+    latency_s = time.time() - t0
+    ctx.metrics.observe(latency_s, result.queue_wait_s, result.batch_size, result.bucket)
+    ctx.event("serve_request", latency_s=round(latency_s, 6), queue_wait_s=round(result.queue_wait_s, 6),
+              infer_s=round(result.infer_s, 6), batch_size=result.batch_size, bucket=result.bucket, topk=topk,
+              **tags)
     return {"classes": [int(c) for c in result.classes[:topk]],
             "probs": [float(p) for p in result.probs[:topk]],
-            "latency_ms": round((time.time() - t0) * 1000.0, 3)}
+            "latency_ms": round(latency_s * 1000.0, 3)}
 
 
 def _make_handler(ctx: ServeContext):
@@ -359,6 +426,9 @@ def _make_handler(ctx: ServeContext):
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):  # noqa: N802
+            if self.path == "/chaos":
+                self._chaos()
+                return
             if self.path not in ("/predict", "/predict_batch"):
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
@@ -375,6 +445,28 @@ def _make_handler(ctx: ServeContext):
                     self._predict()
             finally:
                 ctx.exit_request()
+
+        def _chaos(self) -> None:
+            """Install a fault plan into this running replica; 403 unless
+            --serve_allow_chaos armed the endpoint, an empty body disarms."""
+            if not ctx.cfg.serve_allow_chaos:
+                self._reply(403, {"error": "chaos endpoint disabled (start with --serve_allow_chaos to arm)"})
+                return
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0))).decode("utf-8").strip()
+            if not body:
+                faults.uninstall()
+                self._reply(200, {"installed": None})
+                return
+            try:
+                plan = faults.install(body)
+            except ValueError as e:
+                self._reply(400, {"error": str(e)})
+                return
+            if ctx.recorder is not None:
+                rec = ctx.recorder
+                faults.set_reporter(lambda p: rec.event("serve_fault", **p))
+            ctx.event("chaos_install", plan=plan.describe())
+            self._reply(200, {"installed": plan.describe()})
 
         def _predict(self) -> None:
             t0 = time.time()
@@ -400,8 +492,7 @@ def _make_handler(ctx: ServeContext):
                 ctx.metrics.error()
                 self._reply(503, {"error": f"inference failed: {e}"})
                 return
-            ctx.metrics.observe(time.time() - t0, result.queue_wait_s, result.batch_size, result.bucket)
-            self._reply(200, _answer(result, topk, t0))
+            self._reply(200, _answer(ctx, result, topk, t0))
 
         def _predict_batch(self) -> None:
             t0 = time.time()
@@ -439,8 +530,7 @@ def _make_handler(ctx: ServeContext):
                     ctx.metrics.error()
                     results[i] = {"status": 503, "body": json.dumps({"error": f"inference failed: {e}"})}
                     continue
-                ctx.metrics.observe(time.time() - t0, result.queue_wait_s, result.batch_size, result.bucket)
-                results[i] = {"status": 200, "body": json.dumps(_answer(result, topk, t0))}
+                results[i] = {"status": 200, "body": json.dumps(_answer(ctx, result, topk, t0, batched=True))}
             self._reply(200, {"results": results})
 
     return Handler
@@ -449,11 +539,21 @@ def _make_handler(ctx: ServeContext):
 def start_server(cfg: Config, engine: InferenceEngine, port: Optional[int] = None):
     """Engine -> listening server on a background thread. Returns (httpd,
     ctx); httpd.server_address[1] is the bound port (port=0 for an
-    ephemeral one). `stop_server(httpd, ctx)` shuts it down."""
-    ctx = ServeContext(cfg, engine)
+    ephemeral one). `stop_server(httpd, ctx)` shuts it down. Arms the
+    fault plan of --fault_plan or VITAX_FAULT_PLAN (a plan installed
+    before, with neither named, stays armed) and the thread-crash hook."""
+    recorder = build_serve_recorder(cfg, engine.device)
+    if cfg.fault_plan or os.environ.get(faults.ENV_VAR, ""):
+        faults.install_from_config(cfg)
+    if faults.active() and recorder is not None:
+        faults.set_reporter(lambda p: recorder.event("serve_fault", **p))
+    install_thread_excepthook(recorder, rank=0)
+    ctx = ServeContext(cfg, engine, recorder=recorder)
     httpd = ThreadingHTTPServer(("0.0.0.0", cfg.serve_port if port is None else port), _make_handler(ctx))
     httpd.daemon_threads = True
     threading.Thread(target=httpd.serve_forever, daemon=True, name="vitax-torch-http").start()
+    ctx.event("serve_start", port=httpd.server_address[1], buckets=list(engine.buckets), topk=engine.topk,
+              max_batch_wait_ms=cfg.max_batch_wait_ms, compile_count=engine.compile_count)
     master_print(f"serve: listening on :{httpd.server_address[1]} (buckets {list(engine.buckets)}, "
                  f"wait {cfg.max_batch_wait_ms}ms, top-{engine.topk})")
     return httpd, ctx
@@ -474,6 +574,7 @@ def drain(httpd, ctx: ServeContext, timeout_s: float = 30.0) -> bool:
     httpd.shutdown()
     idle = ctx.wait_idle(timeout_s)
     httpd.server_close()
+    ctx.event("serve_drain", clean=idle, inflight_left=ctx.inflight())
     ctx.close()
     if not idle:
         master_print(f"serve: drain timed out after {timeout_s:.0f}s with {ctx.inflight()} in flight")
