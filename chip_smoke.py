@@ -71,7 +71,8 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      gate against the full-precision engine on 64 seeded images;
   6f. the serving fleet: 6q's int8 weights exported (quantized block by
      block on the card by consolidate.py save_npz_from_state) to /dev/shm,
-     its codes and scales read back bit for bit 6q's; `python -m
+     its codes and scales read back bit for bit 6q's; the f32 engine freed;
+     `python -m
      vitax_torch.serve.fleet` with two replicas on the card (each `python -m
      vitax_torch.serve` running A1 and C), admission armed, the cache, a
      5 ms composing window and /chaos; each replica's seconds to ready; 32
@@ -82,15 +83,33 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      latency and images/s beside 6q's single engine; a crash plan POSTed to
      replica 1's /chaos (and a 3 s hang of replica 0's next batch, so the
      group after it goes to replica 1) before bursts of 16: no client
-     error, replica 1's exit, restart and re-admission; SIGTERM: the fleet and both replicas exit 0;
+     error, replica 1's exit, restart and re-admission, with 7a's processes
+     and 7t's torchrun starting beside it (no figure times this part);
+     SIGTERM: the fleet and both replicas exit 0;
      every serve.jsonl parsed, each replica's serve_request and serve_batch
      records accounting for every request it answered, bucket by bucket;
+  7a. the chip arbiter on 6f's export (ARB_CELL's note): `python -m
+     vitax_torch.arbiter --hosts h0,h1` with two gloo training ranks on
+     the card, the fleet CLI with one int8 replica at --max_replicas 1 and
+     --arbiter_url, one placement agent; a hang plan and a burst escalate,
+     the borrow (both ranks exit 0 on a joint checkpoint, the 2 -> 1 resume
+     from the peer store with 0 directory reads, the agent's replica
+     adopted), 16 answers of the borrowed replica bit for bit 6q's, the
+     return (its drain, the ledger, training back at 2 ranks with finite
+     losses), every process's exit, the seconds from the escalation and
+     from the return, the card's peak memory (sampled once 7t's torchrun
+     has exited), each process's launches, the arbiter's events through
+     tools/metrics_report.py;
   7. train main path: train() on the 10B-width model cut to depth 8, batch
-     32, fake data, 12 steps and a 2-batch eval, with the launch counts of
-     the run checked against the steps, sec/iter, images/s, MFU and peak
-     memory; then a profile of one steady step, and the fused optimizer
-     on the trained state's own leaf table: one launch held element by
-     element against the plain version, then timed;
+     32, fake data, 12 timed steps, the profiler's warm-up step and 2
+     steps in the loop's profiler window, and a 2-batch eval, with the
+     launch counts of the run checked against the steps, sec/iter,
+     images/s, MFU and peak memory; the window's trace (its steps, its
+     kernels a step, busy and idle, time by kernel group); the fused
+     optimizer on the trained state's own leaf table: one launch held
+     element by element against the plain version, then timed; then 3
+     steps at --remat_window 2 beside per-block remat from one init and
+     batch (losses, attention launches, peak memory);
   7t. telemetry: phase 7's run twice, with telemetry off and then on
      (--metrics_dir), its launch counts equal in both and to phase 7's;
      the JSONL's 12 step records (REQUIRED_STEP_KEYS, steps 1-12, each MFU
@@ -99,9 +118,10 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      device) and the eval event; tools/metrics_report.py --json over it
      (a subprocess: exit 0, no thread crash); sec/iter on and off and their
      ratio, opt_update_s beside phase 7's time of the fused optimizer;
-     then `torchrun --nproc_per_node 1 -m vitax_torch.train` at depth 2
-     with --metrics_dir, through the named barriers and orderly_shutdown
-     to exit 0 with its JSONL written;
+     then the check of `torchrun --nproc_per_node 1 -m vitax_torch.train`
+     at depth 2 with --metrics_dir, run beside 6f and 7a's start: through
+     the named barriers and orderly_shutdown to exit 0 with its JSONL
+     written;
   7d. train main path under dropout: the same run with att_dropout and
      mlp_dropout 0.1, its launch counts (the dropout kernels' forward,
      recompute and backward) checked against the steps, its first loss
@@ -184,7 +204,7 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      a crash: the restart restored from the peer store with no
      checkpoint-directory read, against (a)'s DCP restore seconds; each
      ends bitwise and launches what its steps launch; (f) two ranks over
-     gloo on the card at b16's width (LOST_RANK_CELL, ZeRO-3;
+     gloo on the card at b16's width, depth 4 (LOST_RANK_CELL, ZeRO-3;
      --replicate_steps 2 --peer_heartbeat_s 1): rank 1 killed at step 4,
      rank 0's exit 42 within the grace plus its deadline, rank 1's store
      deleted, the relaunched pair restored from rank 0's copy (rank 0
@@ -2210,19 +2230,24 @@ def replica_accounting(name: str, events: list) -> dict:
     return by_req
 
 
-def phase_fleet(torch, card, engine_f32, states: dict, q8_traffic) -> None:
-    """Phase 6f: the int8 export of 6q's weights (block by block on the
-    card, consolidate.py save_npz_from_state, into /dev/shm), its codes and
-    scales read back bit for bit 6q's; the fleet CLI with two replicas on
-    it; 40 requests (32 /predict from 8 threads, one /predict_batch of 8)
-    through the router, each answer against 6q's int8 engine on the same
+def phase_fleet(torch, card, engine_f32, states: dict) -> dict:
+    """Phase 6f, its first half: the int8 export of 6q's weights (block by
+    block on the card, consolidate.py save_npz_from_state, into /dev/shm),
+    its codes and scales read back bit for bit 6q's, and 6q's int8 engine's
+    references on every image the fleet phases send. `states["int8"]` is
+    popped and freed. Returns the export (its path and dir, the bodies, the
+    references, the config), which run_fleet serves once main has freed the
+    f32 engine, and phase 7a after it.
+
+    run_fleet, the second half: the fleet CLI with two replicas on it; 40
+    requests (32 /predict from 8 threads, one /predict_batch of 8) through
+    the router, each answer against 6q's int8 engine on the same
     image (bit for bit the bucket it ran in, else top-k and probs within
     FLEET_PROB_BAR); 8 repeats answered by the cache without a replica;
     composed groups; replica 1 crashed through its /chaos mid-burst with no
     client error, its restart and re-admission; SIGTERM: the fleet and both
     replicas exit 0; every serve.jsonl parsed and each replica's records
-    accounting for every request it answered. `states["int8"]` is popped
-    and freed."""
+    accounting for every request it answered."""
     from vitax_torch.checkpoint.consolidate import load_npz_raw, save_npz_from_state
     from vitax_torch.data.transforms import ValTransform
     from vitax_torch.serve.engine import npz_state
@@ -2251,7 +2276,7 @@ def phase_fleet(torch, card, engine_f32, states: dict, q8_traffic) -> None:
         del back
 
         rng = np.random.default_rng(SEED + 20)
-        bodies = [ppm_bytes(rng) for _ in range(40 + 16 * FLEET_BURSTS)]
+        bodies = [ppm_bytes(rng) for _ in range(40 + 16 * FLEET_BURSTS + ARB_BODIES)]     # the last ones 7a's
         tf = ValTransform(engine_f32.cfg.image_size)
         images = np.stack([decode_image_bytes(b, tf) for b in bodies])
         t0 = time.perf_counter()
@@ -2259,16 +2284,21 @@ def phase_fleet(torch, card, engine_f32, states: dict, q8_traffic) -> None:
         say(f"[6f refs] 6q's int8 engine on the {len(bodies)} images in buckets {sorted(refs)}: "
             f"{time.perf_counter() - t0:.1f} s")
         del state
-        gc.collect()
-        torch.cuda.empty_cache()
-        run_fleet(torch, card, engine_f32.cfg, path, work, bodies, refs, q8_traffic)
-    finally:
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
+    # run_fleet and phase 7a serve the export and hold their answers to the references
+    return {"path": path, "work": work, "bodies": bodies, "refs": refs, "first": len(bodies) - ARB_BODIES,
+            "cfg": engine_f32.cfg}
 
 
-def run_fleet(torch, card, cfg, path, work, bodies, refs, q8_traffic) -> None:
-    """The fleet CLI on the export: phase 6f's traffic, crash and shutdown."""
+def run_fleet(torch, card, export: dict, q8_traffic, start_beside) -> None:
+    """The fleet CLI on the export: phase 6f's traffic, crash and shutdown.
+    start_beside() is called once the traffic's figures are taken, so that
+    what it starts (phase 7a's processes, phase 7t's torchrun) comes up
+    beside the crash drill and the drain, which no figure times."""
     import signal
+    cfg, path, work, bodies, refs = (export[key] for key in ("cfg", "path", "work", "bodies", "refs"))
     k = cfg.serve_topk
     mdir = os.path.join(work, "m")
     port, base = free_port(), free_port_pair()
@@ -2315,7 +2345,7 @@ def run_fleet(torch, card, cfg, path, work, bodies, refs, q8_traffic) -> None:
             + f" ({time.perf_counter() - t_start:.1f} s to both); weights {fleet.get('weights_dtypes')}, fused "
             f"dequant {fleet.get('fused_dequants')}, param_bytes {fleet.get('param_bytes', 0) / 1e9:.2f} GB over "
             f"the replicas; card memory in use {(total - free) / 1e9:.1f} of {total / 1e9:.1f} GB (this process "
-            f"{torch.cuda.memory_allocated() / 1e9:.1f} GB: the f32 engine) [{card}]")
+            f"{torch.cuda.memory_allocated() / 1e9:.1f} GB: the f32 engine freed before the fleet) [{card}]")
         if fleet.get("weights_dtypes") != ["int8"] or fleet.get("fused_dequants") != ["True"]:
             fail(f"[6f] the replicas do not serve int8 weights through kernel C: {fleet}")
 
@@ -2383,6 +2413,9 @@ def run_fleet(torch, card, cfg, path, work, bodies, refs, q8_traffic) -> None:
         if m2["admission"]["shed_total"] or m2["shed_total"] or m2["errors_total"]:
             fail(f"[6f] sheds or errors at this load: {m2['admission']}, errors {m2['errors_total']}")
 
+        start_beside()
+        say(f"[6f beside] phase 7a's processes (arbiter, agent, fleet, the two training ranks) and phase 7t's "
+            f"torchrun started beside the crash drill and the drain; their phases read them [{card}]")
         # replica 1 crashed through its own /chaos mid-burst, replica 0's next batch held
         victim = m2["replicas"]["replica_1"]["url"]
         installed = [json.loads(http_raw(m2["replicas"][n]["url"] + "/chaos", plan.encode(), "application/json"))
@@ -2498,6 +2531,395 @@ def run_fleet(torch, card, cfg, path, work, bodies, refs, q8_traffic) -> None:
         f"this process) [{card}]")
 
 
+# Phase 7a: the chip arbiter's drill on the one card (vitax's acceptance
+# drill, tests/test_arbiter.py:870-1075). Three processes share the card:
+# `python -m vitax_torch.arbiter --hosts h0,h1` with its training tenant
+# (two ranks over gloo on the card at b16's width, bench.py:288-291, cut to
+# depth 4 for the script's time: at depth 12 a gloo step took 2.5 s and 7a
+# 130.8-188.4 s on an H100 80GB HBM3 at 700 W; ZeRO-3,
+# peer-replicated, each rank ARB_TRAIN_MAIN: a gloo group made before the
+# CLI's main, as TP_CLI_MAIN does, since NCCL refuses two ranks on one
+# card), the fleet CLI with one int8 replica of the full 10B (6f's export)
+# at --max_replicas 1, and one placement agent with one slot. A hang plan
+# slows the replica through its /chaos, a burst sheds, the autoscaler at its
+# ceiling escalates to the arbiter, which borrows h1: both ranks exit 0 on
+# one joint preemption checkpoint, one rank restarts from the peer store,
+# the agent's replica is adopted and answers; once the burst ends the
+# arbiter returns h1 and training re-expands to two ranks. The autoscaler's
+# cooldown outlasts the drill, so its one action is the first escalation:
+# with 5 s it scaled the fleet in once the burst ended (an H100 run), the
+# borrowed replica counting in its size, and retired the seed replica
+# (vitax's autoscaler picks its victim the same way).
+ARB_CELL = dict(image_size=224, patch_size=16, embed_dim=768, num_heads=12, num_blocks=4, batch_size=32,
+                fake_data=True, warmup_steps=4, log_step_interval=5, eval_max_batches=1, num_epochs=1,
+                steps_per_epoch=100000, test_epoch_interval=99, ckpt_epoch_interval=99, num_workers=2)
+# --replicate_steps 100 (README's): a generation lives fewer steps, so the peer stores are refreshed by the
+# preemption save alone. At 4 a rank's 0.5 GB shard took 7-9 s through the TCP stores (an H100 run), its
+# sender rewrote the buddy's copy 80% of the time, and the drained pair left no complete copy of rank 1's
+# shard on rank 0: the 2 -> 1 resume read the checkpoint directory.
+ARB_TRAIN_FLAGS = ["--replicate_steps", "100", "--peer_heartbeat_s", "1", "--control_sync_steps", "2"]
+ARB_BODIES = 16                 # 7a's images, answered by the borrowed replica against 6q's references
+ARB_SLO_MS = 2000.0             # admission's deadline: the hung replica's queue sheds past it
+ARB_SLOW = json.dumps({"site": "engine_predict", "at": 1, "times": 1000000, "action": "hang", "seconds": 0.5})
+ARB_POLICY = ["--arbiter_dwell_s", "1", "--arbiter_cooldown_s", "5", "--arbiter_interval_s", "0.5"]
+ARB_FLEET = ["--replicas", "1", "--max_replicas", "1", "--serve_max_batch", "8", "--serve_allow_chaos",
+             "--serve_quant_dtype", "int8", "--slo_p99_ms", str(ARB_SLO_MS), "--autoscale_dwell_s", "1",
+             "--autoscale_cooldown_s", "900", "--health_interval_s", "0.5"]
+ARB_TRAIN_MAIN = """import json, os, sys
+import torch.distributed as dist
+from vitax_torch.ops import _build
+from vitax_torch.train.__main__ import main
+if "WORLD_SIZE" in os.environ:
+    dist.init_process_group("gloo", init_method="env://")
+rc = 1
+try:
+    rc = main(sys.argv[2:])
+finally:
+    with open(os.path.join(sys.argv[1], "launches_%d.json" % os.getpid()), "w") as f:
+        json.dump({"rank": int(os.environ.get("RANK", "0")), "world": int(os.environ.get("WORLD_SIZE", "1")),
+                   "rc": rc, "launches": _build.LAUNCHES}, f)
+sys.exit(rc)
+"""
+
+
+class ArbiterDrill:
+    """Phase 7a's processes, their logs and the HTTP they answer."""
+
+    def __init__(self, torch, export: dict):
+        self.torch, self.export = torch, export
+        self.work = os.path.join(export["work"], "7a")
+        self.m = os.path.join(self.work, "m")
+        self.launch_dir = os.path.join(self.work, "launches")
+        for d in (self.m, self.launch_dir):
+            os.makedirs(d, exist_ok=True)
+        ports = free_ports_below_ephemeral(5)
+        self.arb, self.fleet = f"http://127.0.0.1:{ports[0]}", f"http://127.0.0.1:{ports[1]}"
+        self.ports = ports
+        self.env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.procs, self.logs = {}, {}
+        self.peak_used, self._stop = 0.0, threading.Event()
+
+    def commands(self) -> dict:
+        from vitax_torch.ops import _build
+        main_py = os.path.join(self.work, "arbiter_train_main.py")
+        with open(main_py, "w") as f:
+            f.write(ARB_TRAIN_MAIN)
+        a, p, b, g, gb = self.ports
+        serve = ["--npz", self.export["path"], "--serve_max_batch", "8", "--serve_quant_dtype", "int8"]
+        train = [sys.executable, main_py, self.launch_dir, *cli_flags({**ARB_CELL, "seed": SEED}), "--device",
+                 DRILL_DEVICE, *ARB_TRAIN_FLAGS, "--ckpt_dir", os.path.join(self.work, "ckpt"), "--metrics_dir",
+                 self.m, "--arbiter_url", self.arb, "--compile_cache_dir", _build.BUILD_DIR]
+        return {
+            "agent": ["-m", "vitax_torch.serve.fleet.agent", "--agent_port", str(g), "--agent_base_port", str(gb),
+                      "--agent_max_replicas", "1"],
+            "fleet": ["-m", "vitax_torch.serve.fleet", "--npz", self.export["path"], *ARB_FLEET, "--serve_port",
+                      str(p), "--base_port", str(b), "--arbiter_url", self.arb, "--metrics_dir",
+                      os.path.join(self.m, "fleet")],
+            "arbiter": ["-m", "vitax_torch.arbiter", "--hosts", "h0,h1", "--arbiter_port", str(a), "--fleet_url",
+                        self.fleet, "--agent_urls", f"h1=http://127.0.0.1:{g}", "--serve_argv",
+                        " ".join(serve + ["--metrics_dir", os.path.join(self.m, "borrowed")]), "--metrics_dir",
+                        self.m, *ARB_POLICY, "--train_grace_s", "240", "--ledger_path",
+                        os.path.join(self.work, "ledger.json"), "--train_log_dir", os.path.join(self.work, "train"),
+                        "--", *train]}
+
+    def start(self) -> None:
+        self.t_spawn = time.monotonic()
+        for name, argv in self.commands().items():
+            self.logs[name] = os.path.join(self.work, f"{name}.log")
+            self.procs[name] = subprocess.Popen([sys.executable, *argv], cwd=REPO, env=self.env,
+                                                stdout=open(self.logs[name], "w"), stderr=subprocess.STDOUT,
+                                                start_new_session=True)
+
+    def sample(self) -> None:
+        """The card's memory in use, sampled every 0.5 s from now on."""
+        threading.Thread(target=self._sample, daemon=True, name="7a-memory").start()
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.5):
+            free, total = self.torch.cuda.mem_get_info()
+            self.peak_used = max(self.peak_used, (total - free) / 1e9)
+
+    def tail(self, name: str, n: int = 3000) -> str:
+        with open(self.logs[name]) as f:
+            return f.read()[-n:]
+
+    def get(self, url: str) -> dict:
+        return json.loads(http_raw(url))
+
+    def metrics(self) -> dict:
+        return self.get(self.arb + "/metrics")
+
+    def wait(self, cond, timeout_s: float, what: str) -> float:
+        """Seconds until cond() holds; fails at the timeout or when a
+        process exits early."""
+        t0 = time.monotonic()
+        while True:
+            for name, proc in self.procs.items():
+                if proc.poll() is not None:
+                    fail(f"[7a] {name} exited {proc.returncode} while waiting for {what}:\n{self.tail(name)}")
+            try:
+                if cond():
+                    return time.monotonic() - t0
+            except OSError:
+                pass
+            if time.monotonic() - t0 > timeout_s:
+                fail(f"[7a] no {what} within {timeout_s:.0f} s; the arbiter's log:\n{self.tail('arbiter')}\n"
+                     f"the fleet's:\n{self.tail('fleet')}")
+            time.sleep(0.5)
+
+    def stop_all(self, timeouts: dict) -> dict:
+        """SIGTERM each named process at once, then each one's exit code
+        within its timeout ("killed" past it)."""
+        import signal
+        for name in timeouts:
+            if self.procs[name].poll() is None:
+                self.procs[name].send_signal(signal.SIGTERM)
+        t0, rcs = time.monotonic(), {}
+        for name, timeout_s in timeouts.items():
+            proc = self.procs[name]
+            try:
+                rcs[name] = proc.wait(timeout=max(timeout_s - (time.monotonic() - t0), 1.0))
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=60)
+                rcs[name] = "killed"
+        return rcs
+
+    def kill_all(self) -> None:
+        import signal
+        self._stop.set()
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                proc.wait(timeout=60)
+
+
+class Beside:
+    """Phase 7a's processes and phase 7t's torchrun, started together beside
+    phase 6f's crash drill (run_fleet's start_beside), each read by its own
+    phase; kill() stops whatever still runs when the script ends early."""
+
+    def __init__(self, torch, export: dict):
+        self.arbiter = ArbiterDrill(torch, export)
+        self.torchrun = None
+
+    def start(self) -> None:
+        self.arbiter.start()
+        self.torchrun = start_torchrun()
+
+    def kill(self) -> None:
+        import signal
+        self.arbiter.kill_all()
+        run = self.torchrun
+        if run is not None and run["proc"].poll() is None:
+            try:
+                os.killpg(run["proc"].pid, signal.SIGKILL)
+            except OSError:
+                pass
+            run["proc"].wait(timeout=60)
+
+
+def free_ports_below_ephemeral(n: int) -> list:
+    """n distinct bindable ports below Linux's ephemeral range (32768), so
+    no process's port-0 bind (a TCPStore, the ranks' store) takes one of
+    them before its process binds it."""
+    import random
+    import socket
+    rng, out = random.Random(), []
+    while len(out) < n:
+        p = rng.randrange(20000, 32000)
+        if p in out or p + 1 in out or p - 1 in out:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", p))
+            except OSError:
+                continue
+        out.append(p)
+    return out
+
+
+def phase_arbiter(torch, card, beside: Beside) -> dict:
+    """Phase 7a (see ARB_CELL's note), its processes started beside 6f's
+    crash drill: once 7t's torchrun, started with them, has exited (its
+    memory out of the card's), the borrow and the return, every
+    process's exit, the borrowed replica bit for bit 6q's int8 engine, the
+    2 -> 1 resume from the peer store with 0 checkpoint-directory reads, the
+    re-expansion to 2 with finite losses, the card's peak memory, each
+    process's launches, the arbiter's events through tools/metrics_report.py.
+    Returns the ranks' and the replicas' launches summed."""
+    from vitax_torch.ops import _build
+    t_phase = time.perf_counter()
+    say(f"[7a host] {free_host_memory(torch)}")
+    dr, export = beside.arbiter, beside.arbiter.export
+    cfg, bodies, refs, first = export["cfg"], export["bodies"], export["refs"], export["first"]
+    k = cfg.serve_topk
+    try:
+        t_head = time.monotonic() - dr.t_spawn
+        t_torchrun = dr.wait(lambda: beside.torchrun["proc"].poll() is not None, 600, "exit of 7t's torchrun")
+        dr.sample()
+        t_ready = dr.wait(lambda: dr.get(dr.fleet + "/healthz")["replicas"] == {"replica_0": "ready"}, 300,
+                          "ready seed replica")
+        fleet_ev = jsonl_events(os.path.join(dr.m, "fleet", "serve.jsonl"))
+        ready_at = (next(e["time"] for e in fleet_ev if e["kind"] == "replica_admit")
+                    - next(e["time"] for e in fleet_ev if e["kind"] == "replica_spawn"))
+        t_train = dr.wait(lambda: (dr.metrics()["train_telemetry"] or {}).get("process_count") == 2, 300,
+                          "heartbeat of the two training ranks")
+        say(f"[7a start] arbiter (hosts h0, h1; training on 2 ranks over gloo at b16's width, depth "
+            f"{ARB_CELL['num_blocks']}, ZeRO-3, --replicate_steps 100), the fleet (one int8 replica of the full "
+            f"10B, --max_replicas 1, --slo_p99_ms {ARB_SLO_MS:g}) and one placement agent started at once, "
+            f"{t_head:.1f} s before this phase (beside 6f's crash drill); 7t's torchrun exited "
+            f"{t_torchrun:.1f} s into it; the replica ready {ready_at:.1f} s after its spawn "
+            f"({t_torchrun + t_ready:.1f} s into this phase), the ranks' first heartbeat {t_train:.1f} s later "
+            f"[{card}]")
+        seed = dr.get(dr.fleet + "/metrics")["replicas"]["replica_0"]["url"]
+        installed = json.loads(http_raw(seed + "/chaos", ARB_SLOW.encode(), "application/json"))
+        stop, codes, lock = threading.Event(), {}, threading.Lock()
+
+        def burst(w: int) -> None:
+            i = w
+            while not stop.is_set():
+                try:
+                    http_raw(dr.fleet + "/predict", bodies[first + i % ARB_BODIES])
+                    code = 200
+                except urllib.error.HTTPError as e:
+                    code = e.code
+                    time.sleep(0.05)
+                except OSError as e:
+                    code = f"{type(e).__name__}"
+                    time.sleep(0.05)
+                with lock:
+                    codes[code] = codes.get(code, 0) + 1
+                i += 8
+        threads = [threading.Thread(target=burst, args=(w,), daemon=True) for w in range(8)]
+        t_burst = time.time()
+        for t in threads:
+            t.start()
+        try:
+            t_borrow = dr.wait(lambda: dr.metrics()["borrows_total"] >= 1, 300, "borrow")
+
+            def routed() -> bool:
+                rep = dr.get(dr.fleet + "/metrics")["replicas"].get("borrowed_0", {})
+                return rep.get("state") == "ready" and rep.get("requests_total", 0) > 0
+            t_adopt = dr.wait(routed, 300, "answer routed to the borrowed replica")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        http_raw(seed + "/chaos", b"", "application/json")          # disarmed: the pressure clears
+        fm = dr.get(dr.fleet + "/metrics")
+        borrowed = fm["replicas"]["borrowed_0"]
+        if set(codes) - {200, 429} or 429 not in codes or fm["autoscale"]["escalations_total"] < 1:
+            fail(f"[7a] the burst's answers {codes}, escalations {fm['autoscale']}")
+        answers = []
+        for i in range(first, first + ARB_BODIES):
+            ans = json.loads(http_raw(borrowed["url"] + "/predict", bodies[i]))
+            exact, gap, ok = judge_answer(ans, refs, i, k)
+            check_answer(ans, k, cfg.num_classes)
+            if not exact or not ok:
+                fail(f"[7a] the borrowed replica's answer {i} is not 6q's int8 engine's in any bucket bit for bit "
+                     f"(buckets {exact}, gap {gap:.3g})")
+            answers.append(exact)
+        bor_launches = dr.get(borrowed["url"] + "/metrics")["kernel_launches"]
+        say(f"[7a borrow] {installed['installed']} on the seed replica, a burst from 8 threads: answers {codes}; "
+            f"the arbiter borrowed h1 {t_borrow:.1f} s into the burst, the router sent the adopted replica its "
+            f"first request {t_borrow + t_adopt:.1f} s into it; {ARB_BODIES} requests to the borrowed replica, "
+            f"each bit for bit 6q's int8 engine in its bucket ({sorted({b for e in answers for b in e})}) [{card}]")
+        t_return = dr.wait(lambda: dr.metrics()["returns_total"] >= 1, 300, "return")
+        t_grow = dr.wait(lambda: (dr.metrics()["train_telemetry"] or {}).get("process_count") == 2
+                         and dr.metrics()["train_alive"] == 2, 300, "re-expansion to 2 ranks")
+        step0 = dr.metrics()["train_telemetry"]["step"]
+        dr.wait(lambda: dr.metrics()["train_telemetry"]["step"] >= step0 + 2, 300, "steps of the re-expanded pair")
+        final = dr.metrics()
+        seed_launches = dr.get(dr.fleet + "/metrics")["replicas"]["replica_0"]["server"]["kernel_launches"]
+        slots = dr.get(f"http://127.0.0.1:{dr.ports[3]}/healthz")["slots"]
+        rcs = dr.stop_all({"arbiter": 300, "fleet": 180, "agent": 120})
+    except BaseException:
+        dr.kill_all()
+        raise
+    dr._stop.set()
+    say(f"[7a return] the return {t_return:.1f} s after the burst ended, training at 2 ranks {t_grow:.1f} s after "
+        f"that; the ledger {final['ledger']['hosts']}, borrowed {final['borrowed']}, agent slots {slots}; exits "
+        f"{rcs} [{card}]")
+    arb_log = dr.tail("arbiter", 20000)
+    if rcs != {"arbiter": 0, "fleet": 0, "agent": 0} or "training drained, exit codes [0, 0]" not in arb_log:
+        fail(f"[7a] exits {rcs}; the arbiter's log:\n{arb_log[-3000:]}")
+    if final["ledger"]["hosts"]["h1"]["owner"] != "train" or final["borrowed"] or slots["used"] != 0:
+        fail(f"[7a] after the return: ledger {final['ledger']}, borrowed {final['borrowed']}, agent {slots}")
+
+    # the ranks: every generation's processes exited 0 (2, then 1, then 2 ranks)
+    ranks = []
+    for name in sorted(os.listdir(dr.launch_dir)):
+        with open(os.path.join(dr.launch_dir, name)) as f:
+            ranks.append(json.load(f))
+    if sorted(r["world"] for r in ranks) != [1, 2, 2, 2, 2] or any(r["rc"] != 0 for r in ranks):
+        fail(f"[7a] the training processes' (world, exit): {[(r['world'], r['rc']) for r in ranks]}")
+    events = jsonl_events(os.path.join(dr.m, "metrics.jsonl"))
+    arb = [e for e in events if e.get("kind") == "arbiter"]
+    names = [e["event"] for e in arb]
+    restores = [e for e in events if e.get("kind") == "restore"]
+    elastic = [(e["from_processes"], e["to_processes"]) for e in events if e.get("event") == "elastic_resume"]
+    steps = [e for e in events if "kind" not in e]
+    if names.count("borrow") != 1 or names.count("return") != 1 or {"borrow_failed", "return_failed"} & set(names):
+        fail(f"[7a] arbiter events {names}")
+    if elastic != [(2, 1), (1, 2)] or restores[0]["path"] != "peer" or restores[0]["dcp_reads"] != 0:
+        fail(f"[7a] elastic resumes {elastic}, restores {restores}")
+    t_ret_start = next(e["time"] for e in arb if e["event"] == "return_start")
+    regrown = next(e["time"] for e in events if e.get("event") == "elastic_resume" and e["to_processes"] == 2)
+    after = [e for e in steps if e["time"] > regrown]
+    if not after or not all(np.isfinite(e["loss"]) for e in steps):
+        fail(f"[7a] steps after the re-expansion {len(after)}, losses {[e['loss'] for e in steps]}")
+    bor_ev = jsonl_events(os.path.join(dr.m, "borrowed", "serve.jsonl"))
+    first_answer = min(e["time"] for e in bor_ev if e["kind"] == "serve_request")
+    fleet_esc = [e["time"] for e in jsonl_events(os.path.join(dr.m, "fleet", "serve.jsonl"))
+                 if e["kind"] == "autoscale" and e.get("outcome") == "escalated"]
+    if not fleet_esc:
+        fail("[7a] the fleet's serve.jsonl holds no escalation")
+    borrow_ev = next(e for e in arb if e["event"] == "borrow")
+    drains = [e for e in bor_ev if e["kind"] == "serve_drain"]
+    fleet_ev = jsonl_events(os.path.join(dr.m, "fleet", "serve.jsonl"))
+    seed_exit = [e for e in fleet_ev if e["kind"] == "replica_exit" and e.get("drained")]
+    if not drains or not all(d["clean"] for d in drains) or [e["exit_code"] for e in seed_exit] != [0]:
+        fail(f"[7a] the borrowed replica's drain {drains}, the seed replica's {seed_exit}")
+    report = metrics_report(os.path.join(dr.m, "metrics.jsonl"))
+    # each process's launches: the ranks' A1, A2, B; the replicas' A1 and C
+    launches = {key: sum(r["launches"][key] for r in ranks) + seed_launches[key] + bor_launches[key]
+                for key in _build.LAUNCHES}
+    rank_sum = {key: sum(r["launches"][key] for r in ranks) for key in ("flash_attn_fwd", "flash_attn_bwd",
+                                                                       "fused_adamw")}
+    per_rank = [{key: r["launches"][key] for key in ("flash_attn_fwd", "flash_attn_bwd", "fused_adamw")}
+                for r in ranks]
+    rep = {name: {key: ls[key] for key in ("flash_attn_fwd", "dequant_matmul")}
+           for name, ls in (("replica_0", seed_launches), ("borrowed_0", bor_launches))}
+    if (min(min(r.values()) for r in per_rank) == 0 or min(min(r.values()) for r in rep.values()) == 0
+            or launches["flash_attn_fwd_general"] or launches["flash_attn_bwd_general"]
+            or launches["dequant_matmul_general"] or launches["flash_attn_fwd"] != launches["flash_attn_fwd_wgmma"]):
+        fail(f"[7a] a process launched no kernel of its path, or a general kernel: ranks {per_rank}, replicas "
+             f"{rep}, totals {launches}")
+    say(f"[7a times] seconds from the autoscaler's first escalation to the adopted replica's first answer "
+        f"{first_answer - min(fleet_esc):.1f} (the burst's start {first_answer - t_burst:.1f}; the borrow's reason "
+        f"{borrow_ev['reason']}, its own {borrow_ev['duration_s']:.1f} s: the drain, the ledger, the provision "
+        f"and the adopt), "
+        f"from the return's start to the re-expanded pair's first step "
+        f"{min(e['time'] for e in after) - t_ret_start:.1f};"
+        f" the 2 -> 1 resume from {restores[0]['path']} in {restores[0]['seconds']:.2f} s, {restores[0]['dcp_reads']} "
+        f"checkpoint-directory reads, 1 -> 2 from {restores[-1]['path']}; losses after the re-expansion "
+        + " ".join(f"{e['loss']:.4f}" for e in after[:4]) + f"; card memory in use at most {dr.peak_used:.1f} GB "
+        f"[{card}]")
+    say(f"[7a launches] the ranks (world, A1, A2, B): "
+        + ", ".join(f"({r['world']}, {p['flash_attn_fwd']}, {p['flash_attn_bwd']}, {p['fused_adamw']})"
+                    for r, p in zip(ranks, per_rank))
+        + f"; the replicas (A1, C): {rep}; totals {rank_sum}")
+    say(f"[7a events] tools/metrics_report.py on the shared stream: arbiter {report.get('arbiter_events')}, "
+        f"topology {report.get('train_topology_timeline')}; the arbiter's events, s from the burst's start: "
+        + ", ".join(f"{e['event']} {e['time'] - t_burst:.1f}" for e in arb))
+    say(f"[7a] took {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def train_run_launches(cfg) -> dict:
     """Every launch count of a rate-0 train() run of cfg at N <= 2048: per
     optimizer step a forward and a recompute per block, a backward per
@@ -2536,10 +2958,117 @@ def step_launches(cfg) -> dict:
             "flash_attn_bwd_general": 0, **dict.fromkeys(_build.DEQUANT_KERNELS, 0)}
 
 
+# Phase 7's run takes 1 + PROFILE_STEPS more steps after its timed steps 3-12:
+# the profiler's warm-up step, then the loop's profiler window (--profile_dir,
+# --profile_start_step 13), whose trace replaces the profiled steady step
+# earlier versions ran after train().
+# Then REMAT_STEPS steps of phase 7's cell with one checkpoint a group of
+# REMAT_WINDOW blocks beside per-block remat, from the same seed and batch.
+PROFILE_STEPS = 2
+REMAT_WINDOW, REMAT_STEPS = 2, 3
+WINDOW_KERNELS = (("A1", r"flash_attn_fwd_wgmma_kernel<\d+, false>"), ("A1 other", r"flash_attn_fwd_\w+_kernel"),
+                  ("A2 dK/dV", r"bwd_dkdv_wgmma_kernel<\d+, false>"), ("A2 dQ", r"bwd_dq_wgmma_kernel<\d+, false>"),
+                  ("A2 other", r"bwd_(dkdv|dq)_\w+_kernel"), ("B", r"fused_adamw_kernel"))
+
+
+def profile_window(cfg, prof_dir: str, card: str) -> None:
+    """The trace phase 7's profiler window wrote (telemetry/profiler.py):
+    exactly its steps; per step 2 forwards a block (none_saveable: the
+    forward and the recompute), a backward a block (its dK/dV and dQ
+    kernels), one B, all wgmma, nothing else of the port's; then the
+    window's span, device busy and idle, time by kernel group and the top
+    kernels, as profile_device prints a call's."""
+    import re
+    from vitax_torch.telemetry.profiler import read_trace, window_busy
+    steps, kernels = read_trace(os.path.join(prof_dir, "rank0.pt.trace.json"))
+    first, n, s = cfg.profile_start_step + 1, cfg.num_blocks, cfg.profile_num_steps
+    counts = {}
+    for name, pat in WINDOW_KERNELS:        # first match wins, as KERNEL_GROUPS
+        counts[name] = 0
+    for k in kernels:
+        hit = next((name for name, pat in WINDOW_KERNELS if re.search(pat, k["name"])), None)
+        if hit is not None:
+            counts[hit] += 1
+    want = {"A1": 2 * n * s, "A1 other": 0, "A2 dK/dV": n * s, "A2 dQ": n * s, "A2 other": 0, "B": s}
+    if steps != list(range(first, first + s)) or counts != want:
+        t0 = min(k["ts"] for k in kernels) if kernels else 0.0
+        a1 = [round((k["ts"] - t0) / 1e3, 2) for k in kernels if re.search(WINDOW_KERNELS[0][1], k["name"])]
+        fail(f"[7 profile] the window holds steps {steps} and kernels {counts}; expected steps "
+             f"{list(range(first, first + s))} and {want}; {len(kernels)} kernels, A1's at ms {a1}; the first "
+             f"kernels {[k['name'][:40] for k in sorted(kernels, key=lambda k: k['ts'])[:6]]}")
+    busy, span = window_busy(kernels)
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    by_name = {}
+    for k in kernels:
+        ms = k["dur"] / 1e3
+        groups[next((g for g, pat in KERNEL_GROUPS if re.search(pat, k["name"])), "other")] += ms
+        tot, cnt = by_name.get(k["name"], (0.0, 0))
+        by_name[k["name"]] = (tot + ms, cnt + 1)
+    say(f"[7 profile] the loop's profiler window, steps {first}-{first + s - 1} (--profile_dir, start "
+        f"{cfg.profile_start_step}, {s} steps; one trace, rank0.pt.trace.json): span {span:.2f} ms, device busy "
+        f"{busy:.2f} ms (idle {max(0.0, 1 - busy / span) * 100:.1f}%), {busy / s:.2f} ms a step; "
+        + ", ".join(f"{g} {v:.2f} ms ({v / busy * 100:.1f}%)" for g, v in groups.items() if v > 0) + f" [{card}]")
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        say(f"[7 profile]   {ms:8.3f} ms  x{cnt:<4d} {name[:110]}")
+    say(f"[7 train] launches in the window per step: A1 {counts['A1'] // s}, A2 {counts['A2 dK/dV'] // s} (dK/dV "
+        f"and dQ kernels each), B {counts['B'] // s}; no other kernel of the port's")
+
+
+def remat_window_check(torch, card: str) -> None:
+    """--remat_window REMAT_WINDOW against per-block remat at phase 7's cell:
+    REMAT_STEPS steps of each from seed 0's init on one batch (numpy seed),
+    cudnn deterministic: the losses within MODEL_LOSS_REL_TOL of each other,
+    the same attention launches, the peak memory of each."""
+    from vitax_torch.config import Config
+    from vitax_torch.models.vit import build_model
+    from vitax_torch.ops import _build
+    from vitax_torch.ops.attention import make_attention_impl
+    from vitax_torch.train.state import build_optimizer, make_train_state
+    from vitax_torch.train.step import make_train_step
+    rng = np.random.default_rng(SEED + 30)
+    base = dict(TRAIN, max_steps=REMAT_STEPS)
+    images = rng.standard_normal((base["batch_size"], 224, 224, 3)).astype(np.float32)
+    labels = rng.integers(0, 1000, size=(base["batch_size"],))
+    batch = {"image": torch.from_numpy(images).cuda(), "label": torch.from_numpy(labels).cuda()}
+    out = {}
+    with deterministic_cudnn(torch):
+        for w in (0, REMAT_WINDOW):
+            cfg = Config(seed=SEED, **base, remat_window=w).validate()
+            model = build_model(cfg, "cuda", attention_impl=make_attention_impl(cfg, "cuda")).train()
+            optimizer, _ = build_optimizer(cfg, 100)
+            state = make_train_state(model, optimizer)
+            step = make_train_step(cfg, optimizer, "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            losses = []
+            for _ in range(REMAT_STEPS):
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+            out[w] = (losses, {k: _build.LAUNCHES[k] for k in ("flash_attn_fwd", "flash_attn_bwd", "fused_adamw")},
+                      torch.cuda.max_memory_allocated() / 1e9, (time.perf_counter() - t0) / REMAT_STEPS)
+            del model, optimizer, state, step, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+    (l0, n0, m0, s0), (l2, n2, m2, s2) = out[0], out[REMAT_WINDOW]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(l2, l0))
+    say(f"[7 remat_window] phase 7's cell, {REMAT_STEPS} steps from one init and batch: --remat_window "
+        f"{REMAT_WINDOW} losses " + " ".join(f"{x:.6f}" for x in l2) + ", per-block remat "
+        + " ".join(f"{x:.6f}" for x in l0) + f" (largest relative difference {rel:.3g}, bar {MODEL_LOSS_REL_TOL}; "
+        f"bitwise {l2 == l0}); launches {n2} and {n0}; max_memory_allocated {m2:.2f} and {m0:.2f} GB; "
+        f"{s2:.4f} and {s0:.4f} s a step, the first included [{card}]")
+    if rel > MODEL_LOSS_REL_TOL or n2 != n0 or not all(np.isfinite(l2)):
+        fail(f"[7 remat_window] losses {l2} against {l0}, launches {n2} against {n0}")
+
+
 def phase_train(torch, card):
     """The train main path: train() in process at the 10B width, depth 8,
-    batch 32, fake data; then one profiled steady step and the fused
-    optimizer checked and timed on the trained state. Returns (launches,
+    batch 32, fake data, its last PROFILE_STEPS steps in the loop's
+    profiler window (the trace's kernels checked and broken down); the
+    fused optimizer checked and timed on the trained state; then the
+    --remat_window check. Returns (launches,
     (max |d| of B on the state's table, timing of B), the first loss,
     (sec/iter, MFU))."""
     from vitax_torch.config import Config
@@ -2548,7 +3077,10 @@ def phase_train(torch, card):
     from vitax_torch.telemetry.flops import model_flops_per_step, peak_tflops
     from vitax_torch.train.loop import train
 
-    cfg = Config(seed=SEED, **TRAIN).validate()
+    timed = TRAIN["max_steps"]
+    prof_dir = tempfile.mkdtemp(prefix="vitax_torch_7prof_")
+    cfg = Config(seed=SEED, **dict(TRAIN, max_steps=timed + 1 + PROFILE_STEPS), profile_dir=prof_dir,
+                 profile_start_step=timed + 1, profile_num_steps=PROFILE_STEPS).validate()
     records = []
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -2572,13 +3104,14 @@ def phase_train(torch, card):
     want = train_run_launches(cfg)
     if launches != want:
         fail(f"train() launched {launches}; expected {want}")
-    times = [r["step_seconds"] for r in steps[2:]]          # steps 3 to 12
+    times = [r["step_seconds"] for r in steps[2:timed]]     # steps 3 to 12, before the profiler window
     sec_per_iter = float(np.median(times))
     peak = peak_tflops(torch.cuda.get_device_name(0))
     mfu = (model_flops_per_step(cfg) / sec_per_iter / (peak * 1e12)) if peak else None
     say(f"[7 train] 10B width, depth {cfg.num_blocks} ({n_params:,} params, {16 * n_params / 1e9:.1f} GB "
         f"of f32 params, grads and AdamW moments), batch {cfg.batch_size}, bf16 compute, grad_ckpt "
-        f"{cfg.grad_ckpt}: {cfg.max_steps} steps + eval in {wall:.1f}s")
+        f"{cfg.grad_ckpt}: {cfg.max_steps} steps (step {timed + 1} the profiler's warm-up, the last "
+        f"{PROFILE_STEPS} its window) + eval in {wall:.1f}s")
     say(f"[7 train] losses " + " ".join(f"{x:.4f}" for x in losses) + f"; grad_norm first "
         f"{steps[0]['grad_norm']:.4f} last {steps[-1]['grad_norm']:.4f}; eval top1 {evals[0]['top1']:.4f}")
     say(f"[7 train] sec/iter median of steps 3-12 {sec_per_iter:.4f} s (min {min(times):.4f}, max "
@@ -2587,25 +3120,13 @@ def phase_train(torch, card):
         + f" ({model_flops_per_step(cfg) / 1e12:.2f} TFLOP a step); max_memory_allocated {peak_gb:.2f} GB; "
         f"launches {launches} [{card}]")
 
-    from vitax_torch.train.state import build_optimizer
-    from vitax_torch.train.step import make_train_step
-    optimizer, _ = build_optimizer(cfg, 100)
-    train_step = make_train_step(cfg, optimizer, "cuda")
-    batch = {"image": torch.zeros((cfg.batch_size, cfg.image_size, cfg.image_size, 3), device="cuda"),
-             "label": torch.zeros(cfg.batch_size, dtype=torch.int64, device="cuda")}
-    _build.reset_launches()
-    profile_device(torch, lambda: train_step(state, batch), f"one train step (batch {cfg.batch_size}, "
-                   f"depth {cfg.num_blocks})", card, "7", top=14)
-    per_step = {k: v // 2 for k, v in _build.LAUNCHES.items()}       # a warm step, then the profiled one
-    want_step = step_launches(cfg)
-    if per_step != want_step or any(v % 2 for v in _build.LAUNCHES.values()):
-        fail(f"two steady train steps launched {dict(_build.LAUNCHES)}; expected {want_step} a step")
-    say(f"[7 train] launches per steady step {per_step}")
-    del train_step, batch
+    profile_window(cfg, prof_dir, card)
+    shutil.rmtree(prof_dir, ignore_errors=True)
     timing = time_fused_adamw(torch, state, card)
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    remat_window_check(torch, card)
     ref = {"sec": sec_per_iter, "mfu": mfu, "peak_gb": peak_gb, "losses": losses,
            "norms": [r["grad_norm"] for r in steps]}
     return launches, timing, losses[0], (sec_per_iter, mfu), ref
@@ -2631,11 +3152,12 @@ def metrics_report(path: str) -> dict:
     return json.loads(r.stdout)
 
 
-def phase_train_telemetry(torch, card, b_ms: float) -> dict:
+def phase_train_telemetry(torch, card, b_ms: float, torchrun: dict) -> dict:
     """Phase 7t (see the module docstring): phase 7's run with telemetry off
-    and on, then the CLI under torchrun. `b_ms` is phase 7's CUDA-event time
-    of the fused optimizer. Returns the launches of the two train() runs,
-    each read around its run."""
+    and on, then the check of the CLI under torchrun, which ran beside
+    phase 6f (`torchrun`, start_torchrun). `b_ms` is phase 7's CUDA-event
+    time of the fused optimizer. Returns the launches of the two train()
+    runs, each read around its run."""
     from vitax_torch.config import Config
     from vitax_torch.ops import _build
     from vitax_torch.telemetry import REQUIRED_STEP_KEYS
@@ -2697,34 +3219,55 @@ def phase_train_telemetry(torch, card, b_ms: float) -> dict:
             f"thread_crashes {summary['thread_crashes']}, sec_per_iter_p50 {summary['sec_per_iter_p50']}")
         say(f"[7t telemetry] opt_update_s median of steps 3-12 {opt_s * 1e3:.3f} ms (global norm + fused_adamw, "
             f"CUDA events around the log step's update) beside phase 7's fused_adamw alone {b_ms:.3f} ms [{card}]")
-        phase_torchrun(torch, root, card)
+    finish_torchrun(torchrun, card)
     return total
 
 
-def phase_torchrun(torch, root: str, card: str) -> None:
-    """The CLI under torchrun at the 10B width, depth 2, 3 steps and an eval,
-    with --metrics_dir: through the named barriers, the one-rank NCCL group
-    and orderly_shutdown to exit 0, its JSONL written."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    metrics_dir = os.path.join(root, "metrics_torchrun")
+def start_torchrun() -> dict:
+    """Start the CLI under torchrun at the 10B width, depth 2, 3 steps and
+    an eval, with --metrics_dir (phase 7t's check, finish_torchrun), in a
+    directory of its own; a thread notes its wall time when it exits."""
+    root = tempfile.mkdtemp(prefix="vitax_torch_7t_torchrun_")
+    metrics_dir = os.path.join(root, "metrics")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
            "-m", "vitax_torch.train", "--fake_data", "--num_blocks", "2", "--batch_size", "32", "--max_steps", "3",
            "--warmup_steps", "4", "--log_step_interval", "1", "--eval_max_batches", "1", "--test_epoch_interval",
-           "1", "--metrics_dir", metrics_dir, "--ckpt_dir", os.path.join(root, "ckpt_torchrun")]
+           "1", "--metrics_dir", metrics_dir, "--ckpt_dir", os.path.join(root, "ckpt")]
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if r.returncode != 0 or "training begins" not in r.stdout:
-        fail(f"[7t] torchrun exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    steps, events = read_jsonl(os.path.join(metrics_dir, "metrics.jsonl"))
-    if [s["step"] for s in steps] != [1, 2, 3] or [e["n_devices"] for e in events.get("run_start", [])] != [1]:
-        fail(f"[7t] torchrun's JSONL holds steps {[s['step'] for s in steps]} and run_start {events.get('run_start')}")
-    say(f"[7t torchrun] torchrun --nproc_per_node 1 -m vitax_torch.train (depth 2, batch 32, 3 steps + eval, "
-        f"--metrics_dir): exit 0 in {wall:.1f} s through the barriers and orderly_shutdown; JSONL steps 1-3, "
-        f"losses " + " ".join(f"{s['loss']:.4f}" for s in steps) + f", mem: {steps[-1].get('mem_peak_bytes', 0) / 1e9:.2f} "
-        f"GB peak [{card}]")
+    run = {"root": root, "metrics": metrics_dir, "log": os.path.join(root, "torchrun.log"), "t0": time.perf_counter()}
+    with open(run["log"], "w") as log:
+        run["proc"] = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                       start_new_session=True)
+
+    def note_exit() -> None:
+        run["proc"].wait()
+        run["wall"] = time.perf_counter() - run["t0"]
+    threading.Thread(target=note_exit, daemon=True, name="7t-torchrun").start()
+    return run
+
+
+def finish_torchrun(run: dict, card: str) -> None:
+    """Phase 7t's torchrun (started beside phase 6f, start_torchrun):
+    through the named barriers, the one-rank NCCL group and
+    orderly_shutdown to exit 0, its JSONL written."""
+    try:
+        rc = run["proc"].wait(timeout=600)
+        with open(run["log"]) as f:
+            out = f.read()
+        if rc != 0 or "training begins" not in out:
+            fail(f"[7t] torchrun exited {rc}:\n{out[-6000:]}")
+        steps, events = read_jsonl(os.path.join(run["metrics"], "metrics.jsonl"))
+        if [s["step"] for s in steps] != [1, 2, 3] or [e["n_devices"] for e in events.get("run_start", [])] != [1]:
+            fail(f"[7t] torchrun's JSONL holds steps {[s['step'] for s in steps]} and run_start "
+                 f"{events.get('run_start')}")
+        while "wall" not in run:
+            time.sleep(0.05)
+        say(f"[7t torchrun] torchrun --nproc_per_node 1 -m vitax_torch.train (depth 2, batch 32, 3 steps + eval, "
+            f"--metrics_dir), started beside 6f's crash drill and 7a's start: exit 0 in {run['wall']:.1f} s through "
+            f"the barriers and orderly_shutdown; JSONL steps 1-3, losses " + " ".join(f"{s['loss']:.4f}" for s in steps)
+            + f", mem: {steps[-1].get('mem_peak_bytes', 0) / 1e9:.2f} GB peak [{card}]")
+    finally:
+        shutil.rmtree(run["root"], ignore_errors=True)
 
 
 def phase_train_dropout(torch, card, first_loss_rate0: float):
@@ -3512,9 +4055,11 @@ sys.exit(rc)
 # writes. In this script (f) runs 7c's knobs at bench.py's b16 width (bench.py:288-291, phase 7m's model):
 # at DRILL_CELL its pairs (ZeRO-3 over gloo, about 30 GiB of host memory a pair) took 7e to 410.7 s on the
 # H100 and the whole script to 1225.6 s, past its 1200 s. `python3 chip_smoke.py --lost-rank` runs (f)
-# alone at DRILL_CELL.
+# alone at DRILL_CELL. Since phase 7a, (f) runs b16 cut to depth 4, as 7a's training tenant: at depth 12
+# its pairs took 92-100 s of a gloo step of 4-10 s, bounding both waves (7e 237.3 s, the script 1105.6 s
+# on an H100 80GB HBM3 at 700 W).
 DRILL_CELL = dict(TRAIN_CKPT, num_blocks=1)
-LOST_RANK_CELL = dict(TRAIN_CKPT, image_size=224, patch_size=16, embed_dim=768, num_heads=12, num_blocks=12)
+LOST_RANK_CELL = dict(TRAIN_CKPT, image_size=224, patch_size=16, embed_dim=768, num_heads=12, num_blocks=4)
 HANG_TIMEOUT_S, HANG_S = 12.0, 15.0      # a hang 3 s past the watchdog's window (the drills' saves stay inside it)
 PEER_GRACE_S = 10.0                      # (f): --peer_heartbeat_s 1, the default grace of 10 beats
 DRILL_DEVICE = "cuda:0"                  # every drill's process on the one card
@@ -5362,7 +5907,8 @@ def phase_groups(torch, card, root: str) -> tuple:
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches, ring_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7t, 7i, 7s, 7c, 7e's drills, 7x, 7m, 7f and 7q's bf16 runs in `data_launches`,
+    paths of this run (phases 7a's ranks and replicas, 7t, 7i, 7s, 7c, 7e's drills, 7x, 7m, 7f and 7q's bf16
+    runs in `data_launches`,
     7r's ring runs, 7p's tp Blocks and its bf16 tp-2 CLI run in `ring_launches`), its check's
     max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
@@ -5479,14 +6025,27 @@ def main() -> int:
     mark("6")
     quant_launches, q8_states, q8_traffic = phase_quant_serve(torch, card, engine_f32)
     mark("6q")
-    phase_fleet(torch, card, engine_f32, q8_states, q8_traffic)
+    export = phase_fleet(torch, card, engine_f32, q8_states)
     del engine_f32
-    gc.collect()                           # free the 40 GB engine before the train path
+    gc.collect()                           # free the 40 GB engine before the fleet and the train path
     torch.cuda.empty_cache()
-    mark("6f")
+    beside = Beside(torch, export)
+    try:
+        run_fleet(torch, card, export, q8_traffic, beside.start)
+        mark("6f")
+        arb_launches = phase_arbiter(torch, card, beside)
+        mark("7a")
+    except BaseException:
+        beside.kill()
+        if beside.torchrun is not None:
+            shutil.rmtree(beside.torchrun["root"], ignore_errors=True)
+        raise
+    finally:
+        shutil.rmtree(export["work"], ignore_errors=True)
+    del export
     train_launches, (errs["fused_adamw_table"], timing["fused_adamw"]), loss0, fake, ref7 = phase_train(torch, card)
     mark("7")
-    tele_launches = phase_train_telemetry(torch, card, timing["fused_adamw"]["ms"])
+    tele_launches = phase_train_telemetry(torch, card, timing["fused_adamw"]["ms"], beside.torchrun)
     mark("7t")
     drop_launches = phase_train_dropout(torch, card, loss0)
     mark("7d")
@@ -5517,7 +6076,7 @@ def main() -> int:
         mark("7f")
     data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
                      + tele_launches[k] + transfer[k] + moe_launches[k] + pp_launches[k] + fault_launches[k]
-                     for k in tree_launches}
+                     + arb_launches[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches, ring_launches)
     say("[time] " + ", ".join(f"{name} {t1 - t0:.1f}s" for (_, t0), (name, t1) in zip(marks, marks[1:]))

@@ -115,6 +115,8 @@ def _containment(mod, fakes):
     # a dry budget: the first attempt goes out, its retry does not
     for f in fakes:
         f.mode = "fail"
+    for rep in m.replicas:              # the probes' latencies would pick the first replica
+        rep.ewma_latency_s = None
     r2 = mod.router.Router(m, recorder=rec, request_timeout_s=10.0, retry_budget_ratio=0.1)
     while r2.budget.withdraw():
         pass

@@ -179,8 +179,9 @@ def test_nine_flags_parse_as_vitax():
         assert {k: ours[k] for k in NINE} == {k: theirs[k] for k in NINE}
     cfg = Config(**config_fields_from_namespace(build_parser().parse_args(argv))).validate()
     assert cfg.zero_stall_ckpt and cfg.replicate_steps == 4 and cfg.hang_action == "checkpoint_exit"
-    with pytest.raises(SystemExit):     # the chip arbiter is item 14's: not a flag yet
-        build_parser().parse_args(["--arbiter_url", "http://x"])
+    # the chip arbiter's flag parses as vitax's
+    assert build_parser().parse_args(["--arbiter_url", "http://x"]).arbiter_url == \
+        jax_parser().parse_args(["--arbiter_url", "http://x"]).arbiter_url == "http://x"
 
 
 @pytest.mark.parametrize("bad", [dict(hang_timeout_s=-1.0), dict(hang_action="restart"), dict(fault_plan="nope"),

@@ -15,13 +15,15 @@ e4m3fn's 448, so its codes are the JAX package's. This module reads,
 writes and quantizes with numpy and torch only.
 
 consolidate() exports a checkpoint of this package (checkpoint/io.py) in
-the JAX layout (checkpoint/convert.py params_to_jax: scanned blocks), so
+the JAX layout (checkpoint/convert.py params_to_jax: scanned blocks, or
+params/blocks_<i>/... under --no_scan_blocks, vitax's unscanned tree), so
 either package's serving engine loads it:
 
     python -m vitax_torch.checkpoint.consolidate --ckpt_dir D --epoch N --out full.npz
     python -m vitax_torch.checkpoint.consolidate ... --full_state      # params, AdamW state, step
     python -m vitax_torch.checkpoint.consolidate ... --dtype bfloat16  # half-size export
     python -m vitax_torch.checkpoint.consolidate ... --dtype int8      # quantized export
+    python -m vitax_torch.checkpoint.consolidate ... --no_scan_blocks  # params/blocks_<i>/...
 """
 
 from __future__ import annotations
@@ -375,19 +377,20 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
 
 
 def consolidate(ckpt_dir: str, epoch: int, out: str, params_only: bool = True,
-                dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                dtype: Optional[str] = None, scanned: bool = True) -> Dict[str, torch.Tensor]:
     """Export the checkpoint of `epoch` (checkpoint/io.py) to one .npz in the
-    JAX layout: the params ("params/...", blocks scanned), or with
-    params_only=False the whole train state in a JAX TrainState's keys.
-    Returns the tree as written."""
+    JAX layout: the params ("params/...", blocks scanned, or
+    "params/blocks_<i>/..." with scanned=False), or with params_only=False
+    the whole train state in a JAX TrainState's keys. Returns the tree as
+    written."""
     from vitax_torch.checkpoint import io as ckpt_io
     from vitax_torch.checkpoint.convert import params_to_jax, train_state_to_jax
     path = ckpt_io.epoch_ckpt_path(ckpt_dir, epoch)
     if params_only:
-        tree = params_to_jax(ckpt_io.read_state(ckpt_dir, epoch, groups=("model",))["model"])
+        tree = params_to_jax(ckpt_io.read_state(ckpt_dir, epoch, groups=("model",))["model"], scanned)
     else:
         st = ckpt_io.read_state(ckpt_dir, epoch)
-        tree = train_state_to_jax(st["model"], st["mu"], st["nu"], st["step"], st["count"])
+        tree = train_state_to_jax(st["model"], st["mu"], st["nu"], st["step"], st["count"], scanned=scanned)
     flat = save_npz(out, tree, dtype=dtype)
     total = sum(v.numel() for v in flat.values())
     print(f"consolidated {len(flat)} arrays ({total:,} elements" + (f", cast to {dtype}" if dtype else "")
@@ -408,8 +411,10 @@ def main(argv=None) -> int:
                         "the file; int8/float8_e4m3 quantize every matmul weight per output channel "
                         "(symmetric absmax, float32 scales under the __quant__ manifest), LN and bias "
                         "leaves stay f32")
+    p.add_argument("--no_scan_blocks", action="store_false", dest="scan_blocks",
+                   help="write vitax's unscanned layout (params/blocks_<i>/...) instead of the stacked blocks")
     args = p.parse_args(argv)
-    consolidate(args.ckpt_dir, args.epoch, args.out, args.params_only, dtype=args.dtype)
+    consolidate(args.ckpt_dir, args.epoch, args.out, args.params_only, dtype=args.dtype, scanned=args.scan_blocks)
     return 0
 
 

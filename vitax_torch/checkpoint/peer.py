@@ -433,12 +433,22 @@ class PeerReplicator:
         return True
 
     def stop(self, drain: bool = True) -> None:
+        """Stop the receiver, then one last pull of the guard's shard. A
+        receiver that outlives its join still owns the store and
+        `_received`: the last pull is skipped (with a line on stderr)
+        rather than run beside it. vitax drains either way
+        (vitax/checkpoint/peer.py:371-379)."""
         self._stop.set()
+        joined = True
         if self._receiver is not None:
-            join_or_warn(self._receiver, timeout=self.poll_s + 60.0, what="peer receiver")
+            joined = join_or_warn(self._receiver, timeout=self.poll_s + 60.0, what="peer receiver")
             self._receiver = None
         if drain and self._inbox is not None:
-            self._drain_receive()
+            if joined:
+                self._drain_receive()
+            else:
+                print(f"vitax_torch.peer: the receiver from host {self.guard} is still running; skipping the final "
+                      f"receive (the local store keeps its last pulled version)", file=sys.stderr, flush=True)
 
     def _drain_receive(self) -> None:
         """One last pull of the guard's newest publication, so an exit right

@@ -1,13 +1,20 @@
-"""Configuration of the port's serve and train paths: the fields they
-read, with the names, defaults and CLI flags of vitax/config.py (Config,
-build_parser, validate), so one command line means the same run to both
+"""Configuration of the port's serve and train paths: every field of
+vitax/config.py's Config, with its names, defaults and CLI flags
+(build_parser, validate), so one command line means the same run to both
 packages. Settings whose path is a later slice of the port are rejected by
 validate() with a message that names the slice. The failure-reaction flags
 are vitax's (checkpoint: zero_stall_ckpt, replicate_steps, peer_dir;
 failures: hang_timeout_s, hang_action, fault_plan, control_sync_steps,
 peer_heartbeat_s, peer_grace_s), with its defaults and refusals;
-arbiter_url (the chip arbiter) is not a field yet, so the parser rejects
-it as an unknown argument. The mesh takes
+arbiter_url makes rank 0 post step heartbeats to the chip arbiter
+(python -m vitax_torch.arbiter). Of vitax's step-program fields:
+--no_scan_blocks writes the JAX layout unscanned (params/blocks_<i>/...)
+wherever the port writes it; --scan_unroll is accepted at 1 only (the
+eager step has no scan to unroll); --remat_window W wraps each group of W
+blocks in one activation checkpoint; --compile_cache_dir is where the
+kernels' libraries are built and reused (ops/_build.py); --profile_dir
+with --profile_start_step and --profile_num_steps is the loop's
+torch.profiler window. The mesh takes
 dp, fsdp, sp and ep (FSDP2 over the processes torchrun starts, one card
 each; tp shards the blocks' heads and MLP features; sp shards the token
 axis, --sp_impl ring or ulysses; pp splits the blocks into stages,
@@ -96,6 +103,11 @@ class Config:
     shard_on_cpu: bool = False          # draw each leaf's init on the host, keep the rank's shard
     remat_policy: str = "none_saveable" # what a recomputed block keeps (only if grad_ckpt): nothing; its
     #   matmul outputs (dots_saveable); those and the attention core's o and lse (dots_attn_saveable)
+    scan_blocks: bool = True            # the JAX layout the port writes: stacked params/blocks/... (True) or
+    #   params/blocks_<i>/... (--no_scan_blocks); the torch model keeps one module a block either way
+    scan_unroll: int = 1                # vitax's blocks a scan step; the eager step has no scan: 1 only
+    remat_window: int = 0               # >1: one activation checkpoint around each group of this many blocks
+    #   (instead of each block); needs grad_ckpt and num_blocks % remat_window == 0
     grad_accum_steps: int = 1           # K > 1: K strided microbatches of B/K per optimizer step
     fused_optimizer: str = "auto"       # auto | on | off, as in vitax; the card always runs the clip+AdamW kernel, and off raises there
     steps_per_epoch: int = 0            # 0 = dataset length // batch_size
@@ -111,6 +123,11 @@ class Config:
     debug_nans: bool = False            # autograd anomaly mode with NaN checks, and a loss and grad-norm
     #   fetch every step (one sync a step) that raises FloatingPointError at the first non-finite value
     log_memory: bool = True             # device memory in the step log line (--no_log_memory clears)
+    profile_dir: str = ""               # if set, a torch.profiler trace of a window of steps under it, a file a rank
+    profile_start_step: int = 2         # completed steps after which the profiler window opens
+    profile_num_steps: int = 5          # steps the window spans (the default: steps 3-7)
+    compile_cache_dir: str = ""         # where the kernels' libraries are built and reused across restarts
+    #   ("" = vitax_torch/_build); a warm directory builds nothing
 
     # --- failure reaction (faults.py, telemetry/watchdog.py, train/control.py; host work only) ---
     hang_timeout_s: float = 0.0         # >0: watchdog dumps every thread's stack and the card's memory stats after
@@ -126,6 +143,8 @@ class Config:
     #   peer_grace_s is declared lost and the survivors exit 42 within the deadline
     peer_grace_s: float = 0.0           # silence before a peer is declared lost, and the survivor's exit deadline
     #   after it; 0 = 10 x peer_heartbeat_s
+    arbiter_url: str = ""               # chip arbiter (python -m vitax_torch.arbiter): rank 0 posts step
+    #   heartbeats to <arbiter_url>/telemetry from a thread; the step is the same either way. "" = off
 
     # --- mesh: (dp, fsdp, tp, sp, pp, ep) over the processes, one card each; -1 = all remaining ---
     dp_size: int = 1
@@ -216,6 +235,7 @@ class Config:
         with its messages, and pp beside tp (no green reference: vitax's pp
         under tp cases are xfail), which waits for ROADMAP item 11."""
         checks = (
+            (self.scan_blocks, "--pp_size needs the stacked block tree (drop --no_scan_blocks)"),
             (self.gather_overlap != "on",
              "--gather_overlap on with --pp_size > 1 is rejected: the pipeline schedules own their gathers "
              "(just-in-time in-body gathers pinned per stage, vitax/parallel/pipeline.py) and a second prefetch "
@@ -257,8 +277,39 @@ class Config:
             if not ok:
                 raise ValueError(msg)
 
+    def check_remat_window(self) -> None:
+        """vitax's --scan_unroll and --remat_window refusals
+        (vitax/config.py:380-393), with its messages, then --scan_unroll
+        other than 1, which the eager step cannot honour."""
+        checks = (
+            (self.scan_unroll >= 1, f"--scan_unroll must be >= 1, got {self.scan_unroll}"),
+            (self.remat_window <= 1 or (self.scan_blocks and self.grad_ckpt),
+             "--remat_window needs the scanned stacked tree and remat on"),
+            (self.remat_window <= 1 or self.num_blocks % self.remat_window == 0,
+             f"--num_blocks {self.num_blocks} not divisible by --remat_window {self.remat_window}"),
+            (self.remat_window <= 1 or self.scan_unroll == 1,
+             "--remat_window subsumes --scan_unroll (the window IS the unrolled group); drop one of the two"),
+            (self.remat_window <= 1 or self.pp_size == 1,
+             "--remat_window composes with dropout and MoE (v2) but not pp: the pipeline path owns checkpoint "
+             "placement (vitax/parallel/pipeline.py)"),
+            (self.remat_window >= 0, f"--remat_window must be >= 0 (0 or 1 = per-block remat), got "
+                                     f"{self.remat_window}"),
+            (self.remat_window <= 1 or self.remat_policy != "dots_attn_saveable",
+             f"--remat_window {self.remat_window} with --remat_policy dots_attn_saveable: the port runs each "
+             f"attention core between two checkpointed regions of its own block, so there is no group of blocks "
+             f"to checkpoint as one; use none_saveable or dots_saveable, or drop --remat_window"),
+            (self.scan_unroll == 1,
+             f"--scan_unroll {self.scan_unroll}: the port's step runs its blocks eagerly, one module a block, so "
+             f"there is no scan to unroll (vitax's XLA fusion knob); use --remat_window to group blocks under "
+             f"one checkpoint"),
+        )
+        for ok, msg in checks:
+            if not ok:
+                raise ValueError(msg)
+
     def validate(self) -> "Config":
         """Reject settings the port cannot run; returns self."""
+        self.check_remat_window()
         if self.pp_size > 1:
             self.check_pp()
         if self.tp_size > 1:
@@ -313,6 +364,9 @@ class Config:
              f"unknown remat_policy {self.remat_policy!r} (expected one of {', '.join(REMAT_POLICIES)})"),
             (self.gather_overlap in ("auto", "off", "on"),
              f"unknown gather_overlap {self.gather_overlap!r} (expected 'auto', 'off' or 'on')"),
+            (self.gather_overlap != "on" or self.scan_blocks,
+             "--gather_overlap on needs the scanned stacked block tree (drop --no_scan_blocks): the double-buffered "
+             "prefetch slot rides the scan carry"),
             (self.gather_overlap != "on" or (self.reshard_after_forward and not self.run_without_fsdp),
              "--gather_overlap on needs ZeRO-3 (per-block gathers): under ZeRO-2 (--no_reshard_after_forward) "
              "the gathered params stay live through the backward and under --run_without_fsdp params are "
@@ -332,6 +386,11 @@ class Config:
             (self.grad_reduce_dtype != "bfloat16" or self.comm_cast_active,
              "--grad_reduce_dtype bfloat16 requires the bf16 comm-cast to be active (--dtype bfloat16 and "
              "param_gather_dtype bfloat16): the bf16 reduction rides the cast boundary"),
+            (self.profile_start_step >= 0,
+             f"--profile_start_step must be >= 0, got {self.profile_start_step}"),
+            (self.profile_num_steps >= 1,
+             f"--profile_num_steps must be >= 1, got {self.profile_num_steps}: an empty profiler window would "
+             f"open a trace it never closes in-loop"),
             (self.peak_tflops >= 0,
              f"--peak_tflops must be >= 0 (0 = detect from device kind), got {self.peak_tflops}"),
             (not self.tensorboard or bool(self.metrics_dir),
@@ -454,6 +513,7 @@ _BOOL_FLAGS = (("--fake_data", "store_true", "fake_data"),
                ("--no_log_memory", "store_false", "log_memory"),
                ("--reinit_head", "store_true", "reinit_head"),
                ("--zero_stall_ckpt", "store_true", "zero_stall_ckpt"),
+               ("--no_scan_blocks", "store_false", "scan_blocks"),
                ("--serve_allow_chaos", "store_true", "serve_allow_chaos"))
 _CHOICES = {"dtype": ["bfloat16", "float32"], "data_format": list(DATA_FORMATS), "sp_impl": ["ring", "ulysses"],
             "pp_schedule": ["gpipe", "1f1b"],

@@ -18,7 +18,12 @@ matmul output (selective checkpointing over aten mm/addmm/bmm/baddbmm), so
 the recompute redoes the rest, the attention core included, as in JAX,
 where that core is a custom call and no dot; dots_attn_saveable runs the
 core between two such regions, so its autograd Function keeps q, k, v, o
-and lse and the forward kernel never runs again in the backward. Without
+and lse and the forward kernel never runs again in the backward. With
+cfg.remat_window W > 1 (vitax's make_windowed_forward, :497-530) one
+checkpoint wraps each group of W blocks instead of each block
+(`remat_group`; config.py refuses it under dots_attn_saveable, whose
+regions are the block's own); a group's recompute calls each block as the
+forward did, so its dropout masks are drawn again bit for bit. Without
 grad (eval, serve) the forward is the plain loop. Module and parameter
 names mirror the Flax paths (vitax_torch/checkpoint/convert.py maps one
 onto the other).
@@ -84,7 +89,7 @@ then the unchanged Dense in the site's dtype.
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -360,21 +365,44 @@ def _dots_saved():
 
 def remat_block(block: Block, x: torch.Tensor, seed: Optional[int], policy: str,
                 gen_seed: Optional[int] = None) -> torch.Tensor:
-    """The block under non-reentrant checkpoint, keeping what `policy`
-    (one of REMAT_POLICIES) names: its input only, also its matmul
-    outputs, or those and the attention core's (q, k, v, o, lse), the core
-    then running outside the two recomputed regions. A recompute re-runs
-    an sp core's collectives in the forward's order."""
+    """One block of a recomputed group under `policy` (one of
+    REMAT_POLICIES): under dots_attn_saveable the block's two checkpointed
+    regions (keeping their matmul outputs) with its core between them,
+    outside both, so the core's q, k, v, o and lse are kept; under the
+    other two the block itself, inside its group's checkpoint
+    (remat_group). A recompute re-runs an sp core's collectives in the
+    forward's order."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r} (expected one of {', '.join(REMAT_POLICIES)})")
-    if policy == "none_saveable":
-        return checkpoint(block, x, seed, gen_seed, use_reentrant=False)
-    if policy == "dots_saveable":
-        return checkpoint(block, x, seed, gen_seed, use_reentrant=False, context_fn=_dots_saved)
+    if policy != "dots_attn_saveable":
+        return block(x, seed, gen_seed)
     q, k, v = checkpoint(block.attention_inputs, x, use_reentrant=False, context_fn=_dots_saved)
     out = block.attn.core(q, k, v, seed)
     return checkpoint(block.finish, x, out, seed if gen_seed is None else gen_seed, use_reentrant=False,
                       context_fn=_dots_saved)
+
+
+def remat_group(blocks, x: torch.Tensor, seeds: List[Optional[int]], gens: List[Optional[int]],
+                policy: Optional[str]):
+    """The blocks in turn: plainly (policy None), or each through
+    remat_block, under one non-reentrant checkpoint around the group for
+    none_saveable (keeping the group's input only) and dots_saveable (also
+    every matmul output); dots_attn_saveable checkpoints block by block.
+    Returns (x, *aux), aux an MoE block's (frac_tokens, mean_prob) a
+    block."""
+    def run(x):
+        aux = []
+        for block, seed, gen in zip(blocks, seeds, gens):
+            x = block(x, seed, gen) if policy is None else remat_block(block, x, seed, policy, gen)
+            if isinstance(x, tuple):            # an MoE block's (x, frac_tokens, mean_prob)
+                x, *more = x
+                aux += more
+        return (x, *aux)
+
+    if policy in (None, "dots_attn_saveable"):
+        return run(x)
+    return checkpoint(run, x, use_reentrant=False, **({"context_fn": _dots_saved} if policy == "dots_saveable"
+                                                      else {}))
 
 
 class StageBlocks(nn.ModuleDict):
@@ -411,6 +439,7 @@ class VisionTransformer(nn.Module):
         self.dtype = _DTYPES[cfg.dtype]
         self.grad_ckpt = cfg.grad_ckpt
         self.remat_policy = cfg.remat_policy
+        self.remat_window = cfg.remat_window
         self.quant = quant
         self.pos_dropout = cfg.pos_dropout
         self.num_blocks = cfg.num_blocks
@@ -441,14 +470,24 @@ class VisionTransformer(nn.Module):
         return x
 
     def run_blocks(self, x: torch.Tensor, seeds: Optional[DropoutSeeds] = None):
-        """The blocks this model holds, each under remat_block when
-        grad_ckpt is on and grad enabled; seeds.blocks is indexed by global
-        block. Returns (x, fracs, probs), the MoE blocks' load-balance
-        ingredients a block (empty when dense)."""
+        """The blocks this model holds, in groups of cfg.remat_window (one
+        block at 0 or 1) under remat_group when grad_ckpt is on and grad
+        enabled, else plainly; seeds.blocks is indexed by global block.
+        Returns (x, fracs, probs), the MoE blocks' load-balance ingredients
+        a block (empty when dense)."""
         if seeds is not None and len(seeds.blocks) != self.num_blocks:
             raise ValueError(f"{len(seeds.blocks)} dropout seeds for {self.num_blocks} blocks")
-        remat = self.grad_ckpt and torch.is_grad_enabled()
-        fracs, probs = [], []
+        blocks = list(self.blocks)
+        idx = range(self.first_block, self.first_block + len(blocks))
+        seed = [None if seeds is None else seeds.blocks[i] for i in idx]
+        gen = [None if seeds is None or seeds.gens is None else seeds.gens[i] for i in idx]
+        policy = self.remat_policy if self.grad_ckpt and torch.is_grad_enabled() else None
+        w = max(1, self.remat_window) if policy is not None else max(1, len(blocks))
+        aux = []
+        for g in range(0, len(blocks), w):
+            x, *more = remat_group(blocks[g:g + w], x, seed[g:g + w], gen[g:g + w], policy)
+            aux += more
+        return x, aux[0::2], aux[1::2]
         for i, block in enumerate(self.blocks, start=self.first_block):
             seed = gen = None
             if seeds is not None:

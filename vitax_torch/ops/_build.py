@@ -2,8 +2,10 @@
 
 Each source under ``vitax_torch/csrc/`` compiles, at first use, into a
 shared library with a plain C interface under ``vitax_torch/_build/``
-(listed in .gitignore), named by a hash of its source so an edited source
-never loads a stale library. A plain-C library builds in seconds, where a
+(listed in .gitignore), or under the directory `set_build_dir` names
+(--compile_cache_dir), named by a hash of its source so an edited source
+never loads a stale library and a library already there is loaded
+without nvcc. A plain-C library builds in seconds, where a
 source that includes PyTorch's headers takes minutes. Nothing here runs at
 import: the CPU tests import every module of the port on a host with no
 nvcc and no card.
@@ -39,7 +41,8 @@ from typing import Dict
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "_build")
+DEFAULT_BUILD_DIR = os.path.join(PKG_DIR, "_build")
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 # One entry per kernel source: name -> file under csrc/. The shared headers
 # (csrc/*.cuh) are compiled into each of them.
@@ -66,6 +69,19 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def set_build_dir(path: str) -> str:
+    """Build and reuse the libraries under `path` from now on ("" = the
+    default vitax_torch/_build): --compile_cache_dir, the persistent cache
+    that lets a restart skip the build. Libraries already bound stay bound.
+    Returns the directory."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = os.path.abspath(path) if path else DEFAULT_BUILD_DIR
+        for name in [n for n in _build_log if n not in _libs]:
+            del _build_log[name]        # built elsewhere, not bound: look again under the new directory
+    return BUILD_DIR
 
 
 def nvcc_path() -> str:

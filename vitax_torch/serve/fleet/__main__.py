@@ -16,9 +16,16 @@ and replica i its own under <metrics_dir>/replica_<i>/. A replica that
 exits before it was ever ready (no card without --device cpu, a bad
 export) ends the fleet with a message and exit 1: nothing falls back to
 the CPU. SIGTERM or SIGINT stops the router, then SIGTERM-drains every
-replica; the fleet exits 0 when each drained to exit 0. vitax's arbiter
-branch (--arbiter_url: escalation and the /fleet/adopt hooks) is not
-ported (ROADMAP item 14), so the parser rejects that flag.
+replica; the fleet exits 0 when each drained to exit 0.
+
+With --arbiter_url (the chip arbiter, python -m vitax_torch.arbiter) the
+autoscaler at --max_replicas, or with every placement agent full,
+escalates to POST <arbiter>/request, and the router takes the arbiter's
+hooks: POST /fleet/adopt {"url"} puts the replica the arbiter provisioned
+on a borrowed host into rotation as borrowed_<k>, POST /fleet/release
+{"url"} retires it, waits for its in-flight count to reach 0 (at most
+--serve_request_timeout_s) and discards it (the process is the agent's,
+which drains it).
 """
 
 from __future__ import annotations
@@ -198,12 +205,27 @@ def main(argv=None) -> int:
         spawn_replica()
     manager.start()
     admission = AdmissionController(ns.slo_p99_ms, recorder=recorder, warming_capacity_frac=ns.warming_capacity_frac)
+    # the arbiter's escalation: a fire-and-forget POST; its ticker decides and
+    # calls back on /fleet/adopt
+    request_capacity = None
+    if cfg.arbiter_url:
+        import json
+        import urllib.request
+
+        def request_capacity(reason: str):
+            req = urllib.request.Request(cfg.arbiter_url.rstrip("/") + "/request",
+                                         data=json.dumps({"reason": reason}).encode("utf-8"),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=2.0) as resp:
+                return json.load(resp)
+
     autoscaler = None
     if ns.max_replicas > 0:
         autoscaler = Autoscaler(manager, admission=admission, min_replicas=min_replicas,
                                 max_replicas=ns.max_replicas, scale_out=spawn_replica, release=release_replica,
                                 dwell_s=ns.autoscale_dwell_s, cooldown_s=ns.autoscale_cooldown_s,
-                                idle_occupancy=ns.autoscale_idle_frac, recorder=recorder)
+                                idle_occupancy=ns.autoscale_idle_frac, recorder=recorder,
+                                request_capacity=request_capacity)
         autoscaler.start()
     cache = (PredictionCache(cfg.serve_cache_max, ttl_s=cfg.serve_cache_ttl_s, recorder=recorder)
              if cfg.serve_cache_max > 0 else None)
@@ -212,12 +234,40 @@ def main(argv=None) -> int:
                     retry_budget_ratio=ns.retry_budget_ratio, hedge_after_ms=ns.hedge_after_ms, cache=cache,
                     autoscaler=autoscaler, batch_window_ms=cfg.serve_batch_window_ms,
                     batch_max=cfg.serve_batch_max or cfg.serve_max_batch)
+    if cfg.arbiter_url:
+        # the arbiter's side of a loan: adopt its replica, and on return
+        # retire -> in-flight 0 -> discard (the agent owns the process)
+        borrow_state = {"next": 0}
+
+        def fleet_adopt(url: str) -> dict:
+            with spawn_lock:
+                k = borrow_state["next"]
+                borrow_state["next"] += 1
+            replica = manager.adopt(url, name=f"borrowed_{k}")
+            return {"adopted": replica.name, "url": url}
+
+        def fleet_release(url: str) -> dict:
+            target = next((manager.find(name) for name, snap in manager.snapshot().items()
+                           if snap.get("url") == url), None)
+            if target is None:
+                return {"released": None, "url": url}
+            manager.retire(target)
+            pause, waited = threading.Event(), 0.0
+            while manager.in_flight_of(target) > 0 and waited < cfg.serve_request_timeout_s:
+                pause.wait(0.05)
+                waited += 0.05
+            manager.discard(target)
+            return {"released": target.name, "url": url, "in_flight_at_discard": manager.in_flight_of(target)}
+
+        router.fleet_adopt_fn = fleet_adopt
+        router.fleet_release_fn = fleet_release
     httpd = start_router(router, cfg.serve_port)
     scale_desc = f"autoscale [{min_replicas}, {ns.max_replicas}]" if autoscaler is not None else "static"
     print(f"fleet: router on :{httpd.server_address[1]}, {ns.replicas} replicas "
           f"({'placed' if agents else f'on :{base_port}..'}, device {ns.device}), {scale_desc}, "
           f"slo_p99_ms {ns.slo_p99_ms or 'off'}, cache {cfg.serve_cache_max or 'off'}, "
-          f"batch_window_ms {cfg.serve_batch_window_ms or 'off'}", flush=True)
+          f"batch_window_ms {cfg.serve_batch_window_ms or 'off'}"
+          + (f", arbiter {cfg.arbiter_url}" if cfg.arbiter_url else ""), flush=True)
 
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):

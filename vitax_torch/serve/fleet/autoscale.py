@@ -17,9 +17,14 @@ ready. Scale-in retires the victim (out of rotation for good), waits for
 its in-flight count to reach zero (or `drain_timeout_s`), then discards
 it, which SIGTERM-drains a managed process: no accepted request is lost.
 `scale_out()` provisions (a local spawn or a placement agent's replica)
-and `release(replica)` frees a remote one after its drain. vitax's
-escalation to its chip arbiter (`request_capacity`) is not ported (ROADMAP
-item 14). Decisions are kind "autoscale" records; `clock` is injectable.
+and `release(replica)` frees a remote one after its drain. When a
+scale-out is refused here (the fleet at max_replicas, or every placement
+agent full), a `request_capacity(reason)` closure escalates the sustained
+demand to the chip arbiter (vitax_torch/arbiter/) and cools down, as
+vitax's does (:108,197,252-262); an outcome "escalated" scale_out event
+records it, and an unreachable arbiter is an escalate_failed event, never
+a dead loop. Decisions are kind "autoscale" records; `clock` is
+injectable.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ class Autoscaler:
     def __init__(self, manager: ReplicaManager, admission=None, min_replicas: int = 1, max_replicas: int = 1,
                  scale_out: Optional[Callable[[], object]] = None,
                  release: Optional[Callable[[object], None]] = None,
+                 request_capacity: Optional[Callable[[str], object]] = None,
                  interval_s: float = DEFAULT_INTERVAL_S, dwell_s: float = DEFAULT_DWELL_S,
                  cooldown_s: float = DEFAULT_COOLDOWN_S, shed_rate_per_s: float = DEFAULT_SHED_RATE_PER_S,
                  wait_overshoot_frac: float = DEFAULT_WAIT_OVERSHOOT_FRAC,
@@ -71,6 +77,7 @@ class Autoscaler:
         self._clock = clock
         self._scale_out_fn = scale_out
         self._release_fn = release
+        self._request_capacity_fn = request_capacity     # the arbiter's escalation: demand the fleet cannot meet
         self._lock = threading.Lock()
         # hysteresis state, guarded by _lock
         self._pressure_since: Optional[float] = None
@@ -83,6 +90,7 @@ class Autoscaler:
         self._drain_deadline = 0.0
         self.scale_out_total = 0
         self.scale_in_total = 0
+        self.escalations_total = 0
         self.last_event: Optional[dict] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -132,9 +140,11 @@ class Autoscaler:
                 if self._pressure_since is None:
                     self._pressure_since = now
                 sustained = now - self._pressure_since >= self.dwell_s
-                if (sustained and now >= self._cooldown_until and sig["active"] < self.max_replicas
-                        and self._scale_out_fn is not None):
-                    action = "scale_out"
+                if sustained and now >= self._cooldown_until:
+                    if sig["active"] < self.max_replicas and self._scale_out_fn is not None:
+                        action = "scale_out"
+                    elif self._request_capacity_fn is not None:
+                        action = "escalate"     # refused here (the ceiling, or nothing to spawn with)
             else:
                 self._pressure_since = None
                 occupancy = sig["depth"] / max(sig["ready"], 1)
@@ -150,6 +160,8 @@ class Autoscaler:
             if (action is None and sig["active"] < self.min_replicas and now >= self._cooldown_until
                     and self._scale_out_fn is not None):
                 action, pressure = "scale_out", "below_min"
+        if action == "escalate":
+            return self._do_escalate(pressure, now, sig)
         if action == "scale_out":
             return self._do_scale_out(pressure, now, sig)
         if action == "retire":
@@ -162,6 +174,9 @@ class Autoscaler:
         except Exception as e:  # noqa: BLE001 - a failed provision must not kill the loop
             replica = None
             self._event(event="scale_out_failed", reason=reason, detail=f"{type(e).__name__}: {e}")
+            if self._request_capacity_fn is not None:
+                # every placement agent full (409) surfaces here: escalate as at the ceiling
+                return self._do_escalate(reason, now, sig)
         with self._lock:
             self._pressure_since = None
             self._cooldown_until = now + self.cooldown_s
@@ -172,6 +187,26 @@ class Autoscaler:
                                "size": sig["active"] + 1}
         self._event(**self.last_event)
         return "scale_out"
+
+    def _do_escalate(self, reason: str, now: float, sig: dict):
+        """Pressure the fleet cannot meet here: ask the arbiter and cool
+        down (the borrowed replica arrives later through /fleet/adopt). An
+        unreachable arbiter is an escalate_failed event."""
+        try:
+            self._request_capacity_fn(reason)
+        except Exception as e:  # noqa: BLE001 - an unreachable arbiter must not kill the loop
+            self._event(event="escalate_failed", reason=reason, detail=f"{type(e).__name__}: {e}")
+            with self._lock:
+                self._pressure_since = None
+                self._cooldown_until = now + self.cooldown_s
+            return None
+        with self._lock:
+            self._pressure_since = None
+            self._cooldown_until = now + self.cooldown_s
+            self.escalations_total += 1
+            self.last_event = {"event": "scale_out", "outcome": "escalated", "reason": reason, "size": sig["active"]}
+        self._event(**self.last_event)
+        return "escalated"
 
     def _do_retire(self, now: float, sig: dict):
         """Start a scale-in: the least-loaded READY replica leaves rotation
@@ -241,6 +276,7 @@ class Autoscaler:
         with self._lock:
             return {"min_replicas": self.min_replicas, "max_replicas": self.max_replicas,
                     "scale_out_total": self.scale_out_total, "scale_in_total": self.scale_in_total,
+                    "escalations_total": self.escalations_total,
                     "shed_rate_per_s": round(self._shed_rate, 4),
                     "draining": self._draining.name if self._draining is not None else None,
                     "last_event": self.last_event}

@@ -26,6 +26,11 @@ same dispatch as a /predict, all at once) and adds:
   `batch_window_ms`): concurrent /predict bodies wait up to the window and
   go as one /predict_batch to one replica, whose batcher runs them as one
   bucket;
+- **the arbiter's hooks** (POST /fleet/adopt, POST /fleet/release, each
+  {"url": ...}): the fleet CLI installs `fleet_adopt_fn` and
+  `fleet_release_fn` under --arbiter_url, so the chip arbiter hands the
+  router a replica it provisioned on a borrowed host and takes it back
+  with a drain; a router without them answers 501, as vitax's;
 - **fleet metrics**: GET /metrics folds router-side latency percentiles,
   each replica's rotation state and its own /metrics, breakers, the
   budget, admission, cache, autoscale and batching counters.
@@ -158,6 +163,10 @@ class Router:
         self.hedge_after_ms = hedge_after_ms
         self.cache = cache
         self.autoscaler = autoscaler  # observability only; it runs itself
+        # the arbiter's hooks (POST /fleet/adopt, /fleet/release), installed by
+        # the fleet CLI under --arbiter_url; None -> the routes answer 501
+        self.fleet_adopt_fn = None      # (url: str) -> dict
+        self.fleet_release_fn = None    # (url: str) -> dict
         self.budget = RetryBudget(ratio=retry_budget_ratio)
         self.metrics = RouterMetrics()
         self._breakers: Dict[str, CircuitBreaker] = {}
@@ -667,6 +676,9 @@ def _make_handler(router: Router):
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):  # noqa: N802
+            if self.path in ("/fleet/adopt", "/fleet/release"):
+                self._fleet_hook()
+                return
             if self.path not in ("/predict", "/predict_batch"):
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
@@ -676,6 +688,30 @@ def _make_handler(router: Router):
             else:
                 code, headers, payload = router.dispatch(body, self.headers.get("Content-Type", ""))
             self._reply(code, payload, headers=headers)
+
+        def _fleet_hook(self) -> None:
+            """The arbiter's control plane: adopt a borrowed host's replica, or
+            drain it back out, through the hooks the fleet CLI installs."""
+            hook = router.fleet_adopt_fn if self.path == "/fleet/adopt" else router.fleet_release_fn
+            if hook is None:
+                self._reply(501, {"error": f"router has no arbiter hooks ({self.path})"})
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            except ValueError as e:
+                self._reply(400, {"error": f"bad JSON body: {e}"})
+                return
+            url = payload.get("url", "")
+            if not url:
+                self._reply(400, {"error": "missing \"url\""})
+                return
+            try:
+                out = hook(url)
+            except Exception as e:  # noqa: BLE001 - a hook's failure goes back to the arbiter
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._reply(200, out if isinstance(out, dict) else {"ok": True})
 
     return Handler
 

@@ -13,7 +13,8 @@ Endpoints, with the JAX server's JSON keys:
   lands in one bucket. The reply is {"results": [{"status", "body"}, ...]}.
 - GET /healthz: live once bound; ready after warmup and while not draining.
 - GET /metrics: request counters, latency percentiles, queue and batch
-  accounting, brownout state and the weight footprint.
+  accounting, brownout state, the weight footprint and this process's
+  kernel launches by key (ops/_build.py LAUNCHES).
 - POST /chaos: with --serve_allow_chaos, installs the JSON fault plan of
   the body into this running replica (an empty body disarms); 403 without
   the flag, 400 for a bad plan.
@@ -54,6 +55,7 @@ from vitax_torch.data import native
 from vitax_torch.data.imagefolder import DecodeCounts
 from vitax_torch.data.transforms import ValTransform
 from vitax_torch.serve.batcher import DynamicBatcher, QueueFull
+from vitax_torch.ops import _build
 from vitax_torch.serve.engine import InferenceEngine, next_bucket
 from vitax_torch.telemetry.threads import install_thread_excepthook
 from vitax_torch.utils.logging import master_print
@@ -420,6 +422,8 @@ def _make_handler(ctx: ServeContext):
                     "param_bytes": ctx.engine.param_bytes(),
                     "act_quant": ctx.engine.act_quant,
                     "fused_dequant": ctx.engine.fused_dequant,
+                    # this process's kernel launches by key (ops/_build.py), warmup included
+                    "kernel_launches": dict(_build.LAUNCHES),
                 })
                 self._reply(200, snap)
             else:

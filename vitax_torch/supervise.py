@@ -33,6 +33,9 @@ The supervisor launches the command with --resume_epoch -1 forced on
 Exit codes: 0 (the child completed, or drained after a forwarded SIGTERM
 with 0), EXIT_BUDGET 3 (budget spent or crash loop), or the child's own
 code passed through after a forwarded SIGTERM.
+
+topology_env builds one rank's environment for an N-process relaunch
+(the chip arbiter's TrainDirector, vitax_torch/arbiter/daemon.py).
 """
 
 from __future__ import annotations
@@ -63,27 +66,40 @@ def backoff_delay(restart_count: int, backoff_s: float, backoff_max_s: float) ->
     return min(backoff_s * (2 ** max(restart_count - 1, 0)), backoff_max_s)
 
 
+def terminate_children(procs: Sequence, grace_s: float, sleep: Callable[[float], None] = time.sleep,
+                       poll_interval_s: float = 0.1) -> List[Optional[int]]:
+    """SIGTERM every process once, before any wait (ranks that must reach a
+    joint save together all hear it at once), then each its drain window
+    and SIGKILL past it: returns their exit codes (None only for one that
+    outlives the kill too)."""
+    for proc in procs:
+        try:
+            proc.send_signal(signal.SIGTERM)
+        except (OSError, ValueError):
+            pass  # already gone: poll() returns its code
+    codes = []
+    for proc in procs:
+        deadline = time.monotonic() + grace_s
+        while proc.poll() is None and time.monotonic() < deadline:
+            sleep(poll_interval_s)
+        if proc.poll() is None:
+            try:
+                proc.kill()
+            except (OSError, ValueError):
+                pass
+            for _ in range(600):  # a killed process is reaped promptly
+                if proc.poll() is not None:
+                    break
+                sleep(poll_interval_s)
+        codes.append(proc.poll())
+    return codes
+
+
 def terminate_child(proc, grace_s: float, sleep: Callable[[float], None] = time.sleep,
                     poll_interval_s: float = 0.1) -> Optional[int]:
     """SIGTERM, a drain window, then SIGKILL: returns the child's exit code
     (None only if it outlives the kill too)."""
-    try:
-        proc.send_signal(signal.SIGTERM)
-    except (OSError, ValueError):
-        pass  # already gone: poll() returns its code
-    deadline = time.monotonic() + grace_s
-    while proc.poll() is None and time.monotonic() < deadline:
-        sleep(poll_interval_s)
-    if proc.poll() is None:
-        try:
-            proc.kill()
-        except (OSError, ValueError):
-            pass
-        for _ in range(600):  # a killed process is reaped promptly
-            if proc.poll() is not None:
-                break
-            sleep(poll_interval_s)
-    return proc.poll()
+    return terminate_children([proc], grace_s, sleep, poll_interval_s)[0]
 
 
 def ensure_auto_resume(argv: Sequence[str]) -> List[str]:
@@ -165,6 +181,27 @@ def checkpoint_topology(ckpt_dir: str) -> Optional[int]:
         return None
     count = (load_resume_meta(ckpt_dir, epochs[-1]) or {}).get("process_count")
     return int(count) if isinstance(count, int) and count >= 1 else None
+
+
+TOPOLOGY_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def topology_env(base_env: dict, process_count: int, process_id: int = 0, coordinator_port: int = 0) -> dict:
+    """One rank's environment for an N-process launch on this host
+    (vitax/supervise.py topology_env): exactly the bring-up variables
+    distributed.maybe_initialize reads, as torchrun sets them. A
+    one-process launch gets them removed, so a stale WORLD_SIZE=2 carried
+    across an elastic shrink cannot wedge bring-up waiting on a phantom
+    peer. Every relaunch at a new topology takes its environment from here
+    (the arbiter's TrainDirector)."""
+    env = dict(base_env)
+    for key in TOPOLOGY_VARS:
+        env.pop(key, None)
+    if process_count > 1:
+        assert coordinator_port > 0, "multi-process launches need a fresh coordinator port"
+        env.update(RANK=str(process_id), WORLD_SIZE=str(process_count), LOCAL_RANK=str(process_id),
+                   LOCAL_WORLD_SIZE=str(process_count), MASTER_ADDR="localhost", MASTER_PORT=str(coordinator_port))
+    return env
 
 
 def expected_process_count(child_argv: Sequence[str] = ()) -> int:

@@ -33,6 +33,10 @@ the grace window turns it into a lost-peer verdict.
 Elastic resume: elastic_resume_plan decides where a resumed run re-enters
 a checkpointed epoch under the current process count.
 
+The chip arbiter's heartbeat (--arbiter_url, ArbiterReporter): rank 0
+posts its latest step to <arbiter_url>/telemetry from a thread, so the
+arbiter (vitax_torch/arbiter/) drains the job only while it progresses.
+
 Everything here is host work: the step launches the same kernels with the
 plane on or off.
 """
@@ -137,11 +141,17 @@ def agree_peer_restore(local_ok: bool, process_count: Optional[int] = None,
     return not (agreed & BIT_PEER_RESTORE)
 
 
+# compare_set's expected value that no stored value equals: for a missing
+# key compare_set returns it and inserts nothing, for a present one it
+# returns the value, so it is a get that never waits
+_ABSENT = b"\x00vitax-absent\x00"
+
+
 class StoreKV:
     """The c10d store as the KV the plane and the peer transport use:
-    set, a bounded get (a poll of check(), so no get ever blocks past its
-    timeout), delete. Errors of the store itself propagate: the callers
-    count them as no advance, or as a failed fetch."""
+    set, a bounded get (a poll of compare_set, so no get ever blocks past
+    its timeout), delete. Errors of the store itself propagate: the
+    callers count them as no advance, or as a failed fetch."""
 
     def __init__(self, store):
         self.store = store
@@ -150,12 +160,18 @@ class StoreKV:
         self.store.set(key, value)
 
     def blocking_key_value_get_bytes(self, key: str, timeout_ms: int) -> bytes:
+        """The key's value within `timeout_ms`, else TimeoutError. Never a
+        check() then get(): a key deleted between the two (a replica's
+        chunk its sender replaces) left get() waiting out the store's own
+        timeout (60 s), as rank 1 of a drained pair did on the H100."""
         deadline = time.monotonic() + timeout_ms / 1000.0
-        while not self.store.check([key]):
+        while True:
+            value = self.store.compare_set(key, _ABSENT, _ABSENT)
+            if value != _ABSENT:
+                return value
             if time.monotonic() >= deadline:
                 raise TimeoutError(f"store key {key!r} not set within {timeout_ms} ms")
             time.sleep(min(0.01, timeout_ms / 10000.0))
-        return self.store.get(key)
 
     def blocking_key_value_get(self, key: str, timeout_ms: int) -> str:
         return self.blocking_key_value_get_bytes(key, timeout_ms).decode()
@@ -481,6 +497,92 @@ class PeerLiveness:
             return self.client.blocking_key_value_get(f"{FAULT_KEY_PREFIX}/{peer}", 200)
         except Exception:  # noqa: BLE001 - no published cause is the common case
             return None
+
+
+class ArbiterReporter:
+    """Rank 0's heartbeat to the chip arbiter (--arbiter_url; vitax's
+    ArbiterReporter, vitax/train/control.py:594-700): POST /telemetry with
+    the latest step, epoch and process count, so the arbiter's policy gates
+    on "training is progressing" rather than on process liveness.
+
+    One daemon thread posts the latest snapshot every `interval_s`; the
+    loop's `update()` is a lock and three assignments. An unchanged
+    snapshot is posted again every `refresh_s` (a slow trainer is not a
+    stalled one). Transport failures are counted and swallowed: an
+    unreachable arbiter never slows a step. `http_json` is injectable."""
+
+    def __init__(self, arbiter_url: str, process_count: int = 1, interval_s: float = 2.0, refresh_s: float = 10.0,
+                 http_json: Optional[Callable] = None, timeout_s: float = 2.0):
+        assert arbiter_url, "ArbiterReporter needs a non-empty arbiter_url"
+        assert interval_s > 0, interval_s
+        assert refresh_s > 0, refresh_s
+        self.url = arbiter_url.rstrip("/") + "/telemetry"
+        self.process_count = int(process_count)
+        self.interval_s = float(interval_s)
+        self.refresh_s = float(refresh_s)
+        self.timeout_s = float(timeout_s)
+        self._http_json = http_json or self._default_http_json
+        self._lock = threading.Lock()
+        # guarded by _lock:
+        self._latest: Optional[dict] = None
+        self._posted: Optional[dict] = None
+        self._last_post_t = 0.0
+        self.posts_total = 0
+        self.post_failures = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @staticmethod
+    def _default_http_json(url: str, payload: dict, timeout: float) -> dict:
+        import json
+        import urllib.request
+        req = urllib.request.Request(url, data=json.dumps(payload).encode("utf-8"),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.load(resp)
+
+    def update(self, step: int, epoch: int) -> None:
+        """The loop's call; never blocks on I/O."""
+        with self._lock:
+            self._latest = {"step": int(step), "epoch": int(epoch), "process_count": self.process_count}
+
+    def post_once(self, force: bool = False) -> bool:
+        """One delivery of the latest unsent snapshot (the thread's body;
+        tests call it). True iff something was posted; `force` posts an
+        unchanged snapshot again (the refresh)."""
+        with self._lock:
+            latest = self._latest
+            if latest is None or (not force and latest == self._posted):
+                return False
+        try:
+            self._http_json(self.url, latest, self.timeout_s)
+        except Exception:  # noqa: BLE001 - an unreachable arbiter must never hurt training
+            with self._lock:
+                self.post_failures += 1
+            return False
+        with self._lock:
+            self._posted = latest
+            self._last_post_t = time.time()
+            self.posts_total += 1
+        return True
+
+    def start(self) -> None:
+        assert self._thread is None, "reporter already running"
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="vitax-arbiter-report")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            with self._lock:
+                last = self._last_post_t
+            self.post_once(force=time.time() - last >= self.refresh_s)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=self.timeout_s + self.interval_s + 1.0)
+            self._thread = None
+        self.post_once()  # the last step matters most
 
 
 # -- elastic resume (topology change) -------------------------------------------

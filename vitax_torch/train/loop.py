@@ -73,6 +73,17 @@ distill steps a frozen teacher from --teacher_npz beside the student. The
 FLOP count stays the student's under every task, so MFU leaves the
 teacher's forward out, as vitax's does.
 
+The profiler window (telemetry/profiler.py, vitax's :553-615): with
+--profile_dir the loop opens a torch.profiler window after
+--profile_start_step completed steps, and after --profile_num_steps more
+synchronizes the card and writes <profile_dir>/rank<r>.pt.trace.json,
+each step in it under a `vitax_step_<n>` range; a window still open at
+the loop's end is closed there. --compile_cache_dir builds and reuses the
+kernels' libraries there (ops/_build.py set_build_dir). With
+--arbiter_url rank 0 posts its step to the chip arbiter every step
+(train/control.py ArbiterReporter; a thread, the step unchanged) and
+flushes the last one at the end.
+
 Telemetry (telemetry/, vitax's): with --metrics_dir, rank 0 writes
 <metrics_dir>/metrics.jsonl: a run_start event, a finetune event after a
 warm start, a restore event on a resume, a control/elastic_resume event
@@ -118,7 +129,8 @@ from vitax_torch.programs.workloads import DISTILL_METRICS, frozen_fraction, war
 from vitax_torch.telemetry import build_recorder, install_thread_excepthook, restore_thread_excepthook
 from vitax_torch.telemetry.watchdog import EXIT_HANG, Watchdog
 from vitax_torch.train import preempt
-from vitax_torch.train.control import ControlPlane, elastic_resume_plan, store_client
+from vitax_torch.telemetry.profiler import ProfilerWindow
+from vitax_torch.train.control import ArbiterReporter, ControlPlane, elastic_resume_plan, store_client
 from vitax_torch.train.state import ADAMW_HPARAMS, TrainState, make_train_state
 from vitax_torch.train.step import _needs_dropout
 from vitax_torch.utils.logging import master_print, memory_summary
@@ -150,6 +162,9 @@ def train(cfg: Config, device: DeviceLike = None,
     hook = install_thread_excepthook(None, rank)    # background-thread crashes: rank-tagged on stderr
     fused = fused_optimizer_active(cfg, device)     # raises for --fused_optimizer off on the card
     set_float32_precision()
+    if cfg.compile_cache_dir:                       # the kernels' libraries: a warm directory builds nothing
+        from vitax_torch.ops import _build
+        master_print(f"kernel build cache: {_build.set_build_dir(cfg.compile_cache_dir)}")
     mesh = build_mesh(cfg, device) if distributed.is_distributed() else None
     if mesh is None and cfg.sp_size > 1:   # a lone process would run the whole sequence
         raise ValueError(f"--sp_size {cfg.sp_size} shards the tokens over {cfg.sp_size} processes: launch them "
@@ -236,7 +251,8 @@ def train(cfg: Config, device: DeviceLike = None,
     master_print(f"attention core: {getattr(attention_impl, 'vitax_name', 'dense')} on {device.type} "
                  f"(N {cfg.num_patches}" + (f", {cfg.num_patches // tokens.count} a rank over sp {tokens.count}"
                                            if tokens else "")
-                 + f"); grad_ckpt {cfg.grad_ckpt}, remat_policy {cfg.remat_policy}")
+                 + f"); grad_ckpt {cfg.grad_ckpt}, remat_policy {cfg.remat_policy}"
+                 + (f", one checkpoint a group of {cfg.remat_window} blocks" if cfg.remat_window > 1 else ""))
     heads = tensor_shard(mesh)
     if heads is not None:
         master_print(f"tensor parallel: tp {heads.count}, {cfg.num_heads // heads.count} heads and "
@@ -383,6 +399,13 @@ def train(cfg: Config, device: DeviceLike = None,
         torch.autograd.set_detect_anomaly(True, check_nan=True)
         master_print("debug_nans: autograd anomaly mode with NaN checks; the loss and grad norm are fetched "
                      "every step")
+    reporter = None
+    if cfg.arbiter_url and rank == 0:   # the chip arbiter's heartbeat: a thread, the step unchanged
+        reporter = ArbiterReporter(cfg.arbiter_url, process_count=distributed.process_count())
+        reporter.start()
+        master_print(f"arbiter telemetry: posting step heartbeats to {cfg.arbiter_url}")
+    window = ProfilerWindow(cfg.profile_dir, cfg.profile_start_step, cfg.profile_num_steps, device, rank,
+                            say=master_print)
     control.warmup()                    # the agreement's first collective outside any hang deadline
     distributed.barrier("training begins")
     master_print("training begins")
@@ -390,7 +413,8 @@ def train(cfg: Config, device: DeviceLike = None,
     try:
         return _run_epochs(cfg, state, train_step, train_loader, val_loader, eval_step, schedule, control,
                            records, train_ds, resume_step=resume_step, resume_rounded=resume_rounded,
-                           recorder=recorder, watchdog=watchdog, snap_pipe=snap_pipe, replicator=replicator)
+                           recorder=recorder, watchdog=watchdog, snap_pipe=snap_pipe, replicator=replicator,
+                           window=window, reporter=reporter)
     except Exception as e:  # noqa: BLE001 - classified: a lost peer exits 42, anything else is re-raised
         # gloo raises where NCCL blocks on a dead peer, and a lost rank 0
         # takes the store with it: ask the liveness monitor which this is
@@ -405,8 +429,11 @@ def train(cfg: Config, device: DeviceLike = None,
         # vitax's teardown order; after a lost peer the plane's exit timer
         # stays armed through it (a drain over the dead peer must not hang)
         torch.autograd.set_detect_anomaly(*anomaly)
+        window.close()                  # a window the loop left open
         if lost is None:
             control.stop()
+        if reporter is not None:
+            reporter.stop()             # flushes the last step
         if watchdog is not None:
             watchdog.stop()
         try:
@@ -503,7 +530,8 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
                 eval_step: Callable, schedule: Callable, control: ControlPlane,
                 records: Optional[List[Dict[str, float]]] = None, train_ds=None,
                 resume_step: int = 0, resume_rounded: bool = False, recorder=None, watchdog=None,
-                snap_pipe=None, replicator=None) -> TrainState:
+                snap_pipe=None, replicator=None, window: Optional[ProfilerWindow] = None,
+                reporter: Optional[ArbiterReporter] = None) -> TrainState:
     smoothed_loss = SmoothedValue(window_size=5)
     smoothed_time = SmoothedValue(window_size=5)
     total_steps = 0
@@ -548,9 +576,13 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
             if cfg.steps_per_epoch and step >= cfg.steps_per_epoch:
                 break
             will_log = total_steps == 0 or (step + 1) % cfg.log_step_interval == 0
+            if window is not None:
+                window.before_step(total_steps)
             state, metrics = _checked(cfg, train_step, state, batch, total_steps + 1,
                                       time_update=will_log and recorder is not None)
             total_steps += 1
+            if window is not None:
+                window.after_step(total_steps)
             # drill point, before the pet: an injected hang starves the
             # watchdog as a wedged step does; the index counts this run's steps
             faults.fire("step", index=total_steps)
@@ -590,6 +622,8 @@ def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_load
                     records.append({"epoch": epoch, "step": total_steps, "loss": host_loss, "lr": lr,
                                     "sec_per_iter": smoothed_time.avg, "step_seconds": step_seconds,
                                     "grad_norm": grad_norm, "data_wait_s": data_wait_s, **distill})
+            if reporter is not None:    # a lock and three assignments; the thread posts
+                reporter.update(total_steps, epoch)
             if replicator is not None and snap_pipe is not None and (step + 1) % cfg.replicate_steps == 0:
                 # a replication window: the staging is the loop's part (its
                 # ckpt_stall_s), the bytes go to the buddy from the worker
