@@ -110,6 +110,14 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      element by element against the plain version, then timed; then 3
      steps at --remat_window 2 beside per-block remat from one init and
      batch (losses, attention launches, peak memory);
+  7v. the port's program rules (vitax_torch.analysis, vitax's VTX-R001-R010)
+     over the card's own programs, on objects phases 6, 6q and 7 built:
+     R006 on phase 6's f32 engine; R006, R007 and R009 on each of 6q's
+     three engines (129 kernel C launches a forward); one more non-log
+     step of phase 7's state under R001 (torch.cuda's sync debug mode at
+     "error"), R002 and R008, its launch deltas one step's (1 B, 8 A2, 16
+     A1); then that step reading its loss back, which R001 must catch;
+     each arm's rule ids, findings and seconds;
   7t. telemetry: phase 7's run twice, with telemetry off and then on
      (--metrics_dir), its launch counts equal in both and to phase 7's;
      the JSONL's 12 step records (REQUIRED_STEP_KEYS, steps 1-12, each MFU
@@ -209,8 +217,8 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      rank 0's exit 42 within the grace plus its deadline, rank 1's store
      deleted, the relaunched pair restored from rank 0's copy (rank 0
      serving it from its own store) and bitwise an uninterrupted pair;
-     then at 7c's cell a save's loop-thread stall, save_state's snapshot
-     against the pipeline's stage, in turns. `python3 chip_smoke.py
+     beside the second wave, at 7c's cell a save's loop-thread stall,
+     save_state's snapshot against the pipeline's stage, in turns. `python3 chip_smoke.py
      --lost-rank` runs (f) alone at DRILL_CELL, the 10B width;
   7f. FSDP2 at world size 1: a one-rank NCCL group made here, after every
      unwrapped phase, and destroyed at the end of the phase. First the
@@ -789,7 +797,7 @@ def check_attention_backward(torch) -> dict:
                 q, k, v = qkv_views(torch, shape, dtype, SEED + 1)
                 rng = np.random.default_rng(SEED + 2)
                 do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", getattr(torch, dtype))
-                dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda()
+                dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda(0)
                 scale = dh ** -0.5
                 o, lse = flash_attn_fwd_cuda(q, k, v, scale)
                 want = attention_bwd_with_lse(q, k, v, o, lse, do, dlse, scale)
@@ -827,7 +835,7 @@ def attention_operands(torch, shape, dtype, seed):
     q, k, v = qkv_views(torch, shape, dtype, seed)
     rng = np.random.default_rng(seed + 1)
     do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", getattr(torch, dtype))
-    dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda()
+    dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda(0)
     return q, k, v, do, dlse
 
 
@@ -1716,7 +1724,7 @@ def phase_model_check(torch):
     dense = build_model(dense_cfg, "cuda", attention_impl=make_attention_impl(dense_cfg, "cuda"), init=False)
     dense.load_state_dict(model.state_dict(), assign=True)     # the same tensors
     rng = np.random.default_rng(SEED)
-    images = torch.from_numpy(rng.integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)).cuda()
+    images = torch.from_numpy(rng.integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)).cuda(0)
     with torch.inference_mode():
         x = prepare_images(images)
         got, want = model(x).float(), dense(x).float()
@@ -1731,7 +1739,7 @@ def phase_model_check(torch):
     # loss and gradients: the kernels (forward, and backward through the
     # autograd Function, under per-block recompute) against dense autograd
     from vitax_torch.ops import _build
-    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, 8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, 8)).cuda(0)
     x = prepare_images(images)             # not an inference tensor: autograd saves it
     losses, grads = [], []
     before = dict(_build.LAUNCHES)
@@ -2008,6 +2016,101 @@ def traffic_line(metrics, batches, lat, wall) -> str:
             f"{batches} engine batches, occupancy {metrics['batch_occupancy_mean']}")
 
 
+# Phase 7v: the port's program rules (vitax_torch.analysis.rules, vitax's
+# VTX-R001-R010) over the card's own programs, on objects other phases built:
+# after phase 6's traffic, R006 on its f32 engine; after each of 6q's
+# engines' gate, R006, R007 and R009 on it (129 kernel C launches a forward:
+# 4 Dense sites a block and the head); inside phase 7, after its run, one
+# more non-log step of its 10B-width, depth-8 state under the rules the
+# `fused` arm applies (R001 under torch.cuda.set_sync_debug_mode("error"),
+# R002, R008), whose launch deltas must be one step's (1 B, 8 A2, 16 A1
+# under none_saveable); then that step wrapped to read its loss back
+# (.item()), which R001 must catch. Each arm prints its rule ids, finding
+# count and seconds; an ERROR finding fails the run.
+V_TRAIN_RULES = ("VTX-R001", "VTX-R002", "VTX-R008")
+V_SERVE_RULES = ("VTX-R006", "VTX-R007", "VTX-R009")
+V_LOG = []                              # (arm, rule ids, findings, seconds) of phase 7v, in order
+
+
+def vet(program, wanted, label: str, card: str) -> list:
+    """Run the rules of `wanted` that apply to `program`, print the arm's
+    line, fail on any ERROR finding. Returns the findings."""
+    from vitax_torch.analysis.rules import rules_for
+    t0 = time.perf_counter()
+    ran, findings = [], []
+    for r in rules_for(program):
+        if r.id in wanted:
+            ran.append(r.id)
+            findings.extend(r.check(program, program.config))
+    seconds = time.perf_counter() - t0
+    V_LOG.append((label, ran, len(findings), seconds))
+    say(f"[7v {label}] rules {', '.join(ran) or 'none'}: {len(findings)} finding(s) in {seconds:.2f}s [{card}]")
+    for f in findings:
+        say(f"[7v {label}]   {f.rule} [{f.severity}] {f.message}")
+    if any(f.severity == "ERROR" for f in findings):
+        fail(f"7v {label}: {len(findings)} finding(s) of the program rules")
+    return findings
+
+
+def rules_serve(engine, cfg, arm: str, card: str) -> None:
+    """Phase 7v on one warmed engine: the serve rules that apply. On a
+    quantized engine R009 holds kernel C's launches a forward to its
+    quantized Dense sites, which must be 4 a block and the head."""
+    from vitax_torch.analysis.rules import quant_dense_sites, serve_program
+    vet(serve_program(engine, cfg, arm), V_SERVE_RULES, arm, card)
+    if cfg.serve_quant_dtype:
+        sites = quant_dense_sites(engine.model)
+        say(f"[7v {arm}] {sites} quantized Dense sites, so {sites} kernel C launches a forward under VTX-R009 "
+            f"[{card}]")
+        if sites != 4 * cfg.num_blocks + 1:
+            fail(f"7v {arm}: {sites} quantized Dense sites at depth {cfg.num_blocks}; want "
+                 f"{4 * cfg.num_blocks + 1}")
+
+
+def rules_train(  # vtx: ignore[VTX103] train_program synchronizes the card around the recorded step
+        torch, card: str, cfg, state) -> None:
+    """Phase 7v on phase 7's trained state: one warm step, then one more
+    non-log step as the program (R001, R002, R008), its launch deltas held
+    to one step's; then the seeded violation, which R001 must catch."""
+    from vitax_torch.analysis.rules import NO_HOST_TRANSFER, seeded_batch, train_program
+    from vitax_torch.train.state import build_optimizer
+    from vitax_torch.train.step import make_train_step
+    t0 = time.perf_counter()
+    optimizer, _ = build_optimizer(cfg, 100)
+    step = make_train_step(cfg, optimizer, "cuda")
+    batch = seeded_batch(cfg, cfg.batch_size, "cuda", seed=SEED)
+    state.model.train()
+    step(state, batch)
+    program = train_program(cfg, state, step, batch, arm="train", device="cuda", optimizer=optimizer)
+    t_step = time.perf_counter() - t0
+    deltas = program.launches.launches
+    want = {k: v for k, v in step_launches(cfg).items() if v}
+    say(f"[7v train] one non-log step of phase 7's state (width {cfg.embed_dim}, depth {cfg.num_blocks}, batch "
+        f"{cfg.batch_size}) recorded in {t_step:.2f}s with its warm step: {len(program.ops.rows)} aten ops, "
+        f"launch deltas {deltas} (expected {want}), dispatcher calls {program.launches.calls}, "
+        f"memory_allocated {program.memory_before / 1e9:.3f} -> {program.memory_after / 1e9:.3f} GB [{card}]")
+    if deltas != want:
+        fail(f"7v train: the step launched {deltas}; one step launches {want}")
+    vet(program, V_TRAIN_RULES, "train", card)
+
+    def with_item(state, batch):
+        state, metrics = step(state, batch)
+        metrics["loss"].item()
+        return state, metrics
+
+    t0 = time.perf_counter()
+    seeded = train_program(cfg, state, with_item, batch, arm="train+item", device="cuda", optimizer=optimizer)
+    caught = NO_HOST_TRANSFER.check(seeded, cfg)
+    V_LOG.append(("train+item (seeded)", [NO_HOST_TRANSFER.id], len(caught), time.perf_counter() - t0))
+    say(f"[7v train+item] the step wrapped to read its loss back: {NO_HOST_TRANSFER.id} gave {len(caught)} "
+        f"finding(s): " + "; ".join(f.message for f in caught) + f" [{card}]")
+    if not caught:
+        fail("7v: the seeded host sync (.item() on the loss) went through VTX-R001 unseen")
+    say(f"[7v] {len(V_LOG)} arms, {sum(n for _, _, n, _ in V_LOG[:-1])} findings outside the seeded one, "
+        f"{sum(s for *_, s in V_LOG) + t_step:.2f}s in all: "
+        + "; ".join(f"{a} {'/'.join(r)} {n} {s:.2f}s" for a, r, n, s in V_LOG) + f" [{card}]")
+
+
 def phase_main_path(torch, card):
     """The full 10B engine (f32 params, bf16 compute) over HTTP. Returns
     (launches, the engine), kept for the quantized phase."""
@@ -2040,6 +2143,7 @@ def phase_main_path(torch, card):
         f"{jpeg['decoded']} ({jpeg['why']}); latency p50 {np.percentile(jpeg['lat'], 50) * 1e3:.1f} ms max "
         f"{jpeg['lat'].max() * 1e3:.1f} ms (client) in {jpeg['wall']:.3f}s [{card}]")
     profile_forward(torch, engine, cfg, card)
+    rules_serve(engine, cfg, "serve", card)
     return launches, engine
 
 
@@ -2113,6 +2217,8 @@ def phase_quant_serve(torch, card, engine_f32):
         say(f"[{label} gate] {json.dumps(gate)}; top-1 floor {floor} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{label}: top-1 agreement with the full-precision engine {gate['top1_quant']} below {floor}")
+        rules_serve(engine, cfg, {"int8": "serve_quant", "float8_e4m3": "serve_fp8"}[dtype] if act == "off"
+                    else "serve_actquant", card)
         del engine
     states.pop("float8_e4m3")
     return total, states, traffic
@@ -2632,7 +2738,8 @@ class ArbiterDrill:
 
     def sample(self) -> None:
         """The card's memory in use, sampled every 0.5 s from now on."""
-        threading.Thread(target=self._sample, daemon=True, name="7a-memory").start()
+        threading.Thread(  # vtx: ignore[VTX205] its loop ends on _stop, which phase_arbiter and kill_all set
+            target=self._sample, daemon=True, name="7a-memory").start()
 
     def _sample(self) -> None:
         while not self._stop.wait(0.5):
@@ -3015,7 +3122,7 @@ def profile_window(cfg, prof_dir: str, card: str) -> None:
         f"and dQ kernels each), B {counts['B'] // s}; no other kernel of the port's")
 
 
-def remat_window_check(torch, card: str) -> None:
+def remat_window_check(torch, card: str) -> None:  # vtx: ignore[VTX103] float(loss) fetches every timed step
     """--remat_window REMAT_WINDOW against per-block remat at phase 7's cell:
     REMAT_STEPS steps of each from seed 0's init on one batch (numpy seed),
     cudnn deterministic: the losses within MODEL_LOSS_REL_TOL of each other,
@@ -3030,7 +3137,7 @@ def remat_window_check(torch, card: str) -> None:
     base = dict(TRAIN, max_steps=REMAT_STEPS)
     images = rng.standard_normal((base["batch_size"], 224, 224, 3)).astype(np.float32)
     labels = rng.integers(0, 1000, size=(base["batch_size"],))
-    batch = {"image": torch.from_numpy(images).cuda(), "label": torch.from_numpy(labels).cuda()}
+    batch = {"image": torch.from_numpy(images).cuda(0), "label": torch.from_numpy(labels).cuda(0)}
     out = {}
     with deterministic_cudnn(torch):
         for w in (0, REMAT_WINDOW):
@@ -3122,6 +3229,7 @@ def phase_train(torch, card):
 
     profile_window(cfg, prof_dir, card)
     shutil.rmtree(prof_dir, ignore_errors=True)
+    rules_train(torch, card, cfg, state)
     timing = time_fused_adamw(torch, state, card)
     del state
     gc.collect()
@@ -3242,7 +3350,8 @@ def start_torchrun() -> dict:
     def note_exit() -> None:
         run["proc"].wait()
         run["wall"] = time.perf_counter() - run["t0"]
-    threading.Thread(target=note_exit, daemon=True, name="7t-torchrun").start()
+    threading.Thread(  # vtx: ignore[VTX205] ends with the torchrun, which finish_torchrun waits for or kills
+        target=note_exit, daemon=True, name="7t-torchrun").start()
     return run
 
 
@@ -3648,7 +3757,7 @@ def train_from_data(torch, cfg, data, phase: str, card: str):
                                         "decoded": decoded}
 
 
-def steps_in_turns(torch, train_step, state, loader):
+def steps_in_turns(torch, train_step, state, loader):  # vtx: ignore[VTX103] float(loss) fetches every timed step
     """Steps fed by the loader against steps on one batch already on the
     card, in alternating rounds (so a drift of the card's speed hits both
     arms alike), each step's loss fetched as train() does at
@@ -3878,7 +3987,8 @@ def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def phase_checkpoint(torch, card, root: str):
+def phase_checkpoint(  # vtx: ignore[VTX103] drop_run_launches is host arithmetic; each timed run synchronizes
+        torch, card, root: str):
     """Phase 7c: save, resume and export (vitax_torch/checkpoint/). Run A
     trains two epochs and saves after each; run B resumes A's epoch 1 with
     --resume_epoch 1 and trains epoch 2; B must equal A bitwise (losses of
@@ -4177,8 +4287,9 @@ def stage_stalls(torch, cfg, card: str) -> None:
         pipe.close()
         writer.close()
     gb = 12 * sum(p.numel() for p in model.parameters()) / 1e9
-    say(f"[7e stall] a save's stall on the loop thread, {gb:.2f} GB of state, in turns (first call cold: the pinned "
-        f"buffers are allocated; then warm): save_state's snapshot " + " ".join(f"{t:.4f}" for t in times["snapshot"])
+    say(f"[7e stall] a save's stall on the loop thread, {gb:.2f} GB of state, beside 7e's wave 2, in turns (first "
+        f"call cold: the pinned buffers are allocated; then warm): save_state's snapshot "
+        + " ".join(f"{t:.4f}" for t in times["snapshot"])
         + " s; the pipeline's stage " + " ".join(f"{t:.4f}" for t in times["stage"]) + " s (its side-stream copy "
         + " ".join(f"{t:.4f}" for t in times["copy"]) + f" s, overlapping the next step until its update) [{card}]")
     del model, state
@@ -4308,6 +4419,30 @@ def run_wave(cmds, timeout: float = 900) -> tuple:
         stop.set()
         t.join()
     return res, time.perf_counter() - t0, peak[0]
+
+
+def wave_beside(cmds, work) -> tuple:
+    """run_wave(cmds) on a thread while `work()` runs on this one (train()
+    keeps the main thread for its signal handlers): (run_wave's result,
+    work's result, work's seconds)."""
+    wave = {}
+
+    def run() -> None:
+        try:
+            wave["out"] = run_wave(cmds)
+        except BaseException as e:  # noqa: BLE001 - raised again on the main thread
+            wave["error"] = e
+    runner = threading.Thread(target=run, name="7e-wave")
+    runner.start()
+    try:
+        t0 = time.perf_counter()
+        got = work()
+        seconds = time.perf_counter() - t0
+    finally:
+        runner.join()
+    if "error" in wave:
+        raise wave["error"]
+    return wave["out"], got, seconds
 
 
 def pair(dr: Drills, name: str, extra=()) -> list:
@@ -4511,42 +4646,25 @@ def phase_faults(torch, card: str, root: str) -> dict:
         *pair(dr, "flost", ["--fault_plan", FLOST_PLAN])]
     # wave 1 runs beside the uninterrupted run (train() keeps the main
     # thread: it installs signal handlers), which its checks need after it
-    wave = {}
-
-    def run_first() -> None:
-        try:
-            wave["out"] = run_wave(first)
-        except BaseException as e:  # noqa: BLE001 - raised again on the main thread
-            wave["error"] = e
-    runner = threading.Thread(target=run_first, name="7e-wave-1")
-    runner.start()
-    try:
-        t_base = time.perf_counter()
-        base_saves = uninterrupted(torch, dr)
-        t_base = time.perf_counter() - t_base
-    finally:
-        runner.join()
-    if "error" in wave:
-        raise wave["error"]
-    res, took, peak = wave["out"]
+    (res, took, peak), base_saves, t_base = wave_beside(first, lambda: uninterrupted(torch, dr))
     say(f"[7e host] drill dirs under {dr.work}; the uninterrupted run took {t_base:.1f}s beside wave 1; "
         f"{free_host_memory(torch)}")
     w1 = check_first(dr, res, base_saves)
     base, lost = check_base_pair(dr, res), check_lost_pair(dr, res)
     say(f"[7e] wave 1 (a, b's first child, c, d, (f)'s uninterrupted and lost pairs, beside the uninterrupted run) "
         f"took {took:.1f}s, host memory in use at most {peak:.1f} GiB")
-    res, took, peak = run_wave([
+    # wave 2 runs beside the save-stall measurement at 7c's cell
+    from vitax_torch.config import Config
+    (res, took, peak), _, t_stall = wave_beside([
         dr.drill("b sigterm"), dr.drill("e peer", ["--fault_plan", CRASH_AT_5, "--replicate_steps", "2"], sync=True),
-        *pair(dr, "flost")])
+        *pair(dr, "flost")], lambda: stage_stalls(torch, Config(seed=SEED, **TRAIN_CKPT).validate(), card))
     check_second(dr, res, w1)
     check_relaunch(dr, res, base, lost)
-    say(f"[7e] wave 2 (b's resume, e, (f)'s relaunched pair) took {took:.1f}s, host memory in use at most "
-        f"{peak:.1f} GiB")
+    say(f"[7e] wave 2 (b's resume, e, (f)'s relaunched pair, beside the stall measurement's {t_stall:.1f}s) took "
+        f"{took:.1f}s, host memory in use at most {peak:.1f} GiB")
     dr.want = None
     shutil.rmtree(dr.work, ignore_errors=True)
     gc.collect()
-    from vitax_torch.config import Config
-    stage_stalls(torch, Config(seed=SEED, **TRAIN_CKPT).validate(), card)
     say(f"[7e] took {time.perf_counter() - t0:.1f}s")
     return dr.launches
 
@@ -4648,7 +4766,8 @@ def serve_checkpoint_cli(ckpt_dir: str, card: str) -> None:
         f"[{card}]")
 
 
-def phase_transfer(torch, card, root: str, ref7: dict) -> dict:
+def phase_transfer(  # vtx: ignore[VTX103] model_flops_per_step is host arithmetic between two timed loads
+        torch, card, root: str, ref7: dict) -> dict:
     """Phase 7x: finetune (--reinit_head, --backbone_lr_mult 0.1), probe and
     distill (the export as the teacher) at phase 7's configuration cut to
     depth 2 (TRANSFER) from a seeded bf16 export of that model, each a train() run with its
@@ -4906,7 +5025,7 @@ def moe_model_check(torch, card) -> None:
     cfg = Config(seed=SEED, **B16_MOE).validate()
     model = build_model(cfg, "cuda", attention_impl=make_attention_impl(cfg, "cuda"))
     rng = np.random.default_rng(SEED)
-    images = torch.from_numpy(rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)).cuda()
+    images = torch.from_numpy(rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)).cuda(0)
     x = prepare_images(images)
     got, routes = router_choices(torch, model, x)
     results = {}
@@ -4985,7 +5104,8 @@ def moe_serve(torch, card, root: str, sd: dict) -> dict:
     return total
 
 
-def phase_train_moe(torch, card, root: str) -> dict:
+def phase_train_moe(  # vtx: ignore[VTX103] the phase's wall clock; each run inside fetches its losses
+        torch, card, root: str) -> dict:
     """Phase 7m: b16 and b16_moe timed side by side, the gather and top-2
     arms, the MoE model against the plain attention path, and a b16_moe
     export served in float32 and int8. Returns the launches of its train
@@ -5136,7 +5256,7 @@ def phase_train_fsdp(torch, card, root: str, ref7: dict):
             f"{cfg.batch_size / ref7['sec']:.2f}; MFU "
             + (f"{mfu * 100:.2f}% / {ref7['mfu'] * 100:.2f}%" if mfu and ref7["mfu"] else "not measured")
             + f"; max_memory_allocated {peak_gb:.2f} / {ref7['peak_gb']:.2f} GB [{card}]")
-        mesh = build_mesh(cfg, torch.device("cuda"))
+        mesh = build_mesh(cfg, torch.device("cuda", 0))
         step = make_train_step(cfg, optimizer, "cuda", mesh)
         _build.reset_launches()
         split(lambda: step(state, batch), f"one ZeRO-3 step (batch {cfg.batch_size}, depth {n})")
@@ -5175,7 +5295,7 @@ def phase_train_fsdp(torch, card, root: str, ref7: dict):
         ccfg = Config(seed=SEED, **TRAIN_FSDP_CKPT, ckpt_dir=os.path.join(root, "fsdp_ckpt")).validate()
         state, _, _, records = run(ccfg, "sharded save")
         stall = [r["ckpt_stall_s"] for r in records if "ckpt_stall_s" in r]
-        cmesh = build_mesh(ccfg, torch.device("cuda"))
+        cmesh = build_mesh(ccfg, torch.device("cuda", 0))
         model = apply_fsdp(build_model(ccfg, "meta", attention_impl=make_attention_impl(ccfg, "cuda")), ccfg, cmesh)
         model.to_empty(device="cuda")
         target = make_train_state(model)

@@ -429,12 +429,12 @@ class Arbiter:
         try:
             if url and self._release is not None:
                 self._release(host, url)
-        except Exception:  # noqa: BLE001 - unwind is best-effort by design
+        except Exception:  # vtx: ignore[VTX106] unwind is best-effort by design
             pass
         try:
             if self.ledger.owner_of(host) == "serve":
                 self.ledger.assign(host, "train")
-        except Exception:  # noqa: BLE001 - unwind is best-effort by design
+        except Exception:  # vtx: ignore[VTX106] unwind is best-effort by design
             pass
         try:
             if shrunk and self.train is not None:
@@ -526,7 +526,7 @@ class Arbiter:
         if self.recorder is not None:
             try:
                 self.recorder.event(EVENT_KIND, **payload)
-            except Exception:  # noqa: BLE001 - telemetry must not kill arbitration
+            except Exception:  # vtx: ignore[VTX106] telemetry must not kill arbitration
                 pass
 
 
@@ -637,7 +637,7 @@ def start_arbiter(arbiter: Arbiter, port: int = 0):
     loop. Returns the httpd; server_address[1] is the bound port."""
     httpd = ThreadingHTTPServer(("0.0.0.0", port), _make_handler(arbiter))
     httpd.daemon_threads = True
-    thread = threading.Thread(
+    thread = threading.Thread(  # vtx: ignore[VTX205] stop_arbiter's httpd.shutdown() ends serve_forever
         target=httpd.serve_forever, daemon=True, name="vitax-torch-arbiter-http")
     thread.start()
     arbiter.start()

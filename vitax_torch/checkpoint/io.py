@@ -166,11 +166,12 @@ class _Writer:
         CLOSE_TIMEOUT_S (then a leaked-thread warning and the writes are
         given up); raise the error of a write that failed; free the
         pinned buffers."""
-        thread, self._thread = self._thread, None
         try:
-            if thread is not None:
+            if self._thread is not None:
                 self._queue.put(None)
-                if not join_or_warn(thread, CLOSE_TIMEOUT_S, what="checkpoint writer", rank=process_index()):
+                joined = join_or_warn(self._thread, CLOSE_TIMEOUT_S, what="checkpoint writer", rank=process_index())
+                self._thread = None
+                if not joined:
                     self._pending = []
             self.wait()
         finally:

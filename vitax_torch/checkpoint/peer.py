@@ -426,7 +426,7 @@ class PeerReplicator:
         from vitax_torch.train.control import StoreKV
         host = _store_host()
         server = dist.TCPStore(host, 0, None, True, timeout=datetime.timedelta(seconds=60), wait_for_workers=False)
-        self._inbox = StoreKV(server)
+        self._inbox = StoreKV(server)  # vtx: ignore[VTX200] set before Thread.start; read by the caller after the join
         self.client.key_value_set(f"{PEER_ADDR_PREFIX}/{self.process_index}", f"{host}:{server.port}")
         self._receiver = threading.Thread(target=self._receive, daemon=True, name="vitax-torch-peer-receiver")
         self._receiver.start()
@@ -463,7 +463,7 @@ class PeerReplicator:
         prefix = f"{PEER_KEY_PREFIX}/{self.guard}"
         meta = _receive_into(self.store, self._inbox, prefix, timeout_ms, min_gen=self._received)
         if meta is not None:
-            self._received = int(meta.get("gen", self._received))
+            self._received = int(meta.get("gen", self._received))  # vtx: ignore[VTX200] caller pulls after the join
             for i in range(int(meta["n_chunks"])):      # spilled: free the memory they held
                 self._inbox.key_value_delete(f"{prefix}/g{self._received}/c{i}")
 

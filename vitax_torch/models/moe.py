@@ -86,14 +86,14 @@ def route(probs: torch.Tensor, top_k: int, c: int) -> List[Choice]:
     (B, N, E), with their capacity slots."""
     e = probs.shape[-1]
     gate1, expert1 = probs.max(dim=-1)
-    onehot1 = F.one_hot(expert1, e).to(torch.float32)
+    onehot1 = _one_hot_slot(expert1, e, torch.float32)     # F.one_hot reads the index range back on the CPU
     slot1, keep1 = _slots(onehot1, 0.0, c)
     if top_k == 1:
         return [Choice(gate1, keep1, expert1, onehot1, slot1)]
     if top_k != 2:
         raise ValueError(f"moe top_k must be 1 or 2, got {top_k}")
     gate2, expert2 = (probs * (1.0 - onehot1)).max(dim=-1)
-    onehot2 = F.one_hot(expert2, e).to(torch.float32)
+    onehot2 = _one_hot_slot(expert2, e, torch.float32)
     denom = gate1 + gate2 + 1e-9
     count1 = onehot1.sum(dim=1, keepdim=True)             # second choices queue behind every first choice
     slot2, keep2 = _slots(onehot2, count1, c)

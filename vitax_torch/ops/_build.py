@@ -24,10 +24,19 @@ backward call the same way (`choose_bwd_kernel`), and the two
 `choose_kernel`). A
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels.
+
+``CALLS`` counts the calls of the two dispatchers that pick between a
+kernel and its plain version (ops/fused_optimizer.py fused_clip_adamw,
+ops/dequant_matmul.py dequant_matmul), whichever path they take, under
+their kernel's name; each call runs inside `dispatch`, which also tells
+the open op recorders (analysis/trace.py OpRecorder) where the call
+begins and ends, so the ops of a plain version on the CPU are filed under
+its kernel. `builds()` counts the libraries built or found on disk.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,7 +46,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict
+from typing import Dict, Iterator, List
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -61,6 +70,11 @@ DEQUANT_KERNELS = ("dequant_matmul_wgmma", "dequant_matmul_general")
 LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *DROPOUT_KERNELS, *STREAM_KERNELS, *FLASH_FWD_KERNELS,
                                                  *FLASH_BWD_KERNELS, *DEQUANT_KERNELS)}
 
+DISPATCHERS = ("fused_adamw", "dequant_matmul")
+CALLS: Dict[str, int] = {name: 0 for name in DISPATCHERS}
+# objects with enter(name) and exit(name): analysis/trace.py OpRecorder
+WATCHERS: List[object] = []
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, dict] = {}
 _lock = threading.Lock()
@@ -69,6 +83,26 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def dispatch(name: str) -> Iterator[None]:
+    """One call of `name`'s dispatcher: counted in CALLS, and announced to
+    the WATCHERS around its body."""
+    CALLS[name] += 1
+    for w in WATCHERS:
+        w.enter(name)
+    try:
+        yield
+    finally:
+        for w in WATCHERS:
+            w.exit(name)
+
+
+def builds() -> int:
+    """Kernel libraries this process built or found on disk so far: a
+    first use of a kernel in traffic shows as one more."""
+    return len(_build_log)
 
 
 def set_build_dir(path: str) -> str:

@@ -249,12 +249,13 @@ def dequant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
     dims. act=True quantizes x per tensor and runs int8 x int8 (int8 weights
     only). A CUDA tensor goes to the kernel or raises; a CPU tensor goes to
     the plain version."""
-    if x.device.type == "cuda":
-        x2d, sx = _prepare(x, w, act)
-        return dequant_matmul_cuda(x2d.contiguous(), w, scale, sx).reshape(*x.shape[:-1], w.shape[0])
-    if x.device.type == "cpu":
-        return dequant_matmul_plain(x, w, scale, act=act)
-    raise ValueError(f"{KERNEL}: no path for device {x.device}")
+    with _build.dispatch(KERNEL):
+        if x.device.type == "cuda":
+            x2d, sx = _prepare(x, w, act)
+            return dequant_matmul_cuda(x2d.contiguous(), w, scale, sx).reshape(*x.shape[:-1], w.shape[0])
+        if x.device.type == "cpu":
+            return dequant_matmul_plain(x, w, scale, act=act)
+        raise ValueError(f"{KERNEL}: no path for device {x.device}")
 
 
 def make_quant_matmul(cfg) -> Callable:

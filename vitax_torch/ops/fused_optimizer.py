@@ -229,13 +229,14 @@ def fused_clip_adamw(params: Sequence[torch.Tensor], grads: Sequence[torch.Tenso
     grads or of a superset (the probe's clip reads every grad's norm). A
     CUDA tensor goes to the kernel or raises; a CPU tensor goes to the
     plain version."""
-    scal = step_scalars(count, grad_norm, schedule, clip_norm, b1, b2)
-    hparams = (float(b1), float(b2), float(eps), float(weight_decay))
-    dev = params[0].device
-    if dev.type == "cuda":
-        fused_adamw_cuda(params, grads, mu, nu, scal, hparams, lr_mults)
-    elif dev.type == "cpu":
-        clip_adamw_(params, grads, mu, nu, scal, hparams, lr_mults)
-    else:
-        raise ValueError(f"{KERNEL}: no path for device {dev}")
-    return count + 1
+    with _build.dispatch(KERNEL):
+        scal = step_scalars(count, grad_norm, schedule, clip_norm, b1, b2)
+        hparams = (float(b1), float(b2), float(eps), float(weight_decay))
+        dev = params[0].device
+        if dev.type == "cuda":
+            fused_adamw_cuda(params, grads, mu, nu, scal, hparams, lr_mults)
+        elif dev.type == "cpu":
+            clip_adamw_(params, grads, mu, nu, scal, hparams, lr_mults)
+        else:
+            raise ValueError(f"{KERNEL}: no path for device {dev}")
+        return count + 1

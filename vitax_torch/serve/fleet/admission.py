@@ -83,5 +83,5 @@ class AdmissionController:
         if self.recorder is not None:
             try:
                 self.recorder.event("admission", **payload)
-            except Exception:  # noqa: BLE001 - telemetry must not kill admission
+            except Exception:  # vtx: ignore[VTX106] telemetry must not kill admission
                 pass

@@ -285,5 +285,5 @@ class Autoscaler:
         if self.recorder is not None:
             try:
                 self.recorder.event("autoscale", **payload)
-            except Exception:  # noqa: BLE001 - telemetry must not kill scaling
+            except Exception:  # vtx: ignore[VTX106] telemetry must not kill scaling
                 pass

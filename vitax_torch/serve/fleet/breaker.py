@@ -140,7 +140,7 @@ class CircuitBreaker:
         if self._on_event is not None:
             try:
                 self._on_event({"replica": self.name, **payload})
-            except Exception:  # noqa: BLE001 - telemetry must not kill dispatch
+            except Exception:  # vtx: ignore[VTX106] telemetry must not kill dispatch
                 pass
 
 

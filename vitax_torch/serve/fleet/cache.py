@@ -102,5 +102,5 @@ class PredictionCache:
         if self.recorder is not None:
             try:
                 self.recorder.event("cache", **payload)
-            except Exception:  # noqa: BLE001 - telemetry must not kill the hot path
+            except Exception:  # vtx: ignore[VTX106] telemetry must not kill the hot path
                 pass

@@ -105,7 +105,7 @@ class PlacementAgent:
         if self.recorder is not None:
             try:
                 self.recorder.event("placement", **payload)
-            except Exception:  # noqa: BLE001 - telemetry must not kill placement
+            except Exception:  # vtx: ignore[VTX106] telemetry must not kill placement
                 pass
 
 
@@ -165,7 +165,8 @@ def start_agent(agent: PlacementAgent, port: int = DEFAULT_AGENT_PORT):
     health loop; returns the httpd (server_address[1] is the bound port)."""
     httpd = ThreadingHTTPServer(("0.0.0.0", port), _make_handler(agent))
     httpd.daemon_threads = True
-    threading.Thread(target=httpd.serve_forever, daemon=True, name="vitax-torch-placement-agent").start()
+    threading.Thread(  # vtx: ignore[VTX205] stop_agent's httpd.shutdown() ends serve_forever
+        target=httpd.serve_forever, daemon=True, name="vitax-torch-placement-agent").start()
     agent.manager.start()
     return httpd
 

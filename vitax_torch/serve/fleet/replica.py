@@ -398,5 +398,5 @@ class ReplicaManager:
         if self.recorder is not None:
             try:
                 self.recorder.event(kind, **payload)
-            except Exception:  # noqa: BLE001 - telemetry must not kill the fleet
+            except Exception:  # vtx: ignore[VTX106] telemetry must not kill the fleet
                 pass

@@ -247,7 +247,7 @@ class Router:
                 topk = json.loads(body.decode("utf-8")).get("topk")
                 if topk is not None:
                     return int(topk)
-            except Exception:  # noqa: BLE001 - a malformed body keys as default; the replica 400s it
+            except Exception:  # vtx: ignore[VTX106] a malformed body keys as default; the replica 400s it
                 pass
         return "default"
 
@@ -364,7 +364,8 @@ class Router:
             out["hedge"] = is_hedge
             results.put(out)
 
-        threading.Thread(target=run, args=(primary, False), daemon=True, name="vitax-torch-hedge-primary").start()
+        threading.Thread(  # vtx: ignore[VTX205] fire-and-forget: loser self-accounts in _attempt, result abandoned
+            target=run, args=(primary, False), daemon=True, name="vitax-torch-hedge-primary").start()
         launched = 1
         got: list = []
         try:
@@ -375,8 +376,9 @@ class Router:
                 if hedge_replica is not None:
                     self.metrics.hedge()
                     self._event("hedge", event="fired", primary=primary.name, replica=hedge_replica.name)
-                    threading.Thread(target=run, args=(hedge_replica, True), daemon=True,
-                                     name="vitax-torch-hedge-secondary").start()
+                    threading.Thread(  # vtx: ignore[VTX205] fire-and-forget: see the primary-attempt thread above
+                        target=run, args=(hedge_replica, True), daemon=True,
+                        name="vitax-torch-hedge-secondary").start()
                     launched = 2
         deadline = time.monotonic() + self.request_timeout_s + 1.0
         while len(got) < launched and not any(o["kind"] == "response" for o in got):
@@ -491,7 +493,7 @@ class Router:
             try:
                 replicas[r.name]["server"] = self.manager._http_get(r.url + "/metrics",
                                                                     self.manager.health_timeout_s)
-            except Exception:  # noqa: BLE001 - the scrape is best effort
+            except Exception:  # vtx: ignore[VTX106] the scrape is best effort
                 pass
         snap = self.metrics.snapshot()
         snap["request_timeout_s"] = self.request_timeout_s
@@ -533,7 +535,7 @@ class Router:
         if self.recorder is not None:
             try:
                 self.recorder.event(kind, **payload)
-            except Exception:  # noqa: BLE001 - telemetry must not kill dispatch
+            except Exception:  # vtx: ignore[VTX106] telemetry must not kill dispatch
                 pass
 
 
@@ -721,7 +723,8 @@ def start_router(router: Router, port: int):
     httpd (server_address[1] is the bound port, 0 = ephemeral)."""
     httpd = ThreadingHTTPServer(("0.0.0.0", port), _make_handler(router))
     httpd.daemon_threads = True
-    threading.Thread(target=httpd.serve_forever, daemon=True, name="vitax-torch-fleet-router").start()
+    threading.Thread(  # vtx: ignore[VTX205] stop_router's httpd.shutdown() ends serve_forever
+        target=httpd.serve_forever, daemon=True, name="vitax-torch-fleet-router").start()
     return httpd
 
 

@@ -555,7 +555,8 @@ def start_server(cfg: Config, engine: InferenceEngine, port: Optional[int] = Non
     ctx = ServeContext(cfg, engine, recorder=recorder)
     httpd = ThreadingHTTPServer(("0.0.0.0", cfg.serve_port if port is None else port), _make_handler(ctx))
     httpd.daemon_threads = True
-    threading.Thread(target=httpd.serve_forever, daemon=True, name="vitax-torch-http").start()
+    threading.Thread(  # vtx: ignore[VTX205] stop_server's httpd.shutdown() ends serve_forever
+        target=httpd.serve_forever, daemon=True, name="vitax-torch-http").start()
     ctx.event("serve_start", port=httpd.server_address[1], buckets=list(engine.buckets), topk=engine.topk,
               max_batch_wait_ms=cfg.max_batch_wait_ms, compile_count=engine.compile_count)
     master_print(f"serve: listening on :{httpd.server_address[1]} (buckets {list(engine.buckets)}, "

@@ -98,6 +98,12 @@ class ProfilerWindow:
         self._say(f"profile trace written to {self.dir}")
 
 
+def trace_events(path: str) -> List[dict]:
+    """Every event of a Chrome trace torch.profiler wrote."""
+    with open(path) as f:
+        return json.load(f).get("traceEvents", [])
+
+
 def read_trace(path: str) -> Tuple[List[int], List[dict]]:
     """(the global step numbers the window's ranges name, in order; the
     device kernel events {"name", "ts", "dur"} in microseconds that start
@@ -105,8 +111,7 @@ def read_trace(path: str) -> Tuple[List[int], List[dict]]:
     wrote. The trace also holds device work of the warm-up step (an H100
     run's held its last kernels); the card is synchronized before the
     window's first step, so its kernels start after that range opens."""
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
+    events = trace_events(path)
     ranges = [e for e in events
               if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith(STEP_PREFIX)]
     steps = sorted(int(e["name"][len(STEP_PREFIX):]) for e in ranges)

@@ -78,7 +78,7 @@ def operands(shape, seed: int):
     rng = np.random.default_rng(seed)
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3, h, dh)).astype(np.float32)).to("cuda", torch.bfloat16)
     do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", torch.bfloat16)
-    dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda()
+    dlse = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda(0)
     return (*qkv.unbind(2), do, dlse)
 
 

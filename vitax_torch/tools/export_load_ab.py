@@ -73,7 +73,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("export_load_ab: needs a CUDA card", file=sys.stderr)
         return 2
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)
     label = card()
     work = tempfile.mkdtemp(prefix="vitax_torch_export_ab_", dir=args.dir)
     path = os.path.join(work, "int8.npz")

@@ -44,7 +44,7 @@ BATCH = 2
 ROW_TIMEOUT_S = 900
 
 
-def run_row(spec: dict) -> dict:
+def run_row(spec: dict) -> dict:  # vtx: ignore[VTX103] float(loss) fences each warm step and sync() the timed loop
     """Train-step time of one configuration, in this process."""
     import numpy as np
     import torch

@@ -238,9 +238,10 @@ class ControlPlane:
         agreed word through poll(), never the raw flags."""
         from vitax_torch.train import preempt
         word = 0
-        if preempt.requested():
+        if preempt.requested():  # vtx: ignore[VTX107] the control plane is the sanctioned raw-flag poller
             word |= BIT_PREEMPT
-        if self.watchdog is not None and self.watchdog.escalation_requested():
+        if (self.watchdog is not None
+                and self.watchdog.escalation_requested()):  # vtx: ignore[VTX107] sanctioned raw-flag poller
             word |= BIT_ESCALATE
         if self._fault.is_set():
             word |= BIT_FAULT

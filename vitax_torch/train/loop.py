@@ -526,12 +526,13 @@ def _save_ckpt(cfg: Config, state: TrainState, epoch: int, *, wait: bool, step_i
     return ckpt_io.epoch_ckpt_path(cfg.ckpt_dir, epoch), stall, held
 
 
-def _run_epochs(cfg: Config, state: TrainState, train_step: Callable, train_loader, val_loader,
-                eval_step: Callable, schedule: Callable, control: ControlPlane,
-                records: Optional[List[Dict[str, float]]] = None, train_ds=None,
-                resume_step: int = 0, resume_rounded: bool = False, recorder=None, watchdog=None,
-                snap_pipe=None, replicator=None, window: Optional[ProfilerWindow] = None,
-                reporter: Optional[ArbiterReporter] = None) -> TrainState:
+def _run_epochs(  # vtx: ignore[VTX103] the log step's float(loss) fences; between them the launch queue's backpressure
+        cfg: Config, state: TrainState, train_step: Callable, train_loader, val_loader,
+        eval_step: Callable, schedule: Callable, control: ControlPlane,
+        records: Optional[List[Dict[str, float]]] = None, train_ds=None,
+        resume_step: int = 0, resume_rounded: bool = False, recorder=None, watchdog=None,
+        snap_pipe=None, replicator=None, window: Optional[ProfilerWindow] = None,
+        reporter: Optional[ArbiterReporter] = None) -> TrainState:
     smoothed_loss = SmoothedValue(window_size=5)
     smoothed_time = SmoothedValue(window_size=5)
     total_steps = 0

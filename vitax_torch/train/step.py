@@ -84,7 +84,7 @@ MoE the aux the schedule formed (identical on every rank) is added.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +103,9 @@ from vitax_torch.parallel.sharding import (average_over_ep, average_over_pp, ave
 from vitax_torch.train.state import AdamW, TrainState
 
 Batch = Dict[str, torch.Tensor]
+# the normalization constants on each device, made there once: a tensor made
+# from host values is a blocking copy, which would stall every step's launches
+_NORM: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def prepare_images(images: torch.Tensor) -> torch.Tensor:
@@ -111,8 +114,11 @@ def prepare_images(images: torch.Tensor) -> torch.Tensor:
     through unchanged."""
     if images.dtype != torch.uint8:
         return images
-    mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
-    std = torch.as_tensor(IMAGENET_STD, device=images.device)
+    consts = _NORM.get(images.device)
+    if consts is None:
+        consts = _NORM[images.device] = (torch.as_tensor(IMAGENET_MEAN, device=images.device),
+                                         torch.as_tensor(IMAGENET_STD, device=images.device))
+    mean, std = consts
     return (images.float() / 255.0 - mean) / std
 
 
@@ -253,7 +259,7 @@ class UpdateTimer:
         if self._events is None:
             return self._seconds
         start, end = self._events
-        end.synchronize()
+        end.synchronize()  # vtx: ignore[VTX101] read on the log step only, after its fetch waited for the step
         return start.elapsed_time(end) / 1e3
 
 
