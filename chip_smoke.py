@@ -146,11 +146,14 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      rotation the loop-back over the S chunks) at the ViT-L/14 shape of
      the repo's sp configuration (N 256, S 2), phase 7L's ViT-L width at N
      4096 over S 2 and N 9216 over S 4 (local 2304: the streaming entries),
-     and the 10B width (S 2), rate 0 and 0.1: o and dq, dk, dv against the
+     the 10B width (S 2) and b16_moe's N 196 over S 2 and 4 (local 98 and
+     49: partial tiles at global offsets), rate 0 and 0.1: o and dq, dk, dv against the
      whole-sequence kernel call (under dropout its dropout kernel at the
      same seed), S^2 block products a ring run forward and backward, S - 1
      rotations a shard; Ulysses' head slices against the whole call; the
-     ring's forward and forward + backward ms beside the whole call's;
+     ring's forward and forward + backward ms beside the whole call's; a
+     fresh process whose backward's first node is the whole call (no
+     context current on autograd's device thread), its grads finite;
   7p. tensor parallelism on the one card: models/vit.py's Block with a
      TensorShard (the sharded qkv, parallel/tensor_parallel.py's relayout
      to whole heads, the core on local heads, the row-parallel partials
@@ -173,6 +176,21 @@ Phases, each printing one line (or a few), any failure exits non-zero:
      GPipe in bf16 under att_dropout 0.1 on the dropout kernels; each
      rank's attention and fused_adamw launches and its hops against the
      schedule's, and each run's sec/iter;
+  7n. the MoE ViT in groups on the one card, every batch row its own
+     seeded image through the fake data path: first a forward of the
+     seeded b16_moe init on the first batch shows how many first choices
+     its first step drops at capacity factor 1.25 (it fails on none), how
+     many tokens a rank-local capacity would route otherwise, and that
+     each sp-2 slice's route with the cross-slice counts is the whole
+     route's slice; then the train CLI under torchrun at b16_moe's full
+     width (bench.py:296-298), batch 8, 3 steps, the ranks on the card
+     over gloo: sp 2 ring, sp 2 Ulysses, tp 2 and tp 2 x ep 2 against one
+     process in float32 (each loss and grad norm within 1e-5), then each
+     mesh in bf16 on the wgmma kernels against one bf16 process (within
+     3x its distance from float32; each rank's A1, A2 and B launches as
+     the schedule says); each run's wall, its ranks' peak reserved memory and the
+     card's peak over its wave (its bf16 tp runs beside 7q's bf16 wave,
+     the rest in a wave after it);
   7i. phase 7's run from an ImageFolder tree that PIL writes at run time
      (8 classes x 64 JPEGs of 180-640 px, 4 PNGs; val 8 x 8), on the
      native decoder where g++ finds libjpeg's header, else on the PIL
@@ -298,13 +316,23 @@ sys.path.insert(0, REPO)
 # f32 path runs with TF32 off).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
-# INT32 operations/s: 64 INT32 lanes an SM (Hopper architecture white
-# paper) x 132 SMs x the 1.98 GHz boost clock, the clock at which the
-# float32 peak above is 67 TFLOP/s. The dropout hash spends about 19 of
-# them on each score element (two fmix32 of 8, the k-term multiply-add,
-# the xor with the seed and the compare; flash_common.cuh).
+# INT32 operations/s: 64 lanes a clock an SM on the ALU pipe (Hopper
+# architecture white paper; NVIDIA's throughput table gives compute
+# capability 9.0 64 results a clock an SM for 32-bit integer add, shift,
+# logic and compare) x 132 SMs x the 1.98 GHz boost clock, the clock at
+# which the float32 peak above is 67 TFLOP/s. The dropout hash's compiled
+# code takes these ALU instructions a score element (`python -m
+# vitax_torch.tools.hash_sass`, the DROP kernels' SASS against the rate-0
+# ones on an H100 80GB HBM3; at Dh 160 / 128 / 64): the forward 11.81 /
+# 11.83 / 11.81, the dK/dV kernel 12.62 / 12.32 / 12.06, the dQ kernel
+# 11.88 / 11.70 / 11.70. Each is 4 SHF, 5 LOP3, the threshold's ISETP, the
+# mask's FSEL and a share of adds and moves, while its 4 IMADs issue on the
+# FMA pipe beside them (the compiler cancels fmix32's last xor-shift
+# against the next one's first and folds the two multiplies left side by
+# side). Every dropout bound, forward and backward, counts the fewest of
+# them, once an element: the least work that gives the mask.
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-HASH_OPS_PER_ELEMENT = 19
+HASH_OPS_PER_ELEMENT = 11.70
 
 SERVE_SHAPE = (8, 256, 32, 160)          # (B, N, H, Dh) of the 10B model at bucket 8
 SERVE_BLOCKS = 32                        # its depth: attention forwards a serve batch
@@ -2688,6 +2716,38 @@ sys.exit(rc)
 """
 
 
+class CardMemory:
+    """The card's memory in use (total minus free from mem_get_info: every
+    process's allocations and contexts) sampled every `every` s on a
+    thread between start() and stop(); stop() returns the largest sample
+    in GB."""
+
+    def __init__(self, torch, every: float = 0.5):
+        self.torch, self.every, self._peak = torch, every, 0.0
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="card-memory")
+
+    def _run(self) -> None:
+        while True:
+            free, total = self.torch.cuda.mem_get_info()
+            with self._lock:
+                self._peak = max(self._peak, (total - free) / 1e9)
+            if self._stop.wait(self.every):
+                return
+
+    def start(self) -> "CardMemory":
+        self._thread.start()
+        return self
+
+    def stop(self) -> float:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join()
+        with self._lock:
+            return self._peak
+
+
 class ArbiterDrill:
     """Phase 7a's processes, their logs and the HTTP they answer."""
 
@@ -2703,7 +2763,7 @@ class ArbiterDrill:
         self.ports = ports
         self.env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
         self.procs, self.logs = {}, {}
-        self.peak_used, self._stop = 0.0, threading.Event()
+        self.memory = CardMemory(torch)
 
     def commands(self) -> dict:
         from vitax_torch.ops import _build
@@ -2735,16 +2795,6 @@ class ArbiterDrill:
             self.procs[name] = subprocess.Popen([sys.executable, *argv], cwd=REPO, env=self.env,
                                                 stdout=open(self.logs[name], "w"), stderr=subprocess.STDOUT,
                                                 start_new_session=True)
-
-    def sample(self) -> None:
-        """The card's memory in use, sampled every 0.5 s from now on."""
-        threading.Thread(  # vtx: ignore[VTX205] its loop ends on _stop, which phase_arbiter and kill_all set
-            target=self._sample, daemon=True, name="7a-memory").start()
-
-    def _sample(self) -> None:
-        while not self._stop.wait(0.5):
-            free, total = self.torch.cuda.mem_get_info()
-            self.peak_used = max(self.peak_used, (total - free) / 1e9)
 
     def tail(self, name: str, n: int = 3000) -> str:
         with open(self.logs[name]) as f:
@@ -2794,7 +2844,7 @@ class ArbiterDrill:
 
     def kill_all(self) -> None:
         import signal
-        self._stop.set()
+        self.memory.stop()
         for proc in self.procs.values():
             if proc.poll() is None:
                 try:
@@ -2867,7 +2917,7 @@ def phase_arbiter(torch, card, beside: Beside) -> dict:
     try:
         t_head = time.monotonic() - dr.t_spawn
         t_torchrun = dr.wait(lambda: beside.torchrun["proc"].poll() is not None, 600, "exit of 7t's torchrun")
-        dr.sample()
+        dr.memory.start()
         t_ready = dr.wait(lambda: dr.get(dr.fleet + "/healthz")["replicas"] == {"replica_0": "ready"}, 300,
                           "ready seed replica")
         fleet_ev = jsonl_events(os.path.join(dr.m, "fleet", "serve.jsonl"))
@@ -2947,7 +2997,7 @@ def phase_arbiter(torch, card, beside: Beside) -> dict:
     except BaseException:
         dr.kill_all()
         raise
-    dr._stop.set()
+    peak_used = dr.memory.stop()
     say(f"[7a return] the return {t_return:.1f} s after the burst ended, training at 2 ranks {t_grow:.1f} s after "
         f"that; the ledger {final['ledger']['hosts']}, borrowed {final['borrowed']}, agent slots {slots}; exits "
         f"{rcs} [{card}]")
@@ -3014,7 +3064,7 @@ def phase_arbiter(torch, card, beside: Beside) -> dict:
         f"{min(e['time'] for e in after) - t_ret_start:.1f};"
         f" the 2 -> 1 resume from {restores[0]['path']} in {restores[0]['seconds']:.2f} s, {restores[0]['dcp_reads']} "
         f"checkpoint-directory reads, 1 -> 2 from {restores[-1]['path']}; losses after the re-expansion "
-        + " ".join(f"{e['loss']:.4f}" for e in after[:4]) + f"; card memory in use at most {dr.peak_used:.1f} GB "
+        + " ".join(f"{e['loss']:.4f}" for e in after[:4]) + f"; card memory in use at most {peak_used:.1f} GB "
         f"[{card}]")
     say(f"[7a launches] the ranks (world, A1, A2, B): "
         + ", ".join(f"({r['world']}, {p['flash_attn_fwd']}, {p['flash_attn_bwd']}, {p['fused_adamw']})"
@@ -5332,14 +5382,32 @@ def phase_train_fsdp(torch, card, root: str, ref7: dict):
 # N 256, batch 32, sp 2; local length 128, the whole-N entry), phase 7L's
 # ViT-L width at N 4096 over S 2 (local 2048, the whole-N entry at its
 # largest) and at N 9216 over S 4 (local 2304, the streaming entries), and
-# the 10B width (N 256, 32 heads of 160, batch 32) over S 2.
+# the 10B width (N 256, 32 heads of 160, batch 32) over S 2, and b16_moe's
+# (phase 7n's: batch 8, N 196, 12 heads of 64) over S 2 and 4 (local 98 and
+# 49, partial tiles at global offsets; Ulysses at 6 and 3 heads a rank).
 RING_CASES = (("l14_ring_sp", (32, 256, 16, 64), 2), ("ViT-L N 4096", (2, 4096, 16, 64), 2),
-              ("ViT-L N 9216", (2, 9216, 16, 64), 4), ("10B width", (32, 256, 32, 160), 2))
+              ("ViT-L N 9216", (2, 9216, 16, 64), 4), ("10B width", (32, 256, 32, 160), 2),
+              ("b16_moe sp 2", (8, 196, 12, 64), 2), ("b16_moe sp 4", (8, 196, 12, 64), 4))
 # The ring (S^2 block products in bf16, merged in f32, their grads summed by
 # autograd in bf16 across the blocks and the rotations) against the
 # whole-sequence kernel call: max |d| / max |ref| of o and of each of dq, dk,
 # dv within phase 3L's bf16 bars (LONG_TOL), at rate 0 and 0.1.
 RING_TOL = LONG_TOL["bfloat16"][:2]
+# A fresh process whose backward's first CUDA work on autograd's device
+# thread is the attention backward (its first node), as phase 7r's first
+# case would be alone: the tensor-map encoder finds no context current on
+# that thread for card 0 (hopper_common.cuh context_current). argv: the
+# shape, then the seed.
+FIRST_BACKWARD = """import json, sys
+import torch
+import chip_smoke as cs
+from vitax_torch.ops.attention import flash_attention
+q0, k0, v0, do, _ = cs.attention_operands(torch, tuple(json.loads(sys.argv[1])), "bfloat16", int(sys.argv[2]))
+leaf = torch.stack((q0, k0, v0), dim=2).requires_grad_(True)
+flash_attention(*leaf.unbind(2)).backward(do)
+torch.cuda.synchronize()
+print("finite" if bool(torch.isfinite(leaf.grad.float()).all()) else "not finite")
+"""
 
 
 def fwd_and_bwd_ms(torch, fn, qkv, do, iters):
@@ -5378,6 +5446,10 @@ def phase_ring(torch, card):
     torch.backends.cuda.matmul.allow_tf32 = False
     total = {k: 0 for k in _build.LAUNCHES}
     bad = []
+    first_shape = RING_CASES[-1][1]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    first = subprocess.Popen([sys.executable, "-c", FIRST_BACKWARD, json.dumps(first_shape), str(SEED + 30)],
+                             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for label, shape, count in RING_CASES:
         b, n, h, dh = shape
         n_loc = n // count
@@ -5461,6 +5533,15 @@ def phase_ring(torch, card):
             bad.append(f"{label} Ulysses head slices")
         del leaf, leaf_w, o_u, o_w, q0, k0, v0, do, qkv0
         torch.cuda.empty_cache()
+    try:
+        out, _ = first.communicate(timeout=300)
+    finally:
+        first.kill()
+    last = out.strip().splitlines()[-1] if out.strip() else "no output"
+    say(f"[7r check] a fresh process's first backward, the whole call at {first_shape} the first node on autograd's "
+        f"device thread: exit {first.returncode}, grads {last}")
+    if first.returncode != 0 or last != "finite":
+        bad.append(f"a fresh process's first backward:\n{out[-3000:]}")
     if bad:
         fail(f"7r: the ring's block products disagree with the whole-sequence call: {bad}")
     return total
@@ -5520,18 +5601,26 @@ TP_CLI = ["--fake_data", "--num_blocks", "2", "--batch_size", "8", "--max_steps"
 TP_BF16_FACTOR = 3.0
 # torchrun's ranks on one card: a gloo group made before the CLI's main (which
 # then joins it, distributed.maybe_initialize), each rank's kernel launches
-# written beside the JSONL. argv: the launches dir, then the CLI's flags.
+# and its allocator's peak reserved bytes written beside the JSONL; under
+# SMOKE_SEEDED_FAKE, the fake data's rows are seeded_fake_item's. argv: the launches dir, then the CLI's flags.
 TP_CLI_MAIN = """import json, os, sys
+import torch
 import torch.distributed as dist
 from vitax_torch.ops import _build
 from vitax_torch.parallel import pipeline
 from vitax_torch.train.__main__ import main
+if os.environ.get("SMOKE_SEEDED_FAKE"):
+    from chip_smoke import seeded_fake_item
+    from vitax_torch.data.fake import FakeImageNetDataset
+    FakeImageNetDataset.__getitem__ = seeded_fake_item
 if "WORLD_SIZE" in os.environ:
     dist.init_process_group("gloo", init_method="env://")
 rc = main(sys.argv[2:])
 rank = os.environ.get("RANK", "0")
 with open(os.path.join(sys.argv[1], "launches%s.json" % rank), "w") as f:
     json.dump(_build.LAUNCHES, f)
+with open(os.path.join(sys.argv[1], "memory%s.json" % rank), "w") as f:
+    json.dump({"max_memory_reserved": torch.cuda.max_memory_reserved() if torch.cuda.is_initialized() else 0}, f)
 with open(os.path.join(sys.argv[1], "hops%s.json" % rank), "w") as f:
     json.dump(pipeline.HOPS, f)
 sys.exit(rc)
@@ -5995,40 +6084,286 @@ def phase_pp(root: str, card: str, results: dict) -> dict:
     return {k: runs["gpipe M 2 bf16"][3][k] + runs["gpipe M 2 bf16 att_dropout"][3][k] for k in _build.LAUNCHES}
 
 
-def phase_groups(torch, card, root: str) -> tuple:
-    """Phases 7p and 7q in three waves of processes on the card (each
-    wave's runs at once): the tp Block's torchrun and 7p's four CLI runs
-    (whose tp-1 runs are 7q's pp-1 runs), then 7q's pp-2 runs in PP_WAVES.
-    Returns (the tp Blocks' launches, the bf16 tp-2 run's, the bf16 pp-2
-    runs')."""
+# --- phase 7n: the MoE ViT in groups through the train CLI on the one card ---
+# bench.py's b16_moe (bench.py:296-298: D 768, 12 heads, patch 16 at 224,
+# N 196, 8 experts, top-1, capacity factor 1.25, einsum) through the train
+# CLI under torchrun, the ranks on the one card over gloo (TP_CLI_MAIN, as
+# 7p and 7q run), batch 8, 3 steps, long warmup: sp 2 (ring and Ulysses:
+# the capacity over the whole sequence from one all-reduce of choice
+# counts a block), tp 2 (the whole MoE on every tp rank) and tp 2 x ep 2
+# (the experts replicated over tp, sharded over the ep group of one tp
+# index), each against one process. The batches are the fake data path's
+# with every row its own (seeded_fake_item), so a row handed to the wrong
+# rank or a sample's counts taken for another's moves the numbers.
+# float32: each of the 3 losses and 3 grad norms within MOE_GROUP_TOL of
+# the one process's (the CPU tests hold the same arithmetic to vitax's at
+# capacity factor 0.5; here the bar catches a token kept or dropped
+# against the whole sequence's order: moe_group_drops shows the first step
+# drops tokens and that a rank-local capacity would route others; at the
+# CPU tests' tiny width a rank-local capacity moved the grad norm 1.4e-3
+# and the loss 1.7e-5, so the bar is 1e-5, not phase 5's 3e-4). bf16 (the
+# default dtype) runs each mesh and one process on the wgmma kernels (the
+# ring's with-lse entries at local 98 and global offset 98 among them):
+# each of a mesh's 6 numbers within TP_BF16_FACTOR times the bf16 one
+# process's distance from the float32 one process (at least
+# MODEL_LOSS_REL_TOL), as 7p and 7q hold theirs, and each rank's launches
+# as the schedule says (moe_group_predicted). Depth 4 of b16_moe's 12, cut for
+# memory and time: at depth 12 a rank holds 5-9 GB and the 21 processes
+# need about 140 GB of the card (two tp runs' 6 ranks at once peaked at
+# 40.1 GB of an H100 80GB HBM3), four waves of their own at 32-36 s each;
+# at depth 4 (a rank 1.7-3.4 GB reserved) they take one wave of their own
+# and share 7q's bf16 wave (MOE_GROUP_WAVES; on that card 7q's float32
+# wave alone filled 70.4 GB, its bf16 wave 41.9, 7p's 52.2).
+MOE_GROUP_DEPTH = 4
+MOE_GROUP_CLI = ["--fake_data", "--image_size", "224", "--patch_size", "16", "--embed_dim", "768", "--num_heads", "12",
+                 "--moe_experts", "8", "--batch_size", "8", "--max_steps", "3", "--warmup_steps", "100",
+                 "--log_step_interval", "1", "--num_workers", "2", "--num_blocks", str(MOE_GROUP_DEPTH)]
+MOE_GROUP_STEPS = 3
+MOE_GROUP_CF = 1.25
+MOE_GROUP_MESHES = {"sp 2 ring": (2, ["--sp_size", "2"]),
+                    "sp 2 ulysses": (2, ["--sp_size", "2", "--sp_impl", "ulysses"]),
+                    "tp 2": (2, ["--tp_size", "2"]),
+                    "tp 2 x ep 2": (4, ["--tp_size", "2", "--ep_size", "2"])}
+MOE_GROUP_RUNS = {"one process float32": (1, "float32", []), "one process bf16": (1, "bfloat16", []),
+                  **{f"{m} float32": (r, "float32", f) for m, (r, f) in MOE_GROUP_MESHES.items()},
+                  **{f"{m} bf16": (r, "bfloat16", f) for m, (r, f) in MOE_GROUP_MESHES.items()}}
+MOE_GROUP_TOL = 1e-5
+# the 7n runs of each wave of phase_groups: none beside 7p's wave (ten
+# processes, 52.2 GB) or 7q's float32 one (70.4 GB); the bf16 tp runs
+# (6 ranks, about 16 GB) beside 7q's bf16 wave; a fourth wave of the
+# float32 runs and the other bf16 runs (16 processes, about 51 GB)
+MOE_GROUP_WAVES = ((), (), ("tp 2 bf16", "tp 2 x ep 2 bf16"),
+                   (*(n for n in MOE_GROUP_RUNS if n.endswith("float32")), "one process bf16", "sp 2 ring bf16",
+                    "sp 2 ulysses bf16"))
+
+
+def seeded_fake_item(self, idx: int):
+    """7n's FakeImageNetDataset.__getitem__ (TP_CLI_MAIN under
+    SMOKE_SEEDED_FAKE, and moe_group_drops): index idx's image standard
+    normal from a generator seeded with (SEED, idx), its label idx % 1000,
+    where the fake data path gives every row zeros and label 0."""
+    rng = np.random.default_rng((SEED, int(idx)))
+    return rng.standard_normal((self.image_size, self.image_size, 3), dtype=np.float32), int(idx) % 1000
+
+
+def moe_group_dir(root: str, name: str) -> str:
+    return os.path.join(root, "moe_" + name.replace(" ", "_"))
+
+
+def moe_group_cmds(root: str, main_py: str, env: dict, names) -> list:
+    """Phase 7n's runs `names` (of MOE_GROUP_RUNS) as run_cli commands:
+    torchrun of TP_CLI_MAIN with every rank on cuda:0, or one process, on
+    seeded_fake_item's batches."""
+    cmds, env = [], dict(env, SMOKE_SEEDED_FAKE="1")
+    for name in names:
+        ranks, dtype, flags = MOE_GROUP_RUNS[name]
+        d = moe_group_dir(root, name)
+        os.makedirs(d)
+        launcher = ([sys.executable] if ranks == 1 else
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(ranks)])
+        extra = ["--device", "cuda:0"] if ranks > 1 else []
+        cmds.append((name, [*launcher, main_py, d, *MOE_GROUP_CLI, "--moe_capacity_factor", str(MOE_GROUP_CF),
+                            "--dtype", dtype, *flags, *extra, "--metrics_dir", d], env))
+    return cmds
+
+
+def moe_group_predicted(name: str) -> dict:
+    """The launches a rank of a 7n bf16 run must count over its steps under
+    none_saveable: each block's attention forward twice a step (the
+    forward and its recompute) and its backward once, on the wgmma kernels;
+    the ring's S block products a call; one fused_adamw a step."""
+    calls = 2 if "ring" in name else 1
+    fwd, bwd = 2 * calls * MOE_GROUP_DEPTH * MOE_GROUP_STEPS, calls * MOE_GROUP_DEPTH * MOE_GROUP_STEPS
+    return {"flash_attn_fwd": fwd, "flash_attn_fwd_wgmma": fwd, "flash_attn_bwd": bwd, "flash_attn_bwd_wgmma": bwd,
+            "fused_adamw": MOE_GROUP_STEPS}
+
+
+def moe_group_drops(torch, card) -> None:
+    """The first step's forward of 7n's cell (the seeded init every run
+    starts from, float32, the first batch of seeded_fake_item's rows) in
+    this process: the share of first choices past an expert's capacity
+    over the whole sequence, and how many tokens a capacity and slot order
+    taken over each sp-2 rank's token slice would keep or drop otherwise.
+    Each block's route() of each sp-2 slice, given the lower slice's and
+    the whole sequence's per-sample counts (what sequence_counts gathers),
+    must equal the slice of the whole route: experts, gates and kept flags.
+    Fails if they differ, or if nothing drops: the sp runs' check would
+    then prove nothing."""
+    from vitax_torch.config import Config, build_parser, config_fields_from_namespace
+    from vitax_torch.data.fake import TRAIN_SPLIT_LEN, FakeImageNetDataset
+    from vitax_torch.data.loader import ShardedSampler
+    from vitax_torch.models.moe import capacity, route
+    from vitax_torch.models.vit import build_model
+    ns = build_parser().parse_args([*MOE_GROUP_CLI, "--moe_capacity_factor", str(MOE_GROUP_CF),
+                                    "--dtype", "float32"])
+    cfg = Config(**config_fields_from_namespace(ns)).validate()
+    model = build_model(cfg, "cuda")
+    ds = FakeImageNetDataset(cfg.image_size, TRAIN_SPLIT_LEN)
+    rows = ShardedSampler(TRAIN_SPLIT_LEN, cfg.batch_size, shuffle=True, seed=cfg.seed).epoch_indices(0)[0]
+    images = torch.from_numpy(np.stack([seeded_fake_item(ds, i)[0] for i in rows])).cuda(0)
+    e, n, h = cfg.moe_experts, cfg.num_patches, cfg.num_patches // 2
+    c, c_local = capacity(e, n, MOE_GROUP_CF), capacity(e, h, MOE_GROUP_CF)
+    stats = []
+
+    def hook(m, args, logits):
+        probs = torch.softmax(logits, dim=-1)
+        whole = route(probs, 1, c)[0]
+        halves = [probs[:, i * h:(i + 1) * h] for i in (0, 1)]
+        local = torch.cat([route(p, 1, c_local)[0].keep for p in halves], dim=1)
+        counts = torch.stack([torch.stack([ch.onehot.sum(dim=1) for ch in route(p, 1, c)]) for p in halves])
+        same = all(torch.equal(getattr(whole, f)[:, i * h:(i + 1) * h], getattr(ch, f))
+                   for i, p in enumerate(halves)
+                   for ch in route(p, 1, c, lambda k, i=i: (counts[:i].sum(dim=0), counts.sum(dim=0)))
+                   for f in ("expert", "gate", "keep"))
+        stats.append(((~whole.keep).sum().item(), (whole.keep != local).sum().item(), whole.keep.numel(), same))
+    hooks = [block.moe.router.register_forward_hook(hook) for block in model.blocks]
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    del model, images
     gc.collect()
     torch.cuda.empty_cache()
+    dropped, differ, tokens = (sum(x[i] for x in stats) for i in range(3))
+    same = all(x[3] for x in stats)
+    say(f"[7n drops] b16_moe at depth {cfg.num_blocks}, capacity factor {MOE_GROUP_CF} (C {c} slots an expert of "
+        f"{n} tokens), the first step's forward of the seeded init on its first batch ({cfg.batch_size} seeded "
+        f"rows): {dropped} of {tokens} first choices dropped ({dropped / tokens:.2%}), blocks "
+        f"{[x[0] for x in stats]}; a capacity over each sp-2 rank's {h} tokens (C {c_local}) would keep or drop "
+        f"{differ} tokens otherwise; each sp-2 slice's route with the cross-slice counts equals the whole "
+        f"route's slice: {'ok' if same else 'FAIL'} [{card}]")
+    if not same:
+        fail("7n: an sp-2 slice's route with the cross-slice counts differs from the whole route's slice")
+    if dropped == 0:
+        fail(f"7n: nothing drops at capacity factor {MOE_GROUP_CF}; the sp check would prove nothing: lower "
+             f"MOE_GROUP_CF")
+
+
+def phase_moe_groups(root: str, card: str, results: dict, peaks: dict) -> dict:
+    """Phase 7n: the MOE_GROUP_RUNS (`results`: run_cli's; `peaks`: the card
+    memory of each run's wave): exit 0, the log lines of the mesh and the
+    MoE, each step's loss and grad norm from rank 0's JSONL, float32 runs
+    against one process within MOE_GROUP_TOL, bf16 runs finite with each
+    rank's launches as moe_group_predicted says, each mesh's within
+    TP_BF16_FACTOR of one bf16 process's distance from one float32
+    process; each run's wall and its ranks' peak memory. Returns the bf16
+    runs' launches, summed over their ranks."""
+    from vitax_torch.models.moe import capacity
+    from vitax_torch.ops import _build
+    runs, bad = {}, []
+    flag = dict(zip(MOE_GROUP_CLI[1::2], MOE_GROUP_CLI[2::2]))          # after --fake_data, flag-value pairs
+    c = capacity(int(flag["--moe_experts"]), (int(flag["--image_size"]) // int(flag["--patch_size"])) ** 2,
+                 MOE_GROUP_CF)
+    for name, (r, wall) in results.items():
+        ranks, dtype, flags = MOE_GROUP_RUNS[name]
+        if r.returncode != 0 or "training begins" not in r.stdout:
+            fail(f"[7n] {name} exited {r.returncode}:\n{proc_tail(r)}")
+        want_log = (f"capacity {c} slots over the whole sequence across sp 2" if "sp" in name else
+                    "the whole MoE on every tp rank (experts replicated over tp 2)" if "tp" in name else
+                    "moe: 8 experts")
+        if want_log not in r.stdout or ("ep 2" in name and "4 experts a rank over ep 2" not in r.stdout):
+            fail(f"[7n] the {name} run does not log its MoE layout ({want_log!r}):\n{r.stdout[-3000:]}")
+        d = moe_group_dir(root, name)
+        steps, _ = read_jsonl(os.path.join(d, "metrics.jsonl"))
+        launches, mem = {k: 0 for k in _build.LAUNCHES}, []
+        for rank in range(ranks):
+            with open(os.path.join(d, f"launches{rank}.json")) as f:
+                mine = json.load(f)
+            with open(os.path.join(d, f"memory{rank}.json")) as f:
+                mem.append(json.load(f)["max_memory_reserved"] / 1e9)
+            if dtype == "bfloat16":
+                got, want = {k: v for k, v in mine.items() if v}, moe_group_predicted(name)
+                if got != want:
+                    bad.append(f"{name} rank {rank}: launches {got} (predicted {want})")
+            for k, v in mine.items():
+                launches[k] += v
+        values = [s["loss"] for s in steps] + [s["grad_norm"] for s in steps]
+        if len(steps) != MOE_GROUP_STEPS or not all(np.isfinite(values)):
+            fail(f"[7n] {name}: {len(steps)} logged steps of {MOE_GROUP_STEPS}, losses and norms {values}")
+        runs[name] = (values, wall, launches, mem, steps[-1]["sec_per_iter"])
+    if bad:
+        fail(f"7n: launches off the schedule's: {bad}")
+
+    def rel_dist(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+    def fmt(v):
+        return f"losses {' '.join(f'{x:.6f}' for x in v[:3])}, grad norms {' '.join(f'{x:.6f}' for x in v[3:])}"
+    ref, b16 = runs["one process float32"][0], runs["one process bf16"][0]
+    for mesh in MOE_GROUP_MESHES:
+        got = runs[f"{mesh} float32"][0]
+        e = rel_dist(got, ref)
+        say(f"[7n cli] b16_moe (depth {MOE_GROUP_DEPTH}) {mesh} float32 ({MOE_GROUP_RUNS[mesh + ' float32'][0]} "
+            f"ranks on one card over gloo): {fmt(got)}; one process: {fmt(ref)}; rel diff max {e:.2e} "
+            f"(<= {MOE_GROUP_TOL}) {'ok' if e <= MOE_GROUP_TOL else 'FAIL'} [{card}]")
+        if e > MOE_GROUP_TOL:
+            bad.append(f"{mesh} float32: {got} against one process's {ref}")
+        got = runs[f"{mesh} bf16"][0]
+        ratios = [rel_dist([t2], [w]) / (TP_BF16_FACTOR * max(rel_dist([t1], [w]), MODEL_LOSS_REL_TOL))
+                  for t2, t1, w in zip(got, b16, ref)]
+        say(f"[7n cli] {mesh} bf16: {fmt(got)}; one process bf16 {fmt(b16)}; rel distance from float32 one "
+            f"process, max over the six: {mesh} {rel_dist(got, ref):.2e}, one process {rel_dist(b16, ref):.2e}; "
+            f"each of {mesh}'s over {TP_BF16_FACTOR} x max(one process's, {MODEL_LOSS_REL_TOL}): "
+            f"{' '.join(f'{r:.2f}' for r in ratios)} (<= 1) {'ok' if max(ratios) <= 1.0 else 'FAIL'} [{card}]")
+        if max(ratios) > 1.0:
+            bad.append(f"{mesh} bf16 lies past its bar from float32 one process: {ratios}")
+    for name, (values, wall, launches, mem, sec) in runs.items():
+        att = {k: v for k, v in launches.items() if k.startswith("flash_attn") and v}
+        say(f"[7n time] {name}: {fmt(values)}; sec/iter {sec:.4f} (as logged: smoothed over the {MOE_GROUP_STEPS} "
+            f"steps, the first included), wall {wall:.1f} s (beside the rest of its wave, whose card peak was "
+            f"{peaks[name]:.1f} GB); each rank's max_memory_reserved {' '.join(f'{m:.2f}' for m in mem)} GB; "
+            f"launches over its ranks {att}, fused_adamw {launches['fused_adamw']} [{card}]")
+    if bad:
+        fail(f"7n: {bad}")
+    return {k: sum(runs[n][2][k] for n in runs if MOE_GROUP_RUNS[n][1] == "bfloat16") for k in _build.LAUNCHES}
+
+
+def phase_groups(torch, card, root: str) -> tuple:
+    """Phases 7p, 7q and 7n in four waves of processes on the card (each
+    wave's runs at once): the tp Block's torchrun and 7p's four CLI runs
+    (whose tp-1 runs are 7q's pp-1 runs), then 7q's pp-2 runs in PP_WAVES,
+    then 7n's last runs, its runs placed by MOE_GROUP_WAVES, after
+    moe_group_drops; each wave's card peak sampled. Returns (the tp Blocks' launches, the bf16
+    tp-2 run's, the bf16 pp-2 runs', the bf16 7n runs')."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_group_drops(torch, card)
     main_py = os.path.join(root, "tp_cli_main.py")
     with open(main_py, "w") as f:
         f.write(TP_CLI_MAIN)
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    first = run_cli([tp_block_cmd(root, env), *tp_cli_cmds(root, main_py, env)], 600)
-    walls = [time.perf_counter() - t0]
-    pp = {}
-    for names in PP_WAVES:
-        t1 = time.perf_counter()
-        pp.update(run_cli(pp_cmds(root, main_py, env, names), 600))
-        walls.append(time.perf_counter() - t1)
-    say(f"[7p, 7q] wave 1 (the tp Block's torchrun of {TP_RANKS} ranks, the tp CLI's 4 runs) {walls[0]:.1f} s; "
-        + "; ".join(f"wave {i + 2} ({', '.join(names)}) {w:.1f} s" for i, (names, w) in enumerate(zip(PP_WAVES,
-                                                                                                     walls[1:]))))
-    tp_launches = phase_tp(card, root, first.pop("tp block"))
-    cli_launches = tp_cli(root, card, first)
-    pp_launches = phase_pp(root, card, {**first, **pp})
-    return tp_launches, cli_launches, pp_launches
+    waves = [[tp_block_cmd(root, env), *tp_cli_cmds(root, main_py, env)]]
+    waves += [pp_cmds(root, main_py, env, names) for names in PP_WAVES] + [[]]
+    results, walls, peaks, moe_peaks = {}, [], [], {}
+    for cmds, moe in zip(waves, MOE_GROUP_WAVES):
+        memory = CardMemory(torch).start()
+        t0 = time.perf_counter()
+        try:
+            results.update(run_cli([*cmds, *moe_group_cmds(root, main_py, env, moe)], 600))
+        finally:
+            peaks.append(memory.stop())
+        walls.append(time.perf_counter() - t0)
+        moe_peaks.update({name: peaks[-1] for name in moe})
+    names = [f"the tp Block's torchrun of {TP_RANKS} ranks, the tp CLI's 4 runs", *(", ".join(w) for w in PP_WAVES)]
+    say("[7p, 7q, 7n] " + "; ".join(
+        f"wave {i + 1} (" + "; ".join(filter(None, [n, ", ".join(f"7n {m}" for m in moe)]))
+        + f") {w:.1f} s, the card at most {p:.1f} GB"
+        for i, (n, moe, w, p) in enumerate(zip([*names, ""], MOE_GROUP_WAVES, walls, peaks))) + f" [{card}]")
+    moe_results = {k: results.pop(k) for k in list(results) if k in MOE_GROUP_RUNS}
+    tp_launches = phase_tp(card, root, results.pop("tp block"))
+    cli_launches = tp_cli(root, card, {k: v for k, v in results.items() if isinstance(k, tuple)})
+    pp_launches = phase_pp(root, card, results)
+    moe_launches = phase_moe_groups(root, card, moe_results, moe_peaks)
+    return tp_launches, cli_launches, pp_launches, moe_launches
 
 
 def kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches, long_launches,
                  data_launches, ring_launches):
     """The `kernels` JSON entries: every kernel with its launches on the main
-    paths of this run (phases 7a's ranks and replicas, 7t, 7i, 7s, 7c, 7e's drills, 7x, 7m, 7f and 7q's bf16
-    runs in `data_launches`,
+    paths of this run (phases 7a's ranks and replicas, 7t, 7i, 7s, 7c, 7e's drills, 7x, 7m, 7f, 7q's and
+    7n's bf16 runs in `data_launches`,
     7r's ring runs, 7p's tp Blocks and its bf16 tp-2 CLI run in `ring_launches`), its check's
     max |d| and its timing."""
     fwd_src, bwd_src = "vitax_torch/csrc/flash_attn_fwd.cu", "vitax_torch/csrc/flash_attn_bwd.cu"
@@ -6174,8 +6509,8 @@ def main() -> int:
     ring_launches = phase_ring(torch, card)
     mark("7r")
     with tempfile.TemporaryDirectory(prefix="vitax_torch_tp_") as root:
-        tp_launches, cli_launches, pp_launches = phase_groups(torch, card, root)
-        mark("7p, 7q")
+        tp_launches, cli_launches, pp_launches, moe_group_launches = phase_groups(torch, card, root)
+        mark("7p, 7q, 7n")
     # 7r's runs, 7p's sharded Blocks and its bf16 tp-2 CLI run
     ring_launches = {k: ring_launches[k] + tp_launches[k] + cli_launches[k] for k in ring_launches}
     with tempfile.TemporaryDirectory(prefix="vitax_torch_smoke_") as root:
@@ -6196,7 +6531,7 @@ def main() -> int:
         mark("7f")
     data_launches = {k: tree_launches[k] + stream_launches[k] + ckpt_launches[k] + fsdp_launches[k]
                      + tele_launches[k] + transfer[k] + moe_launches[k] + pp_launches[k] + fault_launches[k]
-                     + arb_launches[k] for k in tree_launches}
+                     + arb_launches[k] + moe_group_launches[k] for k in tree_launches}
     kernels = kernels_line(errs, timing, serve_launches, quant_launches, train_launches, drop_launches,
                            long_launches, data_launches, ring_launches)
     say("[time] " + ", ".join(f"{name} {t1 - t0:.1f}s" for (_, t0), (name, t1) in zip(marks, marks[1:]))

@@ -227,12 +227,21 @@ def test_config_accepts_what_jax_accepts(kw):
 
 @pytest.mark.parametrize("name", ["tp_size", "sp_size", "pp_size"])
 def test_other_parallelisms_are_refused_naming_item_11(name):
-    """sp, tp and pp run now; what waits for the rest of item 11: tp beside
-    MoE (vitax replicates the experts over tp), MoE beside sp (an expert's
-    capacity ranks a sample's tokens over the whole sequence), and pp
-    beside tp (vitax's pipeline bodies under tp have no green reference)."""
-    kw = {"tp_size": 2, "moe_experts": 4} if name == "tp_size" else {"pp_size": 2, "tp_size": 2} \
-        if name == "pp_size" else {"sp_size": 2, "moe_experts": 4}
+    """sp, tp and pp run, and MoE under tp (the experts replicated over it,
+    ep beside it) and under sp (the capacity over the whole sequence)
+    validates; what vitax has no green reference for stays refused naming
+    item 11: MoE under sp beside ep > 1 (vitax fails at init), also with tp
+    beside it, and pp beside tp (vitax's pipeline bodies under tp are
+    xfail)."""
+    if name == "tp_size":
+        Config(**TINY, tp_size=2, moe_experts=4).validate()
+        Config(**TINY, tp_size=2, ep_size=2, moe_experts=4).validate()
+        kw = {"tp_size": 2, "sp_size": 2, "ep_size": 2, "moe_experts": 4}
+    elif name == "sp_size":
+        Config(**TINY, sp_size=2, moe_experts=4).validate()
+        kw = {"sp_size": 2, "ep_size": 2, "moe_experts": 4}
+    else:
+        kw = {"pp_size": 2, "tp_size": 2}
     with pytest.raises(ValueError, match="item 11"):
         Config(**TINY, **kw).validate()
 

@@ -533,8 +533,12 @@ def test_config_refuses_what_vitax_refuses(kw):
 
 
 def test_config_refuses_moe_under_sp_and_takes_vitax_flags():
-    with pytest.raises(ValueError, match="item 11"):
-        Config(**TINY, sp_size=2).validate()
+    """MoE under sp validates (the capacity over the whole sequence); beside
+    ep > 1 it is refused, naming vitax's init failure (no green reference,
+    item 11)."""
+    Config(**TINY, sp_size=2).validate()
+    with pytest.raises(ValueError, match=r"vitax/train/state.py:86-89.*item 11"):
+        Config(**TINY, sp_size=2, ep_size=2).validate()
     from vitax_torch.config import build_parser
     ns = build_parser().parse_args(["--moe_experts", "8", "--moe_top_k", "2", "--moe_impl", "gather",
                                     "--ep_size", "2", "--moe_capacity_factor", "2.0", "--moe_aux_weight", "0"])

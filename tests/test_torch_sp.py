@@ -389,16 +389,19 @@ def test_loop_back_ring_equals_whole_attention(sp, block, rate):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-10)
 
 
-@pytest.mark.parametrize("kw,match", [(dict(tp_size=2, moe_experts=4), "item 11"),
+@pytest.mark.parametrize("kw,match", [(dict(sp_size=2, ep_size=2, moe_experts=4), "item 11"),
                                       (dict(pp_size=2, tp_size=2), "item 11"),
                                       (dict(sp_size=2, pp_size=2, pp_schedule="1f1b"), "ride the gpipe schedule"),
                                       (dict(sp_impl="zigzag"), "unknown sp_impl"),
                                       (dict(sp_size=0), "mesh sizes")])
 def test_config_refuses_what_sp_cannot_run(kw, match):
-    """pp beside tp, and tp beside MoE, still wait for the rest of item 11
-    (named in the message, with the mesh the port takes); sp under 1F1B is
-    vitax's refusal (sp under pp rides GPipe); --sp_impl takes vitax's
-    values and rejects others with vitax's message."""
+    """pp beside tp, and MoE under sp beside ep > 1, have no green
+    reference in vitax and stay refused (item 11, named in the message)
+    while MoE under sp alone validates; sp under 1F1B is vitax's refusal
+    (sp under pp rides GPipe); --sp_impl takes vitax's values and rejects
+    others with vitax's message."""
+    if kw.get("moe_experts"):
+        Config(**TINY, sp_size=2, moe_experts=4).validate()
     with pytest.raises(ValueError, match=match) as ours:
         Config(**TINY, **kw).validate()
     if "sp_impl" in kw:

@@ -509,14 +509,18 @@ def test_tp_block_over_its_group_equals_the_whole_block(runs, count, rate):
     (dict(tp_size=3), r"^TP: dim 0 of \('params', 'blocks_0', 'attn', 'proj', 'kernel'\) \(64, 64\) not divisible "
                       r"by tp=3$"),
     (dict(tp_size=8), "--num_heads 4 not divisible by --tp_size 8"),
-    (dict(tp_size=2, moe_experts=4), "item 11"), (dict(tp_size=2, pp_size=2), "item 11")])
+    (dict(tp_size=2, moe_experts=4, sp_size=2, ep_size=2), "item 11"), (dict(tp_size=2, pp_size=2), "item 11")])
 def test_config_refuses_what_tp_cannot_run(kw, match):
     """D or the MLP hidden indivisible by tp: vitax's assertion message (its
     rule_pspec on the proj kernel first); heads indivisible: each rank runs
-    whole heads; tp beside MoE or pp waits for item 11. tp 2 validates."""
+    whole heads; tp beside pp, or beside MoE under sp with ep > 1, has no
+    green reference in vitax (item 11). tp 2 validates, and so does tp
+    beside MoE, with ep 2 too."""
     with pytest.raises(ValueError, match=match):
         Config(**{**TINY, **kw}).validate()
     Config(**TINY, tp_size=2).validate()
+    Config(**TINY, tp_size=2, moe_experts=4).validate()
+    Config(**TINY, tp_size=2, ep_size=2, moe_experts=4).validate()
     if kw.get("tp_size") == 3:
         import jax
         from vitax.config import Config as JaxConfig

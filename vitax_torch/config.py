@@ -15,13 +15,16 @@ blocks in one activation checkpoint; --compile_cache_dir is where the
 kernels' libraries are built and reused (ops/_build.py); --profile_dir
 with --profile_start_step and --profile_num_steps is the loop's
 torch.profiler window. The mesh takes
-dp, fsdp, sp and ep (FSDP2 over the processes torchrun starts, one card
-each; tp shards the blocks' heads and MLP features; sp shards the token
-axis, --sp_impl ring or ulysses; pp splits the blocks into stages,
+dp, fsdp, tp, sp, pp and ep (FSDP2 over the processes torchrun starts, one
+card each; tp shards the blocks' heads and MLP features; sp shards the
+token axis, --sp_impl ring or ulysses; pp splits the blocks into stages,
 --pp_schedule gpipe or 1f1b over --pp_microbatches; ep shards the experts
-of --moe_experts, models/moe.py). pp beside tp, and MoE beside tp or sp,
-wait for the rest of ROADMAP item 11; vitax's pp refusals are raised with
-its messages. --task and its flags
+of --moe_experts, models/moe.py). MoE runs under sp (an expert's capacity
+over the whole sequence), under tp (the experts replicated over it) and
+under tp beside ep. Two meshes have no green reference in vitax and stay
+refused (ROADMAP item 11): pp beside tp (vitax's cases are xfail) and MoE
+under sp beside ep > 1 (vitax fails at init); vitax's pp refusals are
+raised with its messages. --task and its flags
 end validate() in the task's registry validator (programs/registry.py),
 as vitax's do."""
 
@@ -230,10 +233,20 @@ class Config:
             raise ValueError(f"--num_heads {self.num_heads} not divisible by --tp_size {tp}: each tp rank runs "
                              f"whole heads (the attention kernels take (B, N, H/tp, Dh))")
 
+    def sp_ep_refusal(self, sp: Optional[int] = None, ep: Optional[int] = None) -> str:
+        """The message refusing MoE under sp beside ep > 1: validate() gives
+        the stated sizes, parallel/mesh.py mesh_sizes those a -1 resolved."""
+        sp, ep = self.sp_size if sp is None else sp, self.ep_size if ep is None else ep
+        return (f"--moe_experts with --sp_size {sp} and --ep_size {ep}: vitax has no green reference for MoE under "
+                f"sp beside ep > 1 (its init sample is dp * fsdp rows, vitax/train/state.py:86-89, while the ring's "
+                f"shard_map takes the batch over (dp, fsdp, ep), so vitax fails at init); ROADMAP item 11. MoE "
+                f"runs under sp with --ep_size 1, and beside ep without sp")
+
     def check_pp(self) -> None:
         """vitax's refusals under --pp_size > 1 (vitax/config.py:345-427),
-        with its messages, and pp beside tp (no green reference: vitax's pp
-        under tp cases are xfail), which waits for ROADMAP item 11."""
+        with its messages, and pp beside tp, which has no green reference
+        (vitax's pp under tp cases are xfail) and stays refused (ROADMAP
+        item 11)."""
         checks = (
             (self.scan_blocks, "--pp_size needs the stacked block tree (drop --no_scan_blocks)"),
             (self.gather_overlap != "on",
@@ -270,8 +283,8 @@ class Config:
              "(GSPMD-auto axes in the pipeline body)"),
             (self.tp_size == 1,
              f"--pp_size {self.pp_size} with --tp_size {self.tp_size}: vitax's pipeline bodies under tp have no "
-             f"green reference (its pp x tp cases are xfail) and wait for the rest of ROADMAP item 11; the port's "
-             f"mesh takes pp beside dp, fsdp, sp and ep"),
+             f"green reference (its pp x tp cases are xfail, tests/test_pipeline.py:371-374), so the port refuses "
+             f"them (ROADMAP item 11); the port's mesh takes pp beside dp, fsdp, sp and ep"),
         )
         for ok, msg in checks:
             if not ok:
@@ -322,9 +335,6 @@ class Config:
              f"mesh sizes must be >= 1 or -1 (all remaining processes), got --dp_size {self.dp_size} --fsdp_size "
              f"{self.fsdp_size} --tp_size {self.tp_size} --sp_size {self.sp_size} --pp_size {self.pp_size} "
              f"--ep_size {self.ep_size}"),
-            (self.tp_size == 1 or (self.moe_experts == 0 and self.ep_size == 1),
-             f"--tp_size {self.tp_size} with --moe_experts {self.moe_experts} / --ep_size {self.ep_size}: vitax "
-             f"replicates the experts over tp; MoE and ep under tp wait for the rest of ROADMAP item 11"),
             # vitax/config.py:428-439, with its messages
             (self.ep_size <= 1 or self.moe_experts > 0, "--ep_size > 1 needs --moe_experts"),
             (self.ep_size <= 1 or self.moe_experts % self.ep_size == 0,
@@ -338,10 +348,7 @@ class Config:
              f"dead branch with gate ~0"),
             (self.moe_experts == 0 or self.moe_capacity_factor > 0,
              f"--moe_capacity_factor must be > 0, got {self.moe_capacity_factor}"),
-            (self.moe_experts == 0 or self.sp_size == 1,
-             f"--moe_experts with --sp_size {self.sp_size}: an expert's capacity slots rank a sample's tokens "
-             f"over the whole sequence, which sp splits across ranks; MoE under sp waits for the rest of "
-             f"ROADMAP item 11"),
+            (self.moe_experts == 0 or self.sp_size <= 1 or self.ep_size <= 1, self.sp_ep_refusal()),
             (self.prefetch_batches >= 1,
              f"--prefetch_batches must be >= 1, got {self.prefetch_batches}: the loader needs at least one "
              f"queued batch to hand the consumer"),

@@ -775,7 +775,7 @@ dequant_matmul_wgmma_rs_kernel(const __grid_constant__ CUtensorMap tmap_x, const
 bool encode_2d(CUtensorMap* map, const void* base, int es, int rows, int cols, int box_rows, int box_cols,
                CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !context_current(base)) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * es};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};

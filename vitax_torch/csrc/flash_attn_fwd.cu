@@ -62,8 +62,9 @@
 // which differs by about one bf16 ulp of the output.
 //
 // Dropout costs integer instructions: each score element needs its own hash
-// (two fmix32, about 19 INT32 operations), 1.28 G operations at the train
-// shape, which is near the call's bytes bound on the card's INT32 lanes.
+// (two fmix32; compiled, about 12 ALU-pipe instructions beside 4 IMADs on
+// the FMA pipe), 0.79 G ALU instructions at the train shape, under the
+// call's bytes bound on the card's ALU lanes.
 // The row's hash terms are computed once per row; the per-element part sits
 // in the softmax loop, after the row sum, where P is cleared for dropped
 // keys. At long N the wgmma kernel under dropout runs at that INT32 floor.

@@ -114,20 +114,42 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library links no libcuda.
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
+// A driver function through the runtime, so the library links no libcuda;
+// null where the driver lacks it.
+inline void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+  const cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
 #else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+  const cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
 #endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
+  return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? p : nullptr;
+}
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = reinterpret_cast<EncodeTiledFn>(driver_entry("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+typedef CUresult (*CtxGetCurrentFn)(CUcontext*);
+
+// A context current on the calling thread, as the driver's tensor-map
+// encoder wants (it returns CUDA_ERROR_INVALID_CONTEXT without one). A
+// thread whose first CUDA work is one of these launches has none:
+// autograd's device thread for card 0 when the backward's first node is
+// an attention call, since PyTorch skips cudaSetDevice there (the
+// runtime's current device is 0 already). Then cudaSetDevice on the
+// device that holds `ptr` makes its primary context current (CUDA 12), as
+// the launch that follows would have.
+inline bool context_current(const void* ptr) {
+  static const CtxGetCurrentFn get = reinterpret_cast<CtxGetCurrentFn>(driver_entry("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (get == nullptr || get(&ctx) != CUDA_SUCCESS) return false;
+  if (ctx != nullptr) return true;
+  cudaPointerAttributes attr;
+  return cudaPointerGetAttributes(&attr, ptr) == cudaSuccess && attr.device >= 0 &&
+         cudaSetDevice(attr.device) == cudaSuccess;
 }
 
 // A bf16 (B, N, H, Dh) view as a 4-D tensor map (Dh, H, N, B) (element
@@ -138,7 +160,7 @@ template <int SW>
 bool encode_view(CUtensorMap* map, const void* base, int dh, int H, int N, int B, int64_t s_b, int64_t s_n,
                  int64_t s_h, int rows) {
   const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !context_current(base)) return false;
   if (H == 1) s_h = dh;
   if (N == 1) s_n = s_h * H;
   if (B == 1) s_b = s_n * N;

@@ -40,6 +40,32 @@ whose backward is the inverse exchange): the hand-written form of vitax's
 manual_ep pair. Routing, capacity and the outputs are those of the
 unsharded model on the global batch, since capacity is per sample.
 
+Sequence parallelism (a `TokenShard`, parallel/mesh.py): the rank holds
+the slice [i N/S, (i + 1) N/S) of every sample's tokens, and vitax's MoE
+runs on the whole (B, N, D) activation, so the capacity is
+C = ceil(cf * N / E) over the whole sequence, and a token's slot position
+is its rank among all of its sample's tokens routed to that expert: the
+rank's own cumsum after the lower sp ranks' tokens of the same sample and
+expert, and under top-2 every second choice after the sample's whole
+first-choice count and the lower ranks' second choices. The offsets come
+from one all-reduce a block of the (K, B, E) per-slice choice counts, each
+rank's in its own row (`sequence_counts`); the recompute of a
+checkpointed block issues it again, in the same order on every rank. A
+kept token's expert output depends on its own row only, so the expert
+batches stay on the rank: its (E, B, C, D) buffer holds its kept tokens
+at their rank-local slots (first choices from 0, second choices after the
+slice's first-choice count), which stay below C and unique wherever the
+whole-sequence position is below C, so a rank whose tokens take all of an
+expert's C slots still fits. frac_tokens and mean_prob stay means over
+the rank's tokens: every rank holds as many, so the step's mean over the
+processes is vitax's mean over the global (B, N).
+
+Tensor parallelism: vitax's rule table puts no "tp" on an expert leaf and
+the block's MoE input is the whole (replicated) activation, so every tp
+rank runs the whole MoE (models/vit.py Block), its experts replicated over
+tp and, at ep > 1, sharded over the ep group of the ranks that share its
+tp index.
+
 No Pallas kernel computes any of this in the JAX package: every op here is
 a PyTorch einsum, bmm or index op.
 """
@@ -47,7 +73,8 @@ a PyTorch einsum, bmm or index op.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Tuple
+from functools import partial
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,7 +87,9 @@ EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
 
 class Choice(NamedTuple):
     """One routing choice (first or second) of every token: its gate, kept
-    flag, expert and slot, each (B, N), and its one-hot (B, N, E) f32."""
+    flag (its slot position over the whole sequence, vitax's slot, below
+    C), expert and slot in the rank's buffer, each (B, N), and its one-hot
+    (B, N, E) f32."""
     gate: torch.Tensor
     keep: torch.Tensor
     expert: torch.Tensor
@@ -73,30 +102,59 @@ def capacity(num_experts: int, tokens: int, capacity_factor: float) -> int:
     return max(1, math.ceil(capacity_factor * tokens / num_experts))
 
 
-def _slots(onehot: torch.Tensor, offset, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(slot, keep), each (B, N): the token's rank among the sample's tokens
-    routed to its expert, after `offset` slots taken before it."""
-    position = torch.cumsum(onehot, dim=1) * onehot
-    slot = ((position + offset * onehot).sum(dim=-1) - 1.0).to(torch.int32)
-    return slot, slot < c
+def _slots(onehot: torch.Tensor, offset, shift, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot, keep), each (B, N): the token's rank among the slice's tokens
+    routed to its expert after `offset` slots taken before it in the rank's
+    buffer; kept where that plus `shift` more over the whole sequence (its
+    slot position there) is below c. offset and shift are (B, 1, E) or
+    scalars."""
+    rank = torch.cumsum(onehot, dim=1) * onehot
+    slot = (rank + offset * onehot).sum(dim=-1) - 1.0
+    return slot.to(torch.int32), slot + (shift * onehot).sum(dim=-1) < c
 
 
-def route(probs: torch.Tensor, top_k: int, c: int) -> List[Choice]:
+def sequence_counts(counts: torch.Tensor, shard) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(before, total), each (K, B, E): the per-(choice, sample, expert)
+    counts of the sp ranks below `shard.index` (a TokenShard) and of the
+    whole group, from the rank's `counts` of its token slice. One
+    all-reduce over the group of every rank's counts in its own row; every
+    rank issues it in the same order."""
+    from torch.distributed.nn.functional import all_reduce
+    rows = counts.new_zeros((shard.count, *counts.shape))
+    rows[shard.index] = counts
+    rows = all_reduce(rows, group=shard.group)
+    return rows[:shard.index].sum(dim=0), rows.sum(dim=0)
+
+
+def route(probs: torch.Tensor, top_k: int, c: int,
+          sequence: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]] = None) -> List[Choice]:
     """The top-1 or top-2 choices of every token from router probabilities
-    (B, N, E), with their capacity slots."""
+    (B, N, E), with their capacity slots. `sequence` places a token slice
+    in its samples' whole sequences: given the slice's choice counts (K, B,
+    E) it returns the lower slices' counts and the whole sequence's
+    (`sequence_counts` over the rank's TokenShard); None: the tokens are
+    whole."""
     e = probs.shape[-1]
     gate1, expert1 = probs.max(dim=-1)
     onehot1 = _one_hot_slot(expert1, e, torch.float32)     # F.one_hot reads the index range back on the CPU
-    slot1, keep1 = _slots(onehot1, 0.0, c)
+    if top_k not in (1, 2):
+        raise ValueError(f"moe top_k must be 1 or 2, got {top_k}")
+    onehots = [onehot1]
+    if top_k == 2:
+        gate2, expert2 = (probs * (1.0 - onehot1)).max(dim=-1)
+        onehots.append(_one_hot_slot(expert2, e, torch.float32))
+    counts = torch.stack([oh.sum(dim=1) for oh in onehots])                # (K, B, E) over the slice
+    before, total = (torch.zeros_like(counts), counts) if sequence is None else sequence(counts)
+    counts, before, total = (t[:, :, None, :] for t in (counts, before, total))     # (K, B, 1, E)
+    slot1, keep1 = _slots(onehot1, 0.0, before[0], c)
     if top_k == 1:
         return [Choice(gate1, keep1, expert1, onehot1, slot1)]
-    if top_k != 2:
-        raise ValueError(f"moe top_k must be 1 or 2, got {top_k}")
-    gate2, expert2 = (probs * (1.0 - onehot1)).max(dim=-1)
-    onehot2 = _one_hot_slot(expert2, e, torch.float32)
+    onehot2 = onehots[1]
     denom = gate1 + gate2 + 1e-9
-    count1 = onehot1.sum(dim=1, keepdim=True)             # second choices queue behind every first choice
-    slot2, keep2 = _slots(onehot2, count1, c)
+    # second choices queue behind every first choice of the sample (the
+    # slice's in the buffer, the whole sequence's in position), then the
+    # lower slices' second choices
+    slot2, keep2 = _slots(onehot2, counts[0], total[0] + before[1] - counts[0], c)
     return [Choice(gate1 / denom, keep1, expert1, onehot1, slot1),
             Choice(gate2 / denom, keep2, expert2, onehot2, slot2)]
 
@@ -164,11 +222,13 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 class MoeMlp(nn.Module):
     """(B, N, D) -> ((B, N, D), frac_tokens (E,), mean_prob (E,)): the block
     MLP routed over `num_experts` experts. `expert_shard` (parallel/mesh.py
-    ExpertShard) runs it expert-parallel over the ep group."""
+    ExpertShard) runs it expert-parallel over the ep group; `token_shard`
+    (a TokenShard) places its (B, N/S, D) input in the whole sequence,
+    whose N sets the capacity and orders the slots."""
 
     def __init__(self, dim: int, hidden_dim: int, num_experts: int, dtype: torch.dtype,
                  capacity_factor: float = 1.25, top_k: int = 1, impl: str = "einsum", device=None,
-                 expert_shard=None):
+                 expert_shard=None, token_shard=None):
         super().__init__()
         if impl not in ("einsum", "gather"):
             raise ValueError(f"unknown moe_impl {impl!r}")
@@ -179,6 +239,7 @@ class MoeMlp(nn.Module):
         self.top_k = top_k
         self.impl = impl
         self.expert_shard = expert_shard
+        self.token_shard = token_shard
         self.router = Linear(dim, num_experts, device=device)
         self.w1 = nn.Parameter(torch.empty(num_experts, dim, hidden_dim, device=device))
         self.b1 = nn.Parameter(torch.empty(num_experts, hidden_dim, device=device))
@@ -209,9 +270,10 @@ class MoeMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         b, n, d = x.shape
         e, dt = self.num_experts, self.dtype
-        c = capacity(e, n, self.capacity_factor)
+        shard = self.token_shard
+        c = capacity(e, n if shard is None else n * shard.count, self.capacity_factor)
         probs = torch.softmax(self.router(x.float(), torch.float32), dim=-1)      # (B, N, E) f32
-        choices = route(probs, self.top_k, c)
+        choices = route(probs, self.top_k, c, None if shard is None else partial(sequence_counts, shard=shard))
         frac = choices[0].onehot.mean(dim=(0, 1))
         prob = probs.mean(dim=(0, 1))
         x = x.to(dt)

@@ -51,7 +51,9 @@ N/S, D) through the ring or Ulysses core; the mean-pool is the local sum,
 an all-reduce over the sp group (torch.distributed.nn.functional, whose
 backward sums the cotangents), then 1/N. The head and its input are the
 same on every sp rank, and the step averages the grads over sp
-(parallel/sharding.py average_over_sp), which gives vitax's grads.
+(parallel/sharding.py average_over_sp), which gives vitax's grads. An MoE
+block's MoeMlp takes the token shard too: its capacity and slot order are
+the whole sequence's, from one all-reduce of choice counts a block.
 
 Mixture of experts (cfg.moe_experts > 0, models/moe.py): every block's
 Mlp is a MoeMlp named `moe`, so its leaves mirror vitax's
@@ -60,6 +62,10 @@ are values the block returns beside its output, under remat_block too;
 the forward collects them a block and returns them with the logits when
 asked (with_aux, vitax's with_aux="raw"). With an `expert_shard`
 (parallel/mesh.py) the experts run expert-parallel over the ep group.
+Under tp the MoeMlp runs whole on every tp rank, on the block's
+replicated activation, as vitax's rule table leaves the expert leaves off
+"tp": it takes no copy_to_tp or reduce_from_tp, so no grad of it is
+summed over tp.
 
 Tensor parallelism (a `TensorShard`, parallel/mesh.py; the qkv/fc1 and
 proj/fc2 leaves sharded over the tp group by parallel/sharding.py
@@ -69,13 +75,13 @@ its proj the row-parallel partial over them; its Mlp runs 1/T of the
 hidden features. Both partials are summed over the group (the all-reduce
 of reduce_from_tp) before the replicated bias; the inputs of qkv and fc1
 pass copy_to_tp, whose backward sums their grads. Everything outside the
-four products is replicated, and computed alike on every tp rank. The
-attention dropout seed comes folded over the tp index (train/step.py),
-the kernel seeing local head indices as vitax's shard_map body does; the
-proj, mlp and pos generators are not folded over it, so the replicated
-activations draw one mask on every tp rank, and the dropout after GELU
-draws the whole-width mask and keeps the rank's features (the tp-1 run's
-masks).
+four products is replicated (an MoE block's whole MoeMlp with it), and
+computed alike on every tp rank. The attention dropout seed comes folded
+over the tp index (train/step.py), the kernel seeing local head indices
+as vitax's shard_map body does; the proj, mlp and pos generators are not
+folded over it, so the replicated activations draw one mask on every tp
+rank, and the dropout after GELU draws the whole-width mask and keeps the
+rank's features (the tp-1 run's masks).
 
 Quantized serving (build_model with a quant dtype): every Dense site (qkv,
 proj, fc1, fc2 with act=True; the head with act=False) is a QuantLinear
@@ -318,8 +324,8 @@ class Block(nn.Module):
         self.attn = Attention(dim, num_heads, dtype, attention_impl, quant, device=device,
                               att_dropout=att_dropout, proj_dropout=mlp_dropout, tensor_shard=tensor_shard)
         self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
-        if tensor_shard is not None and (quant is not None or moe is not None):
-            raise ValueError("tensor parallelism runs the dense float model: no quantized or MoE block under tp")
+        if tensor_shard is not None and quant is not None:
+            raise ValueError("tensor parallelism runs the float model: no quantized block under tp")
         if moe is None:
             self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant, device=device, dropout=mlp_dropout,
                            tensor_shard=tensor_shard)
@@ -447,7 +453,8 @@ class VisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, d, self.dtype, quant, device=device)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, d, device=device))
         moe = (dict(num_experts=cfg.moe_experts, capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k,
-                    impl=cfg.moe_impl, expert_shard=expert_shard) if cfg.moe_experts > 0 else None)
+                    impl=cfg.moe_impl, expert_shard=expert_shard, token_shard=token_shard)
+               if cfg.moe_experts > 0 else None)
         layers = range(cfg.num_blocks) if pipe_shard is None else pipe_shard.layers(cfg.num_blocks)
         self.first_block = layers.start
         blocks = (Block(d, cfg.num_heads, cfg.mlp_ratio, self.dtype, attention_impl, quant, device=device,
@@ -488,16 +495,6 @@ class VisionTransformer(nn.Module):
             x, *more = remat_group(blocks[g:g + w], x, seed[g:g + w], gen[g:g + w], policy)
             aux += more
         return x, aux[0::2], aux[1::2]
-        for i, block in enumerate(self.blocks, start=self.first_block):
-            seed = gen = None
-            if seeds is not None:
-                seed, gen = seeds.blocks[i], None if seeds.gens is None else seeds.gens[i]
-            x = remat_block(block, x, seed, self.remat_policy, gen) if remat else block(x, seed, gen)
-            if isinstance(x, tuple):            # an MoE block's (x, frac_tokens, mean_prob)
-                x, frac, prob = x
-                fracs.append(frac)
-                probs.append(prob)
-        return x, fracs, probs
 
     def tail(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm, mean-pool (over every sp rank's tokens) and head:

@@ -67,7 +67,9 @@ def global_norm(grads: Sequence[torch.Tensor], group=None, expert: Optional[Sequ
     leaves flagged in `expert` hold the rank's experts only, and under
     tensor parallelism (`tp_group`) those flagged in `tp_sharded` the
     rank's 1/tp: their squares are summed over that group first, where the
-    other leaves, replicated over it, count once. Under pipeline
+    other leaves, replicated over it, count once. The two flag sets are
+    disjoint: under tp beside ep an expert leaf's squares are summed over
+    its ep group (the ranks of one tp index) and count once over tp. Under pipeline
     parallelism (`pp_group`) the leaves flagged in `staged` (the blocks)
     are the rank's stage's: their sum of squares, formed as above, is
     summed over the stages, and the replicated leaves count once."""

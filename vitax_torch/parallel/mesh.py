@@ -29,9 +29,14 @@ DP baseline (n, 1, 1, 1, 1, 1). The ranks fill the mesh row-major with
 slice, the heads, the stage and the experts that vitax's device r holds.
 The ranks of one batch shard are therefore not neighbours in general
 (those of a tp group sit sp * pp * ep apart), so every shard index here
-is computed from the rank's coordinates. `resolve_mesh_shape` is vitax's,
-so its errors are vitax's; pp beside tp, and MoE (so ep) beside sp or tp,
-are refused by Config.validate (item 11).
+is computed from the rank's coordinates. An ep group under tp is the
+ranks that share the tp index and every other coordinate (consecutive
+ranks: ep is fastest), so its all-to-alls and average_over_ep pair the
+ranks that hold the experts of one tp index. `resolve_mesh_shape` is vitax's, so its
+errors are vitax's. MoE runs under sp, under tp and under tp beside ep;
+Config.validate refuses what vitax has no green reference for (item 11):
+pp beside tp, and MoE under sp beside ep > 1, which `mesh_sizes` also
+refuses where a -1 size resolves to it.
 """
 
 from __future__ import annotations
@@ -86,10 +91,13 @@ def resolve_mesh_shape(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
 
 
 def mesh_sizes(cfg, n_devices: Optional[int] = None) -> Tuple[int, ...]:
-    """The sizes of MESH_DIMS: vitax's resolved sizes. A tp or pp size
-    resolved from -1 is held to what Config.validate holds a given one to."""
+    """The sizes of MESH_DIMS: vitax's resolved sizes. A tp, sp, pp or ep
+    size resolved from -1 is held to what Config.validate holds a given
+    one to."""
     sizes = resolve_mesh_shape(cfg, n_devices)
-    tp, pp = sizes[2], sizes[4]
+    tp, sp, pp, ep = sizes[2], sizes[3], sizes[4], sizes[5]
+    if getattr(cfg, "moe_experts", 0) > 0 and sp > 1 and ep > 1:
+        raise ValueError(cfg.sp_ep_refusal(sp, ep))
     if tp > 1 and cfg.tp_size == -1:
         cfg.check_tp(tp)
     if pp > 1 and cfg.pp_size == -1:

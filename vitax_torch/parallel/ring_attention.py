@@ -18,8 +18,10 @@ exist, and a rank holds O(N/S) activations and two K/V blocks.
   (`_Shift`) whose backward is the reverse shift of the cotangent, as JAX
   transposes ppermute. The next block's shift is issued before the current
   block product and waited on after it is enqueued: on NCCL the transfer
-  runs on its own stream beside the kernel. A checkpointed block's
-  recompute issues its shifts again, in the same order on every rank.
+  runs on its own stream beside the kernel. Over gloo a card tensor goes
+  through host buffers, and the shift completes when it is issued. A
+  checkpointed block's recompute issues its shifts again, in the same
+  order on every rank.
 - **The block product** takes the local length n = N/S, as vitax passes
   its local nq: the whole-N entry (`flash4_with_lse`, kernels A1/A2) up to
   MAX_SEQ_IN_VMEM, the streaming one (`blocked_bh_with_lse` on BH views,
@@ -68,11 +70,15 @@ def reset_rotations() -> None:
 
 class GroupShift:
     """The rotation over an sp process group: rank `index` of the group
-    sends to index + 1 and receives from index - 1 (mod `count`)."""
+    sends to index + 1 and receives from index - 1 (mod `count`). gloo
+    cannot send a card tensor: over a gloo group a card tensor travels
+    through host buffers and the shift completes before start() returns
+    (as parallel/pipeline.py's Hop stages its hops)."""
 
     def __init__(self, group):
         import torch.distributed as dist
         self.group = group
+        self.gloo = str(dist.get_backend(group)) == "gloo"
         self.index = dist.get_rank(group)
         self.count = dist.get_world_size(group)
         self._peers = {d: (dist.get_global_rank(group, (self.index + d) % self.count),
@@ -83,10 +89,16 @@ class GroupShift:
         neighbour's into a new buffer: (buffer, the batch's works)."""
         import torch.distributed as dist
         to, frm = self._peers[direction]
-        buf = torch.empty_like(x)
-        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, to, self.group),
+        staged = self.gloo and x.is_cuda
+        send = x.to("cpu") if staged else x
+        buf = torch.empty_like(send)
+        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, to, self.group),
                                         dist.P2POp(dist.irecv, buf, frm, self.group)])
-        return buf, works
+        if not staged:
+            return buf, works
+        for work in works:
+            work.wait()
+        return buf.to(x.device), []
 
     def shift(self, kv: torch.Tensor) -> Tuple[torch.Tensor, Callable[[], None]]:
         """(the neighbour's block, wait): the shift is issued; wait() makes

@@ -37,7 +37,12 @@ is then an FSDP2 unit of its own, which shards those local experts over
 ep peer's tokens through the all-to-all's backward, so the step scales it
 by 1/ep instead of averaging it, and the grad norm sums expert squares
 over the ep group too (ops/fused_optimizer.py global_norm). At ep 1 the
-expert leaves are plain params of their Block's unit.
+expert leaves are plain params of their Block's unit. Under tp an
+expert leaf is not a Megatron leaf (vitax's rule table puts no "tp" on
+it): its DTensor lies on the "ep" sub-mesh only, replicated over "tp",
+beside the Block unit's Megatron DTensors on the "tp" sub-mesh; the ep
+group is the ranks of one tp index, so each tp index holds every expert
+once.
 
 Tensor parallelism (the mesh's "tp" dim, parallel/tensor_parallel.py):
 each Megatron leaf (qkv and fc1 weight and bias, the attention proj's and
@@ -48,10 +53,12 @@ FSDP2 then shards that local tensor over "fsdp" (its TP composition, as
 for the experts): a weight on its other dim, the rule table's; a 1-D
 column bias on dim 0 again, which FSDP2 states as a _StridedShard of
 its fsdp dim (`local_shard` takes it). The other leaves are replicated
-over "tp": the model computes them alike on every tp rank (it reduces
-the row-parallel partials before they meet a replicated leaf), so their
-grads need no tp reduction, and the grad norm sums the squares of the tp
-leaves over the tp group (ops/fused_optimizer.py global_norm).
+over "tp", the MoE's router and experts among them: the model computes
+them alike on every tp rank (it reduces the row-parallel partials before
+they meet a replicated leaf, and runs the whole MoE on every tp rank), so
+their grads need no tp reduction, and the grad norm sums the squares of
+the tp leaves over the tp group and counts the replicated ones, experts
+included, once (ops/fused_optimizer.py global_norm).
 
 Pipeline parallelism (the mesh's "pp" dim, parallel/pipeline.py): a
 stage model holds its stage's blocks only, and FSDP2 wraps it as any
@@ -325,7 +332,8 @@ def expert_flags(model: nn.Module) -> list:
 
 def tp_flags(model: nn.Module) -> list:
     """For each parameter in named_parameters order, whether it is a
-    Megatron leaf (sharded over "tp" at tp > 1)."""
+    Megatron leaf (sharded over "tp" at tp > 1); never an expert leaf,
+    which the rule table's expert rule takes first."""
     return [tp_dim(n, p.dim()) is not None for n, p in model.named_parameters()]
 
 

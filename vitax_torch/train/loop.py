@@ -14,7 +14,9 @@ _select_attention) the model runs on the rank's token slice through the
 ring or Ulysses core that make_attention_impl builds on the mesh, and the
 log names it as vitax does ("attention core: ring attention (sp)").
 Under --moe_experts every block's MLP is the routed MoeMlp (models/moe.py)
-and, at --ep_size > 1, its experts are sharded over the ep group.
+and, at --ep_size > 1, its experts are sharded over the ep group; under
+sp its capacity is the whole sequence's, under tp it runs whole on every
+tp rank.
 At --tp_size > 1 each block runs H/tp whole heads and 1/tp of the MLP
 features over the tp group (parallel/tensor_parallel.py); telemetry's MFU
 stays the global FLOPs over the world size, as vitax's. At --pp_size > 1
@@ -117,6 +119,7 @@ from vitax_torch.checkpoint import peer
 from vitax_torch.checkpoint.snapshot import SnapshotPipeline
 from vitax_torch.config import Config
 from vitax_torch.data.loader import build_datasets
+from vitax_torch.models.moe import capacity
 from vitax_torch.models.vit import build_model, count_params
 from vitax_torch.ops.attention import make_attention_impl
 from vitax_torch.ops.fused_optimizer import fused_optimizer_active
@@ -269,7 +272,11 @@ def train(cfg: Config, device: DeviceLike = None,
         master_print(f"moe: {cfg.moe_experts} experts, top-{cfg.moe_top_k}, capacity factor "
                      f"{cfg.moe_capacity_factor}, {cfg.moe_impl} dispatch, aux weight {cfg.moe_aux_weight}"
                      + (f"; {cfg.moe_experts // experts.count} experts a rank over ep {experts.count}"
-                        if experts else ""))
+                        if experts else "")
+                     + (f"; capacity {capacity(cfg.moe_experts, cfg.num_patches, cfg.moe_capacity_factor)} slots "
+                        f"over the whole sequence across sp {tokens.count}" if tokens else "")
+                     + (f"; the whole MoE on every tp rank (experts replicated over tp {heads.count})"
+                        if heads else ""))
     if _needs_dropout(cfg):
         where = "in the flash core" if attention_impl else "dense"
         master_print(f"dropout: att {cfg.att_dropout} ({where}), mlp and proj {cfg.mlp_dropout}, "

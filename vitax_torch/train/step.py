@@ -33,8 +33,8 @@ the Switch load-balance loss, E * sum over blocks and experts of
 frac_tokens * mean_prob, over the number of blocks (vitax/train/step.py
 aux_from_frac_prob), its ingredients the model's per-block values,
 averaged over the global batch before the product: under a mesh an
-all-reduce over every rank (differentiable, MoE refuses sp, so every rank
-is a batch shard). With grad_accum_steps > 1 they are averaged over the
+all-reduce over every rank (differentiable; `batch_mean`). With
+grad_accum_steps > 1 they are averaged over the
 microbatches too before the product, as vitax's accum_loss_moe
 differentiates through its microbatch scan: each microbatch's forward
 runs under one non-reentrant checkpoint that returns (CE, fracs, probs)
@@ -42,7 +42,15 @@ and keeps only its inputs, and one backward of the combined objective
 recomputes each microbatch. Under expert parallelism (the mesh's "ep"
 dim) the grads are brought to the global mean after the backward
 (parallel/sharding.py average_over_ep) and the norm sums the expert
-leaves' squares over the ep group too.
+leaves' squares over the ep group too. Under sp the ingredients are
+means over the rank's token slice and under tp the ranks of a group hold
+the same ones: every process holds as many tokens, so their mean over the
+processes is vitax's mean over the global (B, N) either way. Under sp the
+pool's all-reduce hands each rank S times its tokens' CE cotangent and
+average_over_sp divides the grads by S, while the all-reduce of
+`batch_mean` hands each rank the aux's whole cotangent of the mean; the
+grads then sum to vitax's for CE and aux alike (the router's and the
+experts' among them).
 
 Under sequence parallelism (the mesh's "sp" dim) the S ranks of an sp
 group run the same batch rows on different token slices (models/vit.py).
@@ -180,11 +188,13 @@ def aux_from_frac_prob(fracs: torch.Tensor, probs: torch.Tensor, cfg: Config) ->
 
 
 def batch_mean(t: torch.Tensor, mesh) -> torch.Tensor:
-    """A rank's mean over its batch rows to the global batch's: the mean
-    over every process (equal rows each), differentiable (the all-reduce's
-    backward sums the cotangents). As it is without a mesh. Only MoE
-    calls it, which Config.validate keeps off sp and tp: every process is
-    then a batch shard of its own."""
+    """A rank's mean over its tokens to the global batch's: the mean over
+    every process, differentiable (the all-reduce's backward sums the
+    cotangents). As it is without a mesh. MoE calls it on its
+    load-balance ingredients: every process holds as many tokens (its
+    batch rows, under sp its slice of their tokens), and the ranks of a tp
+    group hold the same values, so the mean over the processes is the
+    mean over the global batch's tokens."""
     if mesh is None:
         return t
     from torch.distributed.nn.functional import all_reduce
